@@ -13,12 +13,15 @@ import numpy as np
 import pytest
 import torch
 
+from timbre_trap_tpu_torch.interop import hwio_params
 from timbre_trap_tpu_torch.models import TimbreTrap, TimbreTrapNet, forward_spec
+from timbre_trap_tpu_torch.models.fused import level_specs
 from timbre_trap_tpu_torch.models.modules import init_weights
 from timbre_trap_tpu_torch.ops import packed_conv as pc
 from timbre_trap_tpu_torch.ops.fused_level import (
-    banded_conv, banded_conv_reference, chain_flops, fused_level_apply,
-    packed_level_apply, spec_time_reach)
+    banded_conv, banded_conv_dw, banded_conv_dx, banded_conv_reference,
+    chain_flops, elu_backward, fused_level_apply, level_backward,
+    level_backward_reference, packed_level_apply, spec_time_reach)
 from timbre_trap_tpu_torch.ops.peaks import peak_mask, peak_mask_reference
 
 torch.set_num_threads(2)
@@ -53,6 +56,22 @@ def _conv_cases(device="cpu"):
     return out
 
 
+def _train_specs(device="cpu"):
+    """The 8 training level specs (with adjoints) of a small net (F=60,
+    latent 16, complexity 1): encoder levels with convin fused into the
+    first, decoder levels with convout fused into the last."""
+    net = init_weights(TimbreTrapNet(60, 16, 1),
+                       torch.Generator().manual_seed(4)).to(device)
+    with torch.no_grad():
+        especs, dspecs = level_specs(hwio_params(net), net, True)
+    return especs + dspecs
+
+
+def _k3_counts():
+    return (banded_conv_dx.launches, banded_conv_dw.launches,
+            elu_backward.launches)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -77,6 +96,16 @@ def test_wrappers_take_the_twin_on_cpu_and_count_nothing():
     a = torch.rand((2, 20, 9))
     assert torch.equal(peak_mask(a, 0.3), peak_mask_reference(a, 0.3))
     assert (banded_conv.launches, peak_mask.launches) == before
+    spec = _train_specs()[0]
+    x = _rand(rng, 1, spec.r_in, 9)
+    dy = _rand(rng, 1, spec.r_out, 9)
+    k3_before = _k3_counts()
+    dx, grads = level_backward(x, spec, dy)
+    dx_ref, grads_ref = level_backward_reference(x, spec, dy)
+    assert torch.equal(dx, dx_ref)
+    for (dw, db), (dw_ref, db_ref) in zip(grads, grads_ref):
+        assert torch.equal(dw, dw_ref) and torch.equal(db, db_ref)
+    assert _k3_counts() == k3_before
 
 
 def test_flagship_chain_geometry():
@@ -174,3 +203,49 @@ def test_transcribe_on_card_matches_cpu(cuda_device):
     assert got.device.type == "cuda"
     np.testing.assert_allclose(got.cpu().numpy(), cpu.transcribe(audio).numpy(),
                                atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_level_backward_kernels_match_plain(cuda_device, dtype):
+    """K3 (elu_backward, banded_conv_dx, banded_conv_dw, after a K1
+    recompute) against the plain twin on the same card tensors, for every
+    training level kind: dX and each conv's dW and dBias within
+    1e-4 * max|ref| in float32 and 1e-2 * max|ref| in bfloat16 (sum order,
+    and bf16 outputs of the recompute that round the other way)."""
+    dtype = getattr(torch, dtype)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    rng = np.random.default_rng(8)
+    for idx, spec in enumerate(_train_specs(cuda_device)):
+        x = _rand(rng, 2, spec.r_in, 70).to(cuda_device, dtype)
+        dy = _rand(rng, 2, spec.r_out, 70).to(cuda_device, dtype)
+        before = _k3_counts()
+        with torch.no_grad():
+            dx, grads = level_backward(x, spec, dy, dtype)
+            dx_ref, grads_ref = level_backward_reference(x, spec, dy, dtype)
+        torch.cuda.synchronize()
+        n_conv = len(grads)
+        assert _k3_counts()[1] == before[1] + n_conv
+        assert _k3_counts()[2] == before[2] + 1
+        assert dx.dtype == dtype
+        pairs = [(dx, dx_ref)] + [p for g, r in zip(grads, grads_ref)
+                                  for p in zip(g, r)]
+        for i, (got, want) in enumerate(pairs):
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            assert err <= tol * scale, (idx, i, err, scale)
+
+
+@pytest.mark.cuda
+def test_level_backward_dw_is_bitwise_stable(cuda_device):
+    """dW and dBias come from per-slice partials added in a fixed order:
+    two runs give the same bits."""
+    spec = _train_specs(cuda_device)[0]
+    rng = np.random.default_rng(9)
+    x = _rand(rng, 3, spec.r_in, 300).to(cuda_device, torch.bfloat16)
+    dy = _rand(rng, 3, spec.r_out, 300).to(cuda_device, torch.bfloat16)
+    with torch.no_grad():
+        runs = [level_backward(x, spec, dy, torch.bfloat16) for _ in range(2)]
+    for (dw1, db1), (dw2, db2) in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(dw1, dw2) and torch.equal(db1, db2)
+    assert torch.equal(runs[0][0], runs[1][0])

@@ -9,8 +9,10 @@ The port's own copy of the layout rules of
 with the reference module names (convs followed by an ELU sit at index 0
 of an ``nn.Sequential``: ``encoder.convin.0.weight``), so
 ``state_dict_from_jax(params)`` loads into ``TimbreTrapNet`` verbatim.
-``hwio_params`` goes the other way, viewing the port's weights in the flax
-layout that the packed block builders take.
+``hwio_params`` goes the other way, viewing the port's parameters in the
+flax layout that the packed block builders take; the views keep autograd,
+so a training spec built from them passes its gradients back to the
+parameters (the inference path builds its specs under ``no_grad``).
 """
 
 import numpy as np
@@ -68,10 +70,10 @@ def state_dict_from_jax(params):
 
 
 def hwio_params(net):
-    """The net's weights as a nested dict in the flax layout (kernels HWIO),
-    as views of the module's tensors."""
+    """The net's parameters as a nested dict in the flax layout (kernels
+    HWIO), as views of the module's parameters (autograd included)."""
     tree = {}
-    for name, value in net.state_dict().items():
+    for name, value in net.named_parameters():
         parts = [p for p in name.split(".") if p != "0"]
         clean = ".".join(parts[:-1])
         if parts[-1] == "weight":

@@ -72,6 +72,12 @@ class TimbreTrap:
     def load_state_dict(self, state_dict):
         """Load reference-named weights (strict) and drop the cached chains."""
         self.net.load_state_dict(state_dict, strict=True)
+        self.invalidate_specs()
+
+    def invalidate_specs(self):
+        """Drop the cached inference chains (and the kernel operands they
+        hold): call after changing ``self.net``'s weights in place, as the
+        train step does."""
         self._specs.clear()
 
     def load_jax_params(self, params):

@@ -25,10 +25,16 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signature of each library's entry point: (name, argtypes).
+_L = ctypes.c_longlong
+# C signatures of each library's entry points: {library: {name: argtypes}}.
 _SIGNATURES = {
-    "banded_conv": ("tt_banded_conv", [_P, _P, _P, _P, _P] + [_I] * 15 + [_P]),
-    "peak_mask": ("tt_peak_mask", [_P, _P, _I, _I, _I, _F, _P]),
+    "banded_conv": {"tt_banded_conv": [_P] * 5 + [_I] * 15 + [_P]},
+    "peak_mask": {"tt_peak_mask": [_P, _P, _I, _I, _I, _F, _P]},
+    "banded_conv_bwd": {
+        "tt_banded_conv_dx": [_P] * 7 + [_I] * 13 + [_P],
+        "tt_banded_conv_dw": [_P] * 6 + [_I] * 13 + [_P],
+        "tt_elu_backward": [_P] * 5 + [_I, _L, _P],
+    },
 }
 
 _loaded = {}
@@ -81,17 +87,20 @@ def build_all(names=None):
     return time.perf_counter() - t0, logs
 
 
-def load(name):
-    """The ctypes entry point of library ``name``, building it if needed."""
+def load(name, entry):
+    """The ctypes entry point ``entry`` of library ``name``, building the
+    library if needed."""
     if name not in _loaded:
         build_all([name])
-        fn_name, argtypes = _SIGNATURES[name]
         lib = ctypes.CDLL(str(_target(name)))
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _loaded[name] = (lib, fn)
-    return _loaded[name][1]
+        fns = {}
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[fn_name] = fn
+        _loaded[name] = (lib, fns)
+    return _loaded[name][1][entry]
 
 
 def check(rc, what):

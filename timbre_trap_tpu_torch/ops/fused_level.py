@@ -1,4 +1,4 @@
-"""Level specs and the fused conv chain (kernel K1) on the packed layout.
+"""Level specs, the fused conv chain (kernel K1) and its backward (K3).
 
 Counterpart of ``timbre_trap_tpu/ops/fused_level.py``: the spec layer
 (``LevelSpec``, ``encoder_level_spec``, ``decoder_level_spec``,
@@ -13,6 +13,14 @@ launch per conv stage; ``packed_level_apply`` is its plain PyTorch twin.
 Both keep the JAX precision policy: every stage input, weight and output is
 stored at ``dtype`` (float32 or bfloat16), accumulation and biases are
 float32.
+
+Training: a spec built ``with_adjoints`` carries each conv's adjoint (its
+dX map, another banded conv). ``fused_level_train`` is the differentiable
+level (the port of ``make_fused_level_train``): its forward is K1, and its
+backward ``level_backward`` runs the hand-written kernels of
+``csrc/banded_conv_bwd.cu`` (which replace the Pallas ``_level_bwd_kernel``)
+stage by stage; ``level_backward_reference`` is the same algorithm in plain
+PyTorch.
 """
 
 import torch
@@ -25,7 +33,10 @@ from .packed_conv import (BLOCK_ROWS, ConvBlocks, build_conv2d_blocks,
 __all__ = ["HALO", "LevelSpec", "encoder_level_spec", "decoder_level_spec",
            "fuse_level_specs", "spec_time_reach", "banded_conv",
            "banded_conv_reference", "packed_level_apply", "fused_level_apply",
-           "chain_flops"]
+           "chain_flops", "banded_conv_dx", "banded_conv_dx_reference",
+           "banded_conv_dw", "banded_conv_dw_reference", "elu_backward",
+           "elu_backward_reference", "level_backward",
+           "level_backward_reference", "fused_level_train"]
 
 # Time halo per side of the JAX kernel's tiles; a fused chain's cumulative
 # time reach must fit it there, and the same limit holds here.
@@ -55,46 +66,96 @@ class LevelSpec:
                     yield cb
 
 
-def encoder_level_spec(block_params, f_in, convin_params=None):
+def _adjoint_kernel(kernel):
+    """The forward kernel, detached, with its channels swapped: adjoint
+    blocks carry no gradient (the forward blocks carry it, as in JAX)."""
+    return torch.as_tensor(kernel).detach().to(torch.float32).permute(
+        0, 1, 3, 2)
+
+
+def _zero_bias(kernel):
+    k = torch.as_tensor(kernel)
+    return torch.zeros(k.shape[2], dtype=torch.float32, device=k.device)
+
+
+def _attach_conv2d_adjoint(cb, kernel, f_in, dilation):
+    """dX of a SAME 2D conv = SAME conv with flipped taps, channels swapped."""
+    adj_k = torch.flip(_adjoint_kernel(kernel), (0, 1))
+    cb.adjoint = build_conv2d_blocks(adj_k, _zero_bias(kernel), f_in,
+                                     dilation)
+    return cb
+
+
+def _attach_sconv_adjoint(cb, kernel, f_in, stride=2):
+    """dX of the strided VALID conv = transposed conv with the same kernel,
+    channels swapped, output_padding chosen so f_out == the forward f_in."""
+    kh = torch.as_tensor(kernel).shape[0]
+    pad = f_in - ((cb.f_out - 1) * stride + kh)
+    cb.adjoint = build_tconv_blocks(_adjoint_kernel(kernel),
+                                    _zero_bias(kernel), cb.f_out,
+                                    stride=stride, output_padding=pad)
+    if cb.adjoint.r_out != cb.r_in:
+        raise ValueError("sconv adjoint does not map back to the input rows")
+    return cb
+
+
+def _attach_tconv_adjoint(cb, kernel, stride=2):
+    """dX of the transposed conv = strided VALID conv, channels swapped."""
+    cb.adjoint = build_sconv_blocks(_adjoint_kernel(kernel),
+                                    _zero_bias(kernel), cb.f_out,
+                                    stride=stride)
+    if cb.adjoint.r_out != cb.r_in:
+        raise ValueError("tconv adjoint does not map back to the input rows")
+    return cb
+
+
+def _conv2d(params, f, dilation, with_adjoints):
+    cb = build_conv2d_blocks(params["kernel"], params["bias"], f, dilation)
+    if with_adjoints:
+        _attach_conv2d_adjoint(cb, params["kernel"], f, dilation)
+    return cb
+
+
+def _residual_items(block_params, f, with_adjoints):
+    return [("rb", _conv2d(block_params[f"block{i + 1}"]["conv1"], f, d,
+                           with_adjoints),
+             _conv2d(block_params[f"block{i + 1}"]["conv2"], f, 1,
+                     with_adjoints))
+            for i, d in enumerate((1, 2, 3))]
+
+
+def encoder_level_spec(block_params, f_in, convin_params=None,
+                       with_adjoints=False):
     """LevelSpec for an EncoderBlock (+ optionally the preceding convin);
-    ``block_params`` holds block1..block3 (conv1, conv2) and sconv, HWIO."""
+    ``block_params`` holds block1..block3 (conv1, conv2) and sconv, HWIO.
+    ``with_adjoints`` attaches each conv's adjoint blocks (training)."""
     items = []
     if convin_params is not None:
-        cb = build_conv2d_blocks(convin_params["kernel"],
-                                 convin_params["bias"], f_in, 1)
-        items.append(("conv", cb, True))
-    for i, d in enumerate((1, 2, 3)):
-        rb = block_params[f"block{i + 1}"]
-        cb1 = build_conv2d_blocks(rb["conv1"]["kernel"], rb["conv1"]["bias"],
-                                  f_in, d)
-        cb2 = build_conv2d_blocks(rb["conv2"]["kernel"], rb["conv2"]["bias"],
-                                  f_in, 1)
-        items.append(("rb", cb1, cb2))
+        items.append(("conv", _conv2d(convin_params, f_in, 1, with_adjoints),
+                      True))
+    items.extend(_residual_items(block_params, f_in, with_adjoints))
     sc = block_params["sconv"]
-    items.append(("conv", build_sconv_blocks(sc["kernel"], sc["bias"], f_in,
-                                             stride=2), True))
+    cbs = build_sconv_blocks(sc["kernel"], sc["bias"], f_in, stride=2)
+    if with_adjoints:
+        _attach_sconv_adjoint(cbs, sc["kernel"], f_in, stride=2)
+    items.append(("conv", cbs, True))
     return LevelSpec(items, items[0][1].r_in)
 
 
 def decoder_level_spec(block_params, f_in, output_padding=0,
-                       convout_params=None):
+                       convout_params=None, with_adjoints=False):
     """LevelSpec for a DecoderBlock (+ optionally the trailing convout)."""
     tc = block_params["tconv"]
     cb_t = build_tconv_blocks(tc["kernel"], tc["bias"], f_in, stride=2,
                               output_padding=output_padding)
-    items = [("conv", cb_t, True)]
+    if with_adjoints:
+        _attach_tconv_adjoint(cb_t, tc["kernel"], stride=2)
     f_mid = cb_t.f_out
-    for i, d in enumerate((1, 2, 3)):
-        rb = block_params[f"block{i + 1}"]
-        cb1 = build_conv2d_blocks(rb["conv1"]["kernel"], rb["conv1"]["bias"],
-                                  f_mid, d)
-        cb2 = build_conv2d_blocks(rb["conv2"]["kernel"], rb["conv2"]["bias"],
-                                  f_mid, 1)
-        items.append(("rb", cb1, cb2))
+    items = [("conv", cb_t, True)]
+    items.extend(_residual_items(block_params, f_mid, with_adjoints))
     if convout_params is not None:
-        cb = build_conv2d_blocks(convout_params["kernel"],
-                                 convout_params["bias"], f_mid, 1)
-        items.append(("conv", cb, False))
+        items.append(("conv", _conv2d(convout_params, f_mid, 1,
+                                      with_adjoints), False))
     return LevelSpec(items, cb_t.r_in)
 
 
@@ -168,7 +229,7 @@ def banded_conv(x, cb, act=False, residual=None):
     if y.numel() == 0:
         return y
     dts = list(cb.dts) + [0] * (3 - len(cb.dts))
-    fn = _build.load("banded_conv")
+    fn = _build.load("banded_conv", "tt_banded_conv")
     rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
             None if residual is None else residual.data_ptr(), y.data_ptr(),
             _DTYPES[x.dtype], b, r_in, cb.r_out, t, len(cb.dts), *dts, cb.k,
@@ -212,3 +273,369 @@ def chain_flops(spec, columns):
     per_col = sum(2 * len(cb.dts) * cb.n_out_blocks * BLOCK_ROWS * cb.k
                   for cb in spec.convs())
     return per_col * columns
+
+
+# --------------------------------------------------------------------- #
+# Training: the level backward (kernel K3) and its plain twin            #
+# --------------------------------------------------------------------- #
+
+def _elu_grad_from_out(y):
+    """ELU'(z) from y = ELU(z): 1 where y > 0, else e^z = y + 1 (float32)."""
+    return torch.where(y > 0, 1.0, y + 1.0)
+
+
+def _elu_factor(elu):
+    """ELU' from stored tensors ``(s1, s2)``: of y = s1 - s2 (s2 may be None)."""
+    y = elu[0].to(torch.float32)
+    if elu[1] is not None:
+        y = y - elu[1].to(torch.float32)
+    return _elu_grad_from_out(y)
+
+
+def elu_backward_reference(dy, elu=None, keep_raw=False):
+    """Plain twin of ``elu_backward``."""
+    v = dy.to(torch.float32)
+    out = v if elu is None else v * _elu_factor(elu)
+    return out, (v if keep_raw else None)
+
+
+def elu_backward(dy, elu=None, keep_raw=False):
+    """The cotangent of a level's last item from the level's output
+    cotangent ``dy`` (at the storage dtype): ``f32(dy) * ELU'(s1 - s2)`` for
+    ``elu = (s1, s2)`` (s2 may be None), ``f32(dy)`` for ``elu=None``.
+    Returns ``(out, raw)``, raw being ``f32(dy)`` when ``keep_raw``.
+
+    Launches ``csrc/banded_conv_bwd.cu:tt_elu_backward`` for a CUDA tensor
+    (``elu_backward.launches`` counts the launches) and takes the plain twin
+    for a CPU tensor.
+    """
+    if dy.device.type == "cpu":
+        return elu_backward_reference(dy, elu, keep_raw)
+    _check_cuda(dy, "elu_backward")
+    dy = dy.contiguous()
+    s1, s2 = _stored(elu, dy.shape, dy.dtype, "elu_backward")
+    out = torch.empty(dy.shape, dtype=torch.float32, device=dy.device)
+    raw = torch.empty_like(out) if keep_raw else None
+    if out.numel():
+        fn = _build.load("banded_conv_bwd", "tt_elu_backward")
+        rc = fn(dy.data_ptr(), _ptr(s1), _ptr(s2), _ptr(raw), out.data_ptr(),
+                _DTYPES[dy.dtype], out.numel(),
+                torch.cuda.current_stream(dy.device).cuda_stream)
+        _build.check(rc, "elu_backward")
+        elu_backward.launches += 1
+    return out, raw
+
+
+elu_backward.launches = 0
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_cuda(t, what):
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {t.device}")
+    if t.dtype not in _DTYPES:
+        raise ValueError(f"{what} takes float32 or bfloat16, not {t.dtype}")
+
+
+def _stored(elu, shape, dtype, what):
+    """The contiguous (s1, s2) of an ELU' factor, checked against the
+    shape and storage dtype of the output they scale."""
+    if elu is None:
+        return None, None
+    out = []
+    for s in elu:
+        if s is not None:
+            if tuple(s.shape) != tuple(shape) or s.dtype != dtype:
+                raise ValueError(f"{what}: stored tensors must be {tuple(shape)} "
+                                 f"{dtype}, not {tuple(s.shape)} {s.dtype}")
+            s = s.contiguous()
+        out.append(s)
+    return out[0], out[1]
+
+
+def banded_conv_dx_reference(c, adj, dtype, residual=None, elu=None,
+                             keep_raw=False, out_dtype=torch.float32):
+    """Plain twin of ``banded_conv_dx``."""
+    blocks = adj.blocks.to(dtype).to(torch.float32)
+    v = packed_conv_reference(c.to(dtype).to(torch.float32), adj,
+                              blocks=blocks)
+    if residual is not None:
+        v = v + residual
+    out = v if elu is None else v * _elu_factor(elu)
+    return out.to(out_dtype), (v if keep_raw else None)
+
+
+def banded_conv_dx(c, adj, dtype, residual=None, elu=None, keep_raw=False,
+                   out_dtype=torch.float32):
+    """dX of one conv stage: the adjoint banded product of the float32
+    cotangent ``c`` (B, adj.r_in, T) with the adjoint blocks ``adj`` at the
+    storage ``dtype`` (``c`` rounded to it, float32 accumulation), plus the
+    float32 ``residual`` cotangent, times ``ELU'(s1 - s2)`` for
+    ``elu = (s1, s2)`` (stored tensors at ``dtype``; s2 may be None).
+    Returns ``(out, raw)``: out at ``out_dtype`` (float32 or ``dtype``),
+    raw the float32 value before the ELU' factor when ``keep_raw``.
+
+    Launches ``csrc/banded_conv_bwd.cu:tt_banded_conv_dx`` for a CUDA tensor
+    (``banded_conv_dx.launches`` counts the launches) and takes the plain
+    twin for a CPU tensor.
+    """
+    if c.device.type == "cpu":
+        return banded_conv_dx_reference(c, adj, dtype, residual, elu,
+                                        keep_raw, out_dtype)
+    _check_cuda(c, "banded_conv_dx")
+    if c.dtype != torch.float32 or dtype not in _DTYPES:
+        raise ValueError("banded_conv_dx takes a float32 cotangent and a "
+                         "float32 or bfloat16 storage dtype")
+    if out_dtype not in (torch.float32, dtype):
+        raise ValueError(f"banded_conv_dx writes float32 or {dtype}")
+    b, r_in, t = c.shape
+    if r_in != adj.r_in or adj.per_block or len(adj.dts) > 3:
+        raise ValueError("cotangent rows or adjoint geometry not supported")
+    shape = (b, adj.r_out, t)
+    c = c.contiguous()
+    if residual is not None:
+        if tuple(residual.shape) != shape or residual.dtype != torch.float32:
+            raise ValueError("residual must be the float32 output shape")
+        residual = residual.contiguous()
+    s1, s2 = _stored(elu, shape, dtype, "banded_conv_dx")
+    w, _ = adj.kernel_operands(dtype)
+    if w.device != c.device:
+        raise ValueError("adjoint blocks and cotangent lie on different devices")
+    out = torch.empty(shape, dtype=out_dtype, device=c.device)
+    raw = torch.empty(shape, dtype=torch.float32, device=c.device) \
+        if keep_raw else None
+    if out.numel():
+        dts = list(adj.dts) + [0] * (3 - len(adj.dts))
+        fn = _build.load("banded_conv_bwd", "tt_banded_conv_dx")
+        rc = fn(c.data_ptr(), w.data_ptr(), _ptr(residual), _ptr(s1),
+                _ptr(s2), _ptr(raw), out.data_ptr(), _DTYPES[dtype],
+                int(out_dtype == torch.float32), b, r_in, adj.r_out, t,
+                len(adj.dts), *dts, adj.k, adj.col_adv, adj.margin,
+                torch.cuda.current_stream(c.device).cuda_stream)
+        _build.check(rc, "banded_conv_dx")
+        banded_conv_dx.launches += 1
+    return out, raw
+
+
+banded_conv_dx.launches = 0
+
+
+def banded_conv_dw_reference(dz, x, cb):
+    """Plain twin of ``banded_conv_dw``: one einsum per time tap over the
+    chunked view of the zero-margined input (as ``packed_conv_reference``)."""
+    b, r_in, t = x.shape
+    nb = cb.n_out_blocks
+    dzp = torch.nn.functional.pad(dz.to(torch.float32),
+                                  (0, 0, 0, nb * BLOCK_ROWS - cb.r_out))
+    dzp = dzp.reshape(b, nb, BLOCK_ROWS, t)
+    db = dzp.sum(dim=(0, 1, 3))
+    ops = dzp.to(x.dtype).to(torch.float32)
+    A = cb.col_adv
+    nw = -(-cb.k // A)
+    n_ch = nb - 1 + nw
+    max_dt = max(abs(d) for d in cb.dts)
+    xp = torch.nn.functional.pad(
+        x.to(torch.float32),
+        (max_dt, max_dt, cb.margin, n_ch * A - cb.margin - r_in))
+    xch = xp.reshape(b, n_ch, A, xp.shape[-1])
+    dws = []
+    for dt in cb.dts:
+        xs = xch[..., max_dt + dt:max_dt + dt + t]
+        xw = torch.stack([xs[:, o:o + nb] for o in range(nw)], dim=1)
+        dw = torch.einsum("bjrt,bojkt->rok", ops, xw)
+        dws.append(dw.reshape(BLOCK_ROWS, nw * A)[:, :cb.k])
+    return torch.stack(dws), db
+
+
+def _dw_slices(n_chunks, tiles):
+    """Slices of the dW reduction: enough CTAs for 8 per SM of the H100's
+    132, fixed by the shapes alone, so the summation order is too."""
+    return max(1, min(n_chunks, -(-132 * 8 // tiles)))
+
+
+def banded_conv_dw(dz, x, cb):
+    """Weight and bias gradients of one conv stage: ``dW`` (n_dt, 128, K)
+    and ``dBias`` (128,), float32, from the float32 cotangent ``dz``
+    (B, r_out, T) of the stage's pre-activation and its input ``x``
+    (B, r_in, T) at the storage dtype (``dz`` rounded to it for dW, dBias
+    from the float32 ``dz``). Rows past ``r_out`` of the last block, and
+    input rows and columns outside the input, count as zero.
+
+    Launches ``csrc/banded_conv_bwd.cu:tt_banded_conv_dw`` (per-slice
+    partial sums, then a fixed-order reduction; the same bits every run) for
+    a CUDA tensor (``banded_conv_dw.launches`` counts the calls) and takes
+    the plain twin for a CPU tensor.
+    """
+    if dz.device.type == "cpu":
+        return banded_conv_dw_reference(dz, x, cb)
+    _check_cuda(x, "banded_conv_dw")
+    b, r_in, t = x.shape
+    if (dz.dtype != torch.float32 or tuple(dz.shape) != (b, cb.r_out, t)
+            or r_in != cb.r_in or cb.per_block or len(cb.dts) > 3):
+        raise ValueError("banded_conv_dw: cotangent, input or geometry not "
+                         "supported")
+    dz, x = dz.contiguous(), x.contiguous()
+    n_dt = len(cb.dts)
+    dw = torch.empty((n_dt, BLOCK_ROWS, cb.k), dtype=torch.float32,
+                     device=x.device)
+    db = torch.empty((BLOCK_ROWS,), dtype=torch.float32, device=x.device)
+    n_chunks = b * cb.n_out_blocks * -(-t // 32)
+    if n_chunks == 0:
+        return dw.zero_(), db.zero_()
+    n_slices = _dw_slices(n_chunks, -(-cb.k // 64) * n_dt)
+    part = torch.empty((n_slices, n_dt, BLOCK_ROWS, cb.k),
+                       dtype=torch.float32, device=x.device)
+    part_bias = torch.empty((n_slices, BLOCK_ROWS), dtype=torch.float32,
+                            device=x.device)
+    dts = list(cb.dts) + [0] * (3 - n_dt)
+    fn = _build.load("banded_conv_bwd", "tt_banded_conv_dw")
+    rc = fn(dz.data_ptr(), x.data_ptr(), part.data_ptr(), part_bias.data_ptr(),
+            dw.data_ptr(), db.data_ptr(), _DTYPES[x.dtype], b, r_in, cb.r_out,
+            t, n_dt, *dts, cb.k, cb.col_adv, cb.margin, n_slices,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "banded_conv_dw")
+    banded_conv_dw.launches += 1
+    return dw, db
+
+
+banded_conv_dw.launches = 0
+
+
+def _level_backward(x, spec, dy, dtype, input_grad, dx_dtype, ops):
+    """The VJP of a chain, stage by stage (the algorithm of
+    ``_level_bwd_kernel``). ``x`` is the chain's input at ``dtype``, ``dy``
+    its output cotangent. Returns ``(dx or None, [(dW, dBias) per conv])``.
+
+    1. Recompute the forward, keeping each item's input and each residual
+       block's conv1 activation (the JAX kernel replays conv1 and the
+       terminal item instead, a VMEM trade-off with no counterpart here).
+    2. Walk the items in reverse. ELU' comes from stored outputs: an item's
+       output is the next item's input, and a residual block's inner ELU
+       output is ``y - x``; a linear head takes dZ = dY. Each dX product
+       fuses the residual add and the previous item's ELU', and each conv
+       gets its dW and dBias. Stored tensors are dropped once used.
+    """
+    stage, dx_fn, dw_fn, seed_fn = ops
+    items = spec.items
+    n = len(items)
+    ins, a1s = [], []
+    cur = x
+    for it in items:
+        ins.append(cur)
+        if it[0] == "conv":
+            a1s.append(None)
+            cur = stage(cur, it[1], act=it[2])
+        else:
+            h = stage(cur, it[1], act=True)
+            a1s.append(h)
+            cur = stage(h, it[2], act=True, residual=cur)
+    ins.append(cur)                       # ins[i + 1] is item i's output
+
+    def seed_of(i):
+        """The (s1, s2) of item i's ELU' (None for a linear head) and
+        whether its raw cotangent is needed (a residual add)."""
+        it = items[i]
+        if it[0] == "rb":
+            return (ins[i + 1], ins[i]), True
+        return ((ins[i + 1], None) if it[2] else None), False
+
+    conv_idx, ci = [], 0
+    for it in items:
+        conv_idx.append(ci)
+        ci += 1 if it[0] == "conv" else 2
+    grads = [None] * ci
+
+    elu, raw = seed_of(n - 1)
+    dz, dy_raw = seed_fn(dy, elu, raw)
+    dx = None
+    for i in reversed(range(n)):
+        it, ci = items[i], conv_idx[i]
+        if i > 0:
+            elu, raw = seed_of(i - 1)
+            kw = dict(elu=elu, keep_raw=raw)
+        elif input_grad:
+            kw = dict(out_dtype=dx_dtype)
+        else:
+            kw = None
+        if it[0] == "conv":
+            grads[ci] = dw_fn(dz, ins[i], it[1])
+            if kw is not None:
+                dz, dy_raw = dx_fn(dz, it[1].adjoint, dtype, **kw)
+        else:
+            cb1, cb2 = it[1], it[2]
+            grads[ci + 1] = dw_fn(dz, a1s[i], cb2)
+            dh1, _ = dx_fn(dz, cb2.adjoint, dtype, elu=(a1s[i], None))
+            grads[ci] = dw_fn(dh1, ins[i], cb1)
+            if kw is not None:
+                dz, dy_raw = dx_fn(dh1, cb1.adjoint, dtype, residual=dy_raw,
+                                   **kw)
+        if i == 0 and kw is not None:
+            dx = dz
+        ins[i + 1] = a1s[i] = None
+    return dx, grads
+
+
+_KERNEL_OPS = (banded_conv, banded_conv_dx, banded_conv_dw, elu_backward)
+_PLAIN_OPS = (banded_conv_reference, banded_conv_dx_reference,
+              banded_conv_dw_reference, elu_backward_reference)
+
+
+def level_backward(x, spec, dy, dtype=torch.float32, input_grad=True,
+                   dx_dtype=None):
+    """The VJP of a chain built ``with_adjoints`` on the card: the forward
+    recomputed through K1, then the K3 launches (``elu_backward``,
+    ``banded_conv_dx``, ``banded_conv_dw``). ``x`` (B, r_in, T) at
+    ``dtype``, ``dy`` (B, r_out, T). Returns ``(dx, [(dW, dBias), ...])``,
+    dx at ``dx_dtype`` (default ``x.dtype``; None without ``input_grad``),
+    dW and dBias float32 in ``spec.convs()`` order."""
+    return _level_backward(x, spec, dy, dtype, input_grad,
+                           dx_dtype or x.dtype, _KERNEL_OPS)
+
+
+def level_backward_reference(x, spec, dy, dtype=torch.float32,
+                             input_grad=True, dx_dtype=None):
+    """Plain PyTorch twin of ``level_backward``: the same algorithm with
+    each kernel's twin."""
+    return _level_backward(x, spec, dy, dtype, input_grad,
+                           dx_dtype or x.dtype, _PLAIN_OPS)
+
+
+class _FusedLevelTrain(torch.autograd.Function):
+    """Forward: the chain through K1 at the storage dtype; saved: the level
+    input; backward: ``level_backward`` (K3) on the card, its plain twin on
+    the CPU. Gradients: dX at the input's dtype, float32 for every blocks
+    and bias tensor."""
+
+    @staticmethod
+    def forward(ctx, x, spec, dtype, *arrays):
+        xs = x.to(dtype)
+        ctx.save_for_backward(xs)
+        ctx.spec, ctx.dtype, ctx.x_dtype = spec, dtype, x.dtype
+        return fused_level_apply(xs, spec, dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (xs,) = ctx.saved_tensors
+        fn = level_backward if xs.device.type == "cuda" \
+            else level_backward_reference
+        dx, grads = fn(xs, ctx.spec, dy.contiguous(), ctx.dtype,
+                       input_grad=ctx.needs_input_grad[0],
+                       dx_dtype=ctx.x_dtype)
+        return (dx, None, None) + tuple(g for pair in grads for g in pair)
+
+
+def fused_level_train(x, spec, dtype=torch.float32):
+    """Differentiable chain (the port of ``make_fused_level_train``):
+    packed (B, r_in, T) input -> (B, r_out, T) at ``dtype`` (float32, or
+    bfloat16 storage with float32 accumulation). Gradients flow to ``x``
+    and to every conv's ``blocks`` and ``bias`` (and through them to the
+    parameters they were built from). The spec must be built
+    ``with_adjoints``."""
+    convs = list(spec.convs())
+    if any(cb.adjoint is None for cb in convs):
+        raise ValueError("fused_level_train needs a spec built with_adjoints")
+    arrays = [a for cb in convs for a in (cb.blocks, cb.bias)]
+    return _FusedLevelTrain.apply(x, spec, dtype, *arrays)

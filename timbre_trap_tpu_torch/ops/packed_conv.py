@@ -66,6 +66,8 @@ class ConvBlocks:
       margin:   zero rows above the input (block j starts reading at input
                 row ``j*col_adv - margin``).
       k:        input rows read per output block.
+      adjoint:  the transpose of the conv as another repeating banded conv
+                (its dX map), attached by a training spec, else None.
     """
 
     def __init__(self, blocks, dts, bias, col_adv, margin, f_in, f_out,
@@ -79,6 +81,7 @@ class ConvBlocks:
         self.f_in, self.f_out = int(f_in), int(f_out)
         self.c_in, self.c_out = int(c_in), int(c_out)
         self.per_block = bool(per_block)
+        self.adjoint = None
         self._cache = {}
 
     @property
@@ -105,11 +108,20 @@ class ConvBlocks:
 
 
 def _build_blocks(kernel_fc, bias, f_in, f_out, c_in, c_out, f_taps, dts):
-    """Gather the (n_df, n_dt, c_in, c_out) kernel into banded blocks.
+    """Contract the (n_df, n_dt, c_in, c_out) kernel into banded blocks.
 
     ``f_taps(f_loc, df)`` maps a block-local output frequency and frequency
     tap to the input frequency it reads (relative to block 0's window), or
     None where the tap does not apply.
+
+    The blocks are the JAX package's one-hot form (its ``vjp_einsum``
+    builder): a static map ``m[df, fl, g] = 1`` where output frequency fl
+    reads window offset g through tap df (at most one tap per (fl, g)),
+    contracted with the kernel. Every block entry is one weight times 1 plus
+    zeros, so the values equal the gather form's exactly; the contraction is
+    a broadcast multiply and sum (no matmul, so no TF32 rounding), and its
+    backward is another such sum where a gather's is an index scatter-add
+    (81 ms per recipe train step on the H100, ``PERF.md``).
     """
     n_f_per_block = BLOCK_ROWS // c_out
     if BLOCK_ROWS % c_out:
@@ -131,38 +143,25 @@ def _build_blocks(kernel_fc, bias, f_in, f_out, c_in, c_out, f_taps, dts):
     # adds as many zero leading columns to every block.
     shift = (-margin_rows) % 8
     margin_rows += shift
-    k = (hi - lo + 1) * c_in + shift
+    n_g = hi - lo + 1
 
-    # Static index map: block entry (r, col) = kernel[df, dt, ci, co].
-    df_idx = np.zeros((BLOCK_ROWS, k), np.int64)
-    ci_idx = np.zeros((BLOCK_ROWS, k), np.int64)
-    co_idx = np.zeros((BLOCK_ROWS, k), np.int64)
-    valid = np.zeros((BLOCK_ROWS, k), bool)
-    cin_r = np.arange(c_in)
-    cout_r = np.arange(c_out)
+    m = np.zeros((n_df, n_f_per_block, n_g), np.float32)
     for fl in range(n_f_per_block):
-        rows = fl * c_out + cout_r
         for df in range(n_df):
             off = f_taps(fl, df)
-            if off is None:
-                continue
-            cols = (off - lo) * c_in + shift + cin_r
-            df_idx[rows[:, None], cols[None, :]] = df
-            ci_idx[rows[:, None], cols[None, :]] = cin_r[None, :]
-            co_idx[rows[:, None], cols[None, :]] = cout_r[:, None]
-            valid[rows[:, None], cols[None, :]] = True
-
-    dev = kernel_fc.device
-    n_dt = len(dts)
-    dt_idx = torch.arange(n_dt, device=dev)[:, None, None]
-    gathered = kernel_fc[torch.as_tensor(df_idx, device=dev)[None], dt_idx,
-                         torch.as_tensor(ci_idx, device=dev)[None],
-                         torch.as_tensor(co_idx, device=dev)[None]]
-    blocks = torch.where(torch.as_tensor(valid, device=dev), gathered,
-                         torch.zeros((), dtype=gathered.dtype, device=dev))
+            if off is not None:
+                m[df, fl, off - lo] = 1.0
+    m = torch.as_tensor(m, device=kernel_fc.device)
+    # (df, dt, fl, co, g, ci) summed over df -> blocks[dt, fl*c_out + co,
+    # shift + g*c_in + ci].
+    kern = kernel_fc.permute(0, 1, 3, 2)
+    core = (m[:, None, :, None, :, None]
+            * kern[:, :, None, :, None, :]).sum(dim=0)
+    blocks = torch.nn.functional.pad(
+        core.reshape(len(dts), BLOCK_ROWS, n_g * c_in), (shift, 0))
     bias_pat = bias.repeat(n_f_per_block)
-    return ConvBlocks(blocks.contiguous(), dts, bias_pat, col_adv,
-                      margin_rows, f_in, f_out, c_in, c_out)
+    return ConvBlocks(blocks, dts, bias_pat, col_adv, margin_rows, f_in,
+                      f_out, c_in, c_out)
 
 
 def _f32(a):

@@ -56,7 +56,7 @@ def peak_mask(activations, t=0.5):
     if a.numel() == 0:
         return out
     f, t_len = a.shape[-2:]
-    fn = _build.load("peak_mask")
+    fn = _build.load("peak_mask", "tt_peak_mask")
     rc = fn(a.data_ptr(), out.data_ptr(), a.numel() // (f * t_len), f, t_len,
             float(t), torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(rc, "peak_mask")
