@@ -39,17 +39,31 @@ Phases, each of which exits non-zero on failure:
              loss within 2e-2 and the whole gradient within 5e-2 in
              relative L2; on those crops and at the small geometry one
              float32 ``"pallas"`` step against ``"packed"``, losses within
-             1e-5 and gradients within 1e-4 * each leaf's max|g|;
+             1e-5 and gradients within 1e-4 * each leaf's max|g|.
+             The bf16 routes of K1 and K3 are the band-tiled tensor-core
+             kernels of ``csrc/band_mma.cu``: phase 2 also holds them, on
+             one conv of each kind at flagship widths (3x3 at dilation 1, 2
+             and 3, 1x1, sconv, tconv, the dense bridge) at T = 3072 and a
+             ragged T = 1001, against their bf16 twins: the stage, dX and
+             dW (band entries, the twin masked with the same bands) and
+             dBias within 1e-2 * max|ref|, dW and dBias the same bits in two
+             runs; K3 also against its twin at (2, R_in, 1024) on every
+             level; the main paths must launch the tensor-core kernels;
 4. numbers — kernel, plain-version and library times, the least time the
              card could take (bound), the real-time factor of the counted
              (first) call and of a second call at the same length, and the
-             train step's time, audio rate and peak memory.
+             train step's time, audio rate and peak memory; the flops the
+             bf16 kernels compute beside those the convs need, the bytes a
+             stage-by-stage run must move, and the HMMA/HGMMA count of the
+             tensor-core library's SASS.
 
 Prints the kernels' JSON line and the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -154,6 +168,136 @@ def phase_build(_build):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    counts = sass_counts(_build)
+    print(f"  band_mma SASS: {counts}")
+    check(counts["HMMA"] + counts["HGMMA"] > 0,
+          "the tensor-core library holds no HMMA or HGMMA instruction")
+    return counts
+
+
+def sass_counts(_build):
+    """HMMA and HGMMA instructions in the SASS of the tensor-core library."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(_build.library_path("band_mma"))],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
+    return {op: len(re.findall(rf"\b{op}\b", out.stdout))
+            for op in ("HMMA", "HGMMA")}
+
+
+def conv_kind(cb):
+    if cb.per_block:
+        return "dense"
+    if cb.f_out != cb.f_in:
+        return "sconv" if cb.f_out < cb.f_in else "tconv"
+    return "1x1" if len(cb.dts) == 1 else f"3x3 d={max(cb.dts)}"
+
+
+def phase_band_parity(torch, fwd_spec, train_specs):
+    """The bf16 tensor-core kernels on the first conv of each kind in the
+    flagship specs (training levels with adjoints; the dense bridge from
+    the inference chain), at T = 3072 and 1001, batch 2, against their bf16
+    twins on the same tensors: the stage (ELU, residual), dX (residual,
+    raw, ELU') and dW/dBias (band entries) within 1e-2 * max|ref|, dW and
+    dBias bitwise stable. Returns the largest relative error."""
+    from timbre_trap_tpu_torch.ops.fused_level import (
+        banded_conv, banded_conv_dw, banded_conv_dw_reference, banded_conv_dx,
+        banded_conv_dx_reference, banded_conv_reference)
+
+    picks = {}
+    for spec in train_specs + [fwd_spec]:
+        for cb in spec.convs():
+            picks.setdefault(conv_kind(cb), cb)
+    bf16 = torch.bfloat16
+    dev = fwd_spec.items[0][1].blocks.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def rel(got, ref, what):
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        check(err <= 1e-2 * scale, f"band kernels: {what} error {err} > "
+              f"1e-2 * {scale}")
+        return err / max(scale, 1e-30)
+
+    worst = 0.0
+    for t in (3072, 1001):
+        for kind, cb in picks.items():
+            dense = kind == "dense"
+            x = rand(2, cb.r_in, t, dtype=bf16)
+            res = None if dense else rand(2, cb.r_out, t, dtype=bf16)
+            errs = [rel(banded_conv(x, cb, not dense, res),
+                        banded_conv_reference(x, cb, not dense, res),
+                        f"{kind} T={t} stage")]
+            if not dense:
+                adj = cb.adjoint
+                c = rand(2, adj.r_in, t)
+                kw = dict(residual=rand(2, adj.r_out, t), keep_raw=True,
+                          elu=(rand(2, adj.r_out, t, dtype=bf16),
+                               rand(2, adj.r_out, t, dtype=bf16)))
+                got = banded_conv_dx(c, adj, bf16, **kw)
+                want = banded_conv_dx_reference(c, adj, bf16, **kw)
+                errs += [rel(g, w, f"{kind} T={t} dX")
+                         for g, w in zip(got, want)]
+                dz = rand(2, cb.r_out, t)
+                runs = [banded_conv_dw(dz, x, cb) for _ in range(2)]
+                want = banded_conv_dw_reference(dz, x, cb)
+                check(all(torch.equal(a, b) for a, b in zip(*runs)),
+                      f"band kernels: {kind} T={t} dW differs in two runs")
+                errs += [rel(g, w, f"{kind} T={t} dW/dBias")
+                         for g, w in zip(runs[0], want)]
+            worst = max([worst] + errs)
+            print(f"  band {kind:8s} T={t} (c_in {cb.c_in}, c_out "
+                  f"{cb.c_out}, bands {cb.bands}): stage"
+                  + ("" if dense else ", dX, raw, dW, dBias")
+                  + " rel " + " ".join(f"{e:.2e}" for e in errs))
+    return worst
+
+
+class ByteCount:
+    """Bytes a stage-by-stage run moves: every kernel call's inputs read
+    once and its outputs written once (``ops``, wrapping the kernels, feed
+    ``_level_backward``; ``stage`` alone feeds a forward chain)."""
+
+    def __init__(self, torch):
+        from timbre_trap_tpu_torch.ops import fused_level as fl
+
+        self.n = 0
+        bf16 = torch.bfloat16
+
+        def weights(cb, dtype):
+            return (cb.band_operands() if dtype == bf16
+                    else cb.kernel_operands())
+
+        def stage(x, cb, act=False, residual=None):
+            y = fl.banded_conv(x, cb, act, residual)
+            self.add(x, residual, y, *weights(cb, x.dtype))
+            return y
+
+        def dx(c, adj, dtype, residual=None, elu=None, keep_raw=False,
+               out_dtype=torch.float32):
+            out = fl.banded_conv_dx(c, adj, dtype, residual, elu, keep_raw,
+                                    out_dtype)
+            self.add(c, residual, *(elu or ()), *out, weights(adj, dtype)[0])
+            return out
+
+        def dw(dz, x, cb):
+            out = fl.banded_conv_dw(dz, x, cb)
+            self.add(dz, x, *out)
+            return out
+
+        def seed(dy, elu=None, keep_raw=False):
+            out = fl.elu_backward(dy, elu, keep_raw)
+            self.add(dy, *(elu or ()), *out)
+            return out
+
+        self.stage, self.ops = stage, (stage, dx, dw, seed)
+
+    def add(self, *tensors):
+        self.n += sum(t.numel() * t.element_size() for t in tensors
+                      if t is not None)
 
 
 def phase_parity(torch, model, x, acts_for_mask, n_frames):
@@ -225,11 +369,11 @@ def phase_parity(torch, model, x, acts_for_mask, n_frames):
     return e32, k2_err
 
 
-def k3_recipe_parity(torch, spec, frames, gen):
+def k3_recipe_parity(torch, spec, frames, gen, batch=TRAIN_CROPS):
     """K3 (``level_backward``) against its plain twin
     (``level_backward_reference``) on the same card tensors at the shape
-    the recipe step gives it, x (TRAIN_CROPS, R_in, frames) and dy
-    (TRAIN_CROPS, R_out, frames): dX and every conv's dW and dBias within
+    the recipe step gives it, x (batch, R_in, frames) and dy
+    (batch, R_out, frames): dX and every conv's dW and dBias within
     1e-4 * max|ref| in float32 and 1e-2 * max|ref| in bfloat16 (sum order,
     and bf16 recompute outputs that round the other way); two bf16 runs
     give the same bits. Returns (float32 max abs error, f32 rel, bf16
@@ -238,10 +382,8 @@ def k3_recipe_parity(torch, spec, frames, gen):
         level_backward, level_backward_reference)
 
     dev = spec.items[0][1].blocks.device
-    x = torch.randn((TRAIN_CROPS, spec.r_in, frames), generator=gen,
-                    device=dev)
-    dy = torch.randn((TRAIN_CROPS, spec.r_out, frames), generator=gen,
-                     device=dev)
+    x = torch.randn((batch, spec.r_in, frames), generator=gen, device=dev)
+    dy = torch.randn((batch, spec.r_out, frames), generator=gen, device=dev)
     out = []
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
         xs, dys = x.to(dtype), dy.to(dtype)
@@ -255,7 +397,7 @@ def k3_recipe_parity(torch, spec, frames, gen):
         for i, (got, ref) in enumerate(pairs):
             err = (got.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
-            check(err <= tol * scale, f"K3 at the recipe shape "
+            check(err <= tol * scale, f"K3 against its twin at "
                   f"{tuple(xs.shape)} {dtype}: output {i} (0 = dX, then dW, "
                   f"dBias per conv) error {err} > {tol} * {scale}")
             err_abs = max(err_abs, err)
@@ -263,7 +405,7 @@ def k3_recipe_parity(torch, spec, frames, gen):
         same = torch.equal(runs[0][0], runs[1][0]) and all(
             torch.equal(a, b) for p, q in zip(runs[0][1], runs[1][1])
             for a, b in zip(p, q))
-        check(same, f"K3 at the recipe shape {dtype}: two runs differ")
+        check(same, f"K3 at {tuple(xs.shape)} {dtype}: two runs differ")
         out += [err_abs, rel]
         del runs, want
     return out[0], out[1], out[3]
@@ -273,9 +415,9 @@ def phase_k3_parity(torch, net, frames):
     """K3 on the 8 training levels of ``net`` (encoder levels 1-4 with
     convin, decoder levels 1-4 with convout): against torch autograd of the
     plain chain at (2, R_in, 1024) with a seeded cotangent, and against its
-    plain twin at the recipe step's (TRAIN_CROPS, R_in, ``frames``)
-    (``k3_recipe_parity``). Returns the largest float32 abs error at the
-    recipe shape."""
+    plain twin at (2, R_in, 1024) and at the recipe step's (TRAIN_CROPS,
+    R_in, ``frames``) (``k3_recipe_parity``). Returns the largest float32
+    abs error at the recipe shape."""
     from timbre_trap_tpu_torch.interop import hwio_params
     from timbre_trap_tpu_torch.models.fused import level_specs
     from timbre_trap_tpu_torch.ops.fused_level import (
@@ -323,13 +465,15 @@ def phase_k3_parity(torch, net, frames):
             r32 = max(r32, e32 / max(scale, 1e-30))
             r16 = max(r16, e16 / max(scale, 1e-30))
         with torch.no_grad():
+            _, _, p16 = k3_recipe_parity(torch, spec_of(idx), 1024, gen, 2)
             e_abs, q32, q16 = k3_recipe_parity(torch, spec_of(idx), frames,
                                                gen)
         worst = max(worst, e_abs)
         kind = "encoder" if idx < 4 else "decoder"
         print(f"  K3 {kind} level {idx % 4 + 1} ({spec.r_in}->{spec.r_out} "
               f"rows, {len(ref) - 1} params): vs autograd f32 rel "
-              f"{r32:.2e}  bf16 rel {r16:.2e}; vs twin at ({TRAIN_CROPS}, "
+              f"{r32:.2e}  bf16 rel {r16:.2e}; vs twin at (2, {spec.r_in}, "
+              f"1024) bf16 rel {p16:.2e}, at ({TRAIN_CROPS}, "
               f"{spec.r_in}, {frames}) f32 rel {q32:.2e}  bf16 rel "
               f"{q16:.2e}, bitwise stable")
     return worst
@@ -402,6 +546,8 @@ def phase_train(torch, counters):
     warmup = cosine_warmup(TRAIN_WARMUP)
     for fn in counters:
         fn.launches = 0
+        if hasattr(fn, "mma_launches"):
+            fn.mma_launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     walls, history = [], []
@@ -412,6 +558,8 @@ def phase_train(torch, counters):
         walls.append(time.perf_counter() - t0)
         history.append(metrics)
     launches = {fn.__name__: fn.launches for fn in counters}
+    launches.update({f"{fn.__name__}.mma": fn.mma_launches for fn in counters
+                     if hasattr(fn, "mma_launches")})
     peak = torch.cuda.max_memory_allocated()
     losses = [m["loss/total"] for m in history]
     check(all(np.isfinite(v) for m in history for v in m.values()),
@@ -483,6 +631,22 @@ def phase_train(torch, counters):
     return numbers, launches, model
 
 
+def k3_band_flops(spec, batch, frames):
+    """Flops the bf16 level backward computes at (batch, ., frames): the
+    band-tiled recompute, dX over each adjoint's bands, and dW over whole
+    64-column tiles of each band for every 64-frame chunk."""
+    from timbre_trap_tpu_torch.ops.fused_level import band_flops
+
+    convs = list(spec.convs())
+    total = band_flops(convs + [cb.adjoint for cb in convs], batch * frames)
+    padded = batch * -(-frames // 64) * 64
+    for cb in convs:
+        tiles = -(-max(n for _, n in cb.bands) // 64)
+        total += (2 * len(cb.dts) * 2 * 64 * 64 * tiles * cb.n_out_blocks
+                  * padded)
+    return total
+
+
 def k3_numbers(torch, model, launches_per_step):
     """K3 at the flagship encoder level 1 (convin fused) at the recipe's
     (8, 1080, 3072), bf16: kernel, plain twin and cuDNN times and bounds."""
@@ -491,7 +655,7 @@ def k3_numbers(torch, model, launches_per_step):
     from timbre_trap_tpu_torch.interop import hwio_params
     from timbre_trap_tpu_torch.models.fused import level_specs
     from timbre_trap_tpu_torch.ops.fused_level import (
-        level_backward, level_backward_reference)
+        _level_backward, level_backward, level_backward_reference)
     from timbre_trap_tpu_torch.ops.packed_conv import unpack_to_nchw
 
     net = model.net
@@ -520,8 +684,12 @@ def k3_numbers(torch, model, launches_per_step):
     lib_ms = time_ms(torch, lambda: torch.autograd.grad(
         y, [x_nchw] + params, dy_nchw, retain_graph=True), 5)
 
+    count = ByteCount(torch)
+    with torch.no_grad():
+        _level_backward(xb, spec, dyb, bf16, True, bf16, count.ops)
     fwd_flops = needed_flops(spec, b, t)
     bwd_flops = 2 * fwd_flops           # dX and dW, every conv
+    computed = k3_band_flops(spec, b, t)
     io_bytes = 2 * xb.numel() * 2 + dyb.numel() * 2
     w_bytes = sum(cb.blocks.numel() * (2 + 4) + cb.bias.numel() * (4 + 4)
                   + cb.adjoint.blocks.numel() * 2 for cb in spec.convs())
@@ -531,7 +699,10 @@ def k3_numbers(torch, model, launches_per_step):
     print(f"K3 level backward, encoder level 1 ({n_convs} convs) at "
           f"{tuple(xb.shape)} bf16: {ms:.3f} ms, plain {plain:.3f} ms, cuDNN "
           f"autograd {lib_ms:.3f} ms; dX+dW {bwd_flops / 1e9:.2f} GFLOP "
-          f"needed, recompute {fwd_flops / 1e9:.2f} GFLOP")
+          f"needed, recompute {fwd_flops / 1e9:.2f} GFLOP; the bf16 kernels "
+          f"compute {computed / 1e9:.2f} GFLOP (recompute, dX, dW); "
+          f"stage-by-stage bytes {count.n / 1e9:.3f} GB = "
+          f"{count.n / PEAK_BYTES * 1e3:.4f} ms at {PEAK_BYTES / 1e12} TB/s")
     return {"ms": ms, "plain_ms": plain, "library_ms": lib_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -539,6 +710,9 @@ def k3_numbers(torch, model, launches_per_step):
                      f"fused), x {tuple(xb.shape)} bf16, dy "
                      f"{tuple(dyb.shape)}",
             "bwd_gflop": bwd_flops / 1e9, "recompute_gflop": fwd_flops / 1e9,
+            "gflop_computed": computed / 1e9,
+            "stage_bytes": count.n,
+            "stage_bytes_ms": count.n / PEAK_BYTES * 1e3,
             "launches_per_step": launches_per_step}
 
 
@@ -553,9 +727,12 @@ def main():
         from timbre_trap_tpu_torch.models import TimbreTrap
         from timbre_trap_tpu_torch.models.modules import TimbreTrapNet
         from timbre_trap_tpu_torch.ops import _build
+        from timbre_trap_tpu_torch.interop import hwio_params
+        from timbre_trap_tpu_torch.models.fused import level_specs
         from timbre_trap_tpu_torch.ops.fused_level import (
-            banded_conv, banded_conv_dw, banded_conv_dx, chain_flops,
-            elu_backward, fused_level_apply, packed_level_apply)
+            _apply_chain, band_flops, banded_conv, banded_conv_dw,
+            banded_conv_dx, chain_flops, elu_backward, fused_level_apply,
+            packed_level_apply)
         from timbre_trap_tpu_torch.ops.packed_conv import pack_nhwc
         from timbre_trap_tpu_torch.ops.peaks import (peak_mask,
                                                      peak_mask_reference)
@@ -570,7 +747,7 @@ def main():
           f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     # 1. build
-    phase_build(_build)
+    sass = phase_build(_build)
 
     # 2. parity at the flagship shapes, on real features of the clip
     model = TimbreTrap(SR, N_OCT, BPO, SECS, latent_size=LATENT,
@@ -589,10 +766,14 @@ def main():
     k1_err, k2_err = phase_parity(torch, model, x, warm, n_frames)
     train_frames = model.sliCQ.get_expected_frames(int(TRAIN_SECS * SR))
     k3_err = phase_k3_parity(torch, model.net, train_frames)
+    with torch.no_grad():
+        train_specs = sum(level_specs(hwio_params(model.net), model.net,
+                                      True), [])
+    band_err = phase_band_parity(torch, model._spec(True), train_specs)
     print(f"parity: {time.perf_counter() - t_par:.1f} s")
 
     # 3. the main path: transcribe + peak_mask, counted
-    banded_conv.launches = 0
+    banded_conv.launches = banded_conv.mma_launches = 0
     peak_mask.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -601,6 +782,7 @@ def main():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"banded_conv": banded_conv.launches,
+                "banded_conv.mma": banded_conv.mma_launches,
                 "peak_mask": peak_mask.launches}
     check(tuple(acts.shape) == (1, F, n_frames),
           f"activations {tuple(acts.shape)}, expected (1, {F}, {n_frames})")
@@ -611,6 +793,8 @@ def main():
     check(torch.equal(mask, peak_mask_reference(acts, 0.5)),
           "the main path's peak mask differs from its plain version")
     check(launches["banded_conv"] > 0, "K1 was not launched on the main path")
+    check(launches["banded_conv.mma"] > 0,
+          "K1's tensor-core kernel was not launched on the main path")
     check(launches["peak_mask"] > 0, "K2 was not launched on the main path")
     rtf = CLIP_SECS / wall
     print(f"main: {CLIP_SECS:.0f} s clip in {wall:.3f} s (RTF {rtf:.1f}), "
@@ -646,6 +830,9 @@ def main():
     train, train_launches, train_model = phase_train(
         torch, (banded_conv,) + k3_wrappers)
     k3_launches = sum(train_launches[fn.__name__] for fn in k3_wrappers)
+    for name in ("banded_conv", "banded_conv_dx", "banded_conv_dw"):
+        check(train_launches[f"{name}.mma"] > 0, f"{name}'s tensor-core "
+              "kernel was not launched by the train step")
 
     # 4. numbers at the main path's shapes
     spec = model._spec(True)
@@ -665,7 +852,17 @@ def main():
     launches_per_forward = sum(1 for _ in spec.convs())
     n_cols = x.shape[0] * x.shape[-1]
     flops = chain_flops(spec, n_cols)
+    computed = band_flops(spec.convs(), n_cols)
     conv_flops = needed_flops(spec, x.shape[0], x.shape[-1])
+    count = ByteCount(torch)
+    with torch.no_grad():
+        _apply_chain(xb, spec, torch.bfloat16, count.stage)
+    print(f"K1 forward {tuple(x.shape)} bf16: {k1_ms:.3f} ms (float32 "
+          f"{k1_ms32:.3f} ms), plain {k1_plain:.3f} ms, cuDNN net "
+          f"{k1_lib:.3f} ms; computes {computed / 1e9:.2f} GFLOP on the bands "
+          f"(full blocks {flops / 1e9:.2f}, needed {conv_flops / 1e9:.2f}); "
+          f"stage-by-stage bytes {count.n / 1e9:.3f} GB = "
+          f"{count.n / PEAK_BYTES * 1e3:.4f} ms at {PEAK_BYTES / 1e12} TB/s")
     w_bytes = sum(cb.blocks.numel() * 2 + cb.bias.numel() * 4
                   for cb in spec.convs())
     io_bytes = x.numel() * 2 + x.shape[0] * spec.r_out * x.shape[-1] * 2
@@ -680,11 +877,13 @@ def main():
 
     kernels = [
         {"name": "banded_conv", "route": "cuda",
-         "source": "timbre_trap_tpu_torch/csrc/banded_conv.cu",
+         "source": "timbre_trap_tpu_torch/csrc/band_mma.cu",
+         "source_f32": "timbre_trap_tpu_torch/csrc/banded_conv.cu",
          "replaces": "timbre_trap_tpu/ops/fused_level.py:463",
          "launches": launches["banded_conv"],
+         "launches_mma": launches["banded_conv.mma"],
          "launches_train": train_launches["banded_conv"],
-         "max_abs_err": k1_err,
+         "max_abs_err": k1_err, "band_max_rel_err": band_err, "sass": sass,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": max(t_ops, t_bytes),
          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
          "library_ms": k1_lib,
@@ -692,7 +891,9 @@ def main():
                   f"{tuple(x.shape)} bf16",
          "ms_f32": k1_ms32, "plain_ms_f32": k1_plain32,
          "bound_ms_f32": max(conv_flops / PEAK_F32_FLOPS * 1e3, 2 * t_bytes),
-         "gflop": flops / 1e9, "conv_gflop": conv_flops / 1e9},
+         "gflop": flops / 1e9, "gflop_computed": computed / 1e9,
+         "conv_gflop": conv_flops / 1e9, "stage_bytes": count.n,
+         "stage_bytes_ms": count.n / PEAK_BYTES * 1e3},
         {"name": "peak_mask", "route": "cuda",
          "source": "timbre_trap_tpu_torch/csrc/peak_mask.cu",
          "replaces": "timbre_trap_tpu/ops/pallas_kernels.py:26",
@@ -701,11 +902,13 @@ def main():
          "bound_by": "bytes", "library_ms": None,
          "shape": f"{tuple(acts.shape)} float32 -> uint8"},
         {"name": "banded_conv_bwd", "route": "cuda",
-         "source": "timbre_trap_tpu_torch/csrc/banded_conv_bwd.cu",
+         "source": "timbre_trap_tpu_torch/csrc/band_mma.cu",
+         "source_f32": "timbre_trap_tpu_torch/csrc/banded_conv_bwd.cu",
          "replaces": "timbre_trap_tpu/ops/fused_level.py:647",
          "launches": k3_launches,
-         "launches_by_wrapper": {fn.__name__: train_launches[fn.__name__]
-                                 for fn in k3_wrappers},
+         "launches_by_wrapper": {k: v for k, v in train_launches.items()
+                                 if not k.startswith("banded_conv.")
+                                 and k != "banded_conv"},
          "max_abs_err": k3_err, **k3},
     ]
     print(f"transcribe_rtf: {rtf:.2f} first call, {rtf_warm:.2f} second call "

@@ -1,4 +1,8 @@
-"""The port's hand-written CUDA kernels against their plain PyTorch twins.
+"""The port's hand-written CUDA kernels against their plain PyTorch twins:
+the conv stage (K1: bf16 through the tensor-core kernels of
+``csrc/band_mma.cu``, float32 through ``csrc/banded_conv.cu``), the peak
+mask (K2) and the level backward (K3: bf16 dX and dW through
+``csrc/band_mma.cu``, float32 through ``csrc/banded_conv_bwd.cu``).
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed. The tests marked ``cuda`` need a card and skip
@@ -19,8 +23,9 @@ from timbre_trap_tpu_torch.models.fused import level_specs
 from timbre_trap_tpu_torch.models.modules import init_weights
 from timbre_trap_tpu_torch.ops import packed_conv as pc
 from timbre_trap_tpu_torch.ops.fused_level import (
-    banded_conv, banded_conv_dw, banded_conv_dx, banded_conv_reference,
-    chain_flops, elu_backward, fused_level_apply, level_backward,
+    banded_conv, banded_conv_dw, banded_conv_dw_reference, banded_conv_dx,
+    banded_conv_dx_reference, banded_conv_reference, chain_flops,
+    elu_backward, fused_level_apply, level_backward,
     level_backward_reference, packed_level_apply, spec_time_reach)
 from timbre_trap_tpu_torch.ops.peaks import peak_mask, peak_mask_reference
 
@@ -249,3 +254,83 @@ def test_level_backward_dw_is_bitwise_stable(cuda_device):
     for (dw1, db1), (dw2, db2) in zip(runs[0][1], runs[1][1]):
         assert torch.equal(dw1, dw2) and torch.equal(db1, db2)
     assert torch.equal(runs[0][0], runs[1][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [3072, 1001])
+def test_band_kernels_match_plain_at_long_and_ragged_t(cuda_device, t):
+    """The bf16 tensor-core kernels (csrc/band_mma.cu) on every conv kind,
+    at the recipe's T and at a ragged T: the stage (bias, ELU, residual)
+    and the dX product (float32 cotangent, residual, raw, ELU') within
+    1e-2 * max|ref| of their bf16 twins (sum order and output rounding)."""
+    rng = np.random.default_rng(12)
+    bf16 = torch.bfloat16
+    for name, cb in _conv_cases(cuda_device).items():
+        x = _rand(rng, 2, cb.r_in, t).to(cuda_device, bf16)
+        res = _rand(rng, 2, cb.r_out, t).to(cuda_device, bf16)
+        before = banded_conv.mma_launches
+        got = banded_conv(x, cb, True, res)
+        assert banded_conv.mma_launches == before + 1
+        want = banded_conv_reference(x, cb, True, res)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 1e-2 * want.float().abs().max().item(), (name, t, err)
+        if cb.per_block:
+            continue
+        cb.bias = torch.zeros_like(cb.bias)     # an adjoint map has no bias
+        c = _rand(rng, 2, cb.r_in, t).to(cuda_device)
+        r32 = _rand(rng, 2, cb.r_out, t).to(cuda_device)
+        s2 = _rand(rng, 2, cb.r_out, t).to(cuda_device, bf16)
+        kw = dict(residual=r32, elu=(res, s2), keep_raw=True)
+        before = banded_conv_dx.mma_launches
+        out, raw = banded_conv_dx(c, cb, bf16, **kw)
+        assert banded_conv_dx.mma_launches == before + 1
+        out_ref, raw_ref = banded_conv_dx_reference(c, cb, bf16, **kw)
+        torch.cuda.synchronize()
+        for g, w in ((out, out_ref), (raw, raw_ref)):
+            err = (g - w).abs().max().item()
+            assert err <= 1e-2 * w.abs().max().item(), (name, t, err)
+
+
+@pytest.mark.cuda
+def test_band_dw_matches_masked_twin_and_is_bitwise_stable(cuda_device):
+    """bf16 dW on the bands (zeros elsewhere) and dBias against the twin
+    masked with the same bands, within 1e-2 * max|ref|; two runs give the
+    same bits."""
+    rng = np.random.default_rng(13)
+    for name, cb in _conv_cases(cuda_device).items():
+        if cb.per_block:
+            continue
+        x = _rand(rng, 2, cb.r_in, 1001).to(cuda_device, torch.bfloat16)
+        dz = _rand(rng, 2, cb.r_out, 1001).to(cuda_device)
+        runs = [banded_conv_dw(dz, x, cb) for _ in range(2)]
+        want = banded_conv_dw_reference(dz, x, cb)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*runs)), name
+        assert not runs[0][0][~cb.band_mask()].any(), name
+        for got, ref in zip(runs[0], want):
+            err = (got - ref).abs().max().item()
+            assert err <= 1e-2 * ref.abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+def test_band_kernels_reject_what_they_do_not_take(cuda_device):
+    """The bf16 route stages at most 8 frames per side (a dilation-9 tap
+    runs in float32 only), and dX/dW take no dense per-block map."""
+    rng = np.random.default_rng(14)
+    wide = pc.build_conv2d_blocks(_rand(rng, 3, 3, 4, 4), _rand(rng, 4), 64,
+                                  9)
+    wide.blocks, wide.bias = wide.blocks.cuda(), wide.bias.cuda()
+    x = torch.zeros((1, wide.r_in, 16), device=cuda_device)
+    banded_conv(x, wide)
+    with pytest.raises(ValueError):
+        banded_conv(x.to(torch.bfloat16), wide)
+    with pytest.raises(ValueError):
+        banded_conv_dx(x, wide, torch.bfloat16)
+    with pytest.raises(ValueError):
+        banded_conv_dw(torch.zeros((1, wide.r_out, 16), device=cuda_device),
+                       x.to(torch.bfloat16), wide)
+    dense = _conv_cases(cuda_device)["dense-exp"]
+    c = torch.zeros((1, dense.r_in, 16), device=cuda_device)
+    with pytest.raises(ValueError):
+        banded_conv_dx(c, dense, torch.bfloat16)

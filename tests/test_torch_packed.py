@@ -111,6 +111,23 @@ def test_pack_round_trip():
 # Level chains (the plain twin of K1)                                    #
 # --------------------------------------------------------------------- #
 
+def _numpy_params(mod, x, rng):
+    """Parameters with the flax module's tree and shapes (``eval_shape``:
+    nothing is compiled or run), drawn with numpy: kernels at the LeCun
+    scale of flax's init, biases at 0.1. The values then depend on the seed
+    alone, not on executables that other test processes leave in the
+    persistent compilation cache (``tests/conftest.py``)."""
+    shapes = jax.eval_shape(lambda: mod.init(jax.random.PRNGKey(1), x))
+
+    def draw(path, leaf):
+        if path[-1].key == "kernel":
+            fan_in = int(np.prod(leaf.shape[:-1]))
+            return jnp.asarray(_rand(rng, *leaf.shape, scale=fan_in ** -0.5))
+        return jnp.asarray(_rand(rng, *leaf.shape, scale=0.1))
+
+    return jax.tree_util.tree_map_with_path(draw, shapes["params"])
+
+
 @pytest.mark.parametrize("kind,c,f", [("encoder", 4, 540), ("decoder", 64, 31)])
 def test_packed_level_apply_matches_xla(kind, c, f):
     rng = np.random.default_rng(c)
@@ -118,12 +135,12 @@ def test_packed_level_apply_matches_xla(kind, c, f):
     x = jnp.asarray(_rand(rng, B, f, T, c))
     if kind == "encoder":
         mod = JaxEncoderBlock(out_channels=2 * c)
-        params = mod.init(jax.random.PRNGKey(1), x)["params"]
+        params = _numpy_params(mod, x, rng)
         want_spec = jax_encoder_level_spec(params, f)
         spec = encoder_level_spec(_torch_tree(params), f)
     else:
         mod = JaxDecoderBlock(out_channels=c // 2, padding=0)
-        params = mod.init(jax.random.PRNGKey(1), x)["params"]
+        params = _numpy_params(mod, x, rng)
         want_spec = jax_decoder_level_spec(params, f, output_padding=0)
         spec = decoder_level_spec(_torch_tree(params), f, output_padding=0)
     xp = jpc.pack_nhwc(x)

@@ -1,0 +1,783 @@
+// Band-tiled bf16 tensor-core products of the conv chain (K1) and of the
+// level backward (K3 dX and dW), for Hopper (sm_90a).
+//
+// Replaces, for bfloat16 storage, the products of the Pallas TPU kernels
+// timbre_trap_tpu/ops/fused_level.py `_level_kernel` (K1, launched by
+// `_pallas_fwd_call`) and `_level_bwd_kernel` (K3, launched by
+// `_pallas_bwd_call`). Float32 keeps the IEEE FFMA kernels of
+// banded_conv.cu and banded_conv_bwd.cu; the wrappers in
+// ops/fused_level.py route by dtype.
+//
+// The banded blocks are mostly structural zeros: an output row of a conv
+// reads n_df * c_in of a block's K input rows. Each 64-row half of a
+// 128-row block (a sub-tile) therefore carries its band, the first block
+// column it reads and how many, rounded out to 16 (ops/packed_conv.py
+// `_sub_tile_bands`, from the static tap map). Every product here runs over
+// a sub-tile's band only, with mma.sync m16n8k16 (bf16 operands, float32
+// accumulators) fed by ldmatrix from shared memory.
+//
+//   tt_band_conv     K1 stage: y[64g + r, t] = epi(sum_dt sum_k
+//                      W_g,dt[r, k] * x[s_g + k, t + dt]), s_g the input row
+//                      of band column 0 of sub-tile g; epilogue as
+//                      banded_conv.cu: bias, ELU as exp(min(v, 0)) - 1,
+//                      residual add.
+//   tt_band_conv_dx  K3 dX: the same product of the float32 cotangent,
+//                      rounded to bf16 while it is staged, with the adjoint
+//                      bands; epilogue as tt_banded_conv_dx: + residual
+//                      cotangent, raw, * ELU' from stored outputs.
+//   tt_band_conv_dw  K3 dW: dW_dt[r, k] = sum_{b,j,t} dZ[b, 128j + r, t] *
+//                      x[b, j*col_adv - margin + k, t + dt] on band entries
+//                      only (zeros elsewhere), dBias[r] from the float32
+//                      dZ. Fixed slices of the (b, j, 64 frames) chunks,
+//                      per-slice partials, a fixed-order second pass: the
+//                      same bits every run.
+//
+// Design. A time tap shifts the frames by dt (|dt| <= 8), which breaks the
+// 16-byte row alignment ldmatrix needs if the shifted operand is stored with
+// frames contiguous. So the operand that carries the shift is staged
+// TRANSPOSED: frames are its shared-memory rows, and a tap is a row offset.
+// The forward/dX operand x is read from global memory 8 frames x 2 rows at
+// a time (16-byte loads where the rows are 16-byte aligned, element loads
+// at ragged edges), packed into bf16 pairs and stored as xs[frame][k]; all
+// taps of a k chunk read that one tile. dW stages dZ the same way (as
+// zs[frame][r], ldmatrix.trans gives the A fragments) and x untransposed.
+// Loads for the next k chunk are in flight while the current one is
+// multiplied (two buffers, register staging; weights by cp.async).
+//
+// What bounds it: with the zeros skipped, a stage needs ~2 * n_dt * 64 * L
+// flops per sub-tile and frame (L the band, 48-256) against ~2 bytes per
+// row and frame in and out, so one stage is near the card's bytes-per-flop
+// line and a forward chain is bound by its bytes (each stage reads and
+// writes its activations). mma.sync rather than wgmma: its fragments come
+// straight from the transposed tiles with per-row addresses, where wgmma's
+// shared-memory descriptors want whole swizzled tiles at aligned offsets.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kSub = 64;                     // rows of a sub-tile
+constexpr int kHalo = 8;                     // frames staged per side: |dt| <= 8
+constexpr int kThreads = 256;                // 8 warps
+// K1 / dX: a CTA computes one sub-tile x kTileT frames, kKc band columns
+// per pipeline stage; warp (wm, wn) owns rows 32wm.. and frames 32wn...
+constexpr int kTileT = 128;
+constexpr int kKc = 32;
+constexpr int kXRows = kTileT + 2 * kHalo;   // 144 staged frames
+constexpr int kPitch = kKc + 8;              // 80-byte rows: conflict-free ldmatrix
+constexpr int kXItems = (kKc / 2) * (kXRows / 8);   // (row pair, 8 frames) items
+constexpr int kXSlots = (kXItems + kThreads - 1) / kThreads;
+constexpr int kFwdSmem = (2 * kXRows * kPitch + 2 * 3 * kSub * kPitch) * 2;
+// dW: a CTA sums a 64-row x kDwN-column band tile of every tap over the
+// kDwT-frame chunks of its slice; warp (wm, wn) owns rows 16wm.., columns
+// 32wn...
+constexpr int kDwT = 64;
+constexpr int kDwN = 64;
+constexpr int kZRows = kDwT + 2 * kHalo;     // 80 staged frames of dZ
+constexpr int kZPitch = kSub + 8;            // 144-byte rows
+constexpr int kXdPitch = kDwT + 8;
+constexpr int kZItems = (kSub / 2) * (kZRows / 8);  // 320
+constexpr int kZSlots = (kZItems + kThreads - 1) / kThreads;
+constexpr int kXdItems = kDwN * (kDwT / 8);          // 512
+constexpr int kXdSlots = kXdItems / kThreads;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(const void* p, uint32_t& r0, uint32_t& r1,
+                                        uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(const void* p, uint32_t& r0, uint32_t& r1,
+                                              uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(smem_u32(p)));
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 operands, float32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+// Frames [t, t + 8) of one bf16 row, zero outside [0, t_len) and for a null
+// row (a row outside the tensor).
+__device__ __forceinline__ uint4 load8(const bf16* row, int t, int t_len, bool aligned) {
+  if (row == nullptr) return make_uint4(0u, 0u, 0u, 0u);
+  if (aligned && t >= 0 && t + 8 <= t_len) return __ldg(reinterpret_cast<const uint4*>(row + t));
+  const unsigned short* p = reinterpret_cast<const unsigned short*>(row);
+  uint32_t h[8];
+#pragma unroll
+  for (int m = 0; m < 8; ++m) h[m] = (t + m >= 0 && t + m < t_len) ? p[t + m] : 0u;
+  return make_uint4(h[0] | (h[1] << 16), h[2] | (h[3] << 16), h[4] | (h[5] << 16),
+                    h[6] | (h[7] << 16));
+}
+
+// The same for a float32 row: two float4 (frames t..t+3, t+4..t+7).
+__device__ __forceinline__ void load8(const float* row, int t, int t_len, bool aligned,
+                                      float4& lo, float4& hi) {
+  if (row == nullptr) {
+    lo = hi = make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
+  if (aligned && t >= 0 && t + 8 <= t_len) {
+    lo = __ldg(reinterpret_cast<const float4*>(row + t));
+    hi = __ldg(reinterpret_cast<const float4*>(row + t + 4));
+    return;
+  }
+  float v[8];
+#pragma unroll
+  for (int m = 0; m < 8; ++m) v[m] = (t + m >= 0 && t + m < t_len) ? row[t + m] : 0.f;
+  lo = make_float4(v[0], v[1], v[2], v[3]);
+  hi = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// Eight frames of two adjacent rows (a: row k, b: row k + 1) as loaded;
+// words() gives, per frame, the bf16 pair (x[k], x[k + 1]) as one 32-bit
+// word, the layout of a row of a transposed tile.
+template <typename TS>
+struct RowPair;
+
+template <>
+struct RowPair<bf16> {
+  uint4 a, b;
+  __device__ __forceinline__ void load(const bf16* ra, const bf16* rb, int t, int t_len,
+                                       bool aligned) {
+    a = load8(ra, t, t_len, aligned);
+    b = load8(rb, t, t_len, aligned);
+  }
+  __device__ __forceinline__ void words(uint32_t (&w)[8]) const {
+    const uint32_t av[4] = {a.x, a.y, a.z, a.w};
+    const uint32_t bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      w[2 * i] = __byte_perm(av[i], bv[i], 0x5410);
+      w[2 * i + 1] = __byte_perm(av[i], bv[i], 0x7632);
+    }
+  }
+};
+
+template <>
+struct RowPair<float> {
+  float4 a0, a1, b0, b1;
+  __device__ __forceinline__ void load(const float* ra, const float* rb, int t, int t_len,
+                                       bool aligned) {
+    load8(ra, t, t_len, aligned, a0, a1);
+    load8(rb, t, t_len, aligned, b0, b1);
+  }
+  __device__ __forceinline__ void words(uint32_t (&w)[8]) const {
+    w[0] = pack_bf16(a0.x, b0.x);
+    w[1] = pack_bf16(a0.y, b0.y);
+    w[2] = pack_bf16(a0.z, b0.z);
+    w[3] = pack_bf16(a0.w, b0.w);
+    w[4] = pack_bf16(a1.x, b1.x);
+    w[5] = pack_bf16(a1.y, b1.y);
+    w[6] = pack_bf16(a1.z, b1.z);
+    w[7] = pack_bf16(a1.w, b1.w);
+  }
+  __device__ __forceinline__ float sum_a() const {
+    return ((a0.x + a0.y) + (a0.z + a0.w)) + ((a1.x + a1.y) + (a1.z + a1.w));
+  }
+  __device__ __forceinline__ float sum_b() const {
+    return ((b0.x + b0.y) + (b0.z + b0.w)) + ((b1.x + b1.y) + (b1.z + b1.w));
+  }
+};
+
+__device__ __forceinline__ int tap_shift(int di, int dt0, int dt1, int dt2) {
+  return di == 0 ? dt0 : (di == 1 ? dt1 : dt2);
+}
+
+// ------------------------------------------------------------------ //
+// K1 stage and K3 dX: one sub-tile x 128 frames per CTA                //
+// ------------------------------------------------------------------ //
+
+struct BandArgs {
+  const void* src;     // (B, r_in, T): bf16 (K1) or float32 (dX cotangent)
+  const bf16* w;       // (n_wsub, n_dt, 64, width) band weights
+  const float* bias;   // K1: (128,) pattern, or (n_blocks * 128,) per block
+  const void* res;     // K1: bf16 residual; dX: float32 residual cotangent
+  const bf16* s1;      // dX: stored output for ELU'
+  const bf16* s2;      // dX: stored item input subtracted from s1
+  float* raw;          // dX: the value before ELU'
+  void* out;           // (B, r_out, T)
+  int r_in, r_out, t_len, n_dt, dt0, dt1, dt2;
+  int col_adv, margin, width, per_block, act, aligned;
+  int kb0, kl0, kb1, kl1;
+};
+
+// Writes the float32 values of frames col, col + 1 of one output row.
+template <typename TO>
+__device__ __forceinline__ void store_pair(TO* out, size_t o, int col, int t_len, float v0,
+                                           float v1);
+template <>
+__device__ __forceinline__ void store_pair<float>(float* out, size_t o, int col, int t_len,
+                                                  float v0, float v1) {
+  if ((t_len & 1) == 0 && col + 1 < t_len) {
+    *reinterpret_cast<float2*>(out + o) = make_float2(v0, v1);
+  } else {
+    if (col < t_len) out[o] = v0;
+    if (col + 1 < t_len) out[o + 1] = v1;
+  }
+}
+template <>
+__device__ __forceinline__ void store_pair<bf16>(bf16* out, size_t o, int col, int t_len,
+                                                 float v0, float v1) {
+  if ((t_len & 1) == 0 && col + 1 < t_len) {
+    *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    if (col < t_len) out[o] = __float2bfloat16_rn(v0);
+    if (col + 1 < t_len) out[o + 1] = __float2bfloat16_rn(v1);
+  }
+}
+
+// kDx = false: K1 epilogue (bias, ELU, bf16 residual); true: dX epilogue.
+// Three CTAs an SM for a bf16 source (<= 85 registers), two for float32,
+// whose staged chunk takes twice the registers.
+template <typename TS, bool kDx, typename TO>
+__global__ void __launch_bounds__(kThreads, sizeof(TS) == 2 ? 3 : 2)
+    band_product_kernel(const BandArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);       // [2][kXRows][kPitch]
+  bf16* ws = xs + 2 * kXRows * kPitch;                 // [2][3][kSub][kPitch]
+
+  const int t0 = blockIdx.x * kTileT;
+  const int g = blockIdx.y;
+  const int b = blockIdx.z;
+  const int s = g & 1;
+  const int kb = s ? a.kb1 : a.kb0;
+  const int kl = s ? a.kl1 : a.kl0;
+  const int wsub = a.per_block ? g : s;
+  const int row0 = (g >> 1) * a.col_adv - a.margin + kb;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp & 1;
+  const int wn = warp >> 1;
+  const bool aligned = a.aligned != 0;
+
+  const TS* src = static_cast<const TS*>(a.src) + (size_t)b * a.r_in * a.t_len;
+  const bf16* wsrc = a.w + (size_t)wsub * a.n_dt * kSub * a.width;
+  const int n_chunks = (kl + kKc - 1) / kKc;
+
+  RowPair<TS> st[kXSlots];
+  auto load_x = [&](int c) {
+#pragma unroll
+    for (int i = 0; i < kXSlots; ++i) {
+      const int item = tid + i * kThreads;
+      if (item < kXItems) {
+        const int kp = item % (kKc / 2);
+        const int tc = item / (kKc / 2);
+        const int r = row0 + c * kKc + 2 * kp;
+        const TS* ra = (r >= 0 && r < a.r_in) ? src + (size_t)r * a.t_len : nullptr;
+        const TS* rb = (r + 1 >= 0 && r + 1 < a.r_in) ? src + (size_t)(r + 1) * a.t_len : nullptr;
+        st[i].load(ra, rb, t0 - kHalo + 8 * tc, a.t_len, aligned);
+      }
+    }
+  };
+  auto store_x = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < kXSlots; ++i) {
+      const int item = tid + i * kThreads;
+      if (item < kXItems) {
+        const int kp = item % (kKc / 2);
+        const int tc = item / (kKc / 2);
+        uint32_t w[8];
+        st[i].words(w);
+        bf16* base = xs + ((size_t)buf * kXRows + 8 * tc) * kPitch + 2 * kp;
+#pragma unroll
+        for (int m = 0; m < 8; ++m) *reinterpret_cast<uint32_t*>(base + m * kPitch) = w[m];
+      }
+    }
+  };
+  auto load_w = [&](int c, int buf) {
+    const int pieces = a.n_dt * kSub * (kKc / 8);
+    for (int p = tid; p < pieces; p += kThreads) {
+      const int tap = p / (kSub * (kKc / 8));
+      const int rem = p % (kSub * (kKc / 8));
+      const int r = rem / (kKc / 8);
+      const int q = rem % (kKc / 8);
+      cp_async16(ws + (((size_t)buf * 3 + tap) * kSub + r) * kPitch + 8 * q,
+                 wsrc + ((size_t)tap * kSub + r) * a.width + c * kKc + 8 * q);
+    }
+    cp_async_commit();
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  load_x(0);
+  load_w(0, 0);
+  store_x(0);
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int c = 0; c < n_chunks; ++c) {
+    const int buf = c & 1;
+    const bool more = c + 1 < n_chunks;
+    if (more) {
+      load_x(c + 1);
+      load_w(c + 1, buf ^ 1);
+    }
+    const int ksteps = min(2, (kl - c * kKc) / 16);
+    const bf16* xb = xs + (size_t)buf * kXRows * kPitch;
+#pragma unroll
+    for (int tap = 0; tap < 3; ++tap) {
+      if (tap < a.n_dt) {
+        const int dt = tap_shift(tap, a.dt0, a.dt1, a.dt2);
+        const bf16* wb = ws + ((size_t)buf * 3 + tap) * kSub * kPitch;
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          if (ks < ksteps) {
+            uint32_t af[2][4];
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+              ldsm_x4(wb + (32 * wm + 16 * mi + (lane & 15)) * kPitch + 16 * ks + 8 * (lane >> 4),
+                      af[mi][0], af[mi][1], af[mi][2], af[mi][3]);
+            uint32_t bfr[4][2];
+#pragma unroll
+            for (int nj = 0; nj < 2; ++nj) {
+              const int n = 32 * wn + 16 * nj + (lane & 7) + 8 * (lane >> 4);
+              ldsm_x4(xb + (n + kHalo + dt) * kPitch + 16 * ks + 8 * ((lane >> 3) & 1),
+                      bfr[2 * nj][0], bfr[2 * nj][1], bfr[2 * nj + 1][0], bfr[2 * nj + 1][1]);
+            }
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+              for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
+          }
+        }
+      }
+    }
+    if (more) store_x(buf ^ 1);
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+  const size_t out_base = (size_t)b * a.r_out * a.t_len;
+  TO* out = static_cast<TO*>(a.out);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row_l = 32 * wm + 16 * mi + (lane >> 2) + 8 * h;
+      const int orow = g * kSub + row_l;
+      if (orow >= a.r_out) continue;
+      const size_t row_o = out_base + (size_t)orow * a.t_len;
+      // Every load of the row's 8 outputs (read-only path) before its
+      // stores, which the compiler cannot prove apart from them: one round
+      // trip to memory a row, not one an output.
+      float add[4][2], yarg[4][2];
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = t0 + 32 * wn + 8 * ni + 2 * (lane & 3) + e;
+          const bool ok = col < a.t_len;
+          add[ni][e] = 0.f;
+          yarg[ni][e] = 1.f;
+          if (ok && a.res != nullptr)
+            add[ni][e] = kDx ? __ldg(static_cast<const float*>(a.res) + row_o + col)
+                             : to_f32(__ldg(static_cast<const bf16*>(a.res) + row_o + col));
+          if (kDx && ok && a.s1 != nullptr) {
+            float y = to_f32(__ldg(a.s1 + row_o + col));
+            if (a.s2 != nullptr) y -= to_f32(__ldg(a.s2 + row_o + col));
+            yarg[ni][e] = y;
+          }
+        }
+      }
+      const float bias = kDx ? 0.f : __ldg(a.bias + (a.per_block ? orow : s * kSub + row_l));
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int col = t0 + 32 * wn + 8 * ni + 2 * (lane & 3);
+        if (col >= a.t_len) continue;
+        const size_t o = row_o + col;
+        float v[2] = {acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (!kDx) {
+            v[e] += bias;
+            if (a.act) v[e] = v[e] > 0.f ? v[e] : expf(fminf(v[e], 0.f)) - 1.f;
+            v[e] += add[ni][e];
+          } else {
+            v[e] += add[ni][e];
+            if (a.raw != nullptr && col + e < a.t_len) a.raw[o + e] = v[e];
+            if (a.s1 != nullptr) v[e] *= yarg[ni][e] > 0.f ? 1.f : yarg[ni][e] + 1.f;
+          }
+        }
+        store_pair<TO>(out, o, col, a.t_len, v[0], v[1]);
+      }
+    }
+  }
+}
+
+template <typename TS, bool kDx, typename TO>
+int launch_band_product(const BandArgs& a, int batch, cudaStream_t st) {
+  const auto kernel = band_product_kernel<TS, kDx, TO>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  const dim3 grid((a.t_len + kTileT - 1) / kTileT, (a.r_out + kSub - 1) / kSub, batch);
+  kernel<<<grid, kThreads, kFwdSmem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------------ //
+// K3 dW: band tiles, per-slice partials, fixed-order reduction         //
+// ------------------------------------------------------------------ //
+
+struct DwArgs {
+  const float* dz;     // (B, r_out, T) float32 cotangent of the conv's output
+  const bf16* x;       // (B, r_in, T) the conv's input
+  float* part;         // (n_slices, n_dt, 128, k) partial dW (band entries)
+  float* part_bias;    // (n_slices, 128) partial dBias
+  int batch, r_in, r_out, t_len, n_dt, dt0, dt1, dt2;
+  int k, col_adv, margin, n_blocks, n_slices, aligned;
+  int kb0, kl0, kb1, kl1;
+};
+
+// Grid (n column tiles, 2 sub-tiles, n_slices). Slice sl sums the chunks
+// [Q*sl/S, Q*(sl+1)/S) of the Q = B * n_blocks * ceil(T / 64) chunks of
+// (batch, block, 64 frames), in order.
+__global__ void __launch_bounds__(kThreads, 2) band_dw_partial_kernel(const DwArgs a) {
+  // bf16 tiles, declared as their 16-bit words.
+  __shared__ __align__(16) uint16_t zs[2][kZRows][kZPitch];
+  __shared__ __align__(16) uint16_t xs[2][kDwN][kXdPitch];
+  __shared__ float bred[kZRows / 8][kSub];
+
+  const int s = blockIdx.y;
+  const int sl = blockIdx.z;
+  const int kb = s ? a.kb1 : a.kb0;
+  const int kl = s ? a.kl1 : a.kl0;
+  const int n0 = blockIdx.x * kDwN;
+  if (n0 >= kl) return;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp & 3;
+  const int wn = warp >> 2;
+  const bool aligned = a.aligned != 0;
+
+  const int n_tc = (a.t_len + kDwT - 1) / kDwT;
+  const long long n_chunks = (long long)a.batch * a.n_blocks * n_tc;
+  const long long q_begin = n_chunks * sl / a.n_slices;
+  const long long q_end = n_chunks * (sl + 1) / a.n_slices;
+
+  RowPair<float> zst[kZSlots];
+  uint4 xst[kXdSlots];
+  float bsum[kZSlots][2];
+#pragma unroll
+  for (int i = 0; i < kZSlots; ++i) bsum[i][0] = bsum[i][1] = 0.f;
+
+  auto load = [&](long long q) {
+    const int tcn = (int)(q % n_tc);
+    const long long bj = q / n_tc;
+    const int j = (int)(bj % a.n_blocks);
+    const int b = (int)(bj / a.n_blocks);
+    const int tc0 = tcn * kDwT;
+    const float* dz = a.dz + (size_t)b * a.r_out * a.t_len;
+#pragma unroll
+    for (int i = 0; i < kZSlots; ++i) {
+      const int item = tid + i * kThreads;
+      if (item < kZItems) {
+        const int rp = item % (kSub / 2);
+        const int tz = item / (kSub / 2);
+        const int r = j * 128 + s * kSub + 2 * rp;
+        const float* ra = r < a.r_out ? dz + (size_t)r * a.t_len : nullptr;
+        const float* rb = r + 1 < a.r_out ? dz + (size_t)(r + 1) * a.t_len : nullptr;
+        zst[i].load(ra, rb, tc0 - kHalo + 8 * tz, a.t_len, aligned);
+      }
+    }
+    const bf16* x = a.x + (size_t)b * a.r_in * a.t_len;
+    const int xrow0 = j * a.col_adv - a.margin + kb + n0;
+#pragma unroll
+    for (int i = 0; i < kXdSlots; ++i) {
+      const int item = tid + i * kThreads;
+      const int r = xrow0 + item / (kDwT / 8);
+      const bf16* row = (r >= 0 && r < a.r_in) ? x + (size_t)r * a.t_len : nullptr;
+      xst[i] = load8(row, tc0 + 8 * (item % (kDwT / 8)), a.t_len, aligned);
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < kZSlots; ++i) {
+      const int item = tid + i * kThreads;
+      if (item < kZItems) {
+        const int rp = item % (kSub / 2);
+        const int tz = item / (kSub / 2);
+        uint32_t w[8];
+        zst[i].words(w);
+#pragma unroll
+        for (int m = 0; m < 8; ++m)
+          *reinterpret_cast<uint32_t*>(&zs[buf][8 * tz + m][2 * rp]) = w[m];
+        // dBias counts each frame once: the chunk's own 64, not the halo.
+        if (tz >= 1 && tz <= kDwT / 8) {
+          bsum[i][0] += zst[i].sum_a();
+          bsum[i][1] += zst[i].sum_b();
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kXdSlots; ++i) {
+      const int item = tid + i * kThreads;
+      *reinterpret_cast<uint4*>(&xs[buf][item / (kDwT / 8)][8 * (item % (kDwT / 8))]) = xst[i];
+    }
+  };
+
+  float acc[3][4][4];
+#pragma unroll
+  for (int tap = 0; tap < 3; ++tap)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[tap][ni][e] = 0.f;
+
+  if (q_begin < q_end) {
+    load(q_begin);
+    store(0);
+  }
+  __syncthreads();
+  for (long long q = q_begin; q < q_end; ++q) {
+    const int buf = (int)((q - q_begin) & 1);
+    const bool more = q + 1 < q_end;
+    if (more) load(q + 1);
+#pragma unroll
+    for (int ks = 0; ks < kDwT / 16; ++ks) {
+      uint32_t bfr[4][2];
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj) {
+        const int n = 32 * wn + 16 * nj + (lane & 7) + 8 * (lane >> 4);
+        ldsm_x4(&xs[buf][n][16 * ks + 8 * ((lane >> 3) & 1)], bfr[2 * nj][0], bfr[2 * nj][1],
+                bfr[2 * nj + 1][0], bfr[2 * nj + 1][1]);
+      }
+#pragma unroll
+      for (int tap = 0; tap < 3; ++tap) {
+        if (tap < a.n_dt) {
+          const int dt = tap_shift(tap, a.dt0, a.dt1, a.dt2);
+          uint32_t af[4];
+          const int tz = 16 * ks + kHalo - dt + (lane & 7) + 8 * (lane >> 4);
+          ldsm_x4_trans(&zs[buf][tz][16 * wm + 8 * ((lane >> 3) & 1)], af[0], af[1], af[2],
+                        af[3]);
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[tap][ni], af, bfr[ni][0], bfr[ni][1]);
+        }
+      }
+    }
+    if (more) store(buf ^ 1);
+    __syncthreads();
+  }
+
+  float* part = a.part + (size_t)sl * a.n_dt * 128 * a.k;
+#pragma unroll
+  for (int tap = 0; tap < 3; ++tap) {
+    if (tap >= a.n_dt) continue;
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = s * kSub + 16 * wm + (lane >> 2) + 8 * h;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int cl = n0 + 32 * wn + 8 * ni + 2 * (lane & 3) + e;
+          const int col = kb + cl;
+          if (cl < kl && col < a.k)
+            part[((size_t)tap * 128 + r) * a.k + col] = acc[tap][ni][2 * h + e];
+        }
+      }
+    }
+  }
+  if (blockIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < kZSlots; ++i) {
+      const int item = tid + i * kThreads;
+      if (item < kZItems) {
+        const int rp = item % (kSub / 2);
+        const int tz = item / (kSub / 2);
+        bred[tz][2 * rp] = bsum[i][0];
+        bred[tz][2 * rp + 1] = bsum[i][1];
+      }
+    }
+    __syncthreads();
+    if (tid < kSub) {
+      float v = 0.f;
+      for (int tz = 1; tz <= kDwT / 8; ++tz) v += bred[tz][tid];
+      a.part_bias[(size_t)sl * 128 + s * kSub + tid] = v;
+    }
+  }
+}
+
+// dw[i] = sum over slices, in slice order, of part[s][i] on band entries,
+// 0 elsewhere; then dBias the same way.
+__global__ void band_dw_reduce_kernel(const float* part, const float* part_bias, float* dw,
+                                      float* db, int n_slices, int n_w, int k, int kb0, int kl0,
+                                      int kb1, int kl1) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n_w) {
+    const int col = i % k;
+    const int r = (i / k) % 128;
+    const int kb = r < kSub ? kb0 : kb1;
+    const int kl = r < kSub ? kl0 : kl1;
+    float v = 0.f;
+    if (col >= kb && col < kb + kl)
+      for (int sl = 0; sl < n_slices; ++sl) v += part[(size_t)sl * n_w + i];
+    dw[i] = v;
+  } else if (i < n_w + 128) {
+    const int r = i - n_w;
+    float v = 0.f;
+    for (int sl = 0; sl < n_slices; ++sl) v += part_bias[(size_t)sl * 128 + r];
+    db[r] = v;
+  }
+}
+
+}  // namespace
+
+// K1 stage, bf16 storage. x, res, y: (B, r_in|r_out, T) bf16; w: band
+// weights (n_wsub, n_dt, 64, width) bf16; bias float32. aligned: the rows
+// of x are 16-byte aligned (T % 8 == 0 and an aligned base). Returns
+// cudaGetLastError() of the launch.
+extern "C" int tt_band_conv(const void* x, const void* w, const void* bias, const void* res,
+                            void* y, int batch, int r_in, int r_out, int t_len, int n_dt, int dt0,
+                            int dt1, int dt2, int col_adv, int margin, int width, int per_block,
+                            int act, int kb0, int kl0, int kb1, int kl1, int aligned,
+                            void* stream) {
+  BandArgs a = {};
+  a.src = x;
+  a.w = static_cast<const bf16*>(w);
+  a.bias = static_cast<const float*>(bias);
+  a.res = res;
+  a.out = y;
+  a.r_in = r_in;
+  a.r_out = r_out;
+  a.t_len = t_len;
+  a.n_dt = n_dt;
+  a.dt0 = dt0;
+  a.dt1 = dt1;
+  a.dt2 = dt2;
+  a.col_adv = col_adv;
+  a.margin = margin;
+  a.width = width;
+  a.per_block = per_block;
+  a.act = act;
+  a.aligned = aligned;
+  a.kb0 = kb0;
+  a.kl0 = kl0;
+  a.kb1 = kb1;
+  a.kl1 = kl1;
+  return launch_band_product<bf16, false, bf16>(a, batch, static_cast<cudaStream_t>(stream));
+}
+
+// K3 dX, bf16 storage: c (B, r_in, T) float32 cotangent; w the adjoint's
+// band weights; res (float32), s1, s2 (bf16), raw (float32) (B, r_out, T)
+// or null; out float32 when out_f32, else bf16.
+extern "C" int tt_band_conv_dx(const void* c, const void* w, const void* res, const void* s1,
+                               const void* s2, void* raw, void* out, int out_f32, int batch,
+                               int r_in, int r_out, int t_len, int n_dt, int dt0, int dt1,
+                               int dt2, int col_adv, int margin, int width, int kb0, int kl0,
+                               int kb1, int kl1, int aligned, void* stream) {
+  BandArgs a = {};
+  a.src = c;
+  a.w = static_cast<const bf16*>(w);
+  a.res = res;
+  a.s1 = static_cast<const bf16*>(s1);
+  a.s2 = static_cast<const bf16*>(s2);
+  a.raw = static_cast<float*>(raw);
+  a.out = out;
+  a.r_in = r_in;
+  a.r_out = r_out;
+  a.t_len = t_len;
+  a.n_dt = n_dt;
+  a.dt0 = dt0;
+  a.dt1 = dt1;
+  a.dt2 = dt2;
+  a.col_adv = col_adv;
+  a.margin = margin;
+  a.width = width;
+  a.aligned = aligned;
+  a.kb0 = kb0;
+  a.kl0 = kl0;
+  a.kb1 = kb1;
+  a.kl1 = kl1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (out_f32) return launch_band_product<float, true, float>(a, batch, st);
+  return launch_band_product<float, true, bf16>(a, batch, st);
+}
+
+// K3 dW and dBias, bf16 storage: dz (B, r_out, T) float32, x (B, r_in, T)
+// bf16; part (n_slices, n_dt, 128, k) and part_bias (n_slices, 128)
+// float32 scratch; dw (n_dt, 128, k) and db (128,) float32.
+extern "C" int tt_band_conv_dw(const void* dz, const void* x, void* part, void* part_bias,
+                               void* dw, void* db, int batch, int r_in, int r_out, int t_len,
+                               int n_dt, int dt0, int dt1, int dt2, int k, int col_adv,
+                               int margin, int kb0, int kl0, int kb1, int kl1, int n_slices,
+                               int aligned, void* stream) {
+  DwArgs a = {};
+  a.dz = static_cast<const float*>(dz);
+  a.x = static_cast<const bf16*>(x);
+  a.part = static_cast<float*>(part);
+  a.part_bias = static_cast<float*>(part_bias);
+  a.batch = batch;
+  a.r_in = r_in;
+  a.r_out = r_out;
+  a.t_len = t_len;
+  a.n_dt = n_dt;
+  a.dt0 = dt0;
+  a.dt1 = dt1;
+  a.dt2 = dt2;
+  a.k = k;
+  a.col_adv = col_adv;
+  a.margin = margin;
+  a.n_blocks = (r_out + 127) / 128;
+  a.n_slices = n_slices;
+  a.aligned = aligned;
+  a.kb0 = kb0;
+  a.kl0 = kl0;
+  a.kb1 = kb1;
+  a.kl1 = kl1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int kl_max = kl0 > kl1 ? kl0 : kl1;
+  const dim3 grid((kl_max + kDwN - 1) / kDwN, 2, n_slices);
+  band_dw_partial_kernel<<<grid, kThreads, 0, st>>>(a);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const int n_w = n_dt * 128 * k;
+  band_dw_reduce_kernel<<<(n_w + 128 + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      a.part, a.part_bias, static_cast<float*>(dw), static_cast<float*>(db), n_slices, n_w, k,
+      kb0, kl0, kb1, kl1);
+  return static_cast<int>(cudaGetLastError());
+}

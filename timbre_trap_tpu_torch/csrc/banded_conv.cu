@@ -23,16 +23,14 @@
 // slice.
 //
 // Weights arrive transposed, W[dt][k][rows] (rows fastest), so a CTA's
-// 128-row weight slice for one input row is contiguous. Storage is float32
-// or bfloat16; accumulation is always float32 with plain FFMA (IEEE fp32,
-// no TF32). What bounds it: the stage is a banded matrix product of
-// ~2·n_dt·128·K flops per output block column, far above the card's
-// bytes-per-flop line, so it is bound by arithmetic; this first version
-// stages a KC x 128 weight tile and a KC x 64 input tile through shared
-// memory and keeps an 8 x 4 register tile per thread. Tensor cores
-// (mma/wgmma) and TMA are later work.
+// 128-row weight slice for one input row is contiguous. This is the float32
+// route (IEEE fp32 with plain FFMA, no TF32); bfloat16 storage runs the
+// band-tiled tensor-core kernel of band_mma.cu. What bounds it: the stage
+// is a banded matrix product of ~2·n_dt·128·K flops per output block
+// column, far above the card's bytes-per-flop line, so it is bound by
+// arithmetic; it stages a KC x 128 weight tile and a KC x 64 input tile
+// through shared memory and keeps an 8 x 4 register tile per thread.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -44,30 +42,17 @@ constexpr int kThreads = 256;  // 16 row groups x 16 column groups
 constexpr int kRowsPerThread = 8;
 constexpr int kColsPerThread = 4;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 struct StageArgs {
-  const void* x;      // (B, r_in, T)
-  const void* w;      // (n_dt, k, w_rows)
+  const float* x;     // (B, r_in, T)
+  const float* w;     // (n_dt, k, w_rows)
   const float* bias;  // (128,) or (w_rows,) when per_block
-  const void* res;    // (B, r_out, T) or null
-  void* y;            // (B, r_out, T)
+  const float* res;   // (B, r_out, T) or null
+  float* y;           // (B, r_out, T)
   int r_in, r_out, t_len;
   int n_dt, dt0, dt1, dt2;
   int k, col_adv, margin, w_rows, per_block, act;
 };
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
 banded_conv_kernel(const StageArgs a) {
   __shared__ __align__(16) float ws[kKc][kBlockRows];
@@ -80,8 +65,8 @@ banded_conv_kernel(const StageArgs a) {
   const int tx = tid % 16;
   const int ty = tid / 16;
 
-  const T* x = static_cast<const T*>(a.x) + (size_t)b * a.r_in * a.t_len;
-  const T* w = static_cast<const T*>(a.w);
+  const float* x = a.x + (size_t)b * a.r_in * a.t_len;
+  const float* w = a.w;
   const int w_row0 = a.per_block ? j * kBlockRows : 0;
   const int in_row0 = j * a.col_adv - a.margin;
 
@@ -93,13 +78,13 @@ banded_conv_kernel(const StageArgs a) {
 
   for (int di = 0; di < a.n_dt; ++di) {
     const int dt = di == 0 ? a.dt0 : (di == 1 ? a.dt1 : a.dt2);
-    const T* wd = w + (size_t)di * a.k * a.w_rows + w_row0;
+    const float* wd = w + (size_t)di * a.k * a.w_rows + w_row0;
     for (int k0 = 0; k0 < a.k; k0 += kKc) {
       for (int i = tid; i < kKc * kBlockRows; i += kThreads) {
         const int kk = i / kBlockRows;
         const int r = i % kBlockRows;
         const int kg = k0 + kk;
-        ws[kk][r] = kg < a.k ? to_f32(wd[(size_t)kg * a.w_rows + r]) : 0.f;
+        ws[kk][r] = kg < a.k ? wd[(size_t)kg * a.w_rows + r] : 0.f;
       }
       for (int i = tid; i < kKc * kTileT; i += kThreads) {
         const int kk = i / kTileT;
@@ -108,7 +93,7 @@ banded_conv_kernel(const StageArgs a) {
         const int col = t0 + c + dt;
         float v = 0.f;
         if (k0 + kk < a.k && row >= 0 && row < a.r_in && col >= 0 && col < a.t_len)
-          v = to_f32(x[(size_t)row * a.t_len + col]);
+          v = x[(size_t)row * a.t_len + col];
         xs[kk][c] = v;
       }
       __syncthreads();
@@ -130,8 +115,8 @@ banded_conv_kernel(const StageArgs a) {
   }
 
   const size_t out_base = (size_t)b * a.r_out * a.t_len;
-  const T* res = static_cast<const T*>(a.res);
-  T* y = static_cast<T*>(a.y);
+  const float* res = a.res;
+  float* y = a.y;
 #pragma unroll
   for (int i = 0; i < kRowsPerThread; ++i) {
     const int r = ty * kRowsPerThread + i;
@@ -145,27 +130,27 @@ banded_conv_kernel(const StageArgs a) {
       const size_t o = out_base + (size_t)row * a.t_len + col;
       float v = acc[i][c] + bias;
       if (a.act) v = v > 0.f ? v : expf(fminf(v, 0.f)) - 1.f;
-      if (res != nullptr) v += to_f32(res[o]);
-      y[o] = from_f32<T>(v);
+      if (res != nullptr) v += res[o];
+      y[o] = v;
     }
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() of the launch.
+// All tensors float32. Returns cudaGetLastError() of the launch.
 extern "C" int tt_banded_conv(const void* x, const void* w, const void* bias,
-                              const void* res, void* y, int dtype, int batch,
+                              const void* res, void* y, int batch,
                               int r_in, int r_out, int t_len, int n_dt,
                               int dt0, int dt1, int dt2, int k, int col_adv,
                               int margin, int w_rows, int per_block, int act,
                               void* stream) {
   StageArgs a;
-  a.x = x;
-  a.w = w;
+  a.x = static_cast<const float*>(x);
+  a.w = static_cast<const float*>(w);
   a.bias = static_cast<const float*>(bias);
-  a.res = res;
-  a.y = y;
+  a.res = static_cast<const float*>(res);
+  a.y = static_cast<float*>(y);
   a.r_in = r_in;
   a.r_out = r_out;
   a.t_len = t_len;
@@ -180,10 +165,6 @@ extern "C" int tt_banded_conv(const void* x, const void* w, const void* bias,
   a.per_block = per_block;
   a.act = act;
   const dim3 grid((t_len + kTileT - 1) / kTileT, (r_out + kBlockRows - 1) / kBlockRows, batch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    banded_conv_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
-  else
-    banded_conv_kernel<float><<<grid, kThreads, 0, s>>>(a);
+  banded_conv_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

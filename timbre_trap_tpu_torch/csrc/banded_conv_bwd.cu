@@ -10,22 +10,22 @@
 // on exact (B, R, T) tensors in device memory, as K1 (banded_conv.cu) does
 // for the forward; the wrapper (ops/fused_level.py:level_backward)
 // recomputes the level through K1, keeps each item's input and each
-// residual block's conv1 activation, and orders these launches:
+// residual block's conv1 activation, and orders these launches (dX and dW
+// here are the float32 route; bfloat16 storage runs the band-tiled
+// tensor-core products of band_mma.cu; the ELU' seed serves both):
 //
 //   tt_elu_backward   the cotangent of the level's last item:
 //                       out = f32(dy) * ELU'(s1 - s2),  raw = f32(dy)
 //   tt_banded_conv_dx the adjoint banded product of a float32 cotangent with
 //                     a conv's adjoint blocks (the K1 indexing, zero reads
-//                     outside [0, r_in) and [0, T)); the cotangent is rounded
-//                     to the storage type for the product and accumulated in
-//                     float32. Epilogue: + the residual cotangent, keep that
-//                     value (raw), times ELU' rebuilt from stored outputs
-//                     (1 where y > 0, else y + 1, y = s1 - s2).
+//                     outside [0, r_in) and [0, T)), accumulated in float32.
+//                     Epilogue: + the residual cotangent, keep that value
+//                     (raw), times ELU' rebuilt from stored outputs (1 where
+//                     y > 0, else y + 1, y = s1 - s2).
 //   tt_banded_conv_dw dW_dt[r, k] = sum_{b,j,t} dZ[b, 128j + r, t] *
 //                                   x[b, j*col_adv - margin + k, t + dt]
-//                     and dBias[r] = sum_{b,j,t} dZ[b, 128j + r, t], with
-//                     storage-type operands and float32 sums (dBias from the
-//                     float32 cotangent). Pass 1: each CTA sums one slice of
+//                     and dBias[r] = sum_{b,j,t} dZ[b, 128j + r, t], float32
+//                     throughout. Pass 1: each CTA sums one slice of
 //                     the (b, j, t) chunks into its own partial; pass 2 adds
 //                     the partials in a fixed order. No float atomics, so dW
 //                     and dBias are the same bits from run to run. The
@@ -34,10 +34,9 @@
 //
 // What bounds it: dX and dW are banded matrix products of ~2 * 128 * K flops
 // per output block column and tap, as the forward, so they are bound by
-// arithmetic; this first version uses the same plain FFMA tiling as K1 (an
-// 8 x 4 register tile per thread, KC x 128 and KC x 64 shared tiles) and
-// computes the banded blocks' structural zeros. Tensor cores (wgmma), TMA
-// and skipping the zeros are later work.
+// arithmetic; they use the same plain FFMA tiling as K1 (an 8 x 4 register
+// tile per thread, KC x 128 and KC x 64 shared tiles) and compute the
+// banded blocks' structural zeros.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,36 +61,22 @@ constexpr int kPadK = kTileK + 4;
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// A float32 value rounded to the storage type and widened back.
-template <typename T>
-__device__ __forceinline__ float round_to(float v) { return to_f32(from_f32<T>(v)); }
-
 // ELU'(z) from y = ELU(z): 1 where y > 0, else exp(z) = y + 1.
 __device__ __forceinline__ float elu_grad_from_out(float y) { return y > 0.f ? 1.f : y + 1.f; }
 
 struct DxArgs {
-  const float* c;     // (B, r_in, T) float32 cotangent
-  const void* w;      // (n_dt, k, 128) adjoint blocks, storage type
-  const float* res;   // (B, r_out, T) float32 residual cotangent, or null
-  const void* s1;     // (B, r_out, T) stored output for ELU', or null
-  const void* s2;     // (B, r_out, T) stored item input subtracted from s1, or null
+  const float* c;     // (B, r_in, T) cotangent
+  const float* w;     // (n_dt, k, 128) adjoint blocks
+  const float* res;   // (B, r_out, T) residual cotangent, or null
+  const float* s1;    // (B, r_out, T) stored output for ELU', or null
+  const float* s2;    // (B, r_out, T) stored item input subtracted from s1, or null
   float* raw;         // (B, r_out, T) the value before ELU', or null
-  void* out;          // (B, r_out, T) float32 or storage type
+  float* out;         // (B, r_out, T)
   int r_in, r_out, t_len;
   int n_dt, dt0, dt1, dt2;
   int k, col_adv, margin;
 };
 
-template <typename T, typename TO>
 __global__ void __launch_bounds__(kThreads)
 banded_conv_dx_kernel(const DxArgs a) {
   __shared__ __align__(16) float ws[kKc][kBlockRows];
@@ -105,7 +90,7 @@ banded_conv_dx_kernel(const DxArgs a) {
   const int ty = tid / 16;
 
   const float* c = a.c + (size_t)b * a.r_in * a.t_len;
-  const T* w = static_cast<const T*>(a.w);
+  const float* w = a.w;
   const int in_row0 = j * a.col_adv - a.margin;
 
   float acc[kRowsPerThread][kColsPerThread];
@@ -116,13 +101,13 @@ banded_conv_dx_kernel(const DxArgs a) {
 
   for (int di = 0; di < a.n_dt; ++di) {
     const int dt = di == 0 ? a.dt0 : (di == 1 ? a.dt1 : a.dt2);
-    const T* wd = w + (size_t)di * a.k * kBlockRows;
+    const float* wd = w + (size_t)di * a.k * kBlockRows;
     for (int k0 = 0; k0 < a.k; k0 += kKc) {
       for (int i = tid; i < kKc * kBlockRows; i += kThreads) {
         const int kk = i / kBlockRows;
         const int r = i % kBlockRows;
         const int kg = k0 + kk;
-        ws[kk][r] = kg < a.k ? to_f32(wd[(size_t)kg * kBlockRows + r]) : 0.f;
+        ws[kk][r] = kg < a.k ? wd[(size_t)kg * kBlockRows + r] : 0.f;
       }
       for (int i = tid; i < kKc * kTileT; i += kThreads) {
         const int kk = i / kTileT;
@@ -131,7 +116,7 @@ banded_conv_dx_kernel(const DxArgs a) {
         const int col = t0 + q + dt;
         float v = 0.f;
         if (k0 + kk < a.k && row >= 0 && row < a.r_in && col >= 0 && col < a.t_len)
-          v = round_to<T>(c[(size_t)row * a.t_len + col]);
+          v = c[(size_t)row * a.t_len + col];
         xs[kk][q] = v;
       }
       __syncthreads();
@@ -153,9 +138,9 @@ banded_conv_dx_kernel(const DxArgs a) {
   }
 
   const size_t out_base = (size_t)b * a.r_out * a.t_len;
-  const T* s1 = static_cast<const T*>(a.s1);
-  const T* s2 = static_cast<const T*>(a.s2);
-  TO* out = static_cast<TO*>(a.out);
+  const float* s1 = a.s1;
+  const float* s2 = a.s2;
+  float* out = a.out;
 #pragma unroll
   for (int i = 0; i < kRowsPerThread; ++i) {
     const int row = j * kBlockRows + ty * kRowsPerThread + i;
@@ -169,18 +154,18 @@ banded_conv_dx_kernel(const DxArgs a) {
       if (a.res != nullptr) v += a.res[o];
       if (a.raw != nullptr) a.raw[o] = v;
       if (s1 != nullptr) {
-        float y = to_f32(s1[o]);
-        if (s2 != nullptr) y -= to_f32(s2[o]);
+        float y = s1[o];
+        if (s2 != nullptr) y -= s2[o];
         v *= elu_grad_from_out(y);
       }
-      out[o] = from_f32<TO>(v);
+      out[o] = v;
     }
   }
 }
 
 struct DwArgs {
-  const float* dz;    // (B, r_out, T) float32 cotangent of the conv's output
-  const void* x;      // (B, r_in, T) the conv's input, storage type
+  const float* dz;    // (B, r_out, T) cotangent of the conv's output
+  const float* x;     // (B, r_in, T) the conv's input
   float* part;        // (n_slices, n_dt, 128, k) partial dW
   float* part_bias;   // (n_slices, 128) partial dBias
   int batch, r_in, r_out, t_len;
@@ -191,7 +176,6 @@ struct DwArgs {
 // Grid (ceil(k / kTileK), n_dt, n_slices). Slice s sums the chunks
 // [Q*s/S, Q*(s+1)/S) of the Q = B * n_blocks * ceil(T / kTc) chunks of
 // (batch, output block, kTc frame columns), in order.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
 banded_conv_dw_partial_kernel(const DwArgs a) {
   __shared__ __align__(16) float zs[kTc][kPadR];
@@ -211,7 +195,7 @@ banded_conv_dw_partial_kernel(const DwArgs a) {
   const long long n_chunks = (long long)a.batch * a.n_blocks * n_tc;
   const long long q_begin = n_chunks * s / a.n_slices;
   const long long q_end = n_chunks * (s + 1) / a.n_slices;
-  const T* x_all = static_cast<const T*>(a.x);
+  const float* x_all = a.x;
 
   float acc[kRowsPerThread][kColsPerThread];
 #pragma unroll
@@ -230,7 +214,7 @@ banded_conv_dw_partial_kernel(const DwArgs a) {
     const int b = (int)(bj / a.n_blocks);
     const int col = tc * kTc + lane;
     const float* dz = a.dz + (size_t)b * a.r_out * a.t_len;
-    const T* x = x_all + (size_t)b * a.r_in * a.t_len;
+    const float* x = x_all + (size_t)b * a.r_in * a.t_len;
 #pragma unroll
     for (int m = 0; m < kBlockRows / 8; ++m) {
       const int r = warp + 8 * m;
@@ -238,7 +222,7 @@ banded_conv_dw_partial_kernel(const DwArgs a) {
       float v = 0.f;
       if (row < a.r_out && col < a.t_len) v = dz[(size_t)row * a.t_len + col];
       bsum[m] += v;
-      zs[lane][r] = round_to<T>(v);
+      zs[lane][r] = v;
     }
     const int in_row0 = j * a.col_adv - a.margin + k0;
     const int xcol = col + dt;
@@ -249,7 +233,7 @@ banded_conv_dw_partial_kernel(const DwArgs a) {
       float v = 0.f;
       if (k0 + kk < a.k && row >= 0 && row < a.r_in && col < a.t_len && xcol >= 0 &&
           xcol < a.t_len)
-        v = to_f32(x[(size_t)row * a.t_len + xcol]);
+        v = x[(size_t)row * a.t_len + xcol];
       xs[lane][kk] = v;
     }
     __syncthreads();
@@ -325,22 +309,22 @@ __global__ void elu_backward_kernel(const T* dy, const T* s1, const T* s2, float
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (the storage type of the weights, of s1
-// and s2, and of `out` unless out_f32). Each entry point returns
+// dX and dW take float32 tensors; the ELU' seed's dtype is 0 = float32,
+// 1 = bfloat16 (of dy, s1 and s2). Each entry point returns
 // cudaGetLastError() after its launches.
 extern "C" int tt_banded_conv_dx(const void* c, const void* w, const void* res,
                                  const void* s1, const void* s2, void* raw, void* out,
-                                 int dtype, int out_f32, int batch, int r_in, int r_out,
-                                 int t_len, int n_dt, int dt0, int dt1, int dt2, int k,
-                                 int col_adv, int margin, void* stream) {
+                                 int batch, int r_in, int r_out, int t_len, int n_dt,
+                                 int dt0, int dt1, int dt2, int k, int col_adv, int margin,
+                                 void* stream) {
   DxArgs a;
   a.c = static_cast<const float*>(c);
-  a.w = w;
+  a.w = static_cast<const float*>(w);
   a.res = static_cast<const float*>(res);
-  a.s1 = s1;
-  a.s2 = s2;
+  a.s1 = static_cast<const float*>(s1);
+  a.s2 = static_cast<const float*>(s2);
   a.raw = static_cast<float*>(raw);
-  a.out = out;
+  a.out = static_cast<float*>(out);
   a.r_in = r_in;
   a.r_out = r_out;
   a.t_len = t_len;
@@ -352,25 +336,19 @@ extern "C" int tt_banded_conv_dx(const void* c, const void* w, const void* res,
   a.col_adv = col_adv;
   a.margin = margin;
   const dim3 grid((t_len + kTileT - 1) / kTileT, (r_out + kBlockRows - 1) / kBlockRows, batch);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && out_f32)
-    banded_conv_dx_kernel<__nv_bfloat16, float><<<grid, kThreads, 0, st>>>(a);
-  else if (dtype == 1)
-    banded_conv_dx_kernel<__nv_bfloat16, __nv_bfloat16><<<grid, kThreads, 0, st>>>(a);
-  else
-    banded_conv_dx_kernel<float, float><<<grid, kThreads, 0, st>>>(a);
+  banded_conv_dx_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // part: (n_slices, n_dt, 128, k) and part_bias: (n_slices, 128) float32
 // scratch; dw: (n_dt, 128, k) and db: (128,) float32.
 extern "C" int tt_banded_conv_dw(const void* dz, const void* x, void* part, void* part_bias,
-                                 void* dw, void* db, int dtype, int batch, int r_in,
-                                 int r_out, int t_len, int n_dt, int dt0, int dt1, int dt2,
-                                 int k, int col_adv, int margin, int n_slices, void* stream) {
+                                 void* dw, void* db, int batch, int r_in, int r_out,
+                                 int t_len, int n_dt, int dt0, int dt1, int dt2, int k,
+                                 int col_adv, int margin, int n_slices, void* stream) {
   DwArgs a;
   a.dz = static_cast<const float*>(dz);
-  a.x = x;
+  a.x = static_cast<const float*>(x);
   a.part = static_cast<float*>(part);
   a.part_bias = static_cast<float*>(part_bias);
   a.batch = batch;
@@ -388,10 +366,7 @@ extern "C" int tt_banded_conv_dw(const void* dz, const void* x, void* part, void
   a.n_slices = n_slices;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((k + kTileK - 1) / kTileK, n_dt, n_slices);
-  if (dtype == 1)
-    banded_conv_dw_partial_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(a);
-  else
-    banded_conv_dw_partial_kernel<float><<<grid, kThreads, 0, st>>>(a);
+  banded_conv_dw_partial_kernel<<<grid, kThreads, 0, st>>>(a);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   const int n_w = n_dt * kBlockRows * k;

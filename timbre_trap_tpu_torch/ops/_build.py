@@ -16,7 +16,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["load", "build_all", "BUILD_DIR"]
+__all__ = ["load", "build_all", "library_path", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -28,12 +28,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 # C signatures of each library's entry points: {library: {name: argtypes}}.
 _SIGNATURES = {
-    "banded_conv": {"tt_banded_conv": [_P] * 5 + [_I] * 15 + [_P]},
+    "banded_conv": {"tt_banded_conv": [_P] * 5 + [_I] * 14 + [_P]},
     "peak_mask": {"tt_peak_mask": [_P, _P, _I, _I, _I, _F, _P]},
     "banded_conv_bwd": {
-        "tt_banded_conv_dx": [_P] * 7 + [_I] * 13 + [_P],
-        "tt_banded_conv_dw": [_P] * 6 + [_I] * 13 + [_P],
+        "tt_banded_conv_dx": [_P] * 7 + [_I] * 11 + [_P],
+        "tt_banded_conv_dw": [_P] * 6 + [_I] * 12 + [_P],
         "tt_elu_backward": [_P] * 5 + [_I, _L, _P],
+    },
+    "band_mma": {
+        "tt_band_conv": [_P] * 5 + [_I] * 18 + [_P],
+        "tt_band_conv_dx": [_P] * 7 + [_I] * 17 + [_P],
+        "tt_band_conv_dw": [_P] * 6 + [_I] * 17 + [_P],
     },
 }
 
@@ -51,7 +56,9 @@ def _nvcc():
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _target(name):
+def library_path(name):
+    """The shared library that ``csrc/<name>.cu`` builds into, named by a
+    hash of the source and the flags."""
     src = (_CSRC / f"{name}.cu").read_bytes()
     tag = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
@@ -61,7 +68,7 @@ def build_all(names=None):
     """Compile every missing library in parallel; returns seconds spent and
     the compiler's log per source (ptxas register and shared-memory use)."""
     names = list(names or _SIGNATURES)
-    todo = [n for n in names if not _target(n).exists()]
+    todo = [n for n in names if not library_path(n).exists()]
     logs = {}
     if not todo:
         return 0.0, logs
@@ -70,7 +77,7 @@ def build_all(names=None):
     t0 = time.perf_counter()
     procs = {}
     for n in todo:
-        tmp = _target(n).with_suffix(f".so.tmp{os.getpid()}")
+        tmp = library_path(n).with_suffix(f".so.tmp{os.getpid()}")
         cmd = [nvcc, *_FLAGS, "-o", str(tmp), str(_CSRC / f"{n}.cu")]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True))
@@ -81,7 +88,7 @@ def build_all(names=None):
         if proc.returncode != 0:
             failed.append(f"{n}.cu (rc {proc.returncode}):\n{out}")
         else:
-            os.replace(tmp, _target(n))
+            os.replace(tmp, library_path(n))
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0, logs
@@ -92,7 +99,7 @@ def load(name, entry):
     library if needed."""
     if name not in _loaded:
         build_all([name])
-        lib = ctypes.CDLL(str(_target(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
         fns = {}
         for fn_name, argtypes in _SIGNATURES[name].items():
             fn = getattr(lib, fn_name)

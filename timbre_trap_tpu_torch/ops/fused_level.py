@@ -7,33 +7,36 @@ items on packed ``(B, R, T)`` input. An item is ``("conv", cb, act)`` or a
 residual block ``("rb", cb3x3, cb1x1)``: conv3x3 + ELU -> conv1x1 + ELU ->
 plus the item input.
 
-``fused_level_apply`` runs the chain through the hand-written CUDA kernel
-``csrc/banded_conv.cu`` (which replaces the Pallas ``_level_kernel``), one
-launch per conv stage; ``packed_level_apply`` is its plain PyTorch twin.
-Both keep the JAX precision policy: every stage input, weight and output is
-stored at ``dtype`` (float32 or bfloat16), accumulation and biases are
-float32.
+``fused_level_apply`` runs the chain through hand-written CUDA kernels
+(which replace the Pallas ``_level_kernel``), one launch per conv stage:
+bfloat16 through the band-tiled tensor-core kernel of ``csrc/band_mma.cu``,
+float32 through the IEEE FFMA kernel of ``csrc/banded_conv.cu``;
+``packed_level_apply`` is their plain PyTorch twin. Both keep the JAX
+precision policy: every stage input, weight and output is stored at
+``dtype`` (float32 or bfloat16), accumulation and biases are float32.
 
 Training: a spec built ``with_adjoints`` carries each conv's adjoint (its
 dX map, another banded conv). ``fused_level_train`` is the differentiable
 level (the port of ``make_fused_level_train``): its forward is K1, and its
-backward ``level_backward`` runs the hand-written kernels of
-``csrc/banded_conv_bwd.cu`` (which replace the Pallas ``_level_bwd_kernel``)
-stage by stage; ``level_backward_reference`` is the same algorithm in plain
-PyTorch.
+backward ``level_backward`` runs hand-written kernels (which replace the
+Pallas ``_level_bwd_kernel``) stage by stage: the dX and dW products of
+``csrc/band_mma.cu`` for bfloat16, of ``csrc/banded_conv_bwd.cu`` for
+float32, and that file's ELU' seed for both; ``level_backward_reference`` is
+the same algorithm in plain PyTorch.
 """
 
 import torch
 
 from . import _build
-from .packed_conv import (BLOCK_ROWS, ConvBlocks, build_conv2d_blocks,
-                          build_sconv_blocks, build_tconv_blocks,
-                          packed_conv_reference)
+from .packed_conv import (BLOCK_ROWS, SUB_ROWS, ConvBlocks,
+                          build_conv2d_blocks, build_sconv_blocks,
+                          build_tconv_blocks, packed_conv_reference)
 
 __all__ = ["HALO", "LevelSpec", "encoder_level_spec", "decoder_level_spec",
            "fuse_level_specs", "spec_time_reach", "banded_conv",
            "banded_conv_reference", "packed_level_apply", "fused_level_apply",
-           "chain_flops", "banded_conv_dx", "banded_conv_dx_reference",
+           "chain_flops", "band_flops", "banded_conv_dx",
+           "banded_conv_dx_reference",
            "banded_conv_dw", "banded_conv_dw_reference", "elu_backward",
            "elu_backward_reference", "level_backward",
            "level_backward_reference", "fused_level_train"]
@@ -41,6 +44,9 @@ __all__ = ["HALO", "LevelSpec", "encoder_level_spec", "decoder_level_spec",
 # Time halo per side of the JAX kernel's tiles; a fused chain's cumulative
 # time reach must fit it there, and the same limit holds here.
 HALO = 64
+# Largest time-tap magnitude the tensor-core kernels stage (csrc/band_mma.cu
+# kHalo).
+BAND_MAX_DT = 8
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -202,9 +208,12 @@ def banded_conv_reference(x, cb, act=False, residual=None):
 def banded_conv(x, cb, act=False, residual=None):
     """One conv stage with fused bias, optional ELU and residual add.
 
-    Launches the CUDA kernel for a CUDA tensor (``banded_conv.launches``
-    counts the launches) and takes the plain twin for a CPU tensor.
-    ``x`` is (B, r_in, T) float32 or bfloat16; ``residual`` (B, r_out, T).
+    For a CUDA tensor it launches a kernel: bfloat16 the band-tiled
+    tensor-core kernel (``csrc/band_mma.cu:tt_band_conv``), float32 the
+    FFMA kernel (``csrc/banded_conv.cu``); ``banded_conv.launches`` counts
+    every launch and ``banded_conv.mma_launches`` the tensor-core ones. A
+    CPU tensor takes the plain twin. ``x`` is (B, r_in, T) float32 or
+    bfloat16; ``residual`` (B, r_out, T).
     """
     if x.device.type == "cpu":
         return banded_conv_reference(x, cb, act, residual)
@@ -215,32 +224,63 @@ def banded_conv(x, cb, act=False, residual=None):
     b, r_in, t = x.shape
     if r_in != cb.r_in:
         raise ValueError(f"input has {r_in} rows, conv expects {cb.r_in}")
-    if len(cb.dts) > 3:
-        raise ValueError("banded_conv takes at most 3 time taps")
+    mma = x.dtype == torch.bfloat16
+    _check_taps(cb, "banded_conv", mma)
     x = x.contiguous()
     if residual is not None:
         if residual.shape != (b, cb.r_out, t) or residual.dtype != x.dtype:
             raise ValueError("residual must match the stage output")
         residual = residual.contiguous()
-    w, bias = cb.kernel_operands(x.dtype)
+    w, bias = cb.band_operands() if mma else cb.kernel_operands()
     if w.device != x.device:
         raise ValueError("conv weights and input lie on different devices")
     y = torch.empty((b, cb.r_out, t), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
     dts = list(cb.dts) + [0] * (3 - len(cb.dts))
-    fn = _build.load("banded_conv", "tt_banded_conv")
-    rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
-            None if residual is None else residual.data_ptr(), y.data_ptr(),
-            _DTYPES[x.dtype], b, r_in, cb.r_out, t, len(cb.dts), *dts, cb.k,
-            cb.col_adv, cb.margin, w.shape[-1], int(cb.per_block), int(act),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    res = None if residual is None else residual.data_ptr()
+    if mma:
+        fn = _build.load("band_mma", "tt_band_conv")
+        rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), res, y.data_ptr(),
+                b, r_in, cb.r_out, t, len(cb.dts), *dts, cb.col_adv,
+                cb.margin, w.shape[-1], int(cb.per_block), int(act),
+                *_band_ints(cb), _aligned(t, x), stream)
+    else:
+        fn = _build.load("banded_conv", "tt_banded_conv")
+        rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), res, y.data_ptr(),
+                b, r_in, cb.r_out, t, len(cb.dts), *dts, cb.k, cb.col_adv,
+                cb.margin, w.shape[-1], int(cb.per_block), int(act), stream)
     _build.check(rc, "banded_conv")
     banded_conv.launches += 1
+    banded_conv.mma_launches += int(mma)
     return y
 
 
 banded_conv.launches = 0
+banded_conv.mma_launches = 0
+
+
+def _check_taps(cb, what, mma):
+    """Both routes take at most 3 time taps; the tensor-core one (bfloat16)
+    also at most ``BAND_MAX_DT`` frames each."""
+    if len(cb.dts) > 3:
+        raise ValueError(f"{what} takes at most 3 time taps")
+    if mma and max(abs(d) for d in cb.dts) > BAND_MAX_DT:
+        raise ValueError(f"{what} in bfloat16 takes time taps of at most "
+                         f"{BAND_MAX_DT} frames")
+
+
+def _band_ints(cb):
+    """(start, length) of both sub-tile bands, as the kernels take them."""
+    return [v for band in cb.bands for v in band]
+
+
+def _aligned(t, *tensors):
+    """1 when every row of every tensor starts 16-byte aligned (T a
+    multiple of 8 and aligned bases): the kernels then load 8 frames at a
+    time, else element by element."""
+    return int(t % 8 == 0 and all(v.data_ptr() % 16 == 0 for v in tensors))
 
 
 def _apply_chain(x, spec, dtype, stage):
@@ -272,6 +312,15 @@ def chain_flops(spec, columns):
     structural zeros included: 2·n_dt·n_blocks·128·K per conv and column."""
     per_col = sum(2 * len(cb.dts) * cb.n_out_blocks * BLOCK_ROWS * cb.k
                   for cb in spec.convs())
+    return per_col * columns
+
+
+def band_flops(convs, columns):
+    """Flops the band-tiled kernels compute for ``convs`` (e.g.
+    ``spec.convs()``) over ``columns`` frame columns: 2·n_dt·64·L per
+    sub-tile and column, L its band."""
+    per_col = sum(2 * len(cb.dts) * SUB_ROWS * cb.bands[g % 2][1]
+                  for cb in convs for g in range(cb.n_sub))
     return per_col * columns
 
 
@@ -378,9 +427,12 @@ def banded_conv_dx(c, adj, dtype, residual=None, elu=None, keep_raw=False,
     Returns ``(out, raw)``: out at ``out_dtype`` (float32 or ``dtype``),
     raw the float32 value before the ELU' factor when ``keep_raw``.
 
-    Launches ``csrc/banded_conv_bwd.cu:tt_banded_conv_dx`` for a CUDA tensor
-    (``banded_conv_dx.launches`` counts the launches) and takes the plain
-    twin for a CPU tensor.
+    For a CUDA tensor it launches a kernel: a bfloat16 ``dtype`` the
+    band-tiled tensor-core product (``csrc/band_mma.cu:tt_band_conv_dx``,
+    which rounds ``c`` to bfloat16 while it stages it), float32
+    ``csrc/banded_conv_bwd.cu:tt_banded_conv_dx``; ``banded_conv_dx.launches``
+    counts every launch and ``banded_conv_dx.mma_launches`` the tensor-core
+    ones. A CPU tensor takes the plain twin.
     """
     if c.device.type == "cpu":
         return banded_conv_dx_reference(c, adj, dtype, residual, elu,
@@ -392,8 +444,10 @@ def banded_conv_dx(c, adj, dtype, residual=None, elu=None, keep_raw=False,
     if out_dtype not in (torch.float32, dtype):
         raise ValueError(f"banded_conv_dx writes float32 or {dtype}")
     b, r_in, t = c.shape
-    if r_in != adj.r_in or adj.per_block or len(adj.dts) > 3:
+    if r_in != adj.r_in or adj.per_block:
         raise ValueError("cotangent rows or adjoint geometry not supported")
+    mma = dtype == torch.bfloat16
+    _check_taps(adj, "banded_conv_dx", mma)
     shape = (b, adj.r_out, t)
     c = c.contiguous()
     if residual is not None:
@@ -401,7 +455,7 @@ def banded_conv_dx(c, adj, dtype, residual=None, elu=None, keep_raw=False,
             raise ValueError("residual must be the float32 output shape")
         residual = residual.contiguous()
     s1, s2 = _stored(elu, shape, dtype, "banded_conv_dx")
-    w, _ = adj.kernel_operands(dtype)
+    w, _ = adj.band_operands() if mma else adj.kernel_operands()
     if w.device != c.device:
         raise ValueError("adjoint blocks and cotangent lie on different devices")
     out = torch.empty(shape, dtype=out_dtype, device=c.device)
@@ -409,23 +463,35 @@ def banded_conv_dx(c, adj, dtype, residual=None, elu=None, keep_raw=False,
         if keep_raw else None
     if out.numel():
         dts = list(adj.dts) + [0] * (3 - len(adj.dts))
-        fn = _build.load("banded_conv_bwd", "tt_banded_conv_dx")
-        rc = fn(c.data_ptr(), w.data_ptr(), _ptr(residual), _ptr(s1),
-                _ptr(s2), _ptr(raw), out.data_ptr(), _DTYPES[dtype],
-                int(out_dtype == torch.float32), b, r_in, adj.r_out, t,
-                len(adj.dts), *dts, adj.k, adj.col_adv, adj.margin,
-                torch.cuda.current_stream(c.device).cuda_stream)
+        stream = torch.cuda.current_stream(c.device).cuda_stream
+        if mma:
+            fn = _build.load("band_mma", "tt_band_conv_dx")
+            rc = fn(c.data_ptr(), w.data_ptr(), _ptr(residual), _ptr(s1),
+                    _ptr(s2), _ptr(raw), out.data_ptr(),
+                    int(out_dtype == torch.float32), b, r_in, adj.r_out, t,
+                    len(adj.dts), *dts, adj.col_adv, adj.margin, w.shape[-1],
+                    *_band_ints(adj), _aligned(t, c), stream)
+        else:
+            fn = _build.load("banded_conv_bwd", "tt_banded_conv_dx")
+            rc = fn(c.data_ptr(), w.data_ptr(), _ptr(residual), _ptr(s1),
+                    _ptr(s2), _ptr(raw), out.data_ptr(), b, r_in, adj.r_out,
+                    t, len(adj.dts), *dts, adj.k, adj.col_adv, adj.margin,
+                    stream)
         _build.check(rc, "banded_conv_dx")
         banded_conv_dx.launches += 1
+        banded_conv_dx.mma_launches += int(mma)
     return out, raw
 
 
 banded_conv_dx.launches = 0
+banded_conv_dx.mma_launches = 0
 
 
 def banded_conv_dw_reference(dz, x, cb):
     """Plain twin of ``banded_conv_dw``: one einsum per time tap over the
-    chunked view of the zero-margined input (as ``packed_conv_reference``)."""
+    chunked view of the zero-margined input (as ``packed_conv_reference``);
+    for a bfloat16 ``x`` (the tensor-core route) dW is kept on the bands
+    only (``cb.band_mask()``), zero elsewhere, as the kernel writes it."""
     b, r_in, t = x.shape
     nb = cb.n_out_blocks
     dzp = torch.nn.functional.pad(dz.to(torch.float32),
@@ -447,7 +513,10 @@ def banded_conv_dw_reference(dz, x, cb):
         xw = torch.stack([xs[:, o:o + nb] for o in range(nw)], dim=1)
         dw = torch.einsum("bjrt,bojkt->rok", ops, xw)
         dws.append(dw.reshape(BLOCK_ROWS, nw * A)[:, :cb.k])
-    return torch.stack(dws), db
+    dw = torch.stack(dws)
+    if x.dtype == torch.bfloat16:
+        dw = dw * cb.band_mask().to(dw.device)
+    return dw, db
 
 
 def _dw_slices(n_chunks, tiles):
@@ -464,44 +533,66 @@ def banded_conv_dw(dz, x, cb):
     from the float32 ``dz``). Rows past ``r_out`` of the last block, and
     input rows and columns outside the input, count as zero.
 
-    Launches ``csrc/banded_conv_bwd.cu:tt_banded_conv_dw`` (per-slice
-    partial sums, then a fixed-order reduction; the same bits every run) for
-    a CUDA tensor (``banded_conv_dw.launches`` counts the calls) and takes
-    the plain twin for a CPU tensor.
+    For a CUDA tensor it launches kernels (per-slice partial sums, then a
+    fixed-order reduction; the same bits every run): a bfloat16 ``x`` the
+    band-tiled tensor-core product ``csrc/band_mma.cu:tt_band_conv_dw``,
+    which computes dW on the bands only and writes zeros elsewhere (the
+    block builder's backward reads no entry outside a band, so every
+    parameter gradient is the same), float32
+    ``csrc/banded_conv_bwd.cu:tt_banded_conv_dw``. ``banded_conv_dw.launches``
+    counts the calls and ``banded_conv_dw.mma_launches`` the tensor-core
+    ones. A CPU tensor takes the plain twin.
     """
     if dz.device.type == "cpu":
         return banded_conv_dw_reference(dz, x, cb)
     _check_cuda(x, "banded_conv_dw")
     b, r_in, t = x.shape
     if (dz.dtype != torch.float32 or tuple(dz.shape) != (b, cb.r_out, t)
-            or r_in != cb.r_in or cb.per_block or len(cb.dts) > 3):
+            or r_in != cb.r_in or cb.per_block):
         raise ValueError("banded_conv_dw: cotangent, input or geometry not "
                          "supported")
+    mma = x.dtype == torch.bfloat16
+    _check_taps(cb, "banded_conv_dw", mma)
     dz, x = dz.contiguous(), x.contiguous()
     n_dt = len(cb.dts)
     dw = torch.empty((n_dt, BLOCK_ROWS, cb.k), dtype=torch.float32,
                      device=x.device)
     db = torch.empty((BLOCK_ROWS,), dtype=torch.float32, device=x.device)
-    n_chunks = b * cb.n_out_blocks * -(-t // 32)
+    n_chunks = b * cb.n_out_blocks * -(-t // (64 if mma else 32))
     if n_chunks == 0:
         return dw.zero_(), db.zero_()
-    n_slices = _dw_slices(n_chunks, -(-cb.k // 64) * n_dt)
+    if mma:
+        # CTAs per slice: 2 sub-tiles x the band's 64-column tiles.
+        tiles = 2 * -(-max(n for _, n in cb.bands) // 64)
+        n_slices = max(1, min(n_chunks, -(-132 * 4 // tiles)))
+    else:
+        n_slices = _dw_slices(n_chunks, -(-cb.k // 64) * n_dt)
     part = torch.empty((n_slices, n_dt, BLOCK_ROWS, cb.k),
                        dtype=torch.float32, device=x.device)
     part_bias = torch.empty((n_slices, BLOCK_ROWS), dtype=torch.float32,
                             device=x.device)
     dts = list(cb.dts) + [0] * (3 - n_dt)
-    fn = _build.load("banded_conv_bwd", "tt_banded_conv_dw")
-    rc = fn(dz.data_ptr(), x.data_ptr(), part.data_ptr(), part_bias.data_ptr(),
-            dw.data_ptr(), db.data_ptr(), _DTYPES[x.dtype], b, r_in, cb.r_out,
-            t, n_dt, *dts, cb.k, cb.col_adv, cb.margin, n_slices,
-            torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if mma:
+        fn = _build.load("band_mma", "tt_band_conv_dw")
+        rc = fn(dz.data_ptr(), x.data_ptr(), part.data_ptr(),
+                part_bias.data_ptr(), dw.data_ptr(), db.data_ptr(), b, r_in,
+                cb.r_out, t, n_dt, *dts, cb.k, cb.col_adv, cb.margin,
+                *_band_ints(cb), n_slices, _aligned(t, dz, x), stream)
+    else:
+        fn = _build.load("banded_conv_bwd", "tt_banded_conv_dw")
+        rc = fn(dz.data_ptr(), x.data_ptr(), part.data_ptr(),
+                part_bias.data_ptr(), dw.data_ptr(), db.data_ptr(), b, r_in,
+                cb.r_out, t, n_dt, *dts, cb.k, cb.col_adv, cb.margin, n_slices,
+                stream)
     _build.check(rc, "banded_conv_dw")
     banded_conv_dw.launches += 1
+    banded_conv_dw.mma_launches += int(mma)
     return dw, db
 
 
 banded_conv_dw.launches = 0
+banded_conv_dw.mma_launches = 0
 
 
 def _level_backward(x, spec, dy, dtype, input_grad, dx_dtype, ops):

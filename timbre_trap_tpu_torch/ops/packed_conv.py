@@ -13,6 +13,13 @@ Rows and columns outside the input read as zero (SAME/VALID semantics).
 The block tensors built here are equal to the JAX package's, including the
 8-row margin shift and the zero leading columns it adds to ``K``.
 ``packed_conv_reference`` is the plain PyTorch execution of one conv.
+
+Bands: an output row reads only ``n_df * c_in`` of a block's ``K`` columns,
+so each 64-row half of a block (a sub-tile) carries its band, the first
+column it reads and how many, rounded out to multiples of 16, taken from
+the builder's static tap map (never from weight values).
+``band_conv_reference`` computes a conv from the bands alone; the bf16
+tensor-core kernels iterate over the band only.
 """
 
 import math
@@ -23,9 +30,13 @@ import torch
 __all__ = ["BLOCK_ROWS", "pack_nhwc", "unpack_to_nhwc", "pack_nchw",
            "unpack_to_nchw", "ConvBlocks", "build_conv2d_blocks",
            "build_sconv_blocks", "build_tconv_blocks", "build_dense_blocks",
-           "packed_conv_reference"]
+           "packed_conv_reference", "SUB_ROWS", "band_conv_reference"]
 
 BLOCK_ROWS = 128
+# Rows of a sub-tile (one warpgroup-sized M tile of the tensor-core kernels).
+SUB_ROWS = 64
+# Band granularity in columns (the k16 step of a bf16 tensor-core product).
+BAND_ALIGN = 16
 
 
 def pack_nhwc(x):
@@ -66,12 +77,16 @@ class ConvBlocks:
       margin:   zero rows above the input (block j starts reading at input
                 row ``j*col_adv - margin``).
       k:        input rows read per output block.
+      bands:    ((start, length), (start, length)): the block columns that
+                rows [0, 64) and rows [64, 128) of a block read, each a
+                multiple of 16 (the end may pass ``k``; those columns hold
+                no weight). A ``per_block`` map has one band, all of ``k``.
       adjoint:  the transpose of the conv as another repeating banded conv
                 (its dX map), attached by a training spec, else None.
     """
 
     def __init__(self, blocks, dts, bias, col_adv, margin, f_in, f_out,
-                 c_in, c_out, per_block=False):
+                 c_in, c_out, per_block=False, bands=None):
         self.blocks = blocks
         self.dts = tuple(int(d) for d in dts)
         self.bias = bias
@@ -81,6 +96,10 @@ class ConvBlocks:
         self.f_in, self.f_out = int(f_in), int(f_out)
         self.c_in, self.c_out = int(c_in), int(c_out)
         self.per_block = bool(per_block)
+        if bands is None:
+            full = (0, -(-self.k // BAND_ALIGN) * BAND_ALIGN)
+            bands = (full, full)
+        self.bands = tuple((int(s), int(n)) for s, n in bands)
         self.adjoint = None
         self._cache = {}
 
@@ -96,15 +115,68 @@ class ConvBlocks:
     def n_out_blocks(self):
         return math.ceil(self.r_out / BLOCK_ROWS)
 
-    def kernel_operands(self, dtype):
-        """(weights, bias) as the CUDA kernel reads them: the blocks
-        transposed to (n_dt, K, rows) at the storage ``dtype`` (rows run
-        fastest, so a block's weights for one input row are contiguous), and
-        the bias in float32. Built once per dtype."""
-        if dtype not in self._cache:
-            wt = self.blocks.transpose(1, 2).to(dtype).contiguous()
-            self._cache[dtype] = (wt, self.bias.to(torch.float32).contiguous())
-        return self._cache[dtype]
+    def kernel_operands(self):
+        """(weights, bias) as the float32 FFMA kernels read them: the blocks
+        transposed to (n_dt, K, rows) (rows run fastest, so a block's
+        weights for one input row are contiguous), and the bias. Built
+        once."""
+        if "ffma" not in self._cache:
+            wt = self.blocks.transpose(1, 2).to(torch.float32).contiguous()
+            self._cache["ffma"] = (wt, self.bias.to(torch.float32).contiguous())
+        return self._cache["ffma"]
+
+    @property
+    def n_sub(self):
+        """Output sub-tiles of 64 rows."""
+        return math.ceil(self.r_out / SUB_ROWS)
+
+    @property
+    def band_width(self):
+        """Columns of each sub-tile's band weights: the longest band,
+        rounded up to 32 (two k16 steps) so whole steps stay in bounds."""
+        return -(-max(n for _, n in self.bands) // 32) * 32
+
+    def sub_weights(self, g):
+        """The weight sub-tile that output sub-tile ``g`` uses: its own
+        with ``per_block``, else the block pattern's half ``g % 2``."""
+        return g if self.per_block else g % 2
+
+    def sub_start(self, g):
+        """The input row of band column 0 of output sub-tile ``g`` (may be
+        negative: rows outside the input read as zero)."""
+        return ((g // 2) * self.col_adv - self.margin
+                + self.bands[g % 2][0])
+
+    def band_weights(self, blocks=None):
+        """(n_weight_subtiles, n_dt, 64, band_width): each sub-tile's band of
+        ``blocks`` (default ``self.blocks``), zero past its band and past
+        ``k``; K-major rows, the layout of a tensor-core A operand."""
+        blocks = self.blocks if blocks is None else blocks
+        n_w = 2 * self.n_out_blocks if self.per_block else 2
+        out = blocks.new_zeros((n_w, len(self.dts), SUB_ROWS, self.band_width))
+        for g in range(n_w):
+            start, length = self.bands[g % 2]
+            n = min(length, self.k - start)
+            rows = blocks[:, g * SUB_ROWS:(g + 1) * SUB_ROWS, start:start + n]
+            out[g, :, :rows.shape[1], :n] = rows
+        return out
+
+    def band_operands(self):
+        """(band weights, bias) as the bf16 tensor-core kernels read them:
+        the band weights in bfloat16, the bias in float32. Built once."""
+        if "band" not in self._cache:
+            w = self.band_weights(self.blocks.detach())
+            self._cache["band"] = (w.to(torch.bfloat16).contiguous(),
+                                   self.bias.to(torch.float32).contiguous())
+        return self._cache["band"]
+
+    def band_mask(self):
+        """(n_dt, 128, k) bool: True at the block entries inside the band
+        of their row's sub-tile."""
+        cols = torch.arange(self.k, device=self.blocks.device)
+        halves = [(cols >= s) & (cols < s + n) for s, n in self.bands]
+        rows = torch.stack(halves).repeat_interleave(SUB_ROWS, dim=0)
+        return rows[None].expand(len(self.dts), -1, -1)
 
 
 def _build_blocks(kernel_fc, bias, f_in, f_out, c_in, c_out, f_taps, dts):
@@ -151,6 +223,7 @@ def _build_blocks(kernel_fc, bias, f_in, f_out, c_in, c_out, f_taps, dts):
             off = f_taps(fl, df)
             if off is not None:
                 m[df, fl, off - lo] = 1.0
+    bands = _sub_tile_bands(m, c_in, c_out, shift)
     m = torch.as_tensor(m, device=kernel_fc.device)
     # (df, dt, fl, co, g, ci) summed over df -> blocks[dt, fl*c_out + co,
     # shift + g*c_in + ci].
@@ -161,7 +234,25 @@ def _build_blocks(kernel_fc, bias, f_in, f_out, c_in, c_out, f_taps, dts):
         core.reshape(len(dts), BLOCK_ROWS, n_g * c_in), (shift, 0))
     bias_pat = bias.repeat(n_f_per_block)
     return ConvBlocks(blocks, dts, bias_pat, col_adv, margin_rows, f_in,
-                      f_out, c_in, c_out)
+                      f_out, c_in, c_out, bands=bands)
+
+
+def _sub_tile_bands(m, c_in, c_out, shift):
+    """The band of each 64-row half of a block from the static tap map
+    ``m[df, fl, g]``: the block columns ``shift + g*c_in + ci`` that any of
+    its output frequencies reads through any tap, rounded out to 16."""
+    bands = []
+    for s in range(BLOCK_ROWS // SUB_ROWS):
+        f_lo = s * SUB_ROWS // c_out
+        f_hi = -(-(s + 1) * SUB_ROWS // c_out)
+        g = np.flatnonzero(m[:, f_lo:f_hi].any(axis=(0, 1)))
+        if g.size == 0:
+            bands.append((0, BAND_ALIGN))
+            continue
+        lo = (shift + int(g[0]) * c_in) // BAND_ALIGN * BAND_ALIGN
+        hi = -(-(shift + (int(g[-1]) + 1) * c_in) // BAND_ALIGN) * BAND_ALIGN
+        bands.append((lo, hi - lo))
+    return tuple(bands)
 
 
 def _f32(a):
@@ -271,3 +362,37 @@ def packed_conv_reference(x, cb: ConvBlocks, blocks=None):
     y = acc.reshape(b, n_blocks * BLOCK_ROWS, t)[:, :cb.r_out]
     bias_full = cb.bias.to(x.dtype).repeat(n_blocks)[:cb.r_out]
     return y + bias_full[None, :, None]
+
+
+def band_conv_reference(x, cb: ConvBlocks, blocks=None):
+    """A ConvBlocks conv computed from its bands alone: output sub-tile g
+    (rows [64g, 64g + 64)) is ``sum_dt W_g,dt @ x[s_g : s_g + L, t + dt]``
+    with ``W_g`` its band weights (``cb.band_weights``) and ``s_g =
+    cb.sub_start(g)``, plus the bias; rows and columns outside the input
+    read as zero. Equal to ``packed_conv_reference`` (the columns outside a
+    band hold no weight); it is the arithmetic of the tensor-core kernels.
+    """
+    b, r_in, t = x.shape
+    if r_in != cb.r_in:
+        raise ValueError(f"input has {r_in} rows, conv expects {cb.r_in}")
+    wb = cb.band_weights(blocks).to(x.dtype)
+    n_sub, width = cb.n_sub, wb.shape[-1]
+    starts = [cb.sub_start(g) for g in range(n_sub)]
+    top = max(0, -min(starts))
+    bottom = max(0, max(starts) + width - r_in)
+    max_dt = max(abs(d) for d in cb.dts)
+    xp = torch.nn.functional.pad(x, (max_dt, max_dt, top, bottom))
+    idx = (torch.tensor(starts, device=x.device)[:, None] + top
+           + torch.arange(width, device=x.device)[None])
+    xw = xp[:, idx]                                  # (B, n_sub, L, T + 2md)
+    w = wb[[cb.sub_weights(g) for g in range(n_sub)]]  # (n_sub, n_dt, 64, L)
+    y = None
+    for di, dt in enumerate(cb.dts):
+        term = torch.einsum("grk,bgkt->bgrt", w[:, di],
+                            xw[..., max_dt + dt:max_dt + dt + t])
+        y = term if y is None else y + term
+    y = y.reshape(b, n_sub * SUB_ROWS, t)[:, :cb.r_out]
+    bias = cb.bias.to(x.dtype)
+    if not cb.per_block:
+        bias = bias.repeat(cb.n_out_blocks)
+    return y + bias[:cb.r_out][None, :, None]

@@ -14,7 +14,11 @@ warm-up ``"pallas_bf16"`` steps, then:
    host clock, mean of ``--steps`` steps;
 2. kernels: ``torch.profiler`` over ``--steps`` whole steps; the device
    time summed by kernel group, the device busy share (the union of kernel
-   intervals over the profiled wall time) and launches per step.
+   intervals over the profiled wall time) and launches per step;
+3. the inference chain (the 60-stage bf16 forward of ``transcribe`` on a
+   (4, 1080, 1024) chunk group of seeded features): wall time per chain
+   (host clock, synchronized) beside its device time by kernel group, so
+   that host-bound launching shows as a busy share below 1.
 
 Prints one JSON line with both and the card's name and power limit. Needs
 a CUDA device; exits non-zero without one.
@@ -30,13 +34,15 @@ import torch
 
 BACKEND = "pallas_bf16"
 # (group, substring of the kernel's name), first match wins; the port's
-# kernels live in an anonymous namespace of their .cu file.
+# kernels live in an anonymous namespace of their .cu file. The bf16 step
+# runs the tensor-core kernels of band_mma.cu and the ELU' seed of
+# banded_conv_bwd.cu.
 _OURS = "(anonymous namespace)::"
-GROUPS = (("K3 dW partial", _OURS + "banded_conv_dw_partial_kernel"),
-          ("K3 dW reduce", _OURS + "banded_conv_dw_reduce_kernel"),
-          ("K3 dX", _OURS + "banded_conv_dx_kernel"),
+GROUPS = (("K3 dW partial, mma", _OURS + "band_dw_partial_kernel"),
+          ("K3 dW reduce, mma", _OURS + "band_dw_reduce_kernel"),
+          ("K3 dX, mma", _OURS + "band_product_kernel<float, true"),
+          ("K1 stage, mma", _OURS + "band_product_kernel<__nv_bfloat16, false"),
           ("K3 ELU seed", _OURS + "elu_backward_kernel<"),
-          ("K1 banded conv", _OURS + "banded_conv_kernel"),
           ("cuFFT", "fft"), ("matmul", "gemm"), ("matmul", "cutlass"),
           ("index", "index"), ("reduce", "reduce"))
 
@@ -98,6 +104,29 @@ def main(argv=None):
         for _ in range(args.steps):
             float(step(state, audio, gt, 1e-4)["loss/total"])
         wall_ms = (time.perf_counter() - t0) * 1e3
+    busy, groups, launches = _device_time(prof)
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+    chain = _profile_chain(model, args.steps)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    n = args.steps
+    print(json.dumps({
+        "card": card, "backend": BACKEND, "steps": n,
+        "phase_ms": phases,
+        "step_wall_ms_profiled": wall_ms / n,
+        "device_busy_share": busy / wall_ms if groups else None,
+        "kernel_ms_per_step": {k: v / n for k, v in sorted(groups.items())},
+        "launches_per_step": {k: v / n for k, v in sorted(launches.items())},
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "forward_chain": chain}))
+    return 0
+
+
+def _device_time(prof):
+    """(busy ms: the union of kernel intervals, ms by kernel group,
+    launches by kernel group) of a profile."""
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     groups, launches = {}, {}
@@ -112,21 +141,39 @@ def main(argv=None):
         groups[k] = groups.get(k, 0.0) + (e.time_range.end
                                           - e.time_range.start) / 1e3
         launches[k] = launches.get(k, 0) + 1
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    n = args.steps
-    print(json.dumps({
-        "card": card, "backend": BACKEND, "steps": n,
-        "phase_ms": phases,
-        "step_wall_ms_profiled": wall_ms / n,
-        "device_busy_share": busy / 1e3 / wall_ms if kernels else None,
-        "kernel_ms_per_step": {k: v / n for k, v in sorted(groups.items())},
-        "launches_per_step": {k: v / n for k, v in sorted(launches.items())},
-        "peak_bytes": torch.cuda.max_memory_allocated()}))
-    return 0
+    return busy / 1e3, groups, launches
+
+
+def _profile_chain(model, reps):
+    """Wall and device time per bf16 inference chain at (4, 1080, 1024)."""
+    from ..ops.fused_level import fused_level_apply
+
+    spec = model._spec(True)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = (0.3 * torch.randn((4, spec.r_in, 1024), generator=g, device="cuda")
+         ).to(torch.bfloat16)
+    for _ in range(2):
+        fused_level_apply(x, spec, torch.bfloat16)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fused_level_apply(x, spec, torch.bfloat16)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    wall_ms = run()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        prof_ms = run()
+    busy, groups, launches = _device_time(prof)
+    return {"shape": [4, spec.r_in, 1024], "wall_ms": wall_ms / reps,
+            "wall_ms_profiled": prof_ms / reps,
+            "device_busy_share_profiled": busy / prof_ms,
+            "kernel_ms": {k: v / reps for k, v in sorted(groups.items())},
+            "launches": {k: v / reps for k, v in sorted(launches.items())}}
 
 
 if __name__ == "__main__":
