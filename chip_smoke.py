@@ -12,7 +12,9 @@ Phases, each of which exits non-zero on failure:
              by item and as the whole 36-item chain at (4, 1080, 1024), in
              float32 (max abs error <= 1e-4 * max|ref|, TF32 off) and in
              bfloat16 (<= 5e-2 * max|ref| against the float32 plain
-             version); the peak-mask kernel (K2) exactly, at t = 0.5 and 0;
+             version; the float32 route runs split-TF32 tensor-core
+             products, held to the IEEE plain version); the peak-mask
+             kernel (K2) exactly, at t = 0.5 and 0;
              the level backward (K3) on each of the 8 training levels at
              (2, R_in, 1024): dX and every parameter's gradient against
              torch autograd of the plain chain, float32 within
@@ -28,7 +30,9 @@ Phases, each of which exits non-zero on failure:
              after and must be > 0; activations must be finite, in [0, 1],
              of shape (1, 540, frames), and within 5e-2 of a float32 run;
              the mask must equal the plain version's on those activations;
-             a small model on the card matches the same weights on the CPU.
+             the float32 transcribe of the same clip, counted: every K1
+             stage runs the split-TF32 band kernel; a small model on the
+             card matches the same weights on the CPU.
              Then training at the reference recipe: 5 ``"pallas_bf16"``
              steps on one seeded batch of 8 chord-and-noise 9-s crops
              (int16 compact uploads, uint8 ground truth), K1 and K3 counts
@@ -39,20 +43,26 @@ Phases, each of which exits non-zero on failure:
              loss within 2e-2 and the whole gradient within 5e-2 in
              relative L2; on those crops and at the small geometry one
              float32 ``"pallas"`` step against ``"packed"``, losses within
-             1e-5 and gradients within 1e-4 * each leaf's max|g|.
-             The bf16 routes of K1 and K3 are the band-tiled tensor-core
-             kernels of ``csrc/band_mma.cu``: phase 2 also holds them, on
-             one conv of each kind at flagship widths (3x3 at dilation 1, 2
-             and 3, 1x1, sconv, tconv, the dense bridge) at T = 3072 and a
-             ragged T = 1001, against their bf16 twins: the stage, dX and
-             dW (band entries, the twin masked with the same bands) and
-             dBias within 1e-2 * max|ref|, dW and dBias the same bits in two
-             runs; K3 also against its twin at (2, R_in, 1024) on every
-             level; the main paths must launch the tensor-core kernels;
+             1e-5 and gradients within 1e-4 * each leaf's max|g|; one
+             counted float32 recipe step, whose K1 stages must all run the
+             split-TF32 band kernel.
+             K1 (both dtypes) and the bf16 route of K3 are the band-tiled
+             tensor-core kernels of ``csrc/band_mma.cu``: phase 2 also
+             holds them, on one conv of each kind at flagship widths (3x3
+             at dilation 1, 2 and 3, 1x1, sconv, tconv, the dense bridge)
+             at T = 3072 and a ragged T = 1001: the float32 stage within
+             1e-4 * max|ref| of its IEEE twin; against the bf16 twins the
+             stage, dX and dW (band entries, the twin masked with the same
+             bands) and dBias within 1e-2 * max|ref|, dW and dBias the same
+             bits in two runs; K3 also against its twin at (2, R_in, 1024)
+             on every level; the main paths must launch the tensor-core
+             kernels;
 4. numbers — kernel, plain-version and library times, the least time the
              card could take (bound), the real-time factor of the counted
-             (first) call and of a second call at the same length, and the
-             train step's time, audio rate and peak memory; the flops the
+             (first) call and of a second call at the same length (and of
+             a second float32 call), and the train step's time, audio rate
+             and peak memory; float32 yardsticks (cuDNN with TF32 off) for
+             K1 and K3; the flops the
              bf16 kernels compute beside those the convs need, the bytes a
              stage-by-stage run must move, and the HMMA/HGMMA count of the
              tensor-core library's SASS.
@@ -84,8 +94,16 @@ SMALL = dict(sample_rate=8000, n_octaves=5, bins_per_octave=12,
 # bf16 peak rate of the tensor cores and HBM rate of an H100 SXM
 # (NVIDIA data sheet, dense, 700 W).
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+
+
+def f32_ops_ms(flops):
+    """The least time for float32-accurate products of ``flops``: the
+    lesser of FFMA at the float32 rate and three TF32 tensor-core products
+    (a split hi/lo operand each) at the TF32 rate."""
+    return min(flops / PEAK_F32_FLOPS, 3 * flops / PEAK_TF32_FLOPS) * 1e3
 
 
 def fail(msg):
@@ -125,6 +143,27 @@ def rel_err(got, ref):
     err = (got.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
     return err, scale
+
+
+# The launch counts a kernel wrapper may carry, and their keys' suffixes.
+COUNTS = {"launches": "", "mma_launches": ".mma",
+          "mma_launches_f32": ".mma_f32"}
+
+
+def zero_counts(fns):
+    """Set every launch count of the kernel wrappers ``fns`` to 0."""
+    for fn in fns:
+        for name in COUNTS:
+            if hasattr(fn, name):
+                setattr(fn, name, 0)
+
+
+def read_counts(fns):
+    """{wrapper: launches, wrapper.mma: bf16 tensor-core launches,
+    wrapper.mma_f32: float32 split-TF32 launches} where a wrapper has
+    them."""
+    return {fn.__name__ + sfx: getattr(fn, name) for fn in fns
+            for name, sfx in COUNTS.items() if hasattr(fn, name)}
 
 
 def card_line():
@@ -194,12 +233,14 @@ def conv_kind(cb):
 
 
 def phase_band_parity(torch, fwd_spec, train_specs):
-    """The bf16 tensor-core kernels on the first conv of each kind in the
+    """The tensor-core kernels on the first conv of each kind in the
     flagship specs (training levels with adjoints; the dense bridge from
-    the inference chain), at T = 3072 and 1001, batch 2, against their bf16
-    twins on the same tensors: the stage (ELU, residual), dX (residual,
+    the inference chain), at T = 3072 and 1001, batch 2, against their
+    twins on the same tensors: the float32 stage (ELU, residual) within
+    1e-4 * max|ref| of the IEEE twin; in bf16 the stage, dX (residual,
     raw, ELU') and dW/dBias (band entries) within 1e-2 * max|ref|, dW and
-    dBias bitwise stable. Returns the largest relative error."""
+    dBias bitwise stable. Returns the largest relative errors (bf16,
+    float32)."""
     from timbre_trap_tpu_torch.ops.fused_level import (
         banded_conv, banded_conv_dw, banded_conv_dw_reference, banded_conv_dx,
         banded_conv_dx_reference, banded_conv_reference)
@@ -215,19 +256,25 @@ def phase_band_parity(torch, fwd_spec, train_specs):
     def rand(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def rel(got, ref, what):
+    def rel(got, ref, what, tol=1e-2):
         err = (got.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
-        check(err <= 1e-2 * scale, f"band kernels: {what} error {err} > "
-              f"1e-2 * {scale}")
+        check(err <= tol * scale, f"band kernels: {what} error {err} > "
+              f"{tol} * {scale}")
         return err / max(scale, 1e-30)
 
-    worst = 0.0
+    worst = worst32 = 0.0
     for t in (3072, 1001):
         for kind, cb in picks.items():
             dense = kind == "dense"
-            x = rand(2, cb.r_in, t, dtype=bf16)
-            res = None if dense else rand(2, cb.r_out, t, dtype=bf16)
+            x32 = rand(2, cb.r_in, t)
+            res32 = None if dense else rand(2, cb.r_out, t)
+            e32 = rel(banded_conv(x32, cb, not dense, res32),
+                      banded_conv_reference(x32, cb, not dense, res32),
+                      f"{kind} T={t} float32 stage", 1e-4)
+            worst32 = max(worst32, e32)
+            x = x32.to(bf16)
+            res = None if dense else res32.to(bf16)
             errs = [rel(banded_conv(x, cb, not dense, res),
                         banded_conv_reference(x, cb, not dense, res),
                         f"{kind} T={t} stage")]
@@ -252,8 +299,9 @@ def phase_band_parity(torch, fwd_spec, train_specs):
             print(f"  band {kind:8s} T={t} (c_in {cb.c_in}, c_out "
                   f"{cb.c_out}, bands {cb.bands}): stage"
                   + ("" if dense else ", dX, raw, dW, dBias")
-                  + " rel " + " ".join(f"{e:.2e}" for e in errs))
-    return worst
+                  + " rel " + " ".join(f"{e:.2e}" for e in errs)
+                  + f"; float32 stage rel {e32:.2e}")
+    return worst, worst32
 
 
 class ByteCount:
@@ -267,20 +315,18 @@ class ByteCount:
         self.n = 0
         bf16 = torch.bfloat16
 
-        def weights(cb, dtype):
-            return (cb.band_operands() if dtype == bf16
-                    else cb.kernel_operands())
-
         def stage(x, cb, act=False, residual=None):
             y = fl.banded_conv(x, cb, act, residual)
-            self.add(x, residual, y, *weights(cb, x.dtype))
+            self.add(x, residual, y, *cb.band_operands(x.dtype))
             return y
 
         def dx(c, adj, dtype, residual=None, elu=None, keep_raw=False,
                out_dtype=torch.float32):
             out = fl.banded_conv_dx(c, adj, dtype, residual, elu, keep_raw,
                                     out_dtype)
-            self.add(c, residual, *(elu or ()), *out, weights(adj, dtype)[0])
+            w = (adj.band_operands(dtype)[0] if dtype == bf16
+                 else adj.kernel_operands()[0])
+            self.add(c, residual, *(elu or ()), *out, w)
             return out
 
         def dw(dz, x, cb):
@@ -544,10 +590,7 @@ def phase_train(torch, counters):
     step = make_train_step(model, cfg, TRAIN_CROPS, conv_backend="pallas_bf16",
                            compact_audio_grid=True)
     warmup = cosine_warmup(TRAIN_WARMUP)
-    for fn in counters:
-        fn.launches = 0
-        if hasattr(fn, "mma_launches"):
-            fn.mma_launches = 0
+    zero_counts(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     walls, history = [], []
@@ -557,9 +600,7 @@ def phase_train(torch, counters):
         metrics = {k: float(v) for k, v in metrics.items()}
         walls.append(time.perf_counter() - t0)
         history.append(metrics)
-    launches = {fn.__name__: fn.launches for fn in counters}
-    launches.update({f"{fn.__name__}.mma": fn.mma_launches for fn in counters
-                     if hasattr(fn, "mma_launches")})
+    launches = read_counts(counters)
     peak = torch.cuda.max_memory_allocated()
     losses = [m["loss/total"] for m in history]
     check(all(np.isfinite(v) for m in history for v in m.values()),
@@ -569,7 +610,10 @@ def phase_train(torch, counters):
                 "max_norm/decoder", "loss/consistency/spectral"):
         check(key in history[-1], f"train metrics lack {key}")
     for name, n in launches.items():
-        check(n > 0, f"{name} was not launched by the train step")
+        if name.endswith(".mma_f32"):
+            check(n == 0, f"{name}: the bf16 step launched a float32 kernel")
+        else:
+            check(n > 0, f"{name} was not launched by the train step")
     print(f"main: train {TRAIN_STEPS} steps pallas_bf16, loss/total "
           + " ".join(f"{v:.4f}" for v in losses)
           + f", launches {launches}")
@@ -604,21 +648,32 @@ def phase_train(torch, counters):
         "small", one_step(torch, small, ws, "pallas", a_s, g_s, TRAIN_LR),
         one_step(torch, small, ws, "packed", a_s, g_s, TRAIN_LR))
 
-    # one float32 "pallas" step at the recipe (the second of two).
+    # one float32 "pallas" step at the recipe (the second of two), counted:
+    # every K1 stage of its forward and recompute runs the split-TF32 band
+    # kernel.
     model.load_state_dict(w0)
     st32 = init_train_state(model, cfg)
     step32 = make_train_step(model, cfg, TRAIN_CROPS, conv_backend="pallas",
                              compact_audio_grid=True)
-    for _ in range(2):
-        t0 = time.perf_counter()
-        float(step32(st32, audio, gt, TRAIN_LR)["loss/total"])
-        wall32 = time.perf_counter() - t0
+    float(step32(st32, audio, gt, TRAIN_LR)["loss/total"])
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    float(step32(st32, audio, gt, TRAIN_LR)["loss/total"])
+    wall32 = time.perf_counter() - t0
+    launches32 = read_counts(counters)
+    check(launches32["banded_conv.mma_f32"] > 0
+          and launches32["banded_conv.mma_f32"] == launches32["banded_conv"],
+          f"the float32 step's K1 stages did not all run the split-TF32 "
+          f"band kernel: {launches32}")
+    print(f"main: float32 pallas step launches {launches32}")
     step_s = float(np.mean(walls[1:]))
     audio_secs = TRAIN_CROPS * TRAIN_SECS
     numbers = {"train_step_ms": step_s * 1e3,
                "train_step_ms_each": [w * 1e3 for w in walls],
                "audio_s_per_s": audio_secs / step_s,
                "peak_bytes": peak, "f32_step_ms": wall32 * 1e3,
+               "f32_step_launches": launches32,
                "loss_total": losses,
                "bf16_vs_twin": {"loss_rel": d_bf16, "grad_l2_rel": l2_bf16,
                                 "worst_leaf_rel": leaf_bf16,
@@ -649,7 +704,8 @@ def k3_band_flops(spec, batch, frames):
 
 def k3_numbers(torch, model, launches_per_step):
     """K3 at the flagship encoder level 1 (convin fused) at the recipe's
-    (8, 1080, 3072), bf16: kernel, plain twin and cuDNN times and bounds."""
+    (8, 1080, 3072), in bf16 and in float32: kernel, plain twin and cuDNN
+    times and bounds."""
     import copy
 
     from timbre_trap_tpu_torch.interop import hwio_params
@@ -668,52 +724,62 @@ def k3_numbers(torch, model, launches_per_step):
           ).to(torch.bfloat16)
     dyb = torch.randn((b, spec.r_out, t), generator=g, device=dev
                       ).to(torch.bfloat16)
-    bf16 = torch.bfloat16
-    with torch.no_grad():
-        ms = time_ms(torch, lambda: level_backward(xb, spec, dyb, bf16), 5)
-        plain = time_ms(torch, lambda: level_backward_reference(
-            xb, spec, dyb, bf16), 2)
-
-    lib = torch.nn.Sequential(copy.deepcopy(net.encoder.convin),
-                              copy.deepcopy(net.encoder.block1)).to(bf16)
-    x_nchw = unpack_to_nchw(xb, spec.items[0][1].c_in).contiguous()
-    x_nchw.requires_grad_(True)
-    dy_nchw = unpack_to_nchw(dyb, spec.items[-1][1].c_out).contiguous()
-    y = lib(x_nchw)
-    params = list(lib.parameters())
-    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
-        y, [x_nchw] + params, dy_nchw, retain_graph=True), 5)
-
-    count = ByteCount(torch)
-    with torch.no_grad():
-        _level_backward(xb, spec, dyb, bf16, True, bf16, count.ops)
     fwd_flops = needed_flops(spec, b, t)
     bwd_flops = 2 * fwd_flops           # dX and dW, every conv
     computed = k3_band_flops(spec, b, t)
-    io_bytes = 2 * xb.numel() * 2 + dyb.numel() * 2
-    w_bytes = sum(cb.blocks.numel() * (2 + 4) + cb.bias.numel() * (4 + 4)
-                  + cb.adjoint.blocks.numel() * 2 for cb in spec.convs())
-    t_ops = bwd_flops / PEAK_BF16_FLOPS * 1e3
-    t_bytes = (io_bytes + w_bytes) / PEAK_BYTES * 1e3
     n_convs = sum(1 for _ in spec.convs())
-    print(f"K3 level backward, encoder level 1 ({n_convs} convs) at "
-          f"{tuple(xb.shape)} bf16: {ms:.3f} ms, plain {plain:.3f} ms, cuDNN "
-          f"autograd {lib_ms:.3f} ms; dX+dW {bwd_flops / 1e9:.2f} GFLOP "
-          f"needed, recompute {fwd_flops / 1e9:.2f} GFLOP; the bf16 kernels "
-          f"compute {computed / 1e9:.2f} GFLOP (recompute, dX, dW); "
-          f"stage-by-stage bytes {count.n / 1e9:.3f} GB = "
-          f"{count.n / PEAK_BYTES * 1e3:.4f} ms at {PEAK_BYTES / 1e12} TB/s")
-    return {"ms": ms, "plain_ms": plain, "library_ms": lib_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "shape": f"encoder level 1 backward ({n_convs} convs, convin "
-                     f"fused), x {tuple(xb.shape)} bf16, dy "
-                     f"{tuple(dyb.shape)}",
-            "bwd_gflop": bwd_flops / 1e9, "recompute_gflop": fwd_flops / 1e9,
-            "gflop_computed": computed / 1e9,
-            "stage_bytes": count.n,
-            "stage_bytes_ms": count.n / PEAK_BYTES * 1e3,
-            "launches_per_step": launches_per_step}
+    out = {"shape": f"encoder level 1 backward ({n_convs} convs, convin "
+                    f"fused), x {tuple(xb.shape)} bf16, dy "
+                    f"{tuple(dyb.shape)}",
+           "bwd_gflop": bwd_flops / 1e9, "recompute_gflop": fwd_flops / 1e9,
+           "gflop_computed": computed / 1e9,
+           "launches_per_step": launches_per_step}
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        sfx, size = ("_f32", 4) if f32 else ("", 2)
+        xs, dys = xb.to(dtype), dyb.to(dtype)
+        with torch.no_grad():
+            ms = time_ms(torch, lambda: level_backward(xs, spec, dys, dtype), 5)
+            plain = time_ms(torch, lambda: level_backward_reference(
+                xs, spec, dys, dtype), 2)
+        lib = torch.nn.Sequential(copy.deepcopy(net.encoder.convin),
+                                  copy.deepcopy(net.encoder.block1)).to(dtype)
+        x_nchw = unpack_to_nchw(xs, spec.items[0][1].c_in).contiguous()
+        x_nchw.requires_grad_(True)
+        dy_nchw = unpack_to_nchw(dys, spec.items[-1][1].c_out).contiguous()
+        y = lib(x_nchw)
+        params = list(lib.parameters())
+        lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+            y, [x_nchw] + params, dy_nchw, retain_graph=True), 5)
+        del y, lib, x_nchw, dy_nchw
+        count = ByteCount(torch)
+        with torch.no_grad():
+            _level_backward(xs, spec, dys, dtype, True, dtype, count.ops)
+        io_bytes = (2 * xs.numel() + dys.numel()) * size
+        # bf16: blocks read at bf16, dW written at float32; float32: both.
+        w_bytes = sum(cb.blocks.numel() * (size + 4) + cb.bias.numel() * 8
+                      + cb.adjoint.blocks.numel() * size
+                      for cb in spec.convs())
+        t_ops = (f32_ops_ms(bwd_flops) if f32
+                 else bwd_flops / PEAK_BF16_FLOPS * 1e3)
+        t_bytes = (io_bytes + w_bytes) / PEAK_BYTES * 1e3
+        print(f"K3 level backward, encoder level 1 ({n_convs} convs) at "
+              f"{tuple(xs.shape)} {dtype}: {ms:.3f} ms, plain {plain:.3f} ms, "
+              f"cuDNN autograd {lib_ms:.3f} ms (cudnn.allow_tf32="
+              f"{torch.backends.cudnn.allow_tf32}); dX+dW "
+              f"{bwd_flops / 1e9:.2f} GFLOP needed, recompute "
+              f"{fwd_flops / 1e9:.2f} GFLOP; bound {max(t_ops, t_bytes):.4f} "
+              f"ms; stage-by-stage bytes {count.n / 1e9:.3f} GB = "
+              f"{count.n / PEAK_BYTES * 1e3:.4f} ms at {PEAK_BYTES / 1e12} TB/s")
+        out.update({f"ms{sfx}": ms, f"plain_ms{sfx}": plain,
+                    f"library_ms{sfx}": lib_ms,
+                    f"bound_ms{sfx}": max(t_ops, t_bytes),
+                    f"bound_by{sfx}": ("operations" if t_ops >= t_bytes
+                                       else "bytes"),
+                    f"stage_bytes{sfx}": count.n,
+                    f"stage_bytes_ms{sfx}": count.n / PEAK_BYTES * 1e3})
+        del xs, dys, count
+    return out
 
 
 def main():
@@ -769,21 +835,18 @@ def main():
     with torch.no_grad():
         train_specs = sum(level_specs(hwio_params(model.net), model.net,
                                       True), [])
-    band_err = phase_band_parity(torch, model._spec(True), train_specs)
+    band_err, band_err32 = phase_band_parity(torch, model._spec(True), train_specs)
     print(f"parity: {time.perf_counter() - t_par:.1f} s")
 
     # 3. the main path: transcribe + peak_mask, counted
-    banded_conv.launches = banded_conv.mma_launches = 0
-    peak_mask.launches = 0
+    zero_counts((banded_conv, peak_mask))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     acts = model.transcribe(audio)
     mask = peak_mask(acts, 0.5)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"banded_conv": banded_conv.launches,
-                "banded_conv.mma": banded_conv.mma_launches,
-                "peak_mask": peak_mask.launches}
+    launches = read_counts((banded_conv, peak_mask))
     check(tuple(acts.shape) == (1, F, n_frames),
           f"activations {tuple(acts.shape)}, expected (1, {F}, {n_frames})")
     check(bool(torch.isfinite(acts).all()), "activations are not finite")
@@ -793,8 +856,9 @@ def main():
     check(torch.equal(mask, peak_mask_reference(acts, 0.5)),
           "the main path's peak mask differs from its plain version")
     check(launches["banded_conv"] > 0, "K1 was not launched on the main path")
-    check(launches["banded_conv.mma"] > 0,
-          "K1's tensor-core kernel was not launched on the main path")
+    check(launches["banded_conv.mma"] == launches["banded_conv"],
+          "K1's bf16 tensor-core kernel was not launched for every stage "
+          "of the main path")
     check(launches["peak_mask"] > 0, "K2 was not launched on the main path")
     rtf = CLIP_SECS / wall
     print(f"main: {CLIP_SECS:.0f} s clip in {wall:.3f} s (RTF {rtf:.1f}), "
@@ -807,8 +871,24 @@ def main():
     wall_warm = time.perf_counter() - t0
     rtf_warm = CLIP_SECS / wall_warm
 
+    # 3a. the float32 transcribe, counted: every K1 stage runs the
+    # split-TF32 band kernel.
     model.fused = "f32"
+    zero_counts((banded_conv,))
+    torch.cuda.synchronize()
     acts32 = model.transcribe(audio)
+    torch.cuda.synchronize()
+    launches32 = read_counts((banded_conv,))
+    check(launches32["banded_conv.mma_f32"] > 0
+          and launches32["banded_conv.mma_f32"] == launches32["banded_conv"],
+          f"the float32 transcribe's K1 stages did not all run the "
+          f"split-TF32 band kernel: {launches32}")
+    print(f"main: float32 transcribe launches {launches32}")
+    t0 = time.perf_counter()
+    peak_mask(model.transcribe(audio), 0.5)
+    torch.cuda.synchronize()
+    wall32 = time.perf_counter() - t0
+    rtf32 = CLIP_SECS / wall32
     model.fused = "auto"
     diff = (acts - acts32).abs().max().item()
     print(f"main: bf16 vs f32 activations max abs diff {diff:.3e}")
@@ -847,8 +927,14 @@ def main():
     net16.load_state_dict(model.net.state_dict())
     net16 = net16.to(torch.bfloat16).eval()
     nchw = feats.movedim(-1, 1).to(torch.bfloat16).contiguous()
+    net32 = TimbreTrapNet(F, LATENT, COMPLEXITY).cuda()
+    net32.load_state_dict(model.net.state_dict())
+    net32 = net32.eval()
+    nchw32 = feats.movedim(-1, 1).float().contiguous()
     with torch.no_grad():
         k1_lib = time_ms(torch, lambda: net16(nchw, True))
+        k1_lib32 = time_ms(torch, lambda: net32(nchw32, True))
+    del net16, net32
     launches_per_forward = sum(1 for _ in spec.convs())
     n_cols = x.shape[0] * x.shape[-1]
     flops = chain_flops(spec, n_cols)
@@ -858,8 +944,10 @@ def main():
     with torch.no_grad():
         _apply_chain(xb, spec, torch.bfloat16, count.stage)
     print(f"K1 forward {tuple(x.shape)} bf16: {k1_ms:.3f} ms (float32 "
-          f"{k1_ms32:.3f} ms), plain {k1_plain:.3f} ms, cuDNN net "
-          f"{k1_lib:.3f} ms; computes {computed / 1e9:.2f} GFLOP on the bands "
+          f"{k1_ms32:.3f} ms), plain {k1_plain:.3f} ms (float32 "
+          f"{k1_plain32:.3f} ms), cuDNN net {k1_lib:.3f} ms (float32 "
+          f"{k1_lib32:.3f} ms, cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}); computes {computed / 1e9:.2f} GFLOP on the bands "
           f"(full blocks {flops / 1e9:.2f}, needed {conv_flops / 1e9:.2f}); "
           f"stage-by-stage bytes {count.n / 1e9:.3f} GB = "
           f"{count.n / PEAK_BYTES * 1e3:.4f} ms at {PEAK_BYTES / 1e12} TB/s")
@@ -878,19 +966,27 @@ def main():
     kernels = [
         {"name": "banded_conv", "route": "cuda",
          "source": "timbre_trap_tpu_torch/csrc/band_mma.cu",
-         "source_f32": "timbre_trap_tpu_torch/csrc/banded_conv.cu",
+         "source_f32": "timbre_trap_tpu_torch/csrc/band_mma.cu",
+         "launches_f32": launches32["banded_conv"],
+         "launches_train_f32": train["f32_step_launches"]["banded_conv"],
          "replaces": "timbre_trap_tpu/ops/fused_level.py:463",
          "launches": launches["banded_conv"],
          "launches_mma": launches["banded_conv.mma"],
          "launches_train": train_launches["banded_conv"],
-         "max_abs_err": k1_err, "band_max_rel_err": band_err, "sass": sass,
+         "max_abs_err": k1_err, "band_max_rel_err": band_err,
+         "band_max_rel_err_f32": band_err32, "sass": sass,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": max(t_ops, t_bytes),
          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
          "library_ms": k1_lib,
          "shape": f"one {launches_per_forward}-launch forward chain, "
                   f"{tuple(x.shape)} bf16",
          "ms_f32": k1_ms32, "plain_ms_f32": k1_plain32,
-         "bound_ms_f32": max(conv_flops / PEAK_F32_FLOPS * 1e3, 2 * t_bytes),
+         "library_ms_f32": k1_lib32,
+         "bound_ms_f32": max(f32_ops_ms(conv_flops), 2 * t_bytes),
+         "bound_by_f32": ("operations" if f32_ops_ms(conv_flops)
+                          >= 2 * t_bytes else "bytes"),
+         "bound_ms_f32_ffma": conv_flops / PEAK_F32_FLOPS * 1e3,
+         "bound_ms_f32_3xtf32": 3 * conv_flops / PEAK_TF32_FLOPS * 1e3,
          "gflop": flops / 1e9, "gflop_computed": computed / 1e9,
          "conv_gflop": conv_flops / 1e9, "stage_bytes": count.n,
          "stage_bytes_ms": count.n / PEAK_BYTES * 1e3},
@@ -913,7 +1009,8 @@ def main():
     ]
     print(f"transcribe_rtf: {rtf:.2f} first call, {rtf_warm:.2f} second call "
           f"({CLIP_SECS:.0f} s clip, {wall:.3f} s / {wall_warm:.3f} s wall, "
-          f"bf16 chain, peak mask included)")
+          f"bf16 chain, peak mask included); float32 chain "
+          f"{rtf32:.2f} second call ({wall32:.3f} s wall)")
     print(json.dumps({"train": train}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,12 +1,14 @@
 """The band geometry of the port's banded convs and the plain functions
-that the bf16 tensor-core kernels (``csrc/band_mma.cu``) compute.
+that the tensor-core kernels (``csrc/band_mma.cu``) compute.
 
 Each 64-row half of a block (a sub-tile) carries the band of columns it
 reads, from the builder's static tap map. These tests hold, on the CPU:
 that the bands cover every structurally nonzero column (forward and
 adjoint blocks, small and flagship geometry), that a conv computed from the
-bands alone equals ``packed_conv_reference``, and that keeping dW on the
-bands leaves every parameter gradient unchanged. This file imports no JAX.
+bands alone equals ``packed_conv_reference``, that keeping dW on the
+bands leaves every parameter gradient unchanged, and that the float32
+route's split-TF32 products (emulated here on the plain band function)
+stay within the card's float32 check. This file imports no JAX.
 """
 
 import numpy as np
@@ -138,6 +140,88 @@ def test_band_masked_dw_keeps_parameter_gradients(name):
         assert torch.equal(g_full, g_kept)
     dw16, _ = banded_conv_dw_reference(dz, x.to(torch.bfloat16), cb)
     assert not dw16[~mask].any() and dw16[mask].any()
+
+
+def _tf32_rna(x):
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32``: on the int32 view, add half of
+    the 13 dropped bits to the magnitude and clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32_conv(x, cb):
+    """The float32 stage of ``csrc/band_mma.cu`` (``tt_band_conv_f32``)
+    emulated on the plain band function: x and the blocks split into hi, a
+    TF32 rounding, and lo = v - hi, of which the tensor cores keep the TF32
+    bits (the low 13 cleared); the three products hi*hi, hi*lo and lo*hi
+    summed in float32 with round-to-nearest adds (the kernel adds each
+    16-column chunk's products into its running sum so, not in the
+    truncating MMA accumulators), then the bias."""
+    def split(v):
+        hi = _tf32_rna(v)
+        lo = (v - hi).contiguous().view(torch.int32) & ~0x1FFF
+        return hi, lo.view(torch.float32)
+
+    (xh, xl), (wh, wl) = split(x), split(cb.blocks)
+    cb0 = _like(cb, cb.blocks, torch.zeros_like(cb.bias))
+    small = (pc.band_conv_reference(xl, cb0, wh)
+             + pc.band_conv_reference(xh, cb0, wl))
+    return small + pc.band_conv_reference(xh, cb, wh)
+
+
+def _like(cb, blocks, bias):
+    """A ConvBlocks of ``cb``'s geometry with other blocks and bias."""
+    return pc.ConvBlocks(blocks, cb.dts, bias, cb.col_adv, cb.margin,
+                         cb.f_in, cb.f_out, cb.c_in, cb.c_out, cb.per_block,
+                         cb.bands)
+
+
+def test_tf32_rna_rounds_to_nearest_away():
+    one = 1.0 + 2.0 ** -10                      # the TF32 step above 1
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12,
+                      -(1.0 + 2.0 ** -11), 3.0 + 2.0 ** -20],
+                     dtype=torch.float32)
+    want = torch.tensor([1.0, one, 1.0, -one, 3.0], dtype=torch.float32)
+    assert torch.equal(_tf32_rna(x), want)
+    v = _rand(np.random.default_rng(3), 1000)
+    hi = _tf32_rna(v)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert float(((v - hi) / v).abs().max()) <= 2.0 ** -11
+
+
+def _split_cases():
+    cases = dict(_CASES)
+    # One flagship-width encoder stage: a residual 3x3 conv of encoder
+    # level 1 (540 bins x 4 channels).
+    rng = np.random.default_rng(21)
+    cases["flagship-enc1-3x3"] = pc.build_conv2d_blocks(
+        _rand(rng, 3, 3, 4, 4, scale=0.3), _rand(rng, 4, scale=0.1), 540, 1)
+    return cases
+
+
+_SPLIT_CASES = _split_cases()
+
+
+@pytest.mark.parametrize("name", sorted(_SPLIT_CASES))
+def test_split_tf32_error_within_the_float32_check(name):
+    """The float32 route's 3xTF32 products, emulated on the CPU, against
+    the same band function in float64: the error stays inside the card's
+    float32 check (1e-4 * max|ref|), next to the IEEE float32 error."""
+    cb = _SPLIT_CASES[name]
+    x = _rand(np.random.default_rng(4), 2, cb.r_in, 37)
+    ref = pc.band_conv_reference(
+        x.double(), _like(cb, cb.blocks.double(), cb.bias.double()))
+    ieee = pc.band_conv_reference(x, cb)
+    split = _split_tf32_conv(x, cb)
+    scale = float(ref.abs().max())
+    e_split = float((split.double() - ref).abs().max())
+    e_ieee = float((ieee.double() - ref).abs().max())
+    print(f"{name}: split {e_split / scale:.2e}, IEEE {e_ieee / scale:.2e} "
+          f"of max|ref|, ratio {e_split / max(e_ieee, 1e-300):.2f}")
+    assert e_split <= 1e-4 * scale
+    # Far inside it: a few float32 roundings of the sum, not a TF32 one.
+    assert e_split <= 1e-5 * scale
 
 
 def test_flagship_band_flops():

@@ -1,8 +1,8 @@
 """The port's hand-written CUDA kernels against their plain PyTorch twins:
-the conv stage (K1: bf16 through the tensor-core kernels of
-``csrc/band_mma.cu``, float32 through ``csrc/banded_conv.cu``), the peak
-mask (K2) and the level backward (K3: bf16 dX and dW through
-``csrc/band_mma.cu``, float32 through ``csrc/banded_conv_bwd.cu``).
+the conv stage (K1: the band-tiled tensor-core kernels of
+``csrc/band_mma.cu``, bf16 products for bfloat16, split-TF32 products for
+float32), the peak mask (K2) and the level backward (K3: bf16 dX and dW
+through ``csrc/band_mma.cu``, float32 through ``csrc/banded_conv_bwd.cu``).
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed. The tests marked ``cuda`` need a card and skip
@@ -113,6 +113,37 @@ def test_wrappers_take_the_twin_on_cpu_and_count_nothing():
     assert _k3_counts() == k3_before
 
 
+def test_peak_mask_reads_frame_slices_in_place():
+    """K2's wrapper hands the kernel (B, F, T) planes at their own strides
+    when the frames are contiguous (a frame slice such as transcribe's
+    trimmed output), and copies only other layouts."""
+    from timbre_trap_tpu_torch.ops.peaks import _planes_of_rows
+
+    a = torch.zeros((2, 3, 5, 12))
+    assert _planes_of_rows(a)
+    assert _planes_of_rows(a[..., 2:9])
+    assert _planes_of_rows(a[:, 1])
+    assert not _planes_of_rows(a[..., ::2])
+    assert not _planes_of_rows(a.transpose(-1, -2))
+    assert not _planes_of_rows(a[:, :2, 1:4])
+
+
+def test_f32_accuracy_tool_items_on_cpu():
+    """The float64 yardstick of ``tools/f32_accuracy.py``: on the CPU both
+    routes are the IEEE plain version, each item within a few float32
+    roundings of float64."""
+    from timbre_trap_tpu_torch.tools import f32_accuracy
+
+    model = TimbreTrap(8000, 5, 12, 0.5, latent_size=16, model_complexity=1,
+                       seed=0, device="cpu")
+    spec = model._spec(True)
+    x = _rand(np.random.default_rng(15), 2, spec.r_in, 37, scale=0.3)
+    items = f32_accuracy._items(spec, x)
+    assert len(items) == len(spec.items)
+    for e in items:
+        assert e["kernel"] == e["ieee"] <= 1e-6, e
+
+
 def test_flagship_chain_geometry():
     """The flagship forward: 36 items, 60 convs, time reach 50 of the 64
     halo, and 81.79 MFLOP of banded products per frame column."""
@@ -185,14 +216,29 @@ def test_banded_conv_rejects_what_it_does_not_take(cuda_device):
 
 
 @pytest.mark.cuda
-def test_peak_mask_kernel_matches_plain(cuda_device):
-    a = torch.rand((2, 540, 1000), device=cuda_device)
-    a[0, 10:13, :5] = 0.7
-    for t in (0.5, 0.0, -0.25):
-        before = peak_mask.launches
-        got = peak_mask(a, t)
-        assert peak_mask.launches == before + 1
-        assert torch.equal(got, peak_mask_reference(a, t))
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("t_len", [34816, 1001, 3])
+@pytest.mark.parametrize("f", [540, 61, 1])
+def test_peak_mask_kernel_matches_plain(cuda_device, f, t_len, batch):
+    """K2 equals its plain version bit for bit: row runs with a ragged
+    last run, T unaligned and not a multiple of 4 (element loads at the
+    tail), several planes, thresholds above, at and below zero, ties
+    (equal neighbours are no peak), a frame slice of a longer tensor (read
+    in place at its row stride, as transcribe's output lies) and a strided
+    view (the wrapper's contiguous copy)."""
+    g = torch.Generator(device=cuda_device).manual_seed(f * t_len + batch)
+    a = torch.rand((batch, f, t_len), generator=g, device=cuda_device)
+    a[0, f // 3:f // 3 + 3, :5] = 0.7
+    longer = torch.rand((batch, f, t_len + 4), generator=g, device=cuda_device)
+    wide = torch.rand((batch, f, 2 * t_len + 1), generator=g,
+                      device=cuda_device)
+    for x in (a, longer[..., :t_len], longer[..., 1:t_len + 1],
+              wide[..., 1::2]):
+        for t in (0.5, 0.0, -0.25):
+            before = peak_mask.launches
+            got = peak_mask(x, t)
+            assert peak_mask.launches == before + 1
+            assert torch.equal(got, peak_mask_reference(x, t)), (t, x.stride())
 
 
 @pytest.mark.cuda
@@ -257,25 +303,33 @@ def test_level_backward_dw_is_bitwise_stable(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [3072, 1001])
-def test_band_kernels_match_plain_at_long_and_ragged_t(cuda_device, t):
-    """The bf16 tensor-core kernels (csrc/band_mma.cu) on every conv kind,
-    at the recipe's T and at a ragged T: the stage (bias, ELU, residual)
-    and the dX product (float32 cotangent, residual, raw, ELU') within
-    1e-2 * max|ref| of their bf16 twins (sum order and output rounding)."""
+@pytest.mark.parametrize("dtype,t", [("bfloat16", 3072), ("bfloat16", 1001),
+                                     ("float32", 3072), ("float32", 1001),
+                                     ("float32", 70), ("float32", 1)])
+def test_band_kernels_match_plain_at_long_and_ragged_t(cuda_device, dtype, t):
+    """The tensor-core kernels (csrc/band_mma.cu) on every conv kind (the
+    residual items' 3x3 and 1x1, the per-block dense bridge maps), at the
+    recipe's T and at ragged T: the stage (bias, ELU, residual) in bf16
+    within 1e-2 * max|ref| of its bf16 twin (sum order and output
+    rounding), in float32 (split-TF32 products) within 1e-4 * max|ref| of
+    the IEEE twin; in bf16 also the dX product (float32 cotangent,
+    residual, raw, ELU') within 1e-2 * max|ref|."""
     rng = np.random.default_rng(12)
     bf16 = torch.bfloat16
+    dtype = getattr(torch, dtype)
+    tol = 1e-2 if dtype == bf16 else 1e-4
     for name, cb in _conv_cases(cuda_device).items():
-        x = _rand(rng, 2, cb.r_in, t).to(cuda_device, bf16)
-        res = _rand(rng, 2, cb.r_out, t).to(cuda_device, bf16)
-        before = banded_conv.mma_launches
+        x = _rand(rng, 2, cb.r_in, t).to(cuda_device, dtype)
+        res = _rand(rng, 2, cb.r_out, t).to(cuda_device, dtype)
+        before = banded_conv.mma_launches, banded_conv.mma_launches_f32
         got = banded_conv(x, cb, True, res)
-        assert banded_conv.mma_launches == before + 1
+        assert (banded_conv.mma_launches, banded_conv.mma_launches_f32) == (
+            before[0] + (dtype == bf16), before[1] + (dtype != bf16))
         want = banded_conv_reference(x, cb, True, res)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        assert err <= 1e-2 * want.float().abs().max().item(), (name, t, err)
-        if cb.per_block:
+        assert err <= tol * want.float().abs().max().item(), (name, t, err)
+        if cb.per_block or dtype != bf16:
             continue
         cb.bias = torch.zeros_like(cb.bias)     # an adjoint map has no bias
         c = _rand(rng, 2, cb.r_in, t).to(cuda_device)
@@ -315,16 +369,20 @@ def test_band_dw_matches_masked_twin_and_is_bitwise_stable(cuda_device):
 
 @pytest.mark.cuda
 def test_band_kernels_reject_what_they_do_not_take(cuda_device):
-    """The bf16 route stages at most 8 frames per side (a dilation-9 tap
-    runs in float32 only), and dX/dW take no dense per-block map."""
+    """The band-tiled routes (the stage in both dtypes, dX and dW in bf16)
+    stage at most 8 frames per side, so a dilation-9 tap runs only through
+    the float32 FFMA dX and dW; dX/dW take no dense per-block map."""
     rng = np.random.default_rng(14)
     wide = pc.build_conv2d_blocks(_rand(rng, 3, 3, 4, 4), _rand(rng, 4), 64,
                                   9)
     wide.blocks, wide.bias = wide.blocks.cuda(), wide.bias.cuda()
     x = torch.zeros((1, wide.r_in, 16), device=cuda_device)
-    banded_conv(x, wide)
-    with pytest.raises(ValueError):
-        banded_conv(x.to(torch.bfloat16), wide)
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="at most 8 frames"):
+            banded_conv(x.to(dtype), wide)
+    banded_conv_dx(x, wide, torch.float32)
+    banded_conv_dw(torch.zeros((1, wide.r_out, 16), device=cuda_device), x,
+                   wide)
     with pytest.raises(ValueError):
         banded_conv_dx(x, wide, torch.bfloat16)
     with pytest.raises(ValueError):

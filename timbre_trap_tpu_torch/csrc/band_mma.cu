@@ -1,12 +1,12 @@
-// Band-tiled bf16 tensor-core products of the conv chain (K1) and of the
-// level backward (K3 dX and dW), for Hopper (sm_90a).
+// Band-tiled tensor-core products of the conv chain (K1, bf16 and float32)
+// and of the level backward (K3 dX and dW, bf16), for Hopper (sm_90a).
 //
-// Replaces, for bfloat16 storage, the products of the Pallas TPU kernels
+// Replaces the products of the Pallas TPU kernels
 // timbre_trap_tpu/ops/fused_level.py `_level_kernel` (K1, launched by
-// `_pallas_fwd_call`) and `_level_bwd_kernel` (K3, launched by
-// `_pallas_bwd_call`). Float32 keeps the IEEE FFMA kernels of
-// banded_conv.cu and banded_conv_bwd.cu; the wrappers in
-// ops/fused_level.py route by dtype.
+// `_pallas_fwd_call`; both storage dtypes) and `_level_bwd_kernel` (K3,
+// launched by `_pallas_bwd_call`; bfloat16 storage). Float32 K3 keeps the
+// FFMA kernels of banded_conv_bwd.cu; the wrappers in ops/fused_level.py
+// route by dtype.
 //
 // The banded blocks are mostly structural zeros: an output row of a conv
 // reads n_df * c_in of a block's K input rows. Each 64-row half of a
@@ -18,9 +18,14 @@
 //
 //   tt_band_conv     K1 stage: y[64g + r, t] = epi(sum_dt sum_k
 //                      W_g,dt[r, k] * x[s_g + k, t + dt]), s_g the input row
-//                      of band column 0 of sub-tile g; epilogue as
-//                      banded_conv.cu: bias, ELU as exp(min(v, 0)) - 1,
-//                      residual add.
+//                      of band column 0 of sub-tile g; epilogue: bias,
+//                      ELU as exp(min(v, 0)) - 1 (as the JAX package
+//                      writes it), residual add.
+//   tt_band_conv_f32 the K1 stage in float32 storage: the same grid, bands
+//                      and epilogue, products as 3xTF32 (m16n8k8; each
+//                      operand split into TF32 hi + lo, hi*hi + hi*lo +
+//                      lo*hi in float32), the f32-accurate product that the
+//                      JAX package's precision="highest" asks for.
 //   tt_band_conv_dx  K3 dX: the same product of the float32 cotangent,
 //                      rounded to bf16 while it is staged, with the adjoint
 //                      bands; epilogue as tt_banded_conv_dx: + residual
@@ -42,19 +47,26 @@
 // taps of a k chunk read that one tile. dW stages dZ the same way (as
 // zs[frame][r], ldmatrix.trans gives the A fragments) and x untransposed.
 // Loads for the next k chunk are in flight while the current one is
-// multiplied (two buffers, register staging; weights by cp.async).
+// multiplied (two buffers, register staging; weights by cp.async). The
+// float32 stage needs no transposition: its fragments are 32-bit loads,
+// which take any address, so x is staged as it lies in memory (a tap is a
+// column offset) and every tile moves by cp.async, four chunks in flight.
 //
 // What bounds it: with the zeros skipped, a stage needs ~2 * n_dt * 64 * L
 // flops per sub-tile and frame (L the band, 48-256) against ~2 bytes per
 // row and frame in and out, so one stage is near the card's bytes-per-flop
 // line and a forward chain is bound by its bytes (each stage reads and
-// writes its activations). mma.sync rather than wgmma: its fragments come
+// writes its activations); in float32 the three TF32 passes at half the
+// bf16 rate put the stage well above that line, bound by the tensor
+// cores. mma.sync rather than wgmma: its fragments come
 // straight from the transposed tiles with per-row addresses, where wgmma's
 // shared-memory descriptors want whole swizzled tiles at aligned offsets.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -221,7 +233,7 @@ __device__ __forceinline__ int tap_shift(int di, int dt0, int dt1, int dt2) {
 
 struct BandArgs {
   const void* src;     // (B, r_in, T): bf16 (K1) or float32 (dX cotangent)
-  const bf16* w;       // (n_wsub, n_dt, 64, width) band weights
+  const void* w;       // (n_wsub, n_dt, 64, width) band weights, bf16 or float32
   const float* bias;   // K1: (128,) pattern, or (n_blocks * 128,) per block
   const void* res;     // K1: bf16 residual; dX: float32 residual cotangent
   const bf16* s1;      // dX: stored output for ELU'
@@ -258,6 +270,73 @@ __device__ __forceinline__ void store_pair<bf16>(bf16* out, size_t o, int col, i
   }
 }
 
+__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f32(const bf16* p) { return to_f32(__ldg(p)); }
+
+// The epilogue of a warp's 32-row x 32-frame accumulator tile (rows
+// 32wm.., frames 32wn.. of sub-tile g; the accumulator layout of both
+// m16n8k16 and m16n8k8). kDx = false, K1: + bias, ELU, + the residual at
+// the output's type; true, dX: + the float32 residual cotangent, raw, x ELU'.
+template <bool kDx, typename TO>
+__device__ __forceinline__ void band_epilogue(const BandArgs& a, const float (&acc)[2][4][4],
+                                              int g, int s, int t0, int b, int wm, int wn,
+                                              int lane) {
+  typedef typename std::conditional<kDx, float, TO>::type TR;
+  const size_t out_base = (size_t)b * a.r_out * a.t_len;
+  TO* out = static_cast<TO*>(a.out);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row_l = 32 * wm + 16 * mi + (lane >> 2) + 8 * h;
+      const int orow = g * kSub + row_l;
+      if (orow >= a.r_out) continue;
+      const size_t row_o = out_base + (size_t)orow * a.t_len;
+      // Every load of the row's 8 outputs (read-only path) before its
+      // stores, which the compiler cannot prove apart from them: one round
+      // trip to memory a row, not one an output.
+      float add[4][2], yarg[4][2];
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = t0 + 32 * wn + 8 * ni + 2 * (lane & 3) + e;
+          const bool ok = col < a.t_len;
+          add[ni][e] = 0.f;
+          yarg[ni][e] = 1.f;
+          if (ok && a.res != nullptr) add[ni][e] = ldg_f32(static_cast<const TR*>(a.res) + row_o + col);
+          if (kDx && ok && a.s1 != nullptr) {
+            float y = to_f32(__ldg(a.s1 + row_o + col));
+            if (a.s2 != nullptr) y -= to_f32(__ldg(a.s2 + row_o + col));
+            yarg[ni][e] = y;
+          }
+        }
+      }
+      const float bias = kDx ? 0.f : __ldg(a.bias + (a.per_block ? orow : s * kSub + row_l));
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int col = t0 + 32 * wn + 8 * ni + 2 * (lane & 3);
+        if (col >= a.t_len) continue;
+        const size_t o = row_o + col;
+        float v[2] = {acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (!kDx) {
+            v[e] += bias;
+            if (a.act) v[e] = v[e] > 0.f ? v[e] : expf(fminf(v[e], 0.f)) - 1.f;
+            v[e] += add[ni][e];
+          } else {
+            v[e] += add[ni][e];
+            if (a.raw != nullptr && col + e < a.t_len) a.raw[o + e] = v[e];
+            if (a.s1 != nullptr) v[e] *= yarg[ni][e] > 0.f ? 1.f : yarg[ni][e] + 1.f;
+          }
+        }
+        store_pair<TO>(out, o, col, a.t_len, v[0], v[1]);
+      }
+    }
+  }
+}
+
 // kDx = false: K1 epilogue (bias, ELU, bf16 residual); true: dX epilogue.
 // Three CTAs an SM for a bf16 source (<= 85 registers), two for float32,
 // whose staged chunk takes twice the registers.
@@ -284,7 +363,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(TS) == 2 ? 3 : 2)
   const bool aligned = a.aligned != 0;
 
   const TS* src = static_cast<const TS*>(a.src) + (size_t)b * a.r_in * a.t_len;
-  const bf16* wsrc = a.w + (size_t)wsub * a.n_dt * kSub * a.width;
+  const bf16* wsrc = static_cast<const bf16*>(a.w) + (size_t)wsub * a.n_dt * kSub * a.width;
   const int n_chunks = (kl + kKc - 1) / kKc;
 
   RowPair<TS> st[kXSlots];
@@ -385,62 +464,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(TS) == 2 ? 3 : 2)
     cp_async_wait_all();
     __syncthreads();
   }
-
-  const size_t out_base = (size_t)b * a.r_out * a.t_len;
-  TO* out = static_cast<TO*>(a.out);
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row_l = 32 * wm + 16 * mi + (lane >> 2) + 8 * h;
-      const int orow = g * kSub + row_l;
-      if (orow >= a.r_out) continue;
-      const size_t row_o = out_base + (size_t)orow * a.t_len;
-      // Every load of the row's 8 outputs (read-only path) before its
-      // stores, which the compiler cannot prove apart from them: one round
-      // trip to memory a row, not one an output.
-      float add[4][2], yarg[4][2];
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = t0 + 32 * wn + 8 * ni + 2 * (lane & 3) + e;
-          const bool ok = col < a.t_len;
-          add[ni][e] = 0.f;
-          yarg[ni][e] = 1.f;
-          if (ok && a.res != nullptr)
-            add[ni][e] = kDx ? __ldg(static_cast<const float*>(a.res) + row_o + col)
-                             : to_f32(__ldg(static_cast<const bf16*>(a.res) + row_o + col));
-          if (kDx && ok && a.s1 != nullptr) {
-            float y = to_f32(__ldg(a.s1 + row_o + col));
-            if (a.s2 != nullptr) y -= to_f32(__ldg(a.s2 + row_o + col));
-            yarg[ni][e] = y;
-          }
-        }
-      }
-      const float bias = kDx ? 0.f : __ldg(a.bias + (a.per_block ? orow : s * kSub + row_l));
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = t0 + 32 * wn + 8 * ni + 2 * (lane & 3);
-        if (col >= a.t_len) continue;
-        const size_t o = row_o + col;
-        float v[2] = {acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]};
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (!kDx) {
-            v[e] += bias;
-            if (a.act) v[e] = v[e] > 0.f ? v[e] : expf(fminf(v[e], 0.f)) - 1.f;
-            v[e] += add[ni][e];
-          } else {
-            v[e] += add[ni][e];
-            if (a.raw != nullptr && col + e < a.t_len) a.raw[o + e] = v[e];
-            if (a.s1 != nullptr) v[e] *= yarg[ni][e] > 0.f ? 1.f : yarg[ni][e] + 1.f;
-          }
-        }
-        store_pair<TO>(out, o, col, a.t_len, v[0], v[1]);
-      }
-    }
-  }
+  band_epilogue<kDx, TO>(a, acc, g, s, t0, b, wm, wn, lane);
 }
 
 template <typename TS, bool kDx, typename TO>
@@ -455,6 +479,237 @@ int launch_band_product(const BandArgs& a, int batch, cudaStream_t st) {
   }
   const dim3 grid((a.t_len + kTileT - 1) / kTileT, (a.r_out + kSub - 1) / kSub, batch);
   kernel<<<grid, kThreads, kFwdSmem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------------ //
+// K1 stage in float32: split-TF32 (3xTF32) products                    //
+// ------------------------------------------------------------------ //
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo. mma.sync ignores the low 13 bits of a .tf32 register, so hi
+// is rounded explicitly (nearest, ties away) and lo is the remainder from
+// the rounded hi, x - hi, exact in float32 and at most 2^-11 |x|. The
+// tensor cores then drop lo's own low bits: an error of at most 2^-21 |x|,
+// of either sign since lo's sign is x - hi's, measured on the card at the
+// IEEE float32 level (tools/f32_accuracy.py); rounding lo as well was
+// slower on the card for no gain there.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a (16x8, row) * b (8x8, col), tf32 operands, float32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a * b, the same product into fresh accumulators.
+__device__ __forceinline__ void mma_tf32_first(float (&d)[4], const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
+// cp.async of 16 (4) bytes that writes zeros instead where !valid (src is
+// then not read, but must be a valid address).
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The float32 stage's tiles: kKcF band columns a pipeline stage, kStagesF
+// stages in flight. x is staged as it lies in memory, xs[k][frame] (frames
+// t0 - 8 .. t0 + 136): a 32-bit fragment load needs no alignment, so a tap
+// is a column offset and every load is a cp.async straight into shared
+// memory, with no register staging. Rows of kXPitchF = 152 floats (24 mod
+// 32 banks) and kWPitchF = 20 put a fragment load's 32 lanes in 32 banks.
+// 100,352 bytes of shared memory: 2 CTAs an SM, as the registers allow.
+constexpr int kKcF = 16;
+constexpr int kStagesF = 4;
+constexpr int kXPitchF = kXRows + 8;
+constexpr int kWPitchF = kKcF + 4;
+constexpr int kXStageF = kKcF * kXPitchF;
+constexpr int kWStageF = 3 * kSub * kWPitchF;
+constexpr int kTf32Smem = kStagesF * (kXStageF + kWStageF) * 4;
+
+// The K1 stage of band_product_kernel for float32 storage: the same grid,
+// bands and epilogue. The products run on the tensor cores as 3xTF32: each
+// float32 fragment element splits into hi + lo after its shared-memory
+// load and every m16n8k8 step computes lo*hi + hi*lo + hi*hi in float32
+// (the dropped lo*lo and the truncation of lo are ~2^-21 of a product).
+// The tensor cores round their float32 sums toward zero, so a running sum
+// kept in the MMA accumulators drifts toward zero by up to half an ulp an
+// MMA (~1e-5 relative over a 1984-column band); each tap's 16-column
+// chunk therefore goes into fresh accumulators (6 MMAs) and reaches the
+// running sum by an IEEE (round-to-nearest) add, which keeps the error at
+// float32 level (one add per 8 columns was slower for no gain there).
+// Fragments are 32-bit shared-memory loads (ldmatrix moves 16-bit
+// elements).
+__global__ void __launch_bounds__(kThreads, 2) band_tf32_kernel(const BandArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* xs = reinterpret_cast<float*>(smem_raw);      // [kStagesF][kKcF][kXPitchF]
+  float* ws = xs + kStagesF * kXStageF;                // [kStagesF][3][kSub][kWPitchF]
+
+  const int t0 = blockIdx.x * kTileT;
+  const int g = blockIdx.y;
+  const int b = blockIdx.z;
+  const int s = g & 1;
+  const int kb = s ? a.kb1 : a.kb0;
+  const int kl = s ? a.kl1 : a.kl0;
+  const int wsub = a.per_block ? g : s;
+  const int row0 = (g >> 1) * a.col_adv - a.margin + kb;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp & 1;
+  const int wn = warp >> 1;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+
+  const float* src = static_cast<const float*>(a.src) + (size_t)b * a.r_in * a.t_len;
+  const float* wsrc = static_cast<const float*>(a.w) + (size_t)wsub * a.n_dt * kSub * a.width;
+  const int n_chunks = kl / kKcF;  // bands are multiples of 16 columns
+
+  // Chunk c (band columns 16c..16c + 15) into stage st: zeros outside the
+  // input's rows and frames. Aligned rows (T % 4 == 0) move in 16-byte
+  // pieces, each wholly inside or outside [0, T); others element by element.
+  auto load_chunk = [&](int c, int st) {
+    float* xd = xs + st * kXStageF;
+    const int r0 = row0 + c * kKcF;
+    if (a.aligned) {
+      for (int p = tid; p < kKcF * (kXRows / 4); p += kThreads) {
+        const int kk = p / (kXRows / 4);
+        const int f = 4 * (p % (kXRows / 4));
+        const int r = r0 + kk;
+        const int t = t0 - kHalo + f;
+        const bool ok = r >= 0 && r < a.r_in && t >= 0 && t < a.t_len;
+        cp_async16_zfill(xd + kk * kXPitchF + f, ok ? src + (size_t)r * a.t_len + t : src, ok);
+      }
+    } else {
+      for (int p = tid; p < kKcF * kXRows; p += kThreads) {
+        const int kk = p / kXRows;
+        const int f = p % kXRows;
+        const int r = r0 + kk;
+        const int t = t0 - kHalo + f;
+        const bool ok = r >= 0 && r < a.r_in && t >= 0 && t < a.t_len;
+        cp_async4_zfill(xd + kk * kXPitchF + f, ok ? src + (size_t)r * a.t_len + t : src, ok);
+      }
+    }
+    float* wd = ws + st * kWStageF;
+    for (int p = tid; p < a.n_dt * kSub * (kKcF / 4); p += kThreads) {
+      const int tr = p / (kKcF / 4);  // tap * kSub + row
+      const int q = p % (kKcF / 4);
+      cp_async16(wd + tr * kWPitchF + 4 * q, wsrc + (size_t)tr * a.width + c * kKcF + 4 * q);
+    }
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+#pragma unroll
+  for (int c = 0; c < kStagesF - 1; ++c) {
+    if (c < n_chunks) load_chunk(c, c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<kStagesF - 2>();  // chunk c has landed
+    __syncthreads();                // and every warp is done with chunk c - 1
+    if (c + kStagesF - 1 < n_chunks) load_chunk(c + kStagesF - 1, (c + kStagesF - 1) % kStagesF);
+    cp_async_commit();
+    const float* xb = xs + (c % kStagesF) * kXStageF;
+    const float* wst = ws + (c % kStagesF) * kWStageF;
+#pragma unroll
+    for (int tap = 0; tap < 3; ++tap) {
+      if (tap < a.n_dt) {
+        const int dt = tap_shift(tap, a.dt0, a.dt1, a.dt2);
+        const float* wb = wst + tap * kSub * kWPitchF;
+        // The tap's 16-column product (two m16n8k8 steps, small terms
+        // first) in fresh accumulators, then one IEEE add into the running
+        // sum.
+        float p[2][4][4];
+#pragma unroll
+        for (int ks = 0; ks < kKcF / 8; ++ks) {
+          // A (16 x 8): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3
+          // (g + 8, t + 4); B (8 x 8): b0 (k t, frame g), b1 (k t + 4).
+          uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+            const float* x0 = xb + (8 * ks + tq) * kXPitchF + 32 * wn + 8 * ni + gq + kHalo + dt;
+            split_tf32(x0[0], bh[ni][0], bl[ni][0]);
+            split_tf32(x0[4 * kXPitchF], bh[ni][1], bl[ni][1]);
+          }
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            uint32_t ah[4], al[4];
+            const float* w0 = wb + (32 * wm + 16 * mi + gq) * kWPitchF + 8 * ks + tq;
+            split_tf32(w0[0], ah[0], al[0]);
+            split_tf32(w0[8 * kWPitchF], ah[1], al[1]);
+            split_tf32(w0[4], ah[2], al[2]);
+            split_tf32(w0[8 * kWPitchF + 4], ah[3], al[3]);
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni) {
+              if (ks == 0) {
+                mma_tf32_first(p[mi][ni], al, bh[ni]);
+              } else {
+                mma_tf32(p[mi][ni], al, bh[ni]);
+              }
+            }
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni) mma_tf32(p[mi][ni], ah, bl[ni]);
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni) mma_tf32(p[mi][ni], ah, bh[ni]);
+          }
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mi][ni][e] += p[mi][ni][e];
+      }
+    }
+  }
+  cp_async_wait<0>();
+  band_epilogue<false, float>(a, acc, g, s, t0, b, wm, wn, lane);
+}
+
+int launch_band_tf32(const BandArgs& a, int batch, cudaStream_t st) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        band_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTf32Smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  const dim3 grid((a.t_len + kTileT - 1) / kTileT, (a.r_out + kSub - 1) / kSub, batch);
+  band_tf32_kernel<<<grid, kThreads, kTf32Smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -665,20 +920,13 @@ __global__ void band_dw_reduce_kernel(const float* part, const float* part_bias,
   }
 }
 
-}  // namespace
-
-// K1 stage, bf16 storage. x, res, y: (B, r_in|r_out, T) bf16; w: band
-// weights (n_wsub, n_dt, 64, width) bf16; bias float32. aligned: the rows
-// of x are 16-byte aligned (T % 8 == 0 and an aligned base). Returns
-// cudaGetLastError() of the launch.
-extern "C" int tt_band_conv(const void* x, const void* w, const void* bias, const void* res,
-                            void* y, int batch, int r_in, int r_out, int t_len, int n_dt, int dt0,
-                            int dt1, int dt2, int col_adv, int margin, int width, int per_block,
-                            int act, int kb0, int kl0, int kb1, int kl1, int aligned,
-                            void* stream) {
+BandArgs stage_args(const void* x, const void* w, const void* bias, const void* res, void* y,
+                    int r_in, int r_out, int t_len, int n_dt, int dt0, int dt1, int dt2,
+                    int col_adv, int margin, int width, int per_block, int act, int kb0,
+                    int kl0, int kb1, int kl1, int aligned) {
   BandArgs a = {};
   a.src = x;
-  a.w = static_cast<const bf16*>(w);
+  a.w = w;
   a.bias = static_cast<const float*>(bias);
   a.res = res;
   a.out = y;
@@ -699,7 +947,38 @@ extern "C" int tt_band_conv(const void* x, const void* w, const void* bias, cons
   a.kl0 = kl0;
   a.kb1 = kb1;
   a.kl1 = kl1;
+  return a;
+}
+
+}  // namespace
+
+// K1 stage, bf16 storage. x, res, y: (B, r_in|r_out, T) bf16; w: band
+// weights (n_wsub, n_dt, 64, width) bf16; bias float32. aligned: the rows
+// of x are 16-byte aligned (T % 8 == 0 and an aligned base). Returns
+// cudaGetLastError() of the launch.
+extern "C" int tt_band_conv(const void* x, const void* w, const void* bias, const void* res,
+                            void* y, int batch, int r_in, int r_out, int t_len, int n_dt, int dt0,
+                            int dt1, int dt2, int col_adv, int margin, int width, int per_block,
+                            int act, int kb0, int kl0, int kb1, int kl1, int aligned,
+                            void* stream) {
+  const BandArgs a = stage_args(x, w, bias, res, y, r_in, r_out, t_len, n_dt, dt0, dt1, dt2,
+                                col_adv, margin, width, per_block, act, kb0, kl0, kb1, kl1,
+                                aligned);
   return launch_band_product<bf16, false, bf16>(a, batch, static_cast<cudaStream_t>(stream));
+}
+
+// K1 stage, float32 storage, split-TF32 products: x, res, y float32, w the
+// band weights in float32; otherwise as tt_band_conv (aligned: T % 4 == 0
+// and an aligned base).
+extern "C" int tt_band_conv_f32(const void* x, const void* w, const void* bias,
+                                const void* res, void* y, int batch, int r_in, int r_out,
+                                int t_len, int n_dt, int dt0, int dt1, int dt2, int col_adv,
+                                int margin, int width, int per_block, int act, int kb0, int kl0,
+                                int kb1, int kl1, int aligned, void* stream) {
+  const BandArgs a = stage_args(x, w, bias, res, y, r_in, r_out, t_len, n_dt, dt0, dt1, dt2,
+                                col_adv, margin, width, per_block, act, kb0, kl0, kb1, kl1,
+                                aligned);
+  return launch_band_tf32(a, batch, static_cast<cudaStream_t>(stream));
 }
 
 // K3 dX, bf16 storage: c (B, r_in, T) float32 cotangent; w the adjoint's
@@ -712,7 +991,7 @@ extern "C" int tt_band_conv_dx(const void* c, const void* w, const void* res, co
                                int kb1, int kl1, int aligned, void* stream) {
   BandArgs a = {};
   a.src = c;
-  a.w = static_cast<const bf16*>(w);
+  a.w = w;
   a.res = res;
   a.s1 = static_cast<const bf16*>(s1);
   a.s2 = static_cast<const bf16*>(s2);

@@ -28,8 +28,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 # C signatures of each library's entry points: {library: {name: argtypes}}.
 _SIGNATURES = {
-    "banded_conv": {"tt_banded_conv": [_P] * 5 + [_I] * 14 + [_P]},
-    "peak_mask": {"tt_peak_mask": [_P, _P, _I, _I, _I, _F, _P]},
+    "peak_mask": {"tt_peak_mask": [_P, _P, _I, _I, _I, _L, _L, _F, _I, _P]},
     "banded_conv_bwd": {
         "tt_banded_conv_dx": [_P] * 7 + [_I] * 11 + [_P],
         "tt_banded_conv_dw": [_P] * 6 + [_I] * 12 + [_P],
@@ -37,6 +36,7 @@ _SIGNATURES = {
     },
     "band_mma": {
         "tt_band_conv": [_P] * 5 + [_I] * 18 + [_P],
+        "tt_band_conv_f32": [_P] * 5 + [_I] * 18 + [_P],
         "tt_band_conv_dx": [_P] * 7 + [_I] * 17 + [_P],
         "tt_band_conv_dw": [_P] * 6 + [_I] * 17 + [_P],
     },

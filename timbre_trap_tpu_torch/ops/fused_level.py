@@ -9,8 +9,8 @@ plus the item input.
 
 ``fused_level_apply`` runs the chain through hand-written CUDA kernels
 (which replace the Pallas ``_level_kernel``), one launch per conv stage:
-bfloat16 through the band-tiled tensor-core kernel of ``csrc/band_mma.cu``,
-float32 through the IEEE FFMA kernel of ``csrc/banded_conv.cu``;
+the band-tiled tensor-core kernels of ``csrc/band_mma.cu``, bf16 products
+for bfloat16 and split-TF32 (3xTF32) products for float32;
 ``packed_level_apply`` is their plain PyTorch twin. Both keep the JAX
 precision policy: every stage input, weight and output is stored at
 ``dtype`` (float32 or bfloat16), accumulation and biases are float32.
@@ -208,12 +208,16 @@ def banded_conv_reference(x, cb, act=False, residual=None):
 def banded_conv(x, cb, act=False, residual=None):
     """One conv stage with fused bias, optional ELU and residual add.
 
-    For a CUDA tensor it launches a kernel: bfloat16 the band-tiled
-    tensor-core kernel (``csrc/band_mma.cu:tt_band_conv``), float32 the
-    FFMA kernel (``csrc/banded_conv.cu``); ``banded_conv.launches`` counts
-    every launch and ``banded_conv.mma_launches`` the tensor-core ones. A
-    CPU tensor takes the plain twin. ``x`` is (B, r_in, T) float32 or
-    bfloat16; ``residual`` (B, r_out, T).
+    For a CUDA tensor it launches a band-tiled tensor-core kernel of
+    ``csrc/band_mma.cu``: bfloat16 ``tt_band_conv`` (bf16 products),
+    float32 ``tt_band_conv_f32`` (3xTF32 products: each operand split into
+    TF32 hi + lo, hi*hi + hi*lo + lo*hi accumulated in float32, as close to
+    the exact product as the IEEE float32 one within a small factor).
+    ``banded_conv.launches`` counts every launch,
+    ``banded_conv.mma_launches`` the bfloat16 ones and
+    ``banded_conv.mma_launches_f32`` the float32 ones. A CPU tensor takes
+    the plain twin. ``x`` is (B, r_in, T) float32 or bfloat16;
+    ``residual`` (B, r_out, T).
     """
     if x.device.type == "cpu":
         return banded_conv_reference(x, cb, act, residual)
@@ -224,14 +228,13 @@ def banded_conv(x, cb, act=False, residual=None):
     b, r_in, t = x.shape
     if r_in != cb.r_in:
         raise ValueError(f"input has {r_in} rows, conv expects {cb.r_in}")
-    mma = x.dtype == torch.bfloat16
-    _check_taps(cb, "banded_conv", mma)
+    _check_taps(cb, "banded_conv", x.dtype)
     x = x.contiguous()
     if residual is not None:
         if residual.shape != (b, cb.r_out, t) or residual.dtype != x.dtype:
             raise ValueError("residual must match the stage output")
         residual = residual.contiguous()
-    w, bias = cb.band_operands() if mma else cb.kernel_operands()
+    w, bias = cb.band_operands(x.dtype)
     if w.device != x.device:
         raise ValueError("conv weights and input lie on different devices")
     y = torch.empty((b, cb.r_out, t), dtype=x.dtype, device=x.device)
@@ -240,34 +243,34 @@ def banded_conv(x, cb, act=False, residual=None):
     dts = list(cb.dts) + [0] * (3 - len(cb.dts))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     res = None if residual is None else residual.data_ptr()
-    if mma:
-        fn = _build.load("band_mma", "tt_band_conv")
-        rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), res, y.data_ptr(),
-                b, r_in, cb.r_out, t, len(cb.dts), *dts, cb.col_adv,
-                cb.margin, w.shape[-1], int(cb.per_block), int(act),
-                *_band_ints(cb), _aligned(t, x), stream)
-    else:
-        fn = _build.load("banded_conv", "tt_banded_conv")
-        rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), res, y.data_ptr(),
-                b, r_in, cb.r_out, t, len(cb.dts), *dts, cb.k, cb.col_adv,
-                cb.margin, w.shape[-1], int(cb.per_block), int(act), stream)
+    bf16 = x.dtype == torch.bfloat16
+    fn = _build.load("band_mma",
+                     "tt_band_conv" if bf16 else "tt_band_conv_f32")
+    rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), res, y.data_ptr(),
+            b, r_in, cb.r_out, t, len(cb.dts), *dts, cb.col_adv, cb.margin,
+            w.shape[-1], int(cb.per_block), int(act), *_band_ints(cb),
+            _aligned(t, x), stream)
     _build.check(rc, "banded_conv")
     banded_conv.launches += 1
-    banded_conv.mma_launches += int(mma)
+    banded_conv.mma_launches += int(bf16)
+    banded_conv.mma_launches_f32 += int(not bf16)
     return y
 
 
 banded_conv.launches = 0
 banded_conv.mma_launches = 0
+banded_conv.mma_launches_f32 = 0
 
 
-def _check_taps(cb, what, mma):
-    """Both routes take at most 3 time taps; the tensor-core one (bfloat16)
-    also at most ``BAND_MAX_DT`` frames each."""
+def _check_taps(cb, what, band_dtype=None):
+    """Every route takes at most 3 time taps; the band-tiled tensor-core
+    routes (``band_dtype``: the stage in either dtype, dX and dW in
+    bfloat16) also at most ``BAND_MAX_DT`` frames each."""
     if len(cb.dts) > 3:
         raise ValueError(f"{what} takes at most 3 time taps")
-    if mma and max(abs(d) for d in cb.dts) > BAND_MAX_DT:
-        raise ValueError(f"{what} in bfloat16 takes time taps of at most "
+    if band_dtype is not None and max(abs(d) for d in cb.dts) > BAND_MAX_DT:
+        name = str(band_dtype).replace("torch.", "")
+        raise ValueError(f"{what} in {name} takes time taps of at most "
                          f"{BAND_MAX_DT} frames")
 
 
@@ -277,10 +280,11 @@ def _band_ints(cb):
 
 
 def _aligned(t, *tensors):
-    """1 when every row of every tensor starts 16-byte aligned (T a
-    multiple of 8 and aligned bases): the kernels then load 8 frames at a
-    time, else element by element."""
-    return int(t % 8 == 0 and all(v.data_ptr() % 16 == 0 for v in tensors))
+    """1 when every row of every tensor starts 16-byte aligned (T times
+    the element size a multiple of 16, and aligned bases): the kernels then
+    load 16 bytes of a row at a time, else element by element."""
+    return int(all(t * v.element_size() % 16 == 0 and v.data_ptr() % 16 == 0
+                   for v in tensors))
 
 
 def _apply_chain(x, spec, dtype, stage):
@@ -447,7 +451,7 @@ def banded_conv_dx(c, adj, dtype, residual=None, elu=None, keep_raw=False,
     if r_in != adj.r_in or adj.per_block:
         raise ValueError("cotangent rows or adjoint geometry not supported")
     mma = dtype == torch.bfloat16
-    _check_taps(adj, "banded_conv_dx", mma)
+    _check_taps(adj, "banded_conv_dx", dtype if mma else None)
     shape = (b, adj.r_out, t)
     c = c.contiguous()
     if residual is not None:
@@ -455,7 +459,7 @@ def banded_conv_dx(c, adj, dtype, residual=None, elu=None, keep_raw=False,
             raise ValueError("residual must be the float32 output shape")
         residual = residual.contiguous()
     s1, s2 = _stored(elu, shape, dtype, "banded_conv_dx")
-    w, _ = adj.band_operands() if mma else adj.kernel_operands()
+    w, _ = adj.band_operands(dtype) if mma else adj.kernel_operands()
     if w.device != c.device:
         raise ValueError("adjoint blocks and cotangent lie on different devices")
     out = torch.empty(shape, dtype=out_dtype, device=c.device)
@@ -552,7 +556,7 @@ def banded_conv_dw(dz, x, cb):
         raise ValueError("banded_conv_dw: cotangent, input or geometry not "
                          "supported")
     mma = x.dtype == torch.bfloat16
-    _check_taps(cb, "banded_conv_dw", mma)
+    _check_taps(cb, "banded_conv_dw", x.dtype if mma else None)
     dz, x = dz.contiguous(), x.contiguous()
     n_dt = len(cb.dts)
     dw = torch.empty((n_dt, BLOCK_ROWS, cb.k), dtype=torch.float32,

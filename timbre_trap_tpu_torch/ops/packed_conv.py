@@ -18,8 +18,9 @@ Bands: an output row reads only ``n_df * c_in`` of a block's ``K`` columns,
 so each 64-row half of a block (a sub-tile) carries its band, the first
 column it reads and how many, rounded out to multiples of 16, taken from
 the builder's static tap map (never from weight values).
-``band_conv_reference`` computes a conv from the bands alone; the bf16
-tensor-core kernels iterate over the band only.
+``band_conv_reference`` computes a conv from the bands alone; the
+tensor-core kernels (the stage in both dtypes, dX and dW in bf16) iterate
+over the band only.
 """
 
 import math
@@ -116,7 +117,8 @@ class ConvBlocks:
         return math.ceil(self.r_out / BLOCK_ROWS)
 
     def kernel_operands(self):
-        """(weights, bias) as the float32 FFMA kernels read them: the blocks
+        """(weights, bias) as the float32 FFMA kernels of the backward
+        (``csrc/banded_conv_bwd.cu``) read them: the blocks
         transposed to (n_dt, K, rows) (rows run fastest, so a block's
         weights for one input row are contiguous), and the bias. Built
         once."""
@@ -161,14 +163,17 @@ class ConvBlocks:
             out[g, :, :rows.shape[1], :n] = rows
         return out
 
-    def band_operands(self):
-        """(band weights, bias) as the bf16 tensor-core kernels read them:
-        the band weights in bfloat16, the bias in float32. Built once."""
-        if "band" not in self._cache:
+    def band_operands(self, dtype):
+        """(band weights, bias) as the band-tiled tensor-core kernels read
+        them: the band weights at the storage ``dtype`` (bfloat16, or
+        float32 for the split-TF32 route, which splits them in the kernel),
+        the bias in float32. Built once per dtype."""
+        key = ("band", dtype)
+        if key not in self._cache:
             w = self.band_weights(self.blocks.detach())
-            self._cache["band"] = (w.to(torch.bfloat16).contiguous(),
-                                   self.bias.to(torch.float32).contiguous())
-        return self._cache["band"]
+            self._cache[key] = (w.to(dtype).contiguous(),
+                                self.bias.to(torch.float32).contiguous())
+        return self._cache[key]
 
     def band_mask(self):
         """(n_dt, 128, k) bool: True at the block entries inside the band

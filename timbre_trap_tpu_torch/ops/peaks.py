@@ -51,17 +51,39 @@ def peak_mask(activations, t=0.5):
         raise ValueError(f"peak_mask takes float32 activations, not {a.dtype}")
     if a.ndim < 2:
         raise ValueError("peak_mask needs (..., F, T) activations")
-    a = a.contiguous()
     out = torch.empty(a.shape, dtype=torch.uint8, device=a.device)
     if a.numel() == 0:
         return out
     f, t_len = a.shape[-2:]
+    batch = a.numel() // (f * t_len)
+    if batch > 65535:
+        raise ValueError(f"peak_mask takes at most 65535 (F, T) planes, not "
+                         f"{batch}")
+    # The kernel reads (batch, F, T) planes and rows at any stride with the
+    # frames contiguous (as transcribe's frame-trimmed output lies); other
+    # layouts are copied first.
+    v = a.view(-1, f, t_len) if _planes_of_rows(a) else a.contiguous().view(
+        -1, f, t_len)
+    sb, sf = v.stride(0), v.stride(1)
+    aligned = int(t_len % 4 == 0 and sb % 4 == 0 and sf % 4 == 0
+                  and v.data_ptr() % 16 == 0)
     fn = _build.load("peak_mask", "tt_peak_mask")
-    rc = fn(a.data_ptr(), out.data_ptr(), a.numel() // (f * t_len), f, t_len,
-            float(t), torch.cuda.current_stream(a.device).cuda_stream)
+    rc = fn(v.data_ptr(), out.data_ptr(), batch, f, t_len, sb, sf, float(t),
+            aligned, torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(rc, "peak_mask")
     peak_mask.launches += 1
     return out
 
 
 peak_mask.launches = 0
+
+
+def _planes_of_rows(a):
+    """Whether (..., F, T) ``a`` views as (B, F, T) with contiguous frames."""
+    if a.stride(-1) != 1:
+        return False
+    try:
+        a.view(-1, *a.shape[-2:])
+    except RuntimeError:
+        return False
+    return True

@@ -1,0 +1,103 @@
+"""How close the float32 conv chain comes to exact arithmetic on the card.
+
+    python -m timbre_trap_tpu_torch.tools.f32_accuracy
+
+Builds the flagship base model's 36-item inference chain (22.05 kHz, 9 x 60
+bins, latent 128, complexity 2, random weights of seed 0) and, on seeded
+0.3 * N(0, 1) input, holds the float32 kernel route (``banded_conv``:
+split-TF32 tensor-core products) and the IEEE plain version
+(``banded_conv_reference``) against the same chain in float64:
+
+1. every item alone, at (2, 1080, T) for T = 1001 and 1024, on the input
+   the plain float32 chain gives it;
+2. the whole chain at (4, 1080, 1024) and (2, 1080, T) for T = 1001, 70, 1.
+
+Errors are max abs error / max|float64 result|. Prints one line per chain
+and one JSON line with every number and the card's name and power limit.
+Needs a CUDA device; exits non-zero without one.
+"""
+
+import json
+import subprocess
+import sys
+
+import torch
+
+from ..models import TimbreTrap
+from ..ops.fused_level import (_apply_chain, _elu, banded_conv,
+                               banded_conv_reference)
+from ..ops.packed_conv import packed_conv_reference
+
+
+def _stage64(x, cb, act=False, residual=None):
+    y = packed_conv_reference(x.double(), cb, blocks=cb.blocks.double())
+    if act:
+        y = _elu(y)
+    return y if residual is None else y + residual.double()
+
+
+_ROUTES = {"kernel": banded_conv, "ieee": banded_conv_reference}
+
+
+def _rel(got, ref):
+    return ((got.double() - ref).abs().max() / ref.abs().max()).item()
+
+
+def _items(spec, x):
+    """Each item alone against float64, on the plain chain's input."""
+    out = []
+    cur = x
+    for i, it in enumerate(spec.items):
+        if it[0] == "conv":
+            args = (cur, it[1], it[2])
+            ref = _stage64(*args)
+            nxt = banded_conv_reference(*args)
+        else:
+            h = banded_conv_reference(cur, it[1], True)
+            args = (h, it[2], True, cur)
+            ref = _stage64(*args)
+            nxt = banded_conv_reference(*args)
+        errs = {k: _rel(f(*args), ref) for k, f in _ROUTES.items()}
+        out.append({"item": i, "kind": it[0], **errs})
+        cur = nxt
+    return out
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("f32_accuracy: needs a CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = TimbreTrap(22050, 9, 60, 3, latent_size=128, model_complexity=2,
+                       seed=0)
+    spec = model._spec(True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(b, t):
+        return 0.3 * torch.randn((b, spec.r_in, t), generator=g, device="cuda")
+
+    with torch.no_grad():
+        items = {t: _items(spec, rand(2, t)) for t in (1001, 1024)}
+        chains = {}
+        for b, t in ((4, 1024), (2, 1001), (2, 70), (2, 1)):
+            x = rand(b, t)
+            ref = _apply_chain(x.double(), spec, torch.float64, _stage64)
+            chains[f"({b}, {spec.r_in}, {t})"] = {
+                k: _rel(_apply_chain(x, spec, torch.float32, f), ref)
+                for k, f in _ROUTES.items()}
+    ratio = max(e["kernel"] / e["ieee"] for v in items.values() for e in v)
+    for shape, e in chains.items():
+        print(f"chain {shape} vs float64: kernel {e['kernel']:.3e}, IEEE "
+              f"{e['ieee']:.3e} of max|ref|")
+    print(f"items: kernel at most {ratio:.2f}x the IEEE error")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(json.dumps({"card": card, "chains": chains,
+                      "worst_item_ratio": ratio, "items": items}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -18,7 +18,10 @@ warm-up ``"pallas_bf16"`` steps, then:
 3. the inference chain (the 60-stage bf16 forward of ``transcribe`` on a
    (4, 1080, 1024) chunk group of seeded features): wall time per chain
    (host clock, synchronized) beside its device time by kernel group, so
-   that host-bound launching shows as a busy share below 1.
+   that host-bound launching shows as a busy share below 1;
+4. the chain's stages one by one, in bfloat16 and in float32 (CUDA
+   events, each stage on the input the chain gives it): device time, band
+   GFLOP and bytes in and out, summed by conv kind.
 
 Prints one JSON line with both and the card's name and power limit. Needs
 a CUDA device; exits non-zero without one.
@@ -36,12 +39,14 @@ BACKEND = "pallas_bf16"
 # (group, substring of the kernel's name), first match wins; the port's
 # kernels live in an anonymous namespace of their .cu file. The bf16 step
 # runs the tensor-core kernels of band_mma.cu and the ELU' seed of
-# banded_conv_bwd.cu.
+# banded_conv_bwd.cu; a float32 K1 stage runs band_mma.cu's split-TF32
+# kernel, a group of its own.
 _OURS = "(anonymous namespace)::"
 GROUPS = (("K3 dW partial, mma", _OURS + "band_dw_partial_kernel"),
           ("K3 dW reduce, mma", _OURS + "band_dw_reduce_kernel"),
           ("K3 dX, mma", _OURS + "band_product_kernel<float, true"),
           ("K1 stage, mma", _OURS + "band_product_kernel<__nv_bfloat16, false"),
+          ("K1 stage f32, 3xTF32", _OURS + "band_tf32_kernel"),
           ("K3 ELU seed", _OURS + "elu_backward_kernel<"),
           ("cuFFT", "fft"), ("matmul", "gemm"), ("matmul", "cutlass"),
           ("index", "index"), ("reduce", "reduce"))
@@ -108,6 +113,7 @@ def main(argv=None):
     if args.trace:
         prof.export_chrome_trace(args.trace)
     chain = _profile_chain(model, args.steps)
+    stages = _stage_times(model, 10)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
@@ -120,7 +126,7 @@ def main(argv=None):
         "kernel_ms_per_step": {k: v / n for k, v in sorted(groups.items())},
         "launches_per_step": {k: v / n for k, v in sorted(launches.items())},
         "peak_bytes": torch.cuda.max_memory_allocated(),
-        "forward_chain": chain}))
+        "forward_chain": chain, "chain_stages": stages}))
     return 0
 
 
@@ -174,6 +180,52 @@ def _profile_chain(model, reps):
             "device_busy_share_profiled": busy / prof_ms,
             "kernel_ms": {k: v / reps for k, v in sorted(groups.items())},
             "launches": {k: v / reps for k, v in sorted(launches.items())}}
+
+
+def _conv_kind(cb):
+    if cb.per_block:
+        return f"dense {cb.r_in}->{cb.r_out}"
+    if cb.f_out != cb.f_in:
+        return "sconv" if cb.f_out < cb.f_in else "tconv"
+    return "1x1" if len(cb.dts) == 1 else f"3x3 d={max(cb.dts)}"
+
+
+def _stage_times(model, reps):
+    """Each conv stage of the (4, 1080, 1024) inference chain timed alone
+    (CUDA events, mean of ``reps`` launches on the input the chain gives
+    it), in bfloat16 and float32: {dtype: {kind: {stages, ms, band GFLOP,
+    GB in and out}}}, ms and GB summed over the kind's stages."""
+    from ..ops.fused_level import _apply_chain, band_flops, banded_conv
+
+    spec = model._spec(True)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = 0.3 * torch.randn((4, spec.r_in, 1024), generator=g, device="cuda")
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        kinds = out.setdefault(str(dtype).replace("torch.", ""), {})
+
+        def stage(v, cb, act=False, residual=None):
+            y = banded_conv(v, cb, act, residual)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                banded_conv(v, cb, act, residual)
+            end.record()
+            torch.cuda.synchronize()
+            k = kinds.setdefault(_conv_kind(cb), {"stages": 0, "ms": 0.0,
+                                                  "band_gflop": 0.0,
+                                                  "gb": 0.0})
+            k["stages"] += 1
+            k["ms"] += start.elapsed_time(end) / reps
+            k["band_gflop"] += band_flops([cb], v.shape[0] * v.shape[-1]) / 1e9
+            k["gb"] += sum(t.numel() * t.element_size() for t in
+                           (v, y, residual) if t is not None) / 1e9
+            return y
+
+        with torch.no_grad():
+            _apply_chain(x, spec, dtype, stage)
+    return out
 
 
 if __name__ == "__main__":
