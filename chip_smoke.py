@@ -44,19 +44,19 @@ Phases, each of which exits non-zero on failure:
              relative L2; on those crops and at the small geometry one
              float32 ``"pallas"`` step against ``"packed"``, losses within
              1e-5 and gradients within 1e-4 * each leaf's max|g|; one
-             counted float32 recipe step, whose K1 stages must all run the
-             split-TF32 band kernel.
-             K1 (both dtypes) and the bf16 route of K3 are the band-tiled
+             counted float32 recipe step, whose K1 stages and K3 dX and dW
+             launches must all run the split-TF32 band kernels.
+             K1 and K3's dX and dW are, in both dtypes, the band-tiled
              tensor-core kernels of ``csrc/band_mma.cu``: phase 2 also
              holds them, on one conv of each kind at flagship widths (3x3
              at dilation 1, 2 and 3, 1x1, sconv, tconv, the dense bridge)
-             at T = 3072 and a ragged T = 1001: the float32 stage within
-             1e-4 * max|ref| of its IEEE twin; against the bf16 twins the
-             stage, dX and dW (band entries, the twin masked with the same
-             bands) and dBias within 1e-2 * max|ref|, dW and dBias the same
-             bits in two runs; K3 also against its twin at (2, R_in, 1024)
-             on every level; the main paths must launch the tensor-core
-             kernels;
+             at T = 3072 and a ragged T = 1001, against their twins on the
+             same tensors: the stage, dX and dW (band entries, the twin
+             masked with the same bands) and dBias within 1e-4 * max|ref|
+             in float32 (split-TF32 against the IEEE twin) and 1e-2 *
+             max|ref| in bf16, dW and dBias the same bits in two runs; K3
+             also against its twin at (2, R_in, 1024) on every level; the
+             main paths must launch the tensor-core kernels;
 4. numbers — kernel, plain-version and library times, the least time the
              card could take (bound), the real-time factor of the counted
              (first) call and of a second call at the same length (and of
@@ -236,11 +236,11 @@ def phase_band_parity(torch, fwd_spec, train_specs):
     """The tensor-core kernels on the first conv of each kind in the
     flagship specs (training levels with adjoints; the dense bridge from
     the inference chain), at T = 3072 and 1001, batch 2, against their
-    twins on the same tensors: the float32 stage (ELU, residual) within
-    1e-4 * max|ref| of the IEEE twin; in bf16 the stage, dX (residual,
-    raw, ELU') and dW/dBias (band entries) within 1e-2 * max|ref|, dW and
-    dBias bitwise stable. Returns the largest relative errors (bf16,
-    float32)."""
+    twins on the same tensors, in float32 (split-TF32 products against the
+    IEEE twin) within 1e-4 * max|ref| and in bf16 within 1e-2 * max|ref|:
+    the stage (ELU, residual), dX (residual, raw, ELU') and dW/dBias (band
+    entries), dW and dBias bitwise stable. Returns the largest relative
+    errors (bf16, float32)."""
     from timbre_trap_tpu_torch.ops.fused_level import (
         banded_conv, banded_conv_dw, banded_conv_dw_reference, banded_conv_dx,
         banded_conv_dx_reference, banded_conv_reference)
@@ -256,52 +256,52 @@ def phase_band_parity(torch, fwd_spec, train_specs):
     def rand(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def rel(got, ref, what, tol=1e-2):
+    def rel(got, ref, what, tol):
         err = (got.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
         check(err <= tol * scale, f"band kernels: {what} error {err} > "
               f"{tol} * {scale}")
         return err / max(scale, 1e-30)
 
-    worst = worst32 = 0.0
+    worst = {torch.float32: 0.0, bf16: 0.0}
     for t in (3072, 1001):
         for kind, cb in picks.items():
             dense = kind == "dense"
             x32 = rand(2, cb.r_in, t)
             res32 = None if dense else rand(2, cb.r_out, t)
-            e32 = rel(banded_conv(x32, cb, not dense, res32),
-                      banded_conv_reference(x32, cb, not dense, res32),
-                      f"{kind} T={t} float32 stage", 1e-4)
-            worst32 = max(worst32, e32)
-            x = x32.to(bf16)
-            res = None if dense else res32.to(bf16)
-            errs = [rel(banded_conv(x, cb, not dense, res),
-                        banded_conv_reference(x, cb, not dense, res),
-                        f"{kind} T={t} stage")]
-            if not dense:
-                adj = cb.adjoint
-                c = rand(2, adj.r_in, t)
-                kw = dict(residual=rand(2, adj.r_out, t), keep_raw=True,
-                          elu=(rand(2, adj.r_out, t, dtype=bf16),
-                               rand(2, adj.r_out, t, dtype=bf16)))
-                got = banded_conv_dx(c, adj, bf16, **kw)
-                want = banded_conv_dx_reference(c, adj, bf16, **kw)
-                errs += [rel(g, w, f"{kind} T={t} dX")
-                         for g, w in zip(got, want)]
-                dz = rand(2, cb.r_out, t)
-                runs = [banded_conv_dw(dz, x, cb) for _ in range(2)]
-                want = banded_conv_dw_reference(dz, x, cb)
-                check(all(torch.equal(a, b) for a, b in zip(*runs)),
-                      f"band kernels: {kind} T={t} dW differs in two runs")
-                errs += [rel(g, w, f"{kind} T={t} dW/dBias")
-                         for g, w in zip(runs[0], want)]
-            worst = max([worst] + errs)
+            line = []
+            for dtype, tol in ((torch.float32, 1e-4), (bf16, 1e-2)):
+                what = f"{kind} T={t} {str(dtype)[6:]}"
+                x = x32.to(dtype)
+                res = None if dense else res32.to(dtype)
+                errs = [rel(banded_conv(x, cb, not dense, res),
+                            banded_conv_reference(x, cb, not dense, res),
+                            f"{what} stage", tol)]
+                if not dense:
+                    adj = cb.adjoint
+                    c = rand(2, adj.r_in, t)
+                    kw = dict(residual=rand(2, adj.r_out, t), keep_raw=True,
+                              elu=(rand(2, adj.r_out, t, dtype=dtype),
+                                   rand(2, adj.r_out, t, dtype=dtype)))
+                    got = banded_conv_dx(c, adj, dtype, **kw)
+                    want = banded_conv_dx_reference(c, adj, dtype, **kw)
+                    errs += [rel(g, w, f"{what} dX", tol)
+                             for g, w in zip(got, want)]
+                    dz = rand(2, cb.r_out, t)
+                    runs = [banded_conv_dw(dz, x, cb) for _ in range(2)]
+                    want = banded_conv_dw_reference(dz, x, cb)
+                    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+                          f"band kernels: {what} dW differs in two runs")
+                    errs += [rel(g, w, f"{what} dW/dBias", tol)
+                             for g, w in zip(runs[0], want)]
+                worst[dtype] = max([worst[dtype]] + errs)
+                line.append(f"{str(dtype)[6:]} rel "
+                            + " ".join(f"{e:.2e}" for e in errs))
             print(f"  band {kind:8s} T={t} (c_in {cb.c_in}, c_out "
                   f"{cb.c_out}, bands {cb.bands}): stage"
                   + ("" if dense else ", dX, raw, dW, dBias")
-                  + " rel " + " ".join(f"{e:.2e}" for e in errs)
-                  + f"; float32 stage rel {e32:.2e}")
-    return worst, worst32
+                  + "; " + "; ".join(line))
+    return worst[bf16], worst[torch.float32]
 
 
 class ByteCount:
@@ -313,7 +313,6 @@ class ByteCount:
         from timbre_trap_tpu_torch.ops import fused_level as fl
 
         self.n = 0
-        bf16 = torch.bfloat16
 
         def stage(x, cb, act=False, residual=None):
             y = fl.banded_conv(x, cb, act, residual)
@@ -324,9 +323,8 @@ class ByteCount:
                out_dtype=torch.float32):
             out = fl.banded_conv_dx(c, adj, dtype, residual, elu, keep_raw,
                                     out_dtype)
-            w = (adj.band_operands(dtype)[0] if dtype == bf16
-                 else adj.kernel_operands()[0])
-            self.add(c, residual, *(elu or ()), *out, w)
+            self.add(c, residual, *(elu or ()), *out,
+                     adj.band_operands(dtype)[0])
             return out
 
         def dw(dz, x, cb):
@@ -649,8 +647,8 @@ def phase_train(torch, counters):
         one_step(torch, small, ws, "packed", a_s, g_s, TRAIN_LR))
 
     # one float32 "pallas" step at the recipe (the second of two), counted:
-    # every K1 stage of its forward and recompute runs the split-TF32 band
-    # kernel.
+    # every K1 stage of its forward and recompute, and every K3 dX and dW
+    # launch of its backward, runs a split-TF32 band kernel.
     model.load_state_dict(w0)
     st32 = init_train_state(model, cfg)
     step32 = make_train_step(model, cfg, TRAIN_CROPS, conv_backend="pallas",
@@ -662,10 +660,11 @@ def phase_train(torch, counters):
     float(step32(st32, audio, gt, TRAIN_LR)["loss/total"])
     wall32 = time.perf_counter() - t0
     launches32 = read_counts(counters)
-    check(launches32["banded_conv.mma_f32"] > 0
-          and launches32["banded_conv.mma_f32"] == launches32["banded_conv"],
-          f"the float32 step's K1 stages did not all run the split-TF32 "
-          f"band kernel: {launches32}")
+    for name in ("banded_conv", "banded_conv_dx", "banded_conv_dw"):
+        check(launches32[f"{name}.mma_f32"] > 0
+              and launches32[f"{name}.mma_f32"] == launches32[name],
+              f"the float32 step's {name} launches did not all run the "
+              f"split-TF32 band kernel: {launches32}")
     print(f"main: float32 pallas step launches {launches32}")
     step_s = float(np.mean(walls[1:]))
     audio_secs = TRAIN_CROPS * TRAIN_SECS
@@ -687,9 +686,10 @@ def phase_train(torch, counters):
 
 
 def k3_band_flops(spec, batch, frames):
-    """Flops the bf16 level backward computes at (batch, ., frames): the
-    band-tiled recompute, dX over each adjoint's bands, and dW over whole
-    64-column tiles of each band for every 64-frame chunk."""
+    """Flops the level backward computes at (batch, ., frames), in either
+    dtype (a float32 flop is three TF32 products): the band-tiled
+    recompute, dX over each adjoint's bands, and dW over whole 64-column
+    tiles of each band for every 64-frame chunk."""
     from timbre_trap_tpu_torch.ops.fused_level import band_flops
 
     convs = list(spec.convs())
@@ -963,6 +963,10 @@ def main():
 
     k3 = k3_numbers(torch, train_model, k3_launches / TRAIN_STEPS)
 
+    def k3_only(counts):
+        return {k: v for k, v in counts.items()
+                if k.split(".")[0] != "banded_conv"}
+
     kernels = [
         {"name": "banded_conv", "route": "cuda",
          "source": "timbre_trap_tpu_torch/csrc/band_mma.cu",
@@ -999,12 +1003,14 @@ def main():
          "shape": f"{tuple(acts.shape)} float32 -> uint8"},
         {"name": "banded_conv_bwd", "route": "cuda",
          "source": "timbre_trap_tpu_torch/csrc/band_mma.cu",
-         "source_f32": "timbre_trap_tpu_torch/csrc/banded_conv_bwd.cu",
+         "source_f32": "timbre_trap_tpu_torch/csrc/band_mma.cu",
+         "source_seed": "timbre_trap_tpu_torch/csrc/banded_conv_bwd.cu",
          "replaces": "timbre_trap_tpu/ops/fused_level.py:647",
          "launches": k3_launches,
-         "launches_by_wrapper": {k: v for k, v in train_launches.items()
-                                 if not k.startswith("banded_conv.")
-                                 and k != "banded_conv"},
+         "launches_by_wrapper": k3_only(train_launches),
+         "launches_train_f32": sum(train["f32_step_launches"][fn.__name__]
+                                   for fn in k3_wrappers),
+         "launches_by_wrapper_f32": k3_only(train["f32_step_launches"]),
          "max_abs_err": k3_err, **k3},
     ]
     print(f"transcribe_rtf: {rtf:.2f} first call, {rtf_warm:.2f} second call "

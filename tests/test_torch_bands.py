@@ -111,9 +111,10 @@ def test_band_conv_reference_equals_packed(name):
 @pytest.mark.parametrize("name", sorted(n for n in _CASES
                                         if not n.startswith("dense")))
 def test_band_masked_dw_keeps_parameter_gradients(name):
-    """dW kept on the bands (the bf16 kernel's output) gives, through the
+    """dW kept on the bands (the kernels' output) gives, through the
     one-hot builder's backward, the same kernel and bias gradients as the
-    full dW; the bf16 twin of dW is zero off the bands."""
+    full dW (autograd of the plain conv); the twin of dW, float32 and
+    bf16, is zero off the bands and equals the full dW on them."""
     cb0 = _CASES[name]
     rng = np.random.default_rng(2)
     kh = {"sconv": 4, "tconv": 4, "1x1-c16": 1}.get(name, 3)
@@ -130,14 +131,21 @@ def test_band_masked_dw_keeps_parameter_gradients(name):
     assert cb.bands == cb0.bands
     x = _rand(rng, 2, cb.r_in, 19)
     dz = _rand(rng, 2, cb.r_out, 19)
-    dw, db = banded_conv_dw_reference(dz, x, cb)
+    dw_full, db_full = torch.autograd.grad(
+        pc.packed_conv_reference(x, cb), (cb.blocks, cb.bias), dz,
+        retain_graph=True)
     mask = cb.band_mask()
     full = torch.autograd.grad((cb.blocks, cb.bias), (kernel, bias),
-                               (dw, db), retain_graph=True)
+                               (dw_full, db_full), retain_graph=True)
     kept = torch.autograd.grad((cb.blocks, cb.bias), (kernel, bias),
-                               (dw * mask, db))
+                               (dw_full * mask, db_full))
     for g_full, g_kept in zip(full, kept):
         assert torch.equal(g_full, g_kept)
+    dw, db = banded_conv_dw_reference(dz, x, cb)
+    assert not dw[~mask].any() and dw[mask].any()
+    scale = float(dw_full.abs().max())
+    assert float((dw - dw_full * mask).abs().max()) <= 1e-5 * scale
+    assert float((db - db_full).abs().max()) <= 1e-5 * float(db_full.abs().max())
     dw16, _ = banded_conv_dw_reference(dz, x.to(torch.bfloat16), cb)
     assert not dw16[~mask].any() and dw16[mask].any()
 
@@ -150,20 +158,23 @@ def _tf32_rna(x):
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def _split_tf32_conv(x, cb):
-    """The float32 stage of ``csrc/band_mma.cu`` (``tt_band_conv_f32``)
-    emulated on the plain band function: x and the blocks split into hi, a
-    TF32 rounding, and lo = v - hi, of which the tensor cores keep the TF32
-    bits (the low 13 cleared); the three products hi*hi, hi*lo and lo*hi
-    summed in float32 with round-to-nearest adds (the kernel adds each
-    16-column chunk's products into its running sum so, not in the
-    truncating MMA accumulators), then the bias."""
-    def split(v):
-        hi = _tf32_rna(v)
-        lo = (v - hi).contiguous().view(torch.int32) & ~0x1FFF
-        return hi, lo.view(torch.float32)
+def _split_tf32(v):
+    """(hi, lo) of the split-TF32 routes: hi a TF32 rounding of v, lo =
+    v - hi, of which the tensor cores keep the TF32 bits (the low 13
+    cleared)."""
+    hi = _tf32_rna(v)
+    lo = (v - hi).contiguous().view(torch.int32) & ~0x1FFF
+    return hi, lo.view(torch.float32)
 
-    (xh, xl), (wh, wl) = split(x), split(cb.blocks)
+
+def _split_tf32_conv(x, cb):
+    """The float32 stage of ``csrc/band_mma.cu`` (``tt_band_conv_f32``;
+    dX, ``tt_band_conv_dx_f32``, on adjoint blocks) emulated on the plain
+    band function: x and the blocks split into hi + lo; the three products
+    hi*hi, hi*lo and lo*hi summed in float32 with round-to-nearest adds
+    (the kernel adds each 16-column chunk's products into its running sum
+    so, not in the truncating MMA accumulators), then the bias."""
+    (xh, xl), (wh, wl) = _split_tf32(x), _split_tf32(cb.blocks)
     cb0 = _like(cb, cb.blocks, torch.zeros_like(cb.bias))
     small = (pc.band_conv_reference(xl, cb0, wh)
              + pc.band_conv_reference(xh, cb0, wl))
@@ -222,6 +233,112 @@ def test_split_tf32_error_within_the_float32_check(name):
     assert e_split <= 1e-4 * scale
     # Far inside it: a few float32 roundings of the sum, not a TF32 one.
     assert e_split <= 1e-5 * scale
+
+
+def _train_convs():
+    """One conv of each kind and channel width in the small net's training
+    levels (3x3 at dilations 1-3, 1x1, convin, convout, sconv, tconv),
+    each with its adjoint."""
+    net = init_weights(TimbreTrapNet(60, 16, 1),
+                       torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        especs, dspecs = level_specs(hwio_params(net), net, True)
+    out = {}
+    for cb in (c for s in especs + dspecs for c in s.convs()):
+        if cb.f_out != cb.f_in:
+            kind = "sconv" if cb.f_out < cb.f_in else "tconv"
+        else:
+            kind = "1x1" if len(cb.dts) == 1 else f"3x3-d{max(cb.dts)}"
+        out.setdefault(f"{kind}-c{cb.c_in}-{cb.c_out}", cb)
+    return out
+
+
+_TRAIN_CONVS = _train_convs()
+
+# The split-TF32 error may exceed the IEEE float32 one by at most this
+# factor: both are a few float32 roundings of the sum; the split adds the
+# dropped lo*lo and lo's cleared bits, ~2^-21 of each product.
+_SPLIT_IEEE_FACTOR = 3.0
+
+
+def _chunked_dw(dz, x, cb, product):
+    """dW as the band-tiled dW kernels of ``csrc/band_mma.cu`` order it:
+    for every (batch, block, 64-frame) chunk and tap, ``product(z, xc)`` of
+    the chunk's 128 dZ rows read at frame - dt (128 x 64) and its K input
+    rows (K x 64), zero outside the tensors, added into the tap's running
+    sum (one round-to-nearest add per chunk and tap), kept on the bands."""
+    b, r_in, t = x.shape
+    nb, md = cb.n_out_blocks, max(abs(d) for d in cb.dts)
+    tp = -(-t // 64) * 64
+    zp = torch.nn.functional.pad(dz, (md, tp - t + md, 0,
+                                      nb * pc.BLOCK_ROWS - cb.r_out))
+    rows = (nb - 1) * cb.col_adv + cb.k
+    xp = torch.nn.functional.pad(
+        x, (0, tp - t, cb.margin, max(0, rows - cb.margin - r_in)))
+    dw = torch.zeros((len(cb.dts), pc.BLOCK_ROWS, cb.k), dtype=x.dtype)
+    for bi in range(b):
+        for j in range(nb):
+            zr = zp[bi, j * pc.BLOCK_ROWS:(j + 1) * pc.BLOCK_ROWS]
+            xr = xp[bi, j * cb.col_adv:j * cb.col_adv + cb.k]
+            for t0 in range(0, tp, 64):
+                for di, dt in enumerate(cb.dts):
+                    z = zr[:, md + t0 - dt:md + t0 - dt + 64]
+                    dw[di] += product(z, xr[:, t0:t0 + 64])
+    return dw * cb.band_mask()
+
+
+def _split_tf32_product(z, xc):
+    """A chunk's product as ``tt_band_conv_dw_f32`` computes it: both
+    operands split into hi + lo, lo*hi + hi*lo + hi*hi in float32."""
+    (zh, zl), (xh, xl) = _split_tf32(z), _split_tf32(xc)
+    return (zl @ xh.T + zh @ xl.T) + zh @ xh.T
+
+
+def _errors(got, ieee, ref):
+    scale = float(ref.abs().max())
+    e_got = float((got.double() - ref).abs().max())
+    e_ieee = float((ieee.double() - ref).abs().max())
+    return e_got, e_ieee, scale
+
+
+@pytest.mark.parametrize("name", sorted(_TRAIN_CONVS))
+def test_split_tf32_dw_error_within_the_float32_check(name):
+    """The float32 dW route (split-TF32 products of each 64-frame chunk,
+    one IEEE add per chunk and tap into the running sum), emulated on the
+    CPU, against dW in float64: within 1e-5 * max|ref| and within
+    ``_SPLIT_IEEE_FACTOR`` of the IEEE float32 twin's error."""
+    cb = _TRAIN_CONVS[name]
+    rng = np.random.default_rng(16)
+    x = _rand(rng, 2, cb.r_in, 150)
+    dz = _rand(rng, 2, cb.r_out, 150)
+    ref = _chunked_dw(dz.double(), x.double(), cb, lambda z, v: z @ v.T)
+    ieee, _ = banded_conv_dw_reference(dz, x, cb)
+    split = _chunked_dw(dz, x, cb, _split_tf32_product)
+    assert not split[~cb.band_mask()].any()
+    e_split, e_ieee, scale = _errors(split, ieee, ref)
+    print(f"{name}: dW split {e_split / scale:.2e}, IEEE "
+          f"{e_ieee / scale:.2e} of max|ref|")
+    assert e_split <= 1e-5 * scale
+    assert e_split <= _SPLIT_IEEE_FACTOR * e_ieee
+
+
+@pytest.mark.parametrize("name", sorted(_TRAIN_CONVS))
+def test_split_tf32_dx_error_within_the_float32_check(name):
+    """The float32 dX route (the stage's split-TF32 products on the
+    adjoint's bands), emulated on the CPU, against dX in float64: within
+    1e-5 * max|ref| and within ``_SPLIT_IEEE_FACTOR`` of the IEEE float32
+    twin's error."""
+    adj = _TRAIN_CONVS[name].adjoint
+    c = _rand(np.random.default_rng(17), 2, adj.r_in, 37)
+    ref = pc.band_conv_reference(
+        c.double(), _like(adj, adj.blocks.double(), adj.bias.double()))
+    ieee = pc.band_conv_reference(c, adj)
+    split = _split_tf32_conv(c, adj)
+    e_split, e_ieee, scale = _errors(split, ieee, ref)
+    print(f"{name}: dX split {e_split / scale:.2e}, IEEE "
+          f"{e_ieee / scale:.2e} of max|ref|")
+    assert e_split <= 1e-5 * scale
+    assert e_split <= _SPLIT_IEEE_FACTOR * e_ieee
 
 
 def test_flagship_band_flops():

@@ -1,8 +1,9 @@
 """The port's hand-written CUDA kernels against their plain PyTorch twins:
 the conv stage (K1: the band-tiled tensor-core kernels of
 ``csrc/band_mma.cu``, bf16 products for bfloat16, split-TF32 products for
-float32), the peak mask (K2) and the level backward (K3: bf16 dX and dW
-through ``csrc/band_mma.cu``, float32 through ``csrc/banded_conv_bwd.cu``).
+float32), the peak mask (K2) and the level backward (K3: dX and dW on the
+same band tiles in both dtypes, the ELU' seed of
+``csrc/banded_conv_bwd.cu``).
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed. The tests marked ``cuda`` need a card and skip
@@ -77,6 +78,17 @@ def _k3_counts():
             elu_backward.launches)
 
 
+def _routes(fn):
+    """A band wrapper's (bfloat16, float32) tensor-core launch counts."""
+    return fn.mma_launches, fn.mma_launches_f32
+
+
+def _bumped(before, dtype, n=1):
+    """``before`` after ``n`` launches of the ``dtype`` route."""
+    bf16 = dtype == torch.bfloat16
+    return before[0] + n * bf16, before[1] + n * (not bf16)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -142,6 +154,21 @@ def test_f32_accuracy_tool_items_on_cpu():
     assert len(items) == len(spec.items)
     for e in items:
         assert e["kernel"] == e["ieee"] <= 1e-6, e
+
+
+def test_f32_accuracy_tool_backward_on_cpu():
+    """The backward part of ``tools/f32_accuracy.py``: on the CPU both
+    routes are the IEEE plain version, and every conv's dX, dW and dBias
+    lie within a few float32 roundings of float64."""
+    from timbre_trap_tpu_torch.tools import f32_accuracy
+
+    specs = _train_specs()
+    convs = f32_accuracy._backward_convs(specs, 37,
+                                         torch.Generator().manual_seed(16))
+    assert len(convs) == sum(1 for s in specs for _ in s.convs())
+    for e in convs:
+        for what in ("dx", "dw", "dbias"):
+            assert e[what]["kernel"] == e[what]["ieee"] <= 1e-6, e
 
 
 def test_flagship_chain_geometry():
@@ -271,13 +298,18 @@ def test_level_backward_kernels_match_plain(cuda_device, dtype):
         x = _rand(rng, 2, spec.r_in, 70).to(cuda_device, dtype)
         dy = _rand(rng, 2, spec.r_out, 70).to(cuda_device, dtype)
         before = _k3_counts()
+        dx_routes, dw_routes = _routes(banded_conv_dx), _routes(banded_conv_dw)
         with torch.no_grad():
             dx, grads = level_backward(x, spec, dy, dtype)
             dx_ref, grads_ref = level_backward_reference(x, spec, dy, dtype)
         torch.cuda.synchronize()
         n_conv = len(grads)
+        n_dx = _k3_counts()[0] - before[0]
         assert _k3_counts()[1] == before[1] + n_conv
         assert _k3_counts()[2] == before[2] + 1
+        # Every dX and dW launch ran its dtype's band-tiled route.
+        assert _routes(banded_conv_dx) == _bumped(dx_routes, dtype, n_dx)
+        assert _routes(banded_conv_dw) == _bumped(dw_routes, dtype, n_conv)
         assert dx.dtype == dtype
         pairs = [(dx, dx_ref)] + [p for g, r in zip(grads, grads_ref)
                                   for p in zip(g, r)]
@@ -309,53 +341,67 @@ def test_level_backward_dw_is_bitwise_stable(cuda_device):
 def test_band_kernels_match_plain_at_long_and_ragged_t(cuda_device, dtype, t):
     """The tensor-core kernels (csrc/band_mma.cu) on every conv kind (the
     residual items' 3x3 and 1x1, the per-block dense bridge maps), at the
-    recipe's T and at ragged T: the stage (bias, ELU, residual) in bf16
-    within 1e-2 * max|ref| of its bf16 twin (sum order and output
-    rounding), in float32 (split-TF32 products) within 1e-4 * max|ref| of
-    the IEEE twin; in bf16 also the dX product (float32 cotangent,
-    residual, raw, ELU') within 1e-2 * max|ref|."""
+    recipe's T and at ragged T, against their twins on the same tensors:
+    in bf16 within 1e-2 * max|ref| (sum order and output rounding), in
+    float32 (split-TF32 products) within 1e-4 * max|ref| of the IEEE twin.
+    The stage (bias, ELU, residual); on every map but the dense ones also
+    dX (float32 cotangent, residual, raw, ELU' from stored tensors at the
+    storage dtype) and dW/dBias (band entries, zeros elsewhere). Each
+    launch counts as its dtype's route."""
     rng = np.random.default_rng(12)
     bf16 = torch.bfloat16
     dtype = getattr(torch, dtype)
     tol = 1e-2 if dtype == bf16 else 1e-4
+
+    def close(got, want, what):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol * want.float().abs().max().item(), (what, t, err)
+
     for name, cb in _conv_cases(cuda_device).items():
         x = _rand(rng, 2, cb.r_in, t).to(cuda_device, dtype)
         res = _rand(rng, 2, cb.r_out, t).to(cuda_device, dtype)
-        before = banded_conv.mma_launches, banded_conv.mma_launches_f32
+        before = _routes(banded_conv)
         got = banded_conv(x, cb, True, res)
-        assert (banded_conv.mma_launches, banded_conv.mma_launches_f32) == (
-            before[0] + (dtype == bf16), before[1] + (dtype != bf16))
-        want = banded_conv_reference(x, cb, True, res)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        assert err <= tol * want.float().abs().max().item(), (name, t, err)
-        if cb.per_block or dtype != bf16:
+        assert _routes(banded_conv) == _bumped(before, dtype)
+        close(got, banded_conv_reference(x, cb, True, res), name)
+        if cb.per_block:
             continue
+        dz = _rand(rng, 2, cb.r_out, t).to(cuda_device)
+        before = _routes(banded_conv_dw)
+        dw, db = banded_conv_dw(dz, x, cb)
+        assert _routes(banded_conv_dw) == _bumped(before, dtype)
+        dw_ref, db_ref = banded_conv_dw_reference(dz, x, cb)
+        assert not dw[~cb.band_mask()].any(), name
+        close(dw, dw_ref, f"{name} dW")
+        close(db, db_ref, f"{name} dBias")
         cb.bias = torch.zeros_like(cb.bias)     # an adjoint map has no bias
         c = _rand(rng, 2, cb.r_in, t).to(cuda_device)
         r32 = _rand(rng, 2, cb.r_out, t).to(cuda_device)
-        s2 = _rand(rng, 2, cb.r_out, t).to(cuda_device, bf16)
+        s2 = _rand(rng, 2, cb.r_out, t).to(cuda_device, dtype)
         kw = dict(residual=r32, elu=(res, s2), keep_raw=True)
-        before = banded_conv_dx.mma_launches
-        out, raw = banded_conv_dx(c, cb, bf16, **kw)
-        assert banded_conv_dx.mma_launches == before + 1
-        out_ref, raw_ref = banded_conv_dx_reference(c, cb, bf16, **kw)
-        torch.cuda.synchronize()
-        for g, w in ((out, out_ref), (raw, raw_ref)):
-            err = (g - w).abs().max().item()
-            assert err <= 1e-2 * w.abs().max().item(), (name, t, err)
+        before = _routes(banded_conv_dx)
+        out, raw = banded_conv_dx(c, cb, dtype, **kw)
+        assert _routes(banded_conv_dx) == _bumped(before, dtype)
+        out_ref, raw_ref = banded_conv_dx_reference(c, cb, dtype, **kw)
+        close(out, out_ref, f"{name} dX")
+        close(raw, raw_ref, f"{name} dX raw")
 
 
 @pytest.mark.cuda
-def test_band_dw_matches_masked_twin_and_is_bitwise_stable(cuda_device):
-    """bf16 dW on the bands (zeros elsewhere) and dBias against the twin
-    masked with the same bands, within 1e-2 * max|ref|; two runs give the
-    same bits."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_band_dw_matches_masked_twin_and_is_bitwise_stable(cuda_device,
+                                                           dtype):
+    """dW on the bands (zeros elsewhere) and dBias against the twin masked
+    with the same bands, within 1e-4 * max|ref| in float32 (split-TF32
+    products) and 1e-2 * max|ref| in bf16; two runs give the same bits."""
+    dtype = getattr(torch, dtype)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
     rng = np.random.default_rng(13)
     for name, cb in _conv_cases(cuda_device).items():
         if cb.per_block:
             continue
-        x = _rand(rng, 2, cb.r_in, 1001).to(cuda_device, torch.bfloat16)
+        x = _rand(rng, 2, cb.r_in, 1001).to(cuda_device, dtype)
         dz = _rand(rng, 2, cb.r_out, 1001).to(cuda_device)
         runs = [banded_conv_dw(dz, x, cb) for _ in range(2)]
         want = banded_conv_dw_reference(dz, x, cb)
@@ -364,31 +410,29 @@ def test_band_dw_matches_masked_twin_and_is_bitwise_stable(cuda_device):
         assert not runs[0][0][~cb.band_mask()].any(), name
         for got, ref in zip(runs[0], want):
             err = (got - ref).abs().max().item()
-            assert err <= 1e-2 * ref.abs().max().item(), (name, err)
+            assert err <= tol * ref.abs().max().item(), (name, err)
 
 
 @pytest.mark.cuda
 def test_band_kernels_reject_what_they_do_not_take(cuda_device):
-    """The band-tiled routes (the stage in both dtypes, dX and dW in bf16)
-    stage at most 8 frames per side, so a dilation-9 tap runs only through
-    the float32 FFMA dX and dW; dX/dW take no dense per-block map."""
+    """Every route is band-tiled and stages at most 8 frames per side, so
+    a dilation-9 tap raises in the stage, dX and dW in both dtypes; dX/dW
+    take no dense per-block map."""
     rng = np.random.default_rng(14)
     wide = pc.build_conv2d_blocks(_rand(rng, 3, 3, 4, 4), _rand(rng, 4), 64,
                                   9)
     wide.blocks, wide.bias = wide.blocks.cuda(), wide.bias.cuda()
     x = torch.zeros((1, wide.r_in, 16), device=cuda_device)
+    dz = torch.zeros((1, wide.r_out, 16), device=cuda_device)
     for dtype in (torch.float32, torch.bfloat16):
         with pytest.raises(ValueError, match="at most 8 frames"):
             banded_conv(x.to(dtype), wide)
-    banded_conv_dx(x, wide, torch.float32)
-    banded_conv_dw(torch.zeros((1, wide.r_out, 16), device=cuda_device), x,
-                   wide)
-    with pytest.raises(ValueError):
-        banded_conv_dx(x, wide, torch.bfloat16)
-    with pytest.raises(ValueError):
-        banded_conv_dw(torch.zeros((1, wide.r_out, 16), device=cuda_device),
-                       x.to(torch.bfloat16), wide)
+        with pytest.raises(ValueError, match="at most 8 frames"):
+            banded_conv_dx(x, wide, dtype)
+        with pytest.raises(ValueError, match="at most 8 frames"):
+            banded_conv_dw(dz, x.to(dtype), wide)
     dense = _conv_cases(cuda_device)["dense-exp"]
     c = torch.zeros((1, dense.r_in, 16), device=cuda_device)
-    with pytest.raises(ValueError):
-        banded_conv_dx(c, dense, torch.bfloat16)
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError):
+            banded_conv_dx(c, dense, dtype)

@@ -4,8 +4,8 @@ backward) against the JAX package, on the CPU at small sizes.
 On the CPU the level backward runs its plain twin
 (``level_backward_reference``), so these tests hold the algorithm, the
 adjoint blocks, the objectives, the optimizer and the whole step against
-the JAX functions; the kernels of ``csrc/banded_conv_bwd.cu`` are held
-against the twin on the card (``tests/test_torch_kernels.py`` and
+the JAX functions; the backward kernels (``csrc/band_mma.cu``,
+``csrc/banded_conv_bwd.cu``) are held against the twin on the card (``tests/test_torch_kernels.py`` and
 ``chip_smoke.py``). The small geometry is 8 kHz, 5 octaves x 12 bins,
 0.5-s blocks, latent 16, complexity 1.
 """
@@ -207,14 +207,20 @@ def test_level_vjp_matches_jax_pallas(kind):
 @pytest.mark.parametrize("input_grad", [True, False])
 def test_level_backward_reference_matches_autograd(kind, input_grad):
     """level_backward_reference == torch autograd of packed_level_apply in
-    float32: dX and the dW/dBias of every conv."""
+    float32: dX and the dW/dBias of every conv. The twin keeps dW on each
+    conv's bands, zero elsewhere, as the kernels write it, so autograd's
+    dW is masked with ``band_mask()`` before the comparison (the block
+    builder's backward reads no entry outside a band)."""
     params, build, xp, w_ref = _level_case(kind)
     spec = build(fl, _leaves(params))
     x = torch.tensor(np.asarray(xp), requires_grad=True)
     w = torch.from_numpy(w_ref)
     arrays = [a for cb in spec.convs() for a in (cb.blocks, cb.bias)]
+    masks = [m for cb in spec.convs() for m in (cb.band_mask(), None)]
     want = torch.autograd.grad(
         torch.sum(fl.packed_level_apply(x, spec) * w), [x] + arrays)
+    want = [want[0]] + [g if m is None else g * m
+                        for g, m in zip(want[1:], masks)]
     with torch.no_grad():
         dx, grads = fl.level_backward_reference(x.detach(), spec, w,
                                                 input_grad=input_grad)

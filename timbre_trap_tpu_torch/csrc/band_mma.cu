@@ -1,20 +1,21 @@
-// Band-tiled tensor-core products of the conv chain (K1, bf16 and float32)
-// and of the level backward (K3 dX and dW, bf16), for Hopper (sm_90a).
+// Band-tiled tensor-core products of the conv chain (K1) and of the level
+// backward (K3 dX and dW), bf16 and float32, for Hopper (sm_90a).
 //
 // Replaces the products of the Pallas TPU kernels
 // timbre_trap_tpu/ops/fused_level.py `_level_kernel` (K1, launched by
-// `_pallas_fwd_call`; both storage dtypes) and `_level_bwd_kernel` (K3,
-// launched by `_pallas_bwd_call`; bfloat16 storage). Float32 K3 keeps the
-// FFMA kernels of banded_conv_bwd.cu; the wrappers in ops/fused_level.py
-// route by dtype.
+// `_pallas_fwd_call`) and `_level_bwd_kernel` (K3, launched by
+// `_pallas_bwd_call`), in both storage dtypes; the wrappers in
+// ops/fused_level.py pick the entry point by dtype. K3's ELU' seed, an
+// elementwise pass, is in banded_conv_bwd.cu.
 //
 // The banded blocks are mostly structural zeros: an output row of a conv
 // reads n_df * c_in of a block's K input rows. Each 64-row half of a
 // 128-row block (a sub-tile) therefore carries its band, the first block
 // column it reads and how many, rounded out to 16 (ops/packed_conv.py
 // `_sub_tile_bands`, from the static tap map). Every product here runs over
-// a sub-tile's band only, with mma.sync m16n8k16 (bf16 operands, float32
-// accumulators) fed by ldmatrix from shared memory.
+// a sub-tile's band only, with mma.sync and float32 accumulators: m16n8k16
+// on bf16 operands fed by ldmatrix, m16n8k8 on tf32 operands fed by 32-bit
+// shared-memory loads.
 //
 //   tt_band_conv     K1 stage: y[64g + r, t] = epi(sum_dt sum_k
 //                      W_g,dt[r, k] * x[s_g + k, t + dt]), s_g the input row
@@ -28,14 +29,20 @@
 //                      JAX package's precision="highest" asks for.
 //   tt_band_conv_dx  K3 dX: the same product of the float32 cotangent,
 //                      rounded to bf16 while it is staged, with the adjoint
-//                      bands; epilogue as tt_banded_conv_dx: + residual
-//                      cotangent, raw, * ELU' from stored outputs.
+//                      bands; epilogue: + residual cotangent, keep that
+//                      value (raw), * ELU' from stored outputs (1 where
+//                      y > 0, else y + 1, y = s1 - s2).
 //   tt_band_conv_dw  K3 dW: dW_dt[r, k] = sum_{b,j,t} dZ[b, 128j + r, t] *
 //                      x[b, j*col_adv - margin + k, t + dt] on band entries
 //                      only (zeros elsewhere), dBias[r] from the float32
 //                      dZ. Fixed slices of the (b, j, 64 frames) chunks,
 //                      per-slice partials, a fixed-order second pass: the
 //                      same bits every run.
+//   tt_band_conv_dx_f32, tt_band_conv_dw_f32  K3 dX and dW in float32
+//                      storage: the same products as 3xTF32, dX on
+//                      tt_band_conv_f32's mainloop with the dX epilogue,
+//                      dW on the band tiles and the two passes of
+//                      tt_band_conv_dw.
 //
 // Design. A time tap shifts the frames by dt (|dt| <= 8), which breaks the
 // 16-byte row alignment ldmatrix needs if the shifted operand is stored with
@@ -48,17 +55,22 @@
 // zs[frame][r], ldmatrix.trans gives the A fragments) and x untransposed.
 // Loads for the next k chunk are in flight while the current one is
 // multiplied (two buffers, register staging; weights by cp.async). The
-// float32 stage needs no transposition: its fragments are 32-bit loads,
-// which take any address, so x is staged as it lies in memory (a tap is a
-// column offset) and every tile moves by cp.async, four chunks in flight.
+// float32 routes need no transposition: their fragments are 32-bit loads,
+// which take any address, so every operand is staged as it lies in memory
+// (a tap is a column offset) and every tile moves by cp.async with zero
+// fill at the edges: the stage and dX with four chunks in flight, dW with
+// two.
 //
 // What bounds it: with the zeros skipped, a stage needs ~2 * n_dt * 64 * L
 // flops per sub-tile and frame (L the band, 48-256) against ~2 bytes per
 // row and frame in and out, so one stage is near the card's bytes-per-flop
 // line and a forward chain is bound by its bytes (each stage reads and
 // writes its activations); in float32 the three TF32 passes at half the
-// bf16 rate put the stage well above that line, bound by the tensor
-// cores. mma.sync rather than wgmma: its fragments come
+// bf16 rate put the stage, dX and dW well above that line, bound by the
+// tensor cores. The tensor cores round their float32 sums toward zero,
+// so no float32 route keeps a long running sum in the MMA accumulators:
+// each short product goes into fresh accumulators and reaches the running
+// sum by an IEEE add. mma.sync rather than wgmma: its fragments come
 // straight from the transposed tiles with per-row addresses, where wgmma's
 // shared-memory descriptors want whole swizzled tiles at aligned offsets.
 
@@ -235,9 +247,9 @@ struct BandArgs {
   const void* src;     // (B, r_in, T): bf16 (K1) or float32 (dX cotangent)
   const void* w;       // (n_wsub, n_dt, 64, width) band weights, bf16 or float32
   const float* bias;   // K1: (128,) pattern, or (n_blocks * 128,) per block
-  const void* res;     // K1: bf16 residual; dX: float32 residual cotangent
-  const bf16* s1;      // dX: stored output for ELU'
-  const bf16* s2;      // dX: stored item input subtracted from s1
+  const void* res;     // K1: residual at the storage type; dX: float32 residual cotangent
+  const void* s1;      // dX: stored output for ELU', at the storage type
+  const void* s2;      // dX: stored item input subtracted from s1
   float* raw;          // dX: the value before ELU'
   void* out;           // (B, r_out, T)
   int r_in, r_out, t_len, n_dt, dt0, dt1, dt2;
@@ -276,8 +288,9 @@ __device__ __forceinline__ float ldg_f32(const bf16* p) { return to_f32(__ldg(p)
 // The epilogue of a warp's 32-row x 32-frame accumulator tile (rows
 // 32wm.., frames 32wn.. of sub-tile g; the accumulator layout of both
 // m16n8k16 and m16n8k8). kDx = false, K1: + bias, ELU, + the residual at
-// the output's type; true, dX: + the float32 residual cotangent, raw, x ELU'.
-template <bool kDx, typename TO>
+// the output's type; true, dX: + the float32 residual cotangent, raw, x ELU'
+// from the stored tensors s1, s2 of type TSt.
+template <bool kDx, typename TO, typename TSt>
 __device__ __forceinline__ void band_epilogue(const BandArgs& a, const float (&acc)[2][4][4],
                                               int g, int s, int t0, int b, int wm, int wn,
                                               int lane) {
@@ -306,8 +319,8 @@ __device__ __forceinline__ void band_epilogue(const BandArgs& a, const float (&a
           yarg[ni][e] = 1.f;
           if (ok && a.res != nullptr) add[ni][e] = ldg_f32(static_cast<const TR*>(a.res) + row_o + col);
           if (kDx && ok && a.s1 != nullptr) {
-            float y = to_f32(__ldg(a.s1 + row_o + col));
-            if (a.s2 != nullptr) y -= to_f32(__ldg(a.s2 + row_o + col));
+            float y = ldg_f32(static_cast<const TSt*>(a.s1) + row_o + col);
+            if (a.s2 != nullptr) y -= ldg_f32(static_cast<const TSt*>(a.s2) + row_o + col);
             yarg[ni][e] = y;
           }
         }
@@ -464,7 +477,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(TS) == 2 ? 3 : 2)
     cp_async_wait_all();
     __syncthreads();
   }
-  band_epilogue<kDx, TO>(a, acc, g, s, t0, b, wm, wn, lane);
+  band_epilogue<kDx, TO, bf16>(a, acc, g, s, t0, b, wm, wn, lane);
 }
 
 template <typename TS, bool kDx, typename TO>
@@ -554,8 +567,10 @@ constexpr int kXStageF = kKcF * kXPitchF;
 constexpr int kWStageF = 3 * kSub * kWPitchF;
 constexpr int kTf32Smem = kStagesF * (kXStageF + kWStageF) * 4;
 
-// The K1 stage of band_product_kernel for float32 storage: the same grid,
-// bands and epilogue. The products run on the tensor cores as 3xTF32: each
+// The K1 stage (kDx = false) and K3 dX (kDx = true) of band_product_kernel
+// for float32 storage: the same grid, bands and epilogues; dX reads the
+// float32 cotangent as it lies and the ELU' operands s1, s2 in float32.
+// The products run on the tensor cores as 3xTF32: each
 // float32 fragment element splits into hi + lo after its shared-memory
 // load and every m16n8k8 step computes lo*hi + hi*lo + hi*hi in float32
 // (the dropped lo*lo and the truncation of lo are ~2^-21 of a product).
@@ -567,6 +582,7 @@ constexpr int kTf32Smem = kStagesF * (kXStageF + kWStageF) * 4;
 // float32 level (one add per 8 columns was slower for no gain there).
 // Fragments are 32-bit shared-memory loads (ldmatrix moves 16-bit
 // elements).
+template <bool kDx>
 __global__ void __launch_bounds__(kThreads, 2) band_tf32_kernel(const BandArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* xs = reinterpret_cast<float*>(smem_raw);      // [kStagesF][kKcF][kXPitchF]
@@ -697,19 +713,21 @@ __global__ void __launch_bounds__(kThreads, 2) band_tf32_kernel(const BandArgs a
     }
   }
   cp_async_wait<0>();
-  band_epilogue<false, float>(a, acc, g, s, t0, b, wm, wn, lane);
+  band_epilogue<kDx, float, float>(a, acc, g, s, t0, b, wm, wn, lane);
 }
 
+template <bool kDx>
 int launch_band_tf32(const BandArgs& a, int batch, cudaStream_t st) {
+  const auto kernel = band_tf32_kernel<kDx>;
   static bool configured = false;
   if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        band_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTf32Smem);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTf32Smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   const dim3 grid((a.t_len + kTileT - 1) / kTileT, (a.r_out + kSub - 1) / kSub, batch);
-  band_tf32_kernel<<<grid, kThreads, kTf32Smem, st>>>(a);
+  kernel<<<grid, kThreads, kTf32Smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -719,7 +737,7 @@ int launch_band_tf32(const BandArgs& a, int batch, cudaStream_t st) {
 
 struct DwArgs {
   const float* dz;     // (B, r_out, T) float32 cotangent of the conv's output
-  const bf16* x;       // (B, r_in, T) the conv's input
+  const void* x;       // (B, r_in, T) the conv's input, bf16 or float32
   float* part;         // (n_slices, n_dt, 128, k) partial dW (band entries)
   float* part_bias;    // (n_slices, 128) partial dBias
   int batch, r_in, r_out, t_len, n_dt, dt0, dt1, dt2;
@@ -779,7 +797,7 @@ __global__ void __launch_bounds__(kThreads, 2) band_dw_partial_kernel(const DwAr
         zst[i].load(ra, rb, tc0 - kHalo + 8 * tz, a.t_len, aligned);
       }
     }
-    const bf16* x = a.x + (size_t)b * a.r_in * a.t_len;
+    const bf16* x = static_cast<const bf16*>(a.x) + (size_t)b * a.r_in * a.t_len;
     const int xrow0 = j * a.col_adv - a.margin + kb + n0;
 #pragma unroll
     for (int i = 0; i < kXdSlots; ++i) {
@@ -897,6 +915,211 @@ __global__ void __launch_bounds__(kThreads, 2) band_dw_partial_kernel(const DwAr
   }
 }
 
+// The float32 dW tiles: dZ staged as it lies, zs[r][frame] over the chunk's
+// 64 frames and 8 on each side (a tap is a column offset), x as
+// xs[col][frame]; rows of 84 and 68 floats (4 mod 8 words) put a fragment
+// load's 32 lanes in 32 banks. Two chunks in flight, 77,824 bytes of
+// shared memory: 2 CTAs an SM.
+constexpr int kZPitchF = kZRows + 4;
+constexpr int kXdPitchF = kDwT + 4;
+constexpr int kStagesDw = 2;
+constexpr int kZStageF = kSub * kZPitchF;
+constexpr int kXdStageF = kDwN * kXdPitchF;
+constexpr int kDwTf32Smem = kStagesDw * (kZStageF + kXdStageF) * 4;
+
+// band_dw_partial_kernel for float32 storage: the same grid, slices, chunk
+// order and outputs, the products as 3xTF32 m16n8k8 (A = dZ rows x frames,
+// B = frames x band columns, both split into hi + lo after their
+// shared-memory load). A dW entry sums B * n_blocks * T products (~2e5 at
+// the recipe), so each (chunk, tap) product, 64 frames, goes into fresh
+// accumulators and reaches the tap's running sum by one IEEE add. dBias:
+// the CTAs of column tile 0 sum the float32 dZ of each chunk's own 64
+// frames from shared memory, each thread 16 frames of one row in order
+// into a fresh sum that it adds into its running sum (one add a chunk into
+// the long sum, not one a frame), the four quarters of a row added in a
+// fixed order at the end.
+__global__ void __launch_bounds__(kThreads, 2) band_dw_tf32_kernel(const DwArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* zs = reinterpret_cast<float*>(smem_raw);      // [kStagesDw][kSub][kZPitchF]
+  float* xs = zs + kStagesDw * kZStageF;               // [kStagesDw][kDwN][kXdPitchF]
+
+  const int s = blockIdx.y;
+  const int sl = blockIdx.z;
+  const int kb = s ? a.kb1 : a.kb0;
+  const int kl = s ? a.kl1 : a.kl0;
+  const int n0 = blockIdx.x * kDwN;
+  if (n0 >= kl) return;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp & 3;
+  const int wn = warp >> 2;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const bool bias_cta = blockIdx.x == 0;
+
+  const int n_tc = (a.t_len + kDwT - 1) / kDwT;
+  const long long n_chunks = (long long)a.batch * a.n_blocks * n_tc;
+  const long long q_begin = n_chunks * sl / a.n_slices;
+  const long long q_end = n_chunks * (sl + 1) / a.n_slices;
+
+  // Chunk q into stage st: zeros outside the tensors' rows and frames.
+  // Aligned rows (T % 4 == 0) move in 16-byte pieces, each wholly inside
+  // or outside [0, T); others element by element.
+  auto load_chunk = [&](long long q, int st) {
+    const int tc0 = (int)(q % n_tc) * kDwT;
+    const long long bj = q / n_tc;
+    const int j = (int)(bj % a.n_blocks);
+    const int b = (int)(bj / a.n_blocks);
+    const float* dz = a.dz + (size_t)b * a.r_out * a.t_len;
+    const float* x = static_cast<const float*>(a.x) + (size_t)b * a.r_in * a.t_len;
+    const int zrow0 = j * 128 + s * kSub;
+    const int xrow0 = j * a.col_adv - a.margin + kb + n0;
+    float* zd = zs + st * kZStageF;
+    float* xd = xs + st * kXdStageF;
+    if (a.aligned) {
+      for (int p = tid; p < kSub * (kZRows / 4); p += kThreads) {
+        const int r = p / (kZRows / 4);
+        const int f = 4 * (p % (kZRows / 4));
+        const int row = zrow0 + r;
+        const int t = tc0 - kHalo + f;
+        const bool ok = row < a.r_out && t >= 0 && t < a.t_len;
+        cp_async16_zfill(zd + r * kZPitchF + f, ok ? dz + (size_t)row * a.t_len + t : dz, ok);
+      }
+      for (int p = tid; p < kDwN * (kDwT / 4); p += kThreads) {
+        const int n = p / (kDwT / 4);
+        const int f = 4 * (p % (kDwT / 4));
+        const int row = xrow0 + n;
+        const int t = tc0 + f;
+        const bool ok = row >= 0 && row < a.r_in && t < a.t_len;
+        cp_async16_zfill(xd + n * kXdPitchF + f, ok ? x + (size_t)row * a.t_len + t : x, ok);
+      }
+    } else {
+      for (int p = tid; p < kSub * kZRows; p += kThreads) {
+        const int r = p / kZRows;
+        const int f = p % kZRows;
+        const int row = zrow0 + r;
+        const int t = tc0 - kHalo + f;
+        const bool ok = row < a.r_out && t >= 0 && t < a.t_len;
+        cp_async4_zfill(zd + r * kZPitchF + f, ok ? dz + (size_t)row * a.t_len + t : dz, ok);
+      }
+      for (int p = tid; p < kDwN * kDwT; p += kThreads) {
+        const int n = p / kDwT;
+        const int f = p % kDwT;
+        const int row = xrow0 + n;
+        const int t = tc0 + f;
+        const bool ok = row >= 0 && row < a.r_in && t < a.t_len;
+        cp_async4_zfill(xd + n * kXdPitchF + f, ok ? x + (size_t)row * a.t_len + t : x, ok);
+      }
+    }
+  };
+
+  float acc[3][4][4];
+#pragma unroll
+  for (int tap = 0; tap < 3; ++tap)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[tap][ni][e] = 0.f;
+  float bsum = 0.f;
+
+#pragma unroll
+  for (int c = 0; c < kStagesDw - 1; ++c) {
+    if (q_begin + c < q_end) load_chunk(q_begin + c, c);
+    cp_async_commit();
+  }
+  for (long long q = q_begin; q < q_end; ++q) {
+    const int i = (int)(q - q_begin);
+    cp_async_wait<kStagesDw - 2>();  // chunk q has landed
+    __syncthreads();                 // and every warp is done with chunk q - 1
+    if (q + kStagesDw - 1 < q_end) load_chunk(q + kStagesDw - 1, (i + kStagesDw - 1) % kStagesDw);
+    cp_async_commit();
+    const float* zb = zs + (i % kStagesDw) * kZStageF;
+    const float* xb = xs + (i % kStagesDw) * kXdStageF;
+    if (bias_cta) {
+      const float* zr = zb + (tid >> 2) * kZPitchF + kHalo + 16 * (tid & 3);
+      float c = 0.f;
+#pragma unroll
+      for (int f = 0; f < 16; ++f) c += zr[f];
+      bsum += c;
+    }
+#pragma unroll
+    for (int tap = 0; tap < 3; ++tap) {
+      if (tap < a.n_dt) {
+        const int dt = tap_shift(tap, a.dt0, a.dt1, a.dt2);
+        // The tap's 64-frame product (8 m16n8k8 steps, small terms first
+        // in each) in fresh accumulators, then one IEEE add into the
+        // running sum. A (16 x 8): a0 (row g, frame t), a1 (g + 8, t), a2
+        // (g, t + 4), a3 (g + 8, t + 4), dZ read at frame - dt; B (8 x 8):
+        // b0 (frame t, column g), b1 (frame t + 4, column g).
+        float p[4][4];
+#pragma unroll
+        for (int ks = 0; ks < kDwT / 8; ++ks) {
+          uint32_t ah[4], al[4];
+          const float* z0 = zb + (16 * wm + gq) * kZPitchF + 8 * ks + tq + kHalo - dt;
+          split_tf32(z0[0], ah[0], al[0]);
+          split_tf32(z0[8 * kZPitchF], ah[1], al[1]);
+          split_tf32(z0[4], ah[2], al[2]);
+          split_tf32(z0[8 * kZPitchF + 4], ah[3], al[3]);
+          uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+            const float* x0 = xb + (32 * wn + 8 * ni + gq) * kXdPitchF + 8 * ks + tq;
+            split_tf32(x0[0], bh[ni][0], bl[ni][0]);
+            split_tf32(x0[4], bh[ni][1], bl[ni][1]);
+          }
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+            if (ks == 0) {
+              mma_tf32_first(p[ni], al, bh[ni]);
+            } else {
+              mma_tf32(p[ni], al, bh[ni]);
+            }
+          }
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) mma_tf32(p[ni], ah, bl[ni]);
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) mma_tf32(p[ni], ah, bh[ni]);
+        }
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[tap][ni][e] += p[ni][e];
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* part = a.part + (size_t)sl * a.n_dt * 128 * a.k;
+#pragma unroll
+  for (int tap = 0; tap < 3; ++tap) {
+    if (tap >= a.n_dt) continue;
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = s * kSub + 16 * wm + gq + 8 * h;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int cl = n0 + 32 * wn + 8 * ni + 2 * tq + e;
+          const int col = kb + cl;
+          if (cl < kl && col < a.k)
+            part[((size_t)tap * 128 + r) * a.k + col] = acc[tap][ni][2 * h + e];
+        }
+      }
+    }
+  }
+  if (bias_cta) {
+    // Lanes 4r' .. 4r' + 3 hold the quarters of row tid >> 2.
+    const int base = lane & ~3;
+    const float v = ((__shfl_sync(0xffffffffu, bsum, base) +
+                      __shfl_sync(0xffffffffu, bsum, base + 1)) +
+                     __shfl_sync(0xffffffffu, bsum, base + 2)) +
+                    __shfl_sync(0xffffffffu, bsum, base + 3);
+    if (tq == 0) a.part_bias[(size_t)sl * 128 + s * kSub + (tid >> 2)] = v;
+  }
+}
+
 // dw[i] = sum over slices, in slice order, of part[s][i] on band entries,
 // 0 elsewhere; then dBias the same way.
 __global__ void band_dw_reduce_kernel(const float* part, const float* part_bias, float* dw,
@@ -950,6 +1173,63 @@ BandArgs stage_args(const void* x, const void* w, const void* bias, const void* 
   return a;
 }
 
+BandArgs dx_args(const void* c, const void* w, const void* res, const void* s1, const void* s2,
+                 void* raw, void* out, int r_in, int r_out, int t_len, int n_dt, int dt0,
+                 int dt1, int dt2, int col_adv, int margin, int width, int kb0, int kl0,
+                 int kb1, int kl1, int aligned) {
+  BandArgs a = stage_args(c, w, nullptr, res, out, r_in, r_out, t_len, n_dt, dt0, dt1, dt2,
+                          col_adv, margin, width, 0, 0, kb0, kl0, kb1, kl1, aligned);
+  a.s1 = s1;
+  a.s2 = s2;
+  a.raw = static_cast<float*>(raw);
+  return a;
+}
+
+DwArgs dw_args(const void* dz, const void* x, void* part, void* part_bias, int batch, int r_in,
+               int r_out, int t_len, int n_dt, int dt0, int dt1, int dt2, int k, int col_adv,
+               int margin, int kb0, int kl0, int kb1, int kl1, int n_slices, int aligned) {
+  DwArgs a = {};
+  a.dz = static_cast<const float*>(dz);
+  a.x = x;
+  a.part = static_cast<float*>(part);
+  a.part_bias = static_cast<float*>(part_bias);
+  a.batch = batch;
+  a.r_in = r_in;
+  a.r_out = r_out;
+  a.t_len = t_len;
+  a.n_dt = n_dt;
+  a.dt0 = dt0;
+  a.dt1 = dt1;
+  a.dt2 = dt2;
+  a.k = k;
+  a.col_adv = col_adv;
+  a.margin = margin;
+  a.n_blocks = (r_out + 127) / 128;
+  a.n_slices = n_slices;
+  a.aligned = aligned;
+  a.kb0 = kb0;
+  a.kl0 = kl0;
+  a.kb1 = kb1;
+  a.kl1 = kl1;
+  return a;
+}
+
+// The fixed-order second pass of both dW routes, after the partials.
+int launch_dw_reduce(const DwArgs& a, void* dw, void* db, cudaStream_t st) {
+  const int n_w = a.n_dt * 128 * a.k;
+  band_dw_reduce_kernel<<<(n_w + 128 + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      a.part, a.part_bias, static_cast<float*>(dw), static_cast<float*>(db), a.n_slices, n_w,
+      a.k, a.kb0, a.kl0, a.kb1, a.kl1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Grid of the dW partial kernels: (column tiles of the longer band, 2
+// sub-tiles, n_slices).
+dim3 dw_grid(const DwArgs& a) {
+  const int kl_max = a.kl0 > a.kl1 ? a.kl0 : a.kl1;
+  return dim3((kl_max + kDwN - 1) / kDwN, 2, a.n_slices);
+}
+
 }  // namespace
 
 // K1 stage, bf16 storage. x, res, y: (B, r_in|r_out, T) bf16; w: band
@@ -978,7 +1258,7 @@ extern "C" int tt_band_conv_f32(const void* x, const void* w, const void* bias,
   const BandArgs a = stage_args(x, w, bias, res, y, r_in, r_out, t_len, n_dt, dt0, dt1, dt2,
                                 col_adv, margin, width, per_block, act, kb0, kl0, kb1, kl1,
                                 aligned);
-  return launch_band_tf32(a, batch, static_cast<cudaStream_t>(stream));
+  return launch_band_tf32<false>(a, batch, static_cast<cudaStream_t>(stream));
 }
 
 // K3 dX, bf16 storage: c (B, r_in, T) float32 cotangent; w the adjoint's
@@ -989,32 +1269,24 @@ extern "C" int tt_band_conv_dx(const void* c, const void* w, const void* res, co
                                int r_in, int r_out, int t_len, int n_dt, int dt0, int dt1,
                                int dt2, int col_adv, int margin, int width, int kb0, int kl0,
                                int kb1, int kl1, int aligned, void* stream) {
-  BandArgs a = {};
-  a.src = c;
-  a.w = w;
-  a.res = res;
-  a.s1 = static_cast<const bf16*>(s1);
-  a.s2 = static_cast<const bf16*>(s2);
-  a.raw = static_cast<float*>(raw);
-  a.out = out;
-  a.r_in = r_in;
-  a.r_out = r_out;
-  a.t_len = t_len;
-  a.n_dt = n_dt;
-  a.dt0 = dt0;
-  a.dt1 = dt1;
-  a.dt2 = dt2;
-  a.col_adv = col_adv;
-  a.margin = margin;
-  a.width = width;
-  a.aligned = aligned;
-  a.kb0 = kb0;
-  a.kl0 = kl0;
-  a.kb1 = kb1;
-  a.kl1 = kl1;
+  const BandArgs a = dx_args(c, w, res, s1, s2, raw, out, r_in, r_out, t_len, n_dt, dt0, dt1,
+                             dt2, col_adv, margin, width, kb0, kl0, kb1, kl1, aligned);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_f32) return launch_band_product<float, true, float>(a, batch, st);
   return launch_band_product<float, true, bf16>(a, batch, st);
+}
+
+// K3 dX, float32 storage, split-TF32 products: w the adjoint's band
+// weights in float32; s1, s2 float32; out float32; otherwise as
+// tt_band_conv_dx (aligned: T % 4 == 0 and an aligned base).
+extern "C" int tt_band_conv_dx_f32(const void* c, const void* w, const void* res,
+                                   const void* s1, const void* s2, void* raw, void* out,
+                                   int batch, int r_in, int r_out, int t_len, int n_dt, int dt0,
+                                   int dt1, int dt2, int col_adv, int margin, int width, int kb0,
+                                   int kl0, int kb1, int kl1, int aligned, void* stream) {
+  const BandArgs a = dx_args(c, w, res, s1, s2, raw, out, r_in, r_out, t_len, n_dt, dt0, dt1,
+                             dt2, col_adv, margin, width, kb0, kl0, kb1, kl1, aligned);
+  return launch_band_tf32<true>(a, batch, static_cast<cudaStream_t>(stream));
 }
 
 // K3 dW and dBias, bf16 storage: dz (B, r_out, T) float32, x (B, r_in, T)
@@ -1025,38 +1297,34 @@ extern "C" int tt_band_conv_dw(const void* dz, const void* x, void* part, void* 
                                int n_dt, int dt0, int dt1, int dt2, int k, int col_adv,
                                int margin, int kb0, int kl0, int kb1, int kl1, int n_slices,
                                int aligned, void* stream) {
-  DwArgs a = {};
-  a.dz = static_cast<const float*>(dz);
-  a.x = static_cast<const bf16*>(x);
-  a.part = static_cast<float*>(part);
-  a.part_bias = static_cast<float*>(part_bias);
-  a.batch = batch;
-  a.r_in = r_in;
-  a.r_out = r_out;
-  a.t_len = t_len;
-  a.n_dt = n_dt;
-  a.dt0 = dt0;
-  a.dt1 = dt1;
-  a.dt2 = dt2;
-  a.k = k;
-  a.col_adv = col_adv;
-  a.margin = margin;
-  a.n_blocks = (r_out + 127) / 128;
-  a.n_slices = n_slices;
-  a.aligned = aligned;
-  a.kb0 = kb0;
-  a.kl0 = kl0;
-  a.kb1 = kb1;
-  a.kl1 = kl1;
+  const DwArgs a = dw_args(dz, x, part, part_bias, batch, r_in, r_out, t_len, n_dt, dt0, dt1,
+                           dt2, k, col_adv, margin, kb0, kl0, kb1, kl1, n_slices, aligned);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int kl_max = kl0 > kl1 ? kl0 : kl1;
-  const dim3 grid((kl_max + kDwN - 1) / kDwN, 2, n_slices);
-  band_dw_partial_kernel<<<grid, kThreads, 0, st>>>(a);
+  band_dw_partial_kernel<<<dw_grid(a), kThreads, 0, st>>>(a);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  const int n_w = n_dt * 128 * k;
-  band_dw_reduce_kernel<<<(n_w + 128 + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      a.part, a.part_bias, static_cast<float*>(dw), static_cast<float*>(db), n_slices, n_w, k,
-      kb0, kl0, kb1, kl1);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dw_reduce(a, dw, db, st);
+}
+
+// K3 dW and dBias, float32 storage, split-TF32 products: x float32;
+// otherwise as tt_band_conv_dw (aligned: T % 4 == 0 and aligned bases).
+extern "C" int tt_band_conv_dw_f32(const void* dz, const void* x, void* part, void* part_bias,
+                                   void* dw, void* db, int batch, int r_in, int r_out,
+                                   int t_len, int n_dt, int dt0, int dt1, int dt2, int k,
+                                   int col_adv, int margin, int kb0, int kl0, int kb1, int kl1,
+                                   int n_slices, int aligned, void* stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        band_dw_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDwTf32Smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  const DwArgs a = dw_args(dz, x, part, part_bias, batch, r_in, r_out, t_len, n_dt, dt0, dt1,
+                           dt2, k, col_adv, margin, kb0, kl0, kb1, kl1, n_slices, aligned);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  band_dw_tf32_kernel<<<dw_grid(a), kThreads, kDwTf32Smem, st>>>(a);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  return launch_dw_reduce(a, dw, db, st);
 }

@@ -30,15 +30,15 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "peak_mask": {"tt_peak_mask": [_P, _P, _I, _I, _I, _L, _L, _F, _I, _P]},
     "banded_conv_bwd": {
-        "tt_banded_conv_dx": [_P] * 7 + [_I] * 11 + [_P],
-        "tt_banded_conv_dw": [_P] * 6 + [_I] * 12 + [_P],
         "tt_elu_backward": [_P] * 5 + [_I, _L, _P],
     },
     "band_mma": {
         "tt_band_conv": [_P] * 5 + [_I] * 18 + [_P],
         "tt_band_conv_f32": [_P] * 5 + [_I] * 18 + [_P],
         "tt_band_conv_dx": [_P] * 7 + [_I] * 17 + [_P],
+        "tt_band_conv_dx_f32": [_P] * 7 + [_I] * 16 + [_P],
         "tt_band_conv_dw": [_P] * 6 + [_I] * 17 + [_P],
+        "tt_band_conv_dw_f32": [_P] * 6 + [_I] * 17 + [_P],
     },
 }
 

@@ -19,10 +19,11 @@ Training: a spec built ``with_adjoints`` carries each conv's adjoint (its
 dX map, another banded conv). ``fused_level_train`` is the differentiable
 level (the port of ``make_fused_level_train``): its forward is K1, and its
 backward ``level_backward`` runs hand-written kernels (which replace the
-Pallas ``_level_bwd_kernel``) stage by stage: the dX and dW products of
-``csrc/band_mma.cu`` for bfloat16, of ``csrc/banded_conv_bwd.cu`` for
-float32, and that file's ELU' seed for both; ``level_backward_reference`` is
-the same algorithm in plain PyTorch.
+Pallas ``_level_bwd_kernel``) stage by stage: the band-tiled dX and dW
+products of ``csrc/band_mma.cu`` (bf16 products for bfloat16, split-TF32
+for float32; dW on the bands only) and the ELU' seed of
+``csrc/banded_conv_bwd.cu``; ``level_backward_reference`` is the same
+algorithm in plain PyTorch.
 """
 
 import torch
@@ -262,14 +263,14 @@ banded_conv.mma_launches = 0
 banded_conv.mma_launches_f32 = 0
 
 
-def _check_taps(cb, what, band_dtype=None):
-    """Every route takes at most 3 time taps; the band-tiled tensor-core
-    routes (``band_dtype``: the stage in either dtype, dX and dW in
-    bfloat16) also at most ``BAND_MAX_DT`` frames each."""
+def _check_taps(cb, what, dtype):
+    """The band-tiled tensor-core kernels (every route, in either
+    ``dtype``) take at most 3 time taps of at most ``BAND_MAX_DT`` frames
+    each."""
     if len(cb.dts) > 3:
         raise ValueError(f"{what} takes at most 3 time taps")
-    if band_dtype is not None and max(abs(d) for d in cb.dts) > BAND_MAX_DT:
-        name = str(band_dtype).replace("torch.", "")
+    if max(abs(d) for d in cb.dts) > BAND_MAX_DT:
+        name = str(dtype).replace("torch.", "")
         raise ValueError(f"{what} in {name} takes time taps of at most "
                          f"{BAND_MAX_DT} frames")
 
@@ -431,12 +432,14 @@ def banded_conv_dx(c, adj, dtype, residual=None, elu=None, keep_raw=False,
     Returns ``(out, raw)``: out at ``out_dtype`` (float32 or ``dtype``),
     raw the float32 value before the ELU' factor when ``keep_raw``.
 
-    For a CUDA tensor it launches a kernel: a bfloat16 ``dtype`` the
-    band-tiled tensor-core product (``csrc/band_mma.cu:tt_band_conv_dx``,
-    which rounds ``c`` to bfloat16 while it stages it), float32
-    ``csrc/banded_conv_bwd.cu:tt_banded_conv_dx``; ``banded_conv_dx.launches``
-    counts every launch and ``banded_conv_dx.mma_launches`` the tensor-core
-    ones. A CPU tensor takes the plain twin.
+    For a CUDA tensor it launches a band-tiled tensor-core kernel of
+    ``csrc/band_mma.cu`` over the adjoint's bands: bfloat16
+    ``tt_band_conv_dx`` (bf16 products; ``c`` rounded to bfloat16 while it
+    is staged), float32 ``tt_band_conv_dx_f32`` (split-TF32 products, as
+    ``banded_conv``'s float32 stage). ``banded_conv_dx.launches`` counts
+    every launch, ``banded_conv_dx.mma_launches`` the bfloat16 ones and
+    ``banded_conv_dx.mma_launches_f32`` the float32 ones. A CPU tensor
+    takes the plain twin.
     """
     if c.device.type == "cpu":
         return banded_conv_dx_reference(c, adj, dtype, residual, elu,
@@ -450,8 +453,7 @@ def banded_conv_dx(c, adj, dtype, residual=None, elu=None, keep_raw=False,
     b, r_in, t = c.shape
     if r_in != adj.r_in or adj.per_block:
         raise ValueError("cotangent rows or adjoint geometry not supported")
-    mma = dtype == torch.bfloat16
-    _check_taps(adj, "banded_conv_dx", dtype if mma else None)
+    _check_taps(adj, "banded_conv_dx", dtype)
     shape = (b, adj.r_out, t)
     c = c.contiguous()
     if residual is not None:
@@ -459,57 +461,59 @@ def banded_conv_dx(c, adj, dtype, residual=None, elu=None, keep_raw=False,
             raise ValueError("residual must be the float32 output shape")
         residual = residual.contiguous()
     s1, s2 = _stored(elu, shape, dtype, "banded_conv_dx")
-    w, _ = adj.band_operands(dtype) if mma else adj.kernel_operands()
+    w, _ = adj.band_operands(dtype)
     if w.device != c.device:
         raise ValueError("adjoint blocks and cotangent lie on different devices")
     out = torch.empty(shape, dtype=out_dtype, device=c.device)
     raw = torch.empty(shape, dtype=torch.float32, device=c.device) \
         if keep_raw else None
     if out.numel():
+        bf16 = dtype == torch.bfloat16
         dts = list(adj.dts) + [0] * (3 - len(adj.dts))
-        stream = torch.cuda.current_stream(c.device).cuda_stream
-        if mma:
+        args = (c.data_ptr(), w.data_ptr(), _ptr(residual), _ptr(s1),
+                _ptr(s2), _ptr(raw), out.data_ptr())
+        geometry = (b, r_in, adj.r_out, t, len(adj.dts), *dts, adj.col_adv,
+                    adj.margin, w.shape[-1], *_band_ints(adj), _aligned(t, c),
+                    torch.cuda.current_stream(c.device).cuda_stream)
+        if bf16:
             fn = _build.load("band_mma", "tt_band_conv_dx")
-            rc = fn(c.data_ptr(), w.data_ptr(), _ptr(residual), _ptr(s1),
-                    _ptr(s2), _ptr(raw), out.data_ptr(),
-                    int(out_dtype == torch.float32), b, r_in, adj.r_out, t,
-                    len(adj.dts), *dts, adj.col_adv, adj.margin, w.shape[-1],
-                    *_band_ints(adj), _aligned(t, c), stream)
+            rc = fn(*args, int(out_dtype == torch.float32), *geometry)
         else:
-            fn = _build.load("banded_conv_bwd", "tt_banded_conv_dx")
-            rc = fn(c.data_ptr(), w.data_ptr(), _ptr(residual), _ptr(s1),
-                    _ptr(s2), _ptr(raw), out.data_ptr(), b, r_in, adj.r_out,
-                    t, len(adj.dts), *dts, adj.k, adj.col_adv, adj.margin,
-                    stream)
+            fn = _build.load("band_mma", "tt_band_conv_dx_f32")
+            rc = fn(*args, *geometry)
         _build.check(rc, "banded_conv_dx")
         banded_conv_dx.launches += 1
-        banded_conv_dx.mma_launches += int(mma)
+        banded_conv_dx.mma_launches += int(bf16)
+        banded_conv_dx.mma_launches_f32 += int(not bf16)
     return out, raw
 
 
 banded_conv_dx.launches = 0
 banded_conv_dx.mma_launches = 0
+banded_conv_dx.mma_launches_f32 = 0
 
 
 def banded_conv_dw_reference(dz, x, cb):
     """Plain twin of ``banded_conv_dw``: one einsum per time tap over the
-    chunked view of the zero-margined input (as ``packed_conv_reference``);
-    for a bfloat16 ``x`` (the tensor-core route) dW is kept on the bands
-    only (``cb.band_mask()``), zero elsewhere, as the kernel writes it."""
+    chunked view of the zero-margined input (as ``packed_conv_reference``),
+    float32 accumulation (float64 for float64 inputs); dW is kept on the
+    bands only (``cb.band_mask()``), zero elsewhere, as the kernels write
+    it (every parameter gradient is the same either way: the block
+    builder's backward reads no entry outside a band)."""
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     b, r_in, t = x.shape
     nb = cb.n_out_blocks
-    dzp = torch.nn.functional.pad(dz.to(torch.float32),
+    dzp = torch.nn.functional.pad(dz.to(acc),
                                   (0, 0, 0, nb * BLOCK_ROWS - cb.r_out))
     dzp = dzp.reshape(b, nb, BLOCK_ROWS, t)
     db = dzp.sum(dim=(0, 1, 3))
-    ops = dzp.to(x.dtype).to(torch.float32)
+    ops = dzp.to(x.dtype).to(acc)
     A = cb.col_adv
     nw = -(-cb.k // A)
     n_ch = nb - 1 + nw
     max_dt = max(abs(d) for d in cb.dts)
     xp = torch.nn.functional.pad(
-        x.to(torch.float32),
-        (max_dt, max_dt, cb.margin, n_ch * A - cb.margin - r_in))
+        x.to(acc), (max_dt, max_dt, cb.margin, n_ch * A - cb.margin - r_in))
     xch = xp.reshape(b, n_ch, A, xp.shape[-1])
     dws = []
     for dt in cb.dts:
@@ -517,16 +521,8 @@ def banded_conv_dw_reference(dz, x, cb):
         xw = torch.stack([xs[:, o:o + nb] for o in range(nw)], dim=1)
         dw = torch.einsum("bjrt,bojkt->rok", ops, xw)
         dws.append(dw.reshape(BLOCK_ROWS, nw * A)[:, :cb.k])
-    dw = torch.stack(dws)
-    if x.dtype == torch.bfloat16:
-        dw = dw * cb.band_mask().to(dw.device)
+    dw = torch.stack(dws) * cb.band_mask().to(x.device)
     return dw, db
-
-
-def _dw_slices(n_chunks, tiles):
-    """Slices of the dW reduction: enough CTAs for 8 per SM of the H100's
-    132, fixed by the shapes alone, so the summation order is too."""
-    return max(1, min(n_chunks, -(-132 * 8 // tiles)))
 
 
 def banded_conv_dw(dz, x, cb):
@@ -537,15 +533,17 @@ def banded_conv_dw(dz, x, cb):
     from the float32 ``dz``). Rows past ``r_out`` of the last block, and
     input rows and columns outside the input, count as zero.
 
-    For a CUDA tensor it launches kernels (per-slice partial sums, then a
-    fixed-order reduction; the same bits every run): a bfloat16 ``x`` the
-    band-tiled tensor-core product ``csrc/band_mma.cu:tt_band_conv_dw``,
-    which computes dW on the bands only and writes zeros elsewhere (the
-    block builder's backward reads no entry outside a band, so every
-    parameter gradient is the same), float32
-    ``csrc/banded_conv_bwd.cu:tt_banded_conv_dw``. ``banded_conv_dw.launches``
-    counts the calls and ``banded_conv_dw.mma_launches`` the tensor-core
-    ones. A CPU tensor takes the plain twin.
+    For a CUDA tensor it launches the band-tiled tensor-core kernels of
+    ``csrc/band_mma.cu``, which compute dW on the bands only and write
+    zeros elsewhere (the block builder's backward reads no entry outside a
+    band, so every parameter gradient is the same): per-slice partial sums
+    of the (batch, block, 64 frames) chunks, bfloat16 ``tt_band_conv_dw``
+    (bf16 products) or float32 ``tt_band_conv_dw_f32`` (split-TF32
+    products), then a fixed-order reduction; the same bits every run.
+    ``banded_conv_dw.launches`` counts the calls,
+    ``banded_conv_dw.mma_launches`` the bfloat16 ones and
+    ``banded_conv_dw.mma_launches_f32`` the float32 ones. A CPU tensor
+    takes the plain twin.
     """
     if dz.device.type == "cpu":
         return banded_conv_dw_reference(dz, x, cb)
@@ -555,48 +553,43 @@ def banded_conv_dw(dz, x, cb):
             or r_in != cb.r_in or cb.per_block):
         raise ValueError("banded_conv_dw: cotangent, input or geometry not "
                          "supported")
-    mma = x.dtype == torch.bfloat16
-    _check_taps(cb, "banded_conv_dw", x.dtype if mma else None)
+    _check_taps(cb, "banded_conv_dw", x.dtype)
     dz, x = dz.contiguous(), x.contiguous()
     n_dt = len(cb.dts)
     dw = torch.empty((n_dt, BLOCK_ROWS, cb.k), dtype=torch.float32,
                      device=x.device)
     db = torch.empty((BLOCK_ROWS,), dtype=torch.float32, device=x.device)
-    n_chunks = b * cb.n_out_blocks * -(-t // (64 if mma else 32))
+    n_chunks = b * cb.n_out_blocks * -(-t // 64)
     if n_chunks == 0:
         return dw.zero_(), db.zero_()
-    if mma:
-        # CTAs per slice: 2 sub-tiles x the band's 64-column tiles.
-        tiles = 2 * -(-max(n for _, n in cb.bands) // 64)
-        n_slices = max(1, min(n_chunks, -(-132 * 4 // tiles)))
-    else:
-        n_slices = _dw_slices(n_chunks, -(-cb.k // 64) * n_dt)
+    # CTAs per slice: 2 sub-tiles x the longer band's 64-column tiles. Both
+    # kernels hold 2 CTAs an SM: slices for two waves over the H100's 132
+    # SMs, fixed by the shapes alone, so the summation order is too.
+    tiles = 2 * -(-max(n for _, n in cb.bands) // 64)
+    n_slices = max(1, min(n_chunks, -(-132 * 4 // tiles)))
     part = torch.empty((n_slices, n_dt, BLOCK_ROWS, cb.k),
                        dtype=torch.float32, device=x.device)
     part_bias = torch.empty((n_slices, BLOCK_ROWS), dtype=torch.float32,
                             device=x.device)
     dts = list(cb.dts) + [0] * (3 - n_dt)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if mma:
-        fn = _build.load("band_mma", "tt_band_conv_dw")
-        rc = fn(dz.data_ptr(), x.data_ptr(), part.data_ptr(),
-                part_bias.data_ptr(), dw.data_ptr(), db.data_ptr(), b, r_in,
-                cb.r_out, t, n_dt, *dts, cb.k, cb.col_adv, cb.margin,
-                *_band_ints(cb), n_slices, _aligned(t, dz, x), stream)
-    else:
-        fn = _build.load("banded_conv_bwd", "tt_banded_conv_dw")
-        rc = fn(dz.data_ptr(), x.data_ptr(), part.data_ptr(),
-                part_bias.data_ptr(), dw.data_ptr(), db.data_ptr(), b, r_in,
-                cb.r_out, t, n_dt, *dts, cb.k, cb.col_adv, cb.margin, n_slices,
-                stream)
+    bf16 = x.dtype == torch.bfloat16
+    fn = _build.load("band_mma",
+                     "tt_band_conv_dw" if bf16 else "tt_band_conv_dw_f32")
+    rc = fn(dz.data_ptr(), x.data_ptr(), part.data_ptr(),
+            part_bias.data_ptr(), dw.data_ptr(), db.data_ptr(), b, r_in,
+            cb.r_out, t, n_dt, *dts, cb.k, cb.col_adv, cb.margin,
+            *_band_ints(cb), n_slices, _aligned(t, dz, x),
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "banded_conv_dw")
     banded_conv_dw.launches += 1
-    banded_conv_dw.mma_launches += int(mma)
+    banded_conv_dw.mma_launches += int(bf16)
+    banded_conv_dw.mma_launches_f32 += int(not bf16)
     return dw, db
 
 
 banded_conv_dw.launches = 0
 banded_conv_dw.mma_launches = 0
+banded_conv_dw.mma_launches_f32 = 0
 
 
 def _level_backward(x, spec, dy, dtype, input_grad, dx_dtype, ops):

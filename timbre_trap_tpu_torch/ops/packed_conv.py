@@ -19,8 +19,8 @@ so each 64-row half of a block (a sub-tile) carries its band, the first
 column it reads and how many, rounded out to multiples of 16, taken from
 the builder's static tap map (never from weight values).
 ``band_conv_reference`` computes a conv from the bands alone; the
-tensor-core kernels (the stage in both dtypes, dX and dW in bf16) iterate
-over the band only.
+tensor-core kernels (the stage, dX and dW, in both dtypes) iterate over
+the band only.
 """
 
 import math
@@ -115,17 +115,6 @@ class ConvBlocks:
     @property
     def n_out_blocks(self):
         return math.ceil(self.r_out / BLOCK_ROWS)
-
-    def kernel_operands(self):
-        """(weights, bias) as the float32 FFMA kernels of the backward
-        (``csrc/banded_conv_bwd.cu``) read them: the blocks
-        transposed to (n_dt, K, rows) (rows run fastest, so a block's
-        weights for one input row are contiguous), and the bias. Built
-        once."""
-        if "ffma" not in self._cache:
-            wt = self.blocks.transpose(1, 2).to(torch.float32).contiguous()
-            self._cache["ffma"] = (wt, self.bias.to(torch.float32).contiguous())
-        return self._cache["ffma"]
 
     @property
     def n_sub(self):

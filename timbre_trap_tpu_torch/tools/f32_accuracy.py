@@ -10,11 +10,17 @@ split-TF32 tensor-core products) and the IEEE plain version
 
 1. every item alone, at (2, 1080, T) for T = 1001 and 1024, on the input
    the plain float32 chain gives it;
-2. the whole chain at (4, 1080, 1024) and (2, 1080, T) for T = 1001, 70, 1.
+2. the whole chain at (4, 1080, 1024) and (2, 1080, T) for T = 1001, 70, 1;
+3. the level backward's products, conv by conv over the 8 training levels
+   of the same net (with adjoints), at (2, ., 1001): dX (``banded_conv_dx``
+   on the adjoint blocks, N(0, 1) cotangent) and dW, dBias
+   (``banded_conv_dw``, 0.3 * N(0, 1) input, N(0, 1) cotangent), the
+   split-TF32 kernels beside their IEEE plain versions.
 
-Errors are max abs error / max|float64 result|. Prints one line per chain
-and one JSON line with every number and the card's name and power limit.
-Needs a CUDA device; exits non-zero without one.
+Errors are max abs error / max|float64 result|. Prints one line per chain,
+one for the backward's worst ratios, and one JSON line with every number
+and the card's name and power limit. Needs a CUDA device; exits non-zero
+without one.
 """
 
 import json
@@ -23,8 +29,12 @@ import sys
 
 import torch
 
+from ..interop import hwio_params
 from ..models import TimbreTrap
+from ..models.fused import level_specs
 from ..ops.fused_level import (_apply_chain, _elu, banded_conv,
+                               banded_conv_dw, banded_conv_dw_reference,
+                               banded_conv_dx, banded_conv_dx_reference,
                                banded_conv_reference)
 from ..ops.packed_conv import packed_conv_reference
 
@@ -63,6 +73,42 @@ def _items(spec, x):
     return out
 
 
+_DX = {"kernel": banded_conv_dx, "ieee": banded_conv_dx_reference}
+_DW = {"kernel": banded_conv_dw, "ieee": banded_conv_dw_reference}
+
+
+def _backward_convs(specs, t, gen):
+    """dX, dW and dBias of every conv of ``specs`` (built with adjoints)
+    alone against float64, at (2, ., t) on seeded inputs from ``gen``."""
+    dev = gen.device
+
+    def rand(rows, scale=1.0):
+        return scale * torch.randn((2, rows, t), generator=gen, device=dev)
+
+    out = []
+    for li, spec in enumerate(specs):
+        for ci, cb in enumerate(spec.convs()):
+            adj = cb.adjoint
+            c = rand(adj.r_in)
+            dx64 = packed_conv_reference(c.double(), adj,
+                                         blocks=adj.blocks.double())
+            x, dz = rand(cb.r_in, 0.3), rand(cb.r_out)
+            dw64, db64 = banded_conv_dw_reference(dz.double(), x.double(), cb)
+            dws = {k: f(dz, x, cb) for k, f in _DW.items()}
+            out.append({
+                "level": li, "conv": ci,
+                "dx": {k: _rel(f(c, adj, torch.float32)[0], dx64)
+                       for k, f in _DX.items()},
+                "dw": {k: _rel(v[0], dw64) for k, v in dws.items()},
+                "dbias": {k: _rel(v[1], db64) for k, v in dws.items()}})
+    return out
+
+
+def _worst_ratio(convs, what):
+    return max(e[what]["kernel"] / max(e[what]["ieee"], 1e-30)
+               for e in convs)
+
+
 def main():
     if not torch.cuda.is_available():
         print("f32_accuracy: needs a CUDA device", file=sys.stderr)
@@ -86,16 +132,26 @@ def main():
             chains[f"({b}, {spec.r_in}, {t})"] = {
                 k: _rel(_apply_chain(x, spec, torch.float32, f), ref)
                 for k, f in _ROUTES.items()}
+        especs, dspecs = level_specs(hwio_params(model.net), model.net, True)
+        convs = _backward_convs(especs + dspecs, 1001, g)
     ratio = max(e["kernel"] / e["ieee"] for v in items.values() for e in v)
     for shape, e in chains.items():
         print(f"chain {shape} vs float64: kernel {e['kernel']:.3e}, IEEE "
               f"{e['ieee']:.3e} of max|ref|")
     print(f"items: kernel at most {ratio:.2f}x the IEEE error")
+    worst = {w: _worst_ratio(convs, w) for w in ("dx", "dw", "dbias")}
+    print(f"backward, {len(convs)} convs: kernel at most "
+          + ", ".join(f"{v:.2f}x" + f" ({w})" for w, v in worst.items())
+          + " the IEEE error; largest kernel errors "
+          + ", ".join(f"{w} {max(e[w]['kernel'] for e in convs):.3e}"
+                      for w in worst))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(json.dumps({"card": card, "chains": chains,
-                      "worst_item_ratio": ratio, "items": items}))
+                      "worst_item_ratio": ratio, "items": items,
+                      "backward_worst_ratio": worst,
+                      "backward_convs": convs}))
     return 0
 
 

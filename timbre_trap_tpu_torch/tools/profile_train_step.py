@@ -1,20 +1,23 @@
 """Where a training step's time goes on the card.
 
     python -m timbre_trap_tpu_torch.tools.profile_train_step [--steps N]
-        [--trace PATH]
+        [--backend pallas_bf16|pallas] [--trace PATH]
 
 Builds the flagship base model (22.05 kHz, 9 x 60 bins, 3-s blocks, latent
 128, complexity 2, random weights of seed 1) and the recipe batch that
 ``chip_smoke.py`` trains on (``train.synthetic_batch``: 8 chord-and-noise
 9-s crops as compact int16, sparse uint8 ground truth, seed 0), runs two
-warm-up ``"pallas_bf16"`` steps, then:
+warm-up steps of ``--backend`` (default ``"pallas_bf16"``, the recipe's
+mixed precision; ``"pallas"`` is the float32 step), then:
 
 1. phases: the parts of ``make_train_step``'s step (``step.parts``; the
    step defines them) run one after another with a synchronize after each,
    host clock, mean of ``--steps`` steps;
 2. kernels: ``torch.profiler`` over ``--steps`` whole steps; the device
    time summed by kernel group, the device busy share (the union of kernel
-   intervals over the profiled wall time) and launches per step;
+   intervals over the profiled wall time) and launches per step; and the
+   bytes the K3 ELU' seed moves in a step (its inputs read once, its
+   outputs written once) over the card's 3.35 TB/s, its bound;
 3. the inference chain (the 60-stage bf16 forward of ``transcribe`` on a
    (4, 1080, 1024) chunk group of seeded features): wall time per chain
    (host clock, synchronized) beside its device time by kernel group, so
@@ -35,18 +38,22 @@ import time
 
 import torch
 
-BACKEND = "pallas_bf16"
+BACKENDS = ("pallas_bf16", "pallas")
+# HBM rate of an H100 SXM (NVIDIA data sheet, 700 W).
+PEAK_BYTES = 3.35e12
 # (group, substring of the kernel's name), first match wins; the port's
-# kernels live in an anonymous namespace of their .cu file. The bf16 step
-# runs the tensor-core kernels of band_mma.cu and the ELU' seed of
-# banded_conv_bwd.cu; a float32 K1 stage runs band_mma.cu's split-TF32
-# kernel, a group of its own.
+# kernels live in an anonymous namespace of their .cu file. Both steps run
+# the tensor-core kernels of band_mma.cu (bf16 products in the bf16 step,
+# split-TF32 in the float32 one; the dW reduction serves both) and the
+# ELU' seed of banded_conv_bwd.cu.
 _OURS = "(anonymous namespace)::"
 GROUPS = (("K3 dW partial, mma", _OURS + "band_dw_partial_kernel"),
-          ("K3 dW reduce, mma", _OURS + "band_dw_reduce_kernel"),
+          ("K3 dW partial f32, 3xTF32", _OURS + "band_dw_tf32_kernel"),
+          ("K3 dW reduce", _OURS + "band_dw_reduce_kernel"),
           ("K3 dX, mma", _OURS + "band_product_kernel<float, true"),
           ("K1 stage, mma", _OURS + "band_product_kernel<__nv_bfloat16, false"),
-          ("K1 stage f32, 3xTF32", _OURS + "band_tf32_kernel"),
+          ("K3 dX f32, 3xTF32", _OURS + "band_tf32_kernel<true"),
+          ("K1 stage f32, 3xTF32", _OURS + "band_tf32_kernel<false"),
           ("K3 ELU seed", _OURS + "elu_backward_kernel<"),
           ("cuFFT", "fft"), ("matmul", "gemm"), ("matmul", "cutlass"),
           ("index", "index"), ("reduce", "reduce"))
@@ -63,6 +70,7 @@ def _group(name):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--backend", choices=BACKENDS, default=BACKENDS[0])
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -77,10 +85,11 @@ def main(argv=None):
     audio, gt = synthetic_batch(model, 8, 9.0)
     cfg = TrainConfig()
     state = init_train_state(model, cfg)
-    step = make_train_step(model, cfg, audio.shape[0], BACKEND,
+    step = make_train_step(model, cfg, audio.shape[0], args.backend,
                            compact_audio_grid=True)
     for _ in range(2):
         float(step(state, audio, gt, 1e-4)["loss/total"])
+    seed_bytes = _seed_bytes(lambda: step(state, audio, gt, 1e-4))
 
     # 1. phases, each ended by a synchronize
     upload, loss_fn, update = step.parts
@@ -119,15 +128,41 @@ def main(argv=None):
                           text=True, timeout=60).stdout.strip()
     n = args.steps
     print(json.dumps({
-        "card": card, "backend": BACKEND, "steps": n,
+        "card": card, "backend": args.backend, "steps": n,
         "phase_ms": phases,
         "step_wall_ms_profiled": wall_ms / n,
         "device_busy_share": busy / wall_ms if groups else None,
         "kernel_ms_per_step": {k: v / n for k, v in sorted(groups.items())},
         "launches_per_step": {k: v / n for k, v in sorted(launches.items())},
+        "elu_seed_bytes_per_step": seed_bytes,
+        "elu_seed_bound_ms_per_step": seed_bytes / PEAK_BYTES * 1e3,
         "peak_bytes": torch.cuda.max_memory_allocated(),
         "forward_chain": chain, "chain_stages": stages}))
     return 0
+
+
+def _seed_bytes(run_step):
+    """Bytes the K3 ELU' seed moves in one step: every launch's inputs
+    read once and outputs written once (the level backward's seed op is
+    wrapped for that step)."""
+    from ..ops import fused_level as fl
+
+    total = 0
+
+    def seed(dy, elu=None, keep_raw=False):
+        nonlocal total
+        out = fl.elu_backward(dy, elu, keep_raw)
+        total += sum(t.numel() * t.element_size()
+                     for t in (dy, *(elu or ()), *out) if t is not None)
+        return out
+
+    ops = fl._KERNEL_OPS
+    fl._KERNEL_OPS = ops[:3] + (seed,)
+    try:
+        float(run_step()["loss/total"])
+    finally:
+        fl._KERNEL_OPS = ops
+    return total
 
 
 def _device_time(prof):
