@@ -15,6 +15,8 @@ Phases, each of which exits non-zero on failure:
              version; the float32 route runs split-TF32 tensor-core
              products, held to the IEEE plain version); the peak-mask
              kernel (K2) exactly, at t = 0.5 and 0;
+             the whole reconstruction-spec chain (decoder switch off, as
+             reconstruct runs it) in float32 within 1e-4 * max|ref|;
              the level backward (K3) on each of the 8 training levels at
              (2, R_in, 1024): dX and every parameter's gradient against
              torch autograd of the plain chain, float32 within
@@ -33,6 +35,16 @@ Phases, each of which exits non-zero on failure:
              the float32 transcribe of the same clip, counted: every K1
              stage runs the split-TF32 band kernel; a small model on the
              card matches the same weights on the CPU.
+             The flagship sliCQ on the card: a native white-noise round
+             trip over 2 blocks (> 60 dB), a compat-frame chord round trip
+             (> 30 dB), the card's decode against the CPU's on the same
+             coefficients (<= 1e-5 * max|x|). reconstruct() of the same
+             100-s clip, counted: every K1 launch split-TF32, K2 never
+             launched, output (1, 1, n_blocks * L), finite, max|y| = 1
+             within 1e-6; the streamed result against one pass over the
+             clip as a card tensor (<= 2e-5); a compat-frame flagship
+             model reconstructs a 9-s clip with the same checks; a small
+             model's reconstruct on the card against the CPU (<= 1e-4).
              Then training at the reference recipe: 5 ``"pallas_bf16"``
              steps on one seeded batch of 8 chord-and-noise 9-s crops
              (int16 compact uploads, uint8 ground truth), K1 and K3 counts
@@ -60,7 +72,9 @@ Phases, each of which exits non-zero on failure:
 4. numbers — kernel, plain-version and library times, the least time the
              card could take (bound), the real-time factor of the counted
              (first) call and of a second call at the same length (and of
-             a second float32 call), and the train step's time, audio rate
+             a second float32 call), ``reconstruct_rtf`` (first and second
+             call) with the reconstruction chain's forward time and the
+             synthesis time of the clip, and the train step's time, audio rate
              and peak memory; float32 yardsticks (cuDNN with TF32 off) for
              K1 and K3; the flops the
              bf16 kernels compute beside those the convs need, the bytes a
@@ -397,6 +411,18 @@ def phase_parity(torch, model, x, acts_for_mask, n_frames):
           f"{e16:.3e}, max|ref| {scale:.3f}")
     check(e32 <= 1e-4 * scale, f"K1 chain f32 error {e32} > 1e-4 * {scale}")
     check(e16 <= 5e-2 * scale, f"K1 chain bf16 error {e16} > 5e-2 * {scale}")
+    # The reconstruction spec (decoder switch off, indicator folded into
+    # the bias), as reconstruct() runs it: float32 only.
+    rspec = model._spec(False)
+    ref = packed_level_apply(x, rspec, torch.float32)
+    got = fused_level_apply(x, rspec, torch.float32)
+    torch.cuda.synchronize()
+    e_rec, scale = rel_err(got, ref)
+    print(f"  K1 whole reconstruction chain {tuple(x.shape)}: f32 err "
+          f"{e_rec:.3e}, max|ref| {scale:.3f}")
+    check(e_rec <= 1e-4 * scale, f"K1 reconstruction chain f32 error {e_rec} "
+          f"> 1e-4 * {scale}")
+    e32 = max(e32, e_rec)
 
     g = torch.Generator(device=acts_for_mask.device).manual_seed(0)
     rand = torch.rand((1, acts_for_mask.shape[-2], n_frames), generator=g,
@@ -782,6 +808,147 @@ def k3_numbers(torch, model, launches_per_step):
     return out
 
 
+def snr_db(reference, estimate):
+    reference = np.asarray(reference, dtype=np.float64)
+    noise = reference - np.asarray(estimate, dtype=np.float64)
+    return 10.0 * np.log10(np.sum(reference ** 2)
+                           / max(np.sum(noise ** 2), 1e-300))
+
+
+def phase_transform(torch):
+    """The flagship sliCQ on the card: a native white-noise round trip over
+    2 blocks (> 60 dB), a compat-frame chord round trip (> 30 dB), and the
+    card's decode of each frame's coefficients against the CPU's decode of
+    the same coefficients (<= 1e-5 * max|x|). Returns the numbers."""
+    from timbre_trap_tpu_torch.transform import CQT
+
+    out = {}
+    for compat, bar in (("native", 60.0), ("cqt_pytorch", 30.0)):
+        card = CQT(N_OCT, BPO, SR, SECS, compat=compat)
+        cpu = CQT(N_OCT, BPO, SR, SECS, compat=compat, device="cpu")
+        L = card.block_length
+        if compat == "native":
+            rng = np.random.default_rng(0)
+            x = rng.standard_normal((1, 1, 2 * L)).astype(np.float32)
+        else:
+            x = chord(2 * L / SR, SR)
+        coeffs = card.encode(torch.from_numpy(x).cuda())
+        y = card.decode_raw(coeffs)
+        y_cpu = cpu.decode_raw(coeffs.cpu())
+        torch.cuda.synchronize()
+        snr = snr_db(x, y.cpu().numpy())
+        diff = (y.cpu() - y_cpu).abs().max().item()
+        peak = float(np.abs(x).max())
+        print(f"transform: {compat} round trip over 2 blocks ("
+              f"{'white noise' if compat == 'native' else 'chord'}) "
+              f"{snr:.2f} dB (> {bar:.0f}); card vs CPU decode max abs diff "
+              f"{diff:.3e} = {diff / peak:.2e} of max|x|")
+        check(snr > bar, f"{compat} round trip {snr:.2f} dB <= {bar} dB")
+        check(diff <= 1e-5 * peak, f"{compat} decode: card and CPU differ by "
+              f"{diff} > 1e-5 * {peak}")
+        out[compat] = {"snr_db": snr, "decode_card_vs_cpu": diff / peak}
+    return out
+
+
+def check_recon(torch, y, n_samples, launches, what):
+    """reconstruct()'s output and counts: shape (1, 1, n_samples), finite,
+    max|y| = 1 within 1e-6; every K1 launch split-TF32; no K2."""
+    check(tuple(y.shape) == (1, 1, n_samples), f"{what}: output "
+          f"{tuple(y.shape)}, expected (1, 1, {n_samples})")
+    check(bool(torch.isfinite(y).all()), f"{what}: output is not finite")
+    peak = y.abs().max().item()
+    check(abs(peak - 1.0) <= 1e-6, f"{what}: max|y| = {peak}, not 1")
+    check(launches["banded_conv"] > 0
+          and launches["banded_conv.mma_f32"] == launches["banded_conv"],
+          f"{what}: K1 stages did not all run the split-TF32 band kernel: "
+          f"{launches}")
+    check(launches["peak_mask"] == 0, f"{what}: K2 was launched")
+
+
+def phase_reconstruct(torch, model, audio, counters, card):
+    """reconstruct() at the flagship, counted: the 100-s clip streams
+    through K1's float32 route on the reconstruction spec; its result
+    against one pass over the same clip as a card tensor (<= 2e-5); a
+    second call timed; a compat-frame flagship model on a 9-s clip, and the
+    same model on the CPU (<= 1e-4); a small model on the card against the
+    CPU (<= 1e-4). Returns the numbers and
+    the main call's launches."""
+    from timbre_trap_tpu_torch.models import TimbreTrap
+
+    L = model.sliCQ.block_length
+    n_samples = -(-audio.shape[-1] // L) * L
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = model.reconstruct(audio)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    check_recon(torch, y, n_samples, launches, "reconstruct")
+    t0 = time.perf_counter()
+    model.reconstruct(audio)
+    torch.cuda.synchronize()
+    wall_warm = time.perf_counter() - t0
+    whole = model.reconstruct(torch.from_numpy(audio).cuda())
+    d_stream = (y - whole).abs().max().item()
+    print(f"main: reconstruct {CLIP_SECS:.0f} s clip, launches {launches}; "
+          f"streamed vs one pass max abs diff {d_stream:.3e}")
+    check(d_stream <= 2e-5, f"streamed reconstruct differs from one pass by "
+          f"{d_stream}")
+    del whole
+
+    compat = TimbreTrap(SR, N_OCT, BPO, SECS, latent_size=LATENT,
+                        model_complexity=COMPLEXITY, seed=0,
+                        transform_compat="cqt_pytorch")
+    clip = chord(9.0, SR, seed=2)
+    zero_counts(counters)
+    y_c = compat.reconstruct(clip)
+    torch.cuda.synchronize()
+    launches_c = read_counts(counters)
+    check_recon(torch, y_c, clip.shape[-1], launches_c, "compat reconstruct")
+    print(f"main: compat-frame reconstruct 9 s clip, launches {launches_c}")
+    del compat
+    # The flagship end to end against an independent path: the same seeded
+    # compat model on the CPU, where every kernel's plain twin runs.
+    y_cpu = TimbreTrap(SR, N_OCT, BPO, SECS, latent_size=LATENT,
+                       model_complexity=COMPLEXITY, seed=0,
+                       transform_compat="cqt_pytorch",
+                       device="cpu").reconstruct(clip)
+    d_flag = (y_c.cpu() - y_cpu).abs().max().item()
+    print(f"main: flagship compat reconstruct card vs CPU max abs diff "
+          f"{d_flag:.3e}")
+    check(d_flag <= 1e-4, f"flagship reconstruct: card and CPU disagree by "
+          f"{d_flag}")
+    del y_cpu
+
+    small = dict(SMALL, fused="f32", seed=1)
+    clip = chord(2.3, 8000, seed=1)
+    d_small = (TimbreTrap(**small).reconstruct(clip).cpu()
+               - TimbreTrap(**small, device="cpu").reconstruct(clip)
+               ).abs().max().item()
+    print(f"main: small model reconstruct card vs CPU max abs diff "
+          f"{d_small:.3e}")
+    check(d_small <= 1e-4, f"reconstruct: card and CPU disagree by {d_small}")
+
+    # Where the time goes: the synthesis of the whole clip's coefficients
+    # alone, beside the wall time of the counted call.
+    coeffs = model.sliCQ.encode(model.sliCQ.pad_to_block_length(
+        torch.from_numpy(audio).cuda()))
+    synth_ms = time_ms(torch, lambda: model.sliCQ.decode_raw(coeffs), 5)
+    numbers = {"reconstruct_rtf": CLIP_SECS / wall,
+               "reconstruct_rtf_second": CLIP_SECS / wall_warm,
+               "wall_s": wall, "wall_s_second": wall_warm,
+               "streamed_vs_one_pass": d_stream, "small_card_vs_cpu": d_small,
+               "flagship_card_vs_cpu": d_flag,
+               "decode_ms": synth_ms, "launches_compat": launches_c}
+    print(f"reconstruct_rtf: {CLIP_SECS / wall:.2f} first call, "
+          f"{CLIP_SECS / wall_warm:.2f} second call ({CLIP_SECS:.0f} s clip, "
+          f"{wall:.3f} s / {wall_warm:.3f} s wall, float32 chain, synthesis "
+          f"included; decode of the clip's coefficients alone {synth_ms:.3f} "
+          f"ms) on {card}")
+    return numbers, launches
+
+
 def main():
     try:
         import torch
@@ -905,7 +1072,12 @@ def main():
     print(f"main: small model card vs CPU max abs diff {d_small:.3e}")
     check(d_small <= 1e-4, f"card and CPU disagree by {d_small}")
 
-    # 3b. the training main path, counted
+    # 3b. reconstruct, counted, and the transform on the card
+    transform = phase_transform(torch)
+    recon, launches_rec = phase_reconstruct(torch, model, audio,
+                                            (banded_conv, peak_mask), card)
+
+    # 3c. the training main path, counted
     k3_wrappers = (banded_conv_dx, banded_conv_dw, elu_backward)
     train, train_launches, train_model = phase_train(
         torch, (banded_conv,) + k3_wrappers)
@@ -923,6 +1095,19 @@ def main():
     k1_ms32 = time_ms(torch, lambda: fused_level_apply(x, spec, torch.float32))
     k1_plain32 = time_ms(torch, lambda: packed_level_apply(x, spec,
                                                            torch.float32), 3)
+    rspec = model._spec(False)
+    k1_rec_ms = time_ms(torch, lambda: fused_level_apply(x, rspec,
+                                                         torch.float32))
+    rec_forwards = launches_rec["banded_conv"] / sum(1 for _ in rspec.convs())
+    recon.update({"k1_forward_ms": k1_rec_ms, "k1_forwards": rec_forwards,
+                  "k1_share": rec_forwards * k1_rec_ms / (recon["wall_s"]
+                                                          * 1e3),
+                  "decode_share": recon["decode_ms"] / (recon["wall_s"]
+                                                        * 1e3)})
+    print(f"reconstruct: {rec_forwards:.0f} float32 forwards of the "
+          f"reconstruction chain at {k1_rec_ms:.3f} ms = "
+          f"{100 * recon['k1_share']:.1f} % of the first call's wall; "
+          f"synthesis {100 * recon['decode_share']:.1f} %")
     net16 = TimbreTrapNet(F, LATENT, COMPLEXITY).cuda()
     net16.load_state_dict(model.net.state_dict())
     net16 = net16.to(torch.bfloat16).eval()
@@ -976,6 +1161,7 @@ def main():
          "replaces": "timbre_trap_tpu/ops/fused_level.py:463",
          "launches": launches["banded_conv"],
          "launches_mma": launches["banded_conv.mma"],
+         "launches_reconstruct": launches_rec["banded_conv"],
          "launches_train": train_launches["banded_conv"],
          "max_abs_err": k1_err, "band_max_rel_err": band_err,
          "band_max_rel_err_f32": band_err32, "sass": sass,
@@ -1018,6 +1204,7 @@ def main():
           f"bf16 chain, peak mask included); float32 chain "
           f"{rtf32:.2f} second call ({wall32:.3f} s wall)")
     print(json.dumps({"train": train}))
+    print(json.dumps({"transform": transform, "reconstruct": recon}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -102,27 +102,70 @@ def cuda_device():
 # Contracts that hold on any device                                      #
 # --------------------------------------------------------------------- #
 
-def test_wrappers_take_the_twin_on_cpu_and_count_nothing():
+def _all_counts():
+    return ((banded_conv.launches, peak_mask.launches) + _k3_counts()
+            + _routes(banded_conv) + _routes(banded_conv_dx)
+            + _routes(banded_conv_dw))
+
+
+def test_wrappers_take_the_twin_on_cpu_and_count_nothing(monkeypatch):
+    """On the CPU every wrapper hands its arguments to its plain twin and
+    returns the twin's result, and no launch count moves; the level
+    backward on the CPU reaches every K3 twin the same way. Spies stand in
+    for the twins, so the claim is the routing itself, not the bits of two
+    separate evaluations."""
+    from timbre_trap_tpu_torch.ops import fused_level, peaks
+
     rng = np.random.default_rng(0)
     cb = _conv_cases()["3x3-d2"]
+    spec = _train_specs()[0]
+    adj = next(spec.convs()).adjoint
     x = _rand(rng, 2, cb.r_in, 9)
     res = _rand(rng, 2, cb.r_out, 9)
-    before = banded_conv.launches, peak_mask.launches
-    assert torch.equal(banded_conv(x, cb, True, res),
-                       banded_conv_reference(x, cb, True, res))
-    a = torch.rand((2, 20, 9))
-    assert torch.equal(peak_mask(a, 0.3), peak_mask_reference(a, 0.3))
-    assert (banded_conv.launches, peak_mask.launches) == before
-    spec = _train_specs()[0]
-    x = _rand(rng, 1, spec.r_in, 9)
-    dy = _rand(rng, 1, spec.r_out, 9)
-    k3_before = _k3_counts()
-    dx, grads = level_backward(x, spec, dy)
-    dx_ref, grads_ref = level_backward_reference(x, spec, dy)
-    assert torch.equal(dx, dx_ref)
-    for (dw, db), (dw_ref, db_ref) in zip(grads, grads_ref):
-        assert torch.equal(dw, dw_ref) and torch.equal(db, db_ref)
-    assert _k3_counts() == k3_before
+    c = _rand(rng, 2, adj.r_in, 9)
+    cases = [
+        (fused_level, banded_conv, (x, cb, True, res)),
+        (peaks, peak_mask, (torch.rand((2, 20, 9)), 0.3)),
+        (fused_level, banded_conv_dx, (c, adj, torch.float32, None, None,
+                                       True, torch.float32)),
+        (fused_level, banded_conv_dw, (_rand(rng, 2, cb.r_out, 9), x, cb)),
+        (fused_level, elu_backward, (res, (res, None), True)),
+    ]
+    before = _all_counts()
+    for module, wrapper, args in cases:
+        name = wrapper.__name__ + "_reference"
+        calls, sentinel = [], object()
+
+        def spy(*a):
+            calls.append(a)
+            return sentinel
+
+        with monkeypatch.context() as m:
+            m.setattr(module, name, spy)
+            assert wrapper(*args) is sentinel, name
+        assert len(calls) == 1, name
+        assert len(calls[0]) == len(args), name
+        assert all(got is want for got, want in zip(calls[0], args)), name
+    assert _all_counts() == before
+
+    reached = set()
+
+    def through(name, twin):
+        def spy(*a):
+            reached.add(name)
+            return twin(*a)
+        return spy
+
+    for name in ("banded_conv_reference", "banded_conv_dx_reference",
+                 "banded_conv_dw_reference", "elu_backward_reference"):
+        monkeypatch.setattr(fused_level, name,
+                            through(name, getattr(fused_level, name)))
+    xs = _rand(rng, 1, spec.r_in, 9)
+    dx, grads = level_backward(xs, spec, _rand(rng, 1, spec.r_out, 9))
+    assert reached == {"banded_conv_reference", "banded_conv_dx_reference",
+                       "banded_conv_dw_reference", "elu_backward_reference"}
+    assert dx.shape == xs.shape and len(grads) == len(list(spec.convs()))
+    assert _all_counts() == before
 
 
 def test_peak_mask_reads_frame_slices_in_place():

@@ -1,6 +1,7 @@
 """The port's TimbreTrap (timbre_trap_tpu_torch.models) against the JAX
 package at the small geometry (8 kHz, 5 octaves x 12 bins, 0.5-s blocks,
-latent 16, complexity 1), plus its device and import contracts."""
+latent 16, complexity 1): transcribe, and reconstruct on the native and the
+``cqt_pytorch`` compat frame; plus its device and import contracts."""
 
 import os
 import subprocess
@@ -122,19 +123,90 @@ def test_bf16_transcribe_close_to_f32(models):
     np.testing.assert_allclose(bf16.numpy(), f32.numpy(), atol=5e-2)
 
 
+@pytest.fixture(scope="module")
+def compat_models():
+    """``models`` on the ``cqt_pytorch`` compat frame."""
+    ref = JaxTimbreTrap(**HP, transform_compat="cqt_pytorch")
+    port = TimbreTrap(**HP, fused="f32", transform_compat="cqt_pytorch",
+                      device="cpu")
+    port.load_jax_params(jax.tree.map(np.asarray, ref.params))
+    return ref, port
+
+
+@pytest.mark.parametrize("frame", ["native", "cqt_pytorch"])
+def test_reconstruct_matches_jax(models, compat_models, frame):
+    """The normalised resynthesis of a 7.3-s clip (15 blocks: one pass in
+    both packages) against the JAX ``reconstruct`` with the same
+    weights."""
+    ref, port = models if frame == "native" else compat_models
+    assert port.sliCQ.compat == frame
+    audio = _clip(5, 7.3)
+    want = np.asarray(ref.reconstruct(audio))
+    got = port.reconstruct(audio)
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.float32
+    assert tuple(got.shape) == want.shape == (
+        1, 1, 15 * port.sliCQ.block_length)
+    assert float(got.abs().max()) == pytest.approx(1.0, abs=1e-6)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+
+
+@pytest.mark.parametrize("secs", [7.3, 1.2])
+def test_streaming_reconstruct_matches_single_program(models, secs):
+    """Piece-by-piece reconstruct (piece_blocks=3: per-piece synthesis,
+    the global infinity-norm after the concatenation) == one pass over the
+    whole clip (a tensor input), for a streamed and a short clip."""
+    _, port = models
+    audio = _clip(6, secs)
+    whole = port.reconstruct(torch.from_numpy(audio))
+    port.piece_blocks = 3
+    try:
+        assert port._piece_route(audio) == (secs > 3)
+        streamed = port.reconstruct(audio)
+    finally:
+        port.piece_blocks = TimbreTrap.piece_blocks
+    assert streamed.shape == whole.shape
+    np.testing.assert_allclose(streamed.numpy(), whole.numpy(), atol=2e-5)
+
+
+def test_reconstruct_accepts_int16_and_f16(models):
+    """PCM16 dequantizes by 1/32768 and float16 casts, streamed or not."""
+    ref, port = models
+    rng = np.random.default_rng(7)
+    pcm = (rng.standard_normal((1, 1, 6000)) * 8000).astype(np.int16)
+    deq = pcm.astype(np.float32) / 32768.0
+    want = port.reconstruct(deq).numpy()
+    np.testing.assert_allclose(port.reconstruct(pcm).numpy(), want,
+                               atol=1e-6)
+    np.testing.assert_allclose(port.reconstruct(pcm).numpy(),
+                               np.asarray(ref.reconstruct(pcm)), atol=1e-4)
+    port.pad_short_to_piece = True
+    try:
+        got_piece = port.reconstruct(pcm).numpy()
+        got_f16 = port.reconstruct(deq.astype(np.float16)).numpy()
+    finally:
+        port.pad_short_to_piece = False
+    np.testing.assert_allclose(got_piece, want, atol=2e-5)
+    np.testing.assert_allclose(got_f16, want, atol=5e-3)
+
+
 def test_fused_mode_is_validated():
     with pytest.raises(ValueError, match="fused"):
         TimbreTrap(**HP, fused="off", device="cpu")
 
 
-@pytest.mark.parametrize("entry", ["TimbreTrap", "CQT"])
+@pytest.mark.parametrize("entry", ["TimbreTrap", "CQT", "TimbreTrap-compat"])
 def test_no_cpu_fallback_without_cuda(entry):
-    """device=None means the card: with no CUDA device it raises."""
+    """device=None means the card: with no CUDA device it raises. The
+    model's entry points (``transcribe``, ``reconstruct``) run on the device
+    the constructor resolved, so the constructor is where the rule holds,
+    on either transform frame."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         if entry == "TimbreTrap":
             TimbreTrap(**HP)
+        elif entry == "TimbreTrap-compat":
+            TimbreTrap(**HP, transform_compat="cqt_pytorch")
         else:
             CQT(HP["n_octaves"], HP["bins_per_octave"], HP["sample_rate"],
                 HP["secs_per_block"])
@@ -153,4 +225,4 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 23
+    assert int(out.stdout.strip()) >= 31

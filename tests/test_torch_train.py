@@ -419,59 +419,134 @@ def test_bf16_step_tracks_f32_and_trains(jax_step_result):
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
 
 
+def _assert_same_step(got, want):
+    """Two steps' metrics, parameters and optimizer state agree to within
+    float32 rounding (atol 1e-6): one step size of the recipe (lr 1e-3)
+    moves every weight by far more."""
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix, tree
+    for g, w in zip(got, want):
+        g, w = dict(leaves(g)), dict(leaves(w))
+        assert g.keys() == w.keys()
+        for name, v in g.items():
+            torch.testing.assert_close(torch.as_tensor(v),
+                                       torch.as_tensor(w[name]),
+                                       atol=1e-6, rtol=0, msg=name)
+
+
+def _uploaded(m, cfg, audio, gt):
+    """What the step's ``upload`` hands on for one batch: the float32 audio
+    it extracts features from (a spy stands in for the analysis) and the
+    float32 ground truth."""
+    upload = make_train_step(m, cfg, 2, conv_backend="pallas",
+                             compact_audio_grid=True).parts[0]
+    seen = []
+    m.features_from_audio = lambda a: seen.append(a) or a
+    try:
+        _, ground_truth = upload(audio, gt)
+    finally:
+        del m.features_from_audio
+    return seen[0], ground_truth
+
+
 def test_compact_inputs_match_f32_step(jax_step_result):
     """int16 audio on the compact grid and uint8 ground truth give the f32
-    step's result; dequantized exactly, they give the same bits."""
+    step's result; dequantized exactly, they hand the step the same
+    float32 tensors as their snapped float32 values, and the step gives
+    the snapped inputs' metrics, weights and optimizer state."""
     params0, audio, gt, _, _, _ = jax_step_result
     cfg = TrainConfig()
     a16, g8 = compact_audio(audio), compact_ground_truth(gt)
-    inputs = {"f32": (audio, gt), "compact": (a16, g8),
-              "snapped": (a16.astype(np.float32) / 4096.0,
-                          g8.astype(np.float32) / 255.0)}
+    snapped = (a16.astype(np.float32) / 4096.0,
+               g8.astype(np.float32) / 255.0)
     out = {}
-    for name, (a, g) in inputs.items():
+    for name, (a, g) in {"f32": (audio, gt), "compact": (a16, g8),
+                         "snapped": snapped}.items():
         m = _port_model(params0)
         step = make_train_step(m, cfg, 2, conv_backend="pallas",
                                compact_audio_grid=True)
-        out[name] = (step(init_train_state(m, cfg), a, g, 1e-3),
-                     m.net.state_dict())
-    np.testing.assert_array_equal(g8.astype(np.float32) / 255.0, gt)
+        state = init_train_state(m, cfg)
+        out[name] = (step(state, a, g, 1e-3), m.net.state_dict(), state)
+    np.testing.assert_array_equal(snapped[1], gt)
     for key in ("loss/total", "loss/transcription"):
         assert float(out["compact"][0][key]) == pytest.approx(
             float(out["f32"][0][key]), rel=2e-3)
-        assert float(out["compact"][0][key]) == float(out["snapped"][0][key])
-    for name, p in out["compact"][1].items():
-        assert torch.equal(p, out["snapped"][1][name]), name
+    _assert_same_step(out["compact"], out["snapped"])
+    m = _port_model(params0)
+    got = _uploaded(m, cfg, a16, g8)
+    want = _uploaded(m, cfg, *snapped)
+    assert got[0].dtype == got[1].dtype == torch.float32
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def test_transcribe_after_step_uses_new_weights(jax_step_result):
-    """The step drops the model's cached inference chains: transcribe()
-    after a step equals a fresh model loaded with the stepped weights."""
+def test_transcribe_after_step_uses_new_weights(jax_step_result,
+                                                 monkeypatch):
+    """The step drops the model's cached inference chains, so the next
+    transcribe() builds its chain anew from the stepped net."""
+    from timbre_trap_tpu_torch.models import timbre_trap as tt
+
     params0, audio, gt, _, _, _ = jax_step_result
     m = _port_model(params0)
     clip = audio[:1, :, :6000]
     before = m.transcribe(clip)
     assert m._specs
+    w0 = {k: v.clone() for k, v in m.net.state_dict().items()}
     cfg = TrainConfig()
     make_train_step(m, cfg, 2, conv_backend="pallas")(
         init_train_state(m, cfg), audio, gt, 1e-3)
-    fresh = TimbreTrap(**HP, device="cpu")
-    fresh.load_state_dict(m.net.state_dict())
+    assert not m._specs
+    assert any(not torch.equal(v, w0[k])
+               for k, v in m.net.state_dict().items())
+    built, real = [], tt.forward_spec
+    monkeypatch.setattr(tt, "forward_spec", lambda net, transcribe: (
+        built.append((net, transcribe)) or real(net, transcribe)))
     after = m.transcribe(clip)
+    assert len(built) == 1 and built[0][0] is m.net and built[0][1] is True
     assert not torch.equal(after, before)
-    assert torch.equal(after, fresh.transcribe(clip))
 
 
-def test_step_parts_compose_to_the_step(jax_step_result):
-    """``step.parts`` (upload, loss_fn, update), run one after another,
-    give the step's metrics and weights bit for bit."""
+def test_step_parts_compose_to_the_step(jax_step_result, monkeypatch):
+    """``step`` is ``step.parts`` in order: ``upload`` (features),
+    ``loss_fn`` on upload's output, ``total.backward()``, ``update``
+    (which ends with the cache drop); a run of the parts one after
+    another takes the same path and gives the step's metrics, weights and
+    optimizer state."""
+    from timbre_trap_tpu_torch.train import step as step_mod
+
     params0, audio, gt, _, _, _ = jax_step_result
     cfg = TrainConfig()
-    out = []
+    real_make_loss_fn = step_mod.make_loss_fn
+    events = []
+
+    def make_loss_fn(*args):
+        loss_fn = real_make_loss_fn(*args)
+
+        def spy(features, ground_truth):
+            events.append(("loss_fn", features))
+            total, metrics = loss_fn(features, ground_truth)
+            total.register_hook(lambda g: events.append(("backward", None)))
+            return total, metrics
+        return spy
+
+    monkeypatch.setattr(step_mod, "make_loss_fn", make_loss_fn)
+    traces, results = [], []
     for whole in (True, False):
         m = _port_model(params0)
+        real_features = m.features_from_audio
+        m.features_from_audio = lambda a, f=real_features: (
+            events.append(("upload", f(a))) or events[-1][1])
+        m.invalidate_specs = lambda: events.append(("update", None))
         state = init_train_state(m, cfg)
         step = make_train_step(m, cfg, 2, conv_backend="pallas")
+        cells = dict(zip(step.__code__.co_freevars,
+                         (c.cell_contents for c in step.__closure__)))
+        assert all(cells[n] is f for n, f in
+                   zip(("upload", "loss_fn", "update"), step.parts))
+        events.clear()
         if whole:
             metrics = step(state, audio, gt, 1e-3)
         else:
@@ -479,12 +554,14 @@ def test_step_parts_compose_to_the_step(jax_step_result):
             total, metrics = loss_fn(*upload(audio, gt))
             total.backward()
             metrics = update(state, metrics, 1e-3)
-        out.append((metrics, m.net.state_dict()))
-    assert set(out[0][0]) == set(out[1][0])
-    for key, v in out[0][0].items():
-        assert torch.equal(v, out[1][0][key]), key
-    for name, p in out[0][1].items():
-        assert torch.equal(p, out[1][1][name]), name
+        assert [e[0] for e in events] == ["upload", "loss_fn", "backward",
+                                          "update"]
+        assert events[1][1] is events[0][1]
+        assert all(p.grad is not None for p in m.net.parameters())
+        traces.append(set(metrics))
+        results.append((metrics, m.net.state_dict(), state))
+    assert traces[0] == traces[1]
+    _assert_same_step(results[1], results[0])
 
 
 def test_synthetic_batch_is_seeded_and_shaped():

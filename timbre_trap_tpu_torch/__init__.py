@@ -1,9 +1,11 @@
 """timbre_trap_tpu_torch — the PyTorch/CUDA port of timbre_trap_tpu.
 
-The same sliCQ transform, Timbre-Trap network and streaming ``transcribe``
-as the JAX package, run on an NVIDIA Hopper GPU: the conv chain and the
-peak mask go through kernels written by hand for ``sm_90a``
-(``csrc/``), each with a plain PyTorch twin that the CPU takes.
+The same sliCQ transform (native and ``cqt_pytorch`` compat frames,
+analysis and synthesis), Timbre-Trap network, streaming ``transcribe`` and
+``reconstruct``, training step and evaluation metrics as the JAX package,
+run on an NVIDIA Hopper GPU: the conv chain, its backward and the peak mask
+go through kernels written by hand for ``sm_90a`` (``csrc/``), each with a
+plain PyTorch twin that the CPU takes.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``). This package never imports JAX nor the JAX package.

@@ -36,8 +36,8 @@
 //                      x[b, j*col_adv - margin + k, t + dt] on band entries
 //                      only (zeros elsewhere), dBias[r] from the float32
 //                      dZ. Fixed slices of the (b, j, 64 frames) chunks,
-//                      per-slice partials, a fixed-order second pass: the
-//                      same bits every run.
+//                      per-slice partials, a second pass that sums them
+//                      as a fixed pairwise tree: the same bits every run.
 //   tt_band_conv_dx_f32, tt_band_conv_dw_f32  K3 dX and dW in float32
 //                      storage: the same products as 3xTF32, dX on
 //                      tt_band_conv_f32's mainloop with the dX epilogue,
@@ -1120,8 +1120,41 @@ __global__ void __launch_bounds__(kThreads, 2) band_dw_tf32_kernel(const DwArgs 
   }
 }
 
-// dw[i] = sum over slices, in slice order, of part[s][i] on band entries,
-// 0 elsewhere; then dBias the same way.
+// Sum of p[0], p[stride], ..., p[(n - 1) * stride] as a fixed pairwise
+// tree: a binary counter merges two partial sums of equal size as soon as
+// both exist, so the rounding error grows with log2(n) instead of n and
+// every run adds in the same order. Whole groups of 8 are loaded together
+// (8 loads in flight, not one) and summed as the counter would sum them,
+// ((v0 + v1) + (v2 + v3)) + ((v4 + v5) + (v6 + v7)). n < 2^16 (at most
+// 528 slices).
+__device__ __forceinline__ float pairwise_sum(const float* p, size_t stride, int n) {
+  float part[16];
+  int size[16];
+  int top = 0;
+  auto push = [&](float v, int c) {
+    while (top > 0 && size[top - 1] == c) {
+      v = part[--top] + v;
+      c <<= 1;
+    }
+    part[top] = v;
+    size[top] = c;
+    ++top;
+  };
+  int i = 0;
+  for (; i + 8 <= n; i += 8) {
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = p[(size_t)(i + j) * stride];
+    push(((v[0] + v[1]) + (v[2] + v[3])) + ((v[4] + v[5]) + (v[6] + v[7])), 8);
+  }
+  for (; i < n; ++i) push(p[(size_t)i * stride], 1);
+  float v = part[--top];
+  while (top > 0) v = part[--top] + v;
+  return v;
+}
+
+// dw[i] = the pairwise sum over slices of part[s][i] on band entries, 0
+// elsewhere; then dBias the same way.
 __global__ void band_dw_reduce_kernel(const float* part, const float* part_bias, float* dw,
                                       float* db, int n_slices, int n_w, int k, int kb0, int kl0,
                                       int kb1, int kl1) {
@@ -1131,15 +1164,10 @@ __global__ void band_dw_reduce_kernel(const float* part, const float* part_bias,
     const int r = (i / k) % 128;
     const int kb = r < kSub ? kb0 : kb1;
     const int kl = r < kSub ? kl0 : kl1;
-    float v = 0.f;
-    if (col >= kb && col < kb + kl)
-      for (int sl = 0; sl < n_slices; ++sl) v += part[(size_t)sl * n_w + i];
-    dw[i] = v;
+    dw[i] = col >= kb && col < kb + kl ? pairwise_sum(part + i, n_w, n_slices) : 0.f;
   } else if (i < n_w + 128) {
     const int r = i - n_w;
-    float v = 0.f;
-    for (int sl = 0; sl < n_slices; ++sl) v += part_bias[(size_t)sl * 128 + r];
-    db[r] = v;
+    db[r] = pairwise_sum(part_bias + r, 128, n_slices);
   }
 }
 

@@ -1,14 +1,16 @@
-"""Public Timbre-Trap model (base variant): transform + network + transcribe.
+"""Public Timbre-Trap model (base variant): transform + network +
+transcribe and reconstruct.
 
 Counterpart of ``timbre_trap_tpu/models/timbre_trap.py:TimbreTrap`` for the
-inference main path: ``features_from_audio``, ``inference``,
-``chunked_inference``, ``to_activations`` and the streaming ``transcribe``.
-Public layouts match the JAX package (coefficients ``(B, C, F, T)``,
-activations ``(B, F, T)``).
+inference paths: ``features_from_audio``, ``inference``,
+``chunked_inference``, ``to_activations``, and the streaming ``transcribe``
+and ``reconstruct``. Public layouts match the JAX package (coefficients
+``(B, C, F, T)``, activations ``(B, F, T)``, audio ``(B, 1, N)``).
 
 Precision policy, as in the JAX package: ``transcribe`` runs the conv chain
 with bfloat16 weights and activations, float32 accumulation and float32
-biases, unless ``fused="f32"``; every other path is float32.
+biases, unless ``fused="f32"``; every other path, ``reconstruct`` included,
+is float32.
 
 The model runs on the card unless the caller asks for the CPU
 (``device="cpu"``, where the kernels' plain twins run). With no CUDA device
@@ -29,6 +31,16 @@ __all__ = ["TimbreTrap"]
 _FUSED_MODES = ("auto", "f32")
 
 
+def _host_array(audio):
+    """A host clip as numpy: int16 (PCM16) and float16 stay as they are
+    (they upload at half the bytes and dequantize on the device), anything
+    else becomes float32."""
+    audio_np = np.asarray(audio)
+    if audio_np.dtype not in (np.int16, np.float16):
+        audio_np = audio_np.astype(np.float32, copy=False)
+    return audio_np
+
+
 class TimbreTrap:
     """Base (real/imaginary coefficient) model with indicator-channel switch."""
 
@@ -44,7 +56,8 @@ class TimbreTrap:
 
     def __init__(self, sample_rate, n_octaves, bins_per_octave,
                  secs_per_block=3, latent_size=None, model_complexity=1,
-                 skip_connections=False, seed=0, fused="auto", device=None):
+                 skip_connections=False, seed=0, fused="auto",
+                 transform_compat="native", compat_tables=None, device=None):
         if skip_connections:
             raise NotImplementedError(
                 "skip connections are not ported yet")
@@ -52,7 +65,9 @@ class TimbreTrap:
         self.fused = fused
         self.sliCQ = CQT(n_octaves=n_octaves, bins_per_octave=bins_per_octave,
                          sample_rate=sample_rate,
-                         secs_per_block=secs_per_block, device=self.device)
+                         secs_per_block=secs_per_block,
+                         compat=transform_compat,
+                         compat_tables=compat_tables, device=self.device)
         net = TimbreTrapNet(self.sliCQ.n_bins, latent_size, model_complexity)
         init_weights(net, torch.Generator().manual_seed(int(seed)))
         self.net = net.to(self.device).eval()
@@ -177,8 +192,14 @@ class TimbreTrap:
         """Transcription coefficients (B, C, F, T) -> activations (B, F, T)."""
         return torch.tanh(CQT.to_magnitude(coefficients))
 
+    def _reconstruct(self, audio):
+        """Pad -> chunked float32 inference -> inverse sliCQ -> normalise."""
+        coefficients = self._chunked(self._pad_for_chunks(self._to_f32(audio)),
+                                     False)
+        return self.sliCQ._decode_real(coefficients)
+
     # ------------------------------------------------------------------ #
-    # Streaming transcribe                                               #
+    # Streaming transcribe and reconstruct                               #
     # ------------------------------------------------------------------ #
 
     def _piece(self, segment):
@@ -186,8 +207,17 @@ class TimbreTrap:
         samples: the piece plus a half-block halo on each side)."""
         return self.to_activations(self._chunked(self._to_f32(segment), True))
 
-    def _stream_pieces(self, audio_np, out_per_block):
-        """Piece-by-piece execution over a host array.
+    def _piece_recon(self, segment):
+        """Unnormalised synthesis of one pre-extended piece.
+
+        Synthesis is per block, so decoding pieces and concatenating equals
+        decoding the whole coefficient tensor; only the global
+        infinity-norm waits for the whole signal (``reconstruct``)."""
+        coefficients = self._chunked(self._to_f32(segment), False)
+        return self.sliCQ.decode_raw(CQT.to_complex(coefficients)[:, None])
+
+    def _stream_pieces(self, audio_np, piece_fn, out_per_block):
+        """Piece-by-piece execution of ``piece_fn`` over a host array.
 
         Each ``piece_blocks*L + L`` window (zero halo at the signal edges)
         is staged in a pinned host buffer and copied to the card on a side
@@ -212,16 +242,16 @@ class TimbreTrap:
             return seg
 
         if self.device.type != "cuda":
-            outs = [self._piece(torch.from_numpy(np.ascontiguousarray(piece(i))))
+            outs = [piece_fn(torch.from_numpy(np.ascontiguousarray(piece(i))))
                     for i in range(n_pieces)]
         else:
-            outs = self._stream_cuda(piece, n_pieces)
+            outs = self._stream_cuda(piece, n_pieces, piece_fn)
         out = torch.cat(outs, dim=-1)
         return out[..., :n_blocks * out_per_block]
 
-    def _stream_cuda(self, piece, n_pieces):
+    def _stream_cuda(self, piece, n_pieces, piece_fn):
         """Upload piece i+1 (pinned buffer, side stream, non_blocking) while
-        piece i computes on the current stream."""
+        ``piece_fn`` computes piece i on the current stream."""
         main = torch.cuda.current_stream(self.device)
         copy = torch.cuda.Stream(self.device)
         first = np.ascontiguousarray(piece(0))
@@ -253,7 +283,7 @@ class TimbreTrap:
             main.wait_event(done)
             if i + 1 < n_pieces:
                 nxt = upload(i + 1, piece(i + 1))
-            outs.append(self._piece(dev))
+            outs.append(piece_fn(dev))
         return outs
 
     def _piece_route(self, audio_np):
@@ -272,12 +302,29 @@ class TimbreTrap:
         pass over the whole padded signal.
         """
         if not isinstance(audio, torch.Tensor):
-            audio_np = np.asarray(audio)
-            if audio_np.dtype not in (np.int16, np.float16):
-                audio_np = audio_np.astype(np.float32, copy=False)
+            audio_np = _host_array(audio)
             if self._piece_route(audio_np):
-                return self._stream_pieces(audio_np,
+                return self._stream_pieces(audio_np, self._piece,
                                            self.sliCQ.max_window_length)
             audio = torch.from_numpy(np.ascontiguousarray(audio_np))
         audio = self._pad_for_chunks(self._to_f32(audio))
         return self.to_activations(self._chunked(audio, True))
+
+    @torch.no_grad()
+    def reconstruct(self, audio):
+        """Audio (B, 1, N) -> resynthesised audio (B, 1, n_blocks * L),
+        normalised by its infinity norm over the whole batch.
+
+        Host inputs of two pieces or more stream piece by piece, as in
+        ``transcribe``, and are normalised after the concatenation; tensors
+        and shorter clips take one pass. int16 and float16 host inputs
+        dequantize as in ``transcribe``.
+        """
+        if not isinstance(audio, torch.Tensor):
+            audio_np = _host_array(audio)
+            if self._piece_route(audio_np):
+                out = self._stream_pieces(audio_np, self._piece_recon,
+                                          self.sliCQ.block_length)
+                return CQT._normalize(out)
+            audio = torch.from_numpy(np.ascontiguousarray(audio_np))
+        return self._reconstruct(audio)
