@@ -45,6 +45,25 @@ Phases, each of which exits non-zero on failure:
              clip as a card tensor (<= 2e-5); a compat-frame flagship
              model reconstructs a 9-s clip with the same checks; a small
              model's reconstruct on the card against the CPU (<= 1e-4).
+             The model families and skip connections: the flagship base
+             model with skips transcribes the 100-s clip, then peak_mask,
+             counted (58 bf16 K1 launches a forward, K2 launched, within
+             5e-2 of its float32 run or, where bf16 storage with skip adds
+             departs further, within 1.5x the plain bf16 route's
+             departure; the mask equal to the plain
+             version's), and reconstructs it, counted (58 split-TF32
+             launches a forward, no K2, max|y| = 1); one flagship forward
+             of base + skips, FiLM, Mag, MagDB and FiLM + skips through the
+             kernels against the same route through the plain twins on the
+             card (float32 <= 1e-4 * max|ref|, bf16 <= 5e-2 * max|ref|),
+             and each of the last four transcribes a 9-s clip through K2
+             (exact); a small model of every family x skips on the card
+             against the CPU (<= 1e-4, or, where their float32 roundings
+             part by more, the card within 3x the CPU's distance from a
+             float64 run of the same model; MagDB's CPU model reads the card's
+             features, whose dB form amplifies the FFTs' rounding near the
+             floor); save -> load_model round trips on
+             the card, bit for bit.
              Then training at the reference recipe: 5 ``"pallas_bf16"``
              steps on one seeded batch of 8 chord-and-noise 9-s crops
              (int16 compact uploads, uint8 ground truth), K1 and K3 counts
@@ -62,6 +81,9 @@ Phases, each of which exits non-zero on failure:
              tensor-core kernels of ``csrc/band_mma.cu``: phase 2 also
              holds them, on one conv of each kind at flagship widths (3x3
              at dilation 1, 2 and 3, 1x1, sconv, tconv, the dense bridge)
+             and K1 alone on the stages the variants add (the standalone
+             convin 2 -> 4 and convout 4 -> 2 of the skip route, Mag's
+             convin 1 -> 4 and convout 4 -> 1)
              at T = 3072 and a ragged T = 1001, against their twins on the
              same tensors: the stage, dX and dW (band entries, the twin
              masked with the same bands) and dBias within 1e-4 * max|ref|
@@ -74,7 +96,10 @@ Phases, each of which exits non-zero on failure:
              (first) call and of a second call at the same length (and of
              a second float32 call), ``reconstruct_rtf`` (first and second
              call) with the reconstruction chain's forward time and the
-             synthesis time of the clip, and the train step's time, audio rate
+             synthesis time of the clip, the base + skips model's
+             ``transcribe_rtf`` and ``reconstruct_rtf`` (first and second
+             call) and its route's forward time, K1 alone on each variant
+             stage, and the train step's time, audio rate
              and peak memory; float32 yardsticks (cuDNN with TF32 off) for
              K1 and K3; the flops the
              bf16 kernels compute beside those the convs need, the bytes a
@@ -85,6 +110,8 @@ Prints the kernels' JSON line and the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
+import copy
 import json
 import re
 import shutil
@@ -137,6 +164,13 @@ def chord(seconds, sr, seed=0):
     audio = sum(0.2 * np.sin(2 * np.pi * f * t) for f in (261.63, 329.63, 392.0))
     audio = audio + 0.01 * rng.standard_normal(t.shape)
     return audio[None, None, :].astype(np.float32)
+
+
+def flagship(cls, **kw):
+    """A flagship-geometry model of family ``cls`` (on the card unless
+    ``device`` says otherwise)."""
+    return cls(SR, N_OCT, BPO, SECS, latent_size=LATENT,
+               model_complexity=COMPLEXITY, **kw)
 
 
 def time_ms(torch, fn, reps=10):
@@ -246,15 +280,17 @@ def conv_kind(cb):
     return "1x1" if len(cb.dts) == 1 else f"3x3 d={max(cb.dts)}"
 
 
-def phase_band_parity(torch, fwd_spec, train_specs):
+def phase_band_parity(torch, fwd_spec, train_specs, stage_only=()):
     """The tensor-core kernels on the first conv of each kind in the
     flagship specs (training levels with adjoints; the dense bridge from
     the inference chain), at T = 3072 and 1001, batch 2, against their
     twins on the same tensors, in float32 (split-TF32 products against the
     IEEE twin) within 1e-4 * max|ref| and in bf16 within 1e-2 * max|ref|:
     the stage (ELU, residual), dX (residual, raw, ELU') and dW/dBias (band
-    entries), dW and dBias bitwise stable. Returns the largest relative
-    errors (bf16, float32)."""
+    entries), dW and dBias bitwise stable. ``stage_only`` ((name, conv)
+    pairs: the variants' inference geometries) get the stage alone, with
+    the same tolerances. Returns the largest relative errors (bf16,
+    float32)."""
     from timbre_trap_tpu_torch.ops.fused_level import (
         banded_conv, banded_conv_dw, banded_conv_dw_reference, banded_conv_dx,
         banded_conv_dx_reference, banded_conv_reference)
@@ -279,6 +315,20 @@ def phase_band_parity(torch, fwd_spec, train_specs):
 
     worst = {torch.float32: 0.0, bf16: 0.0}
     for t in (3072, 1001):
+        for name, cb in stage_only:
+            x32, res32 = rand(2, cb.r_in, t), rand(2, cb.r_out, t)
+            line = []
+            for dtype, tol in ((torch.float32, 1e-4), (bf16, 1e-2)):
+                x, res = x32.to(dtype), res32.to(dtype)
+                e = max(rel(banded_conv(x, cb, act, r),
+                            banded_conv_reference(x, cb, act, r),
+                            f"{name} T={t} {str(dtype)[6:]} stage", tol)
+                        for act, r in ((False, None), (True, res)))
+                worst[dtype] = max(worst[dtype], e)
+                line.append(f"{str(dtype)[6:]} rel {e:.2e}")
+            print(f"  band {name:12s} T={t} (c_in {cb.c_in}, c_out "
+                  f"{cb.c_out}, bands {cb.bands}, band width "
+                  f"{cb.band_width}): stage; " + "; ".join(line))
         for kind, cb in picks.items():
             dense = kind == "dense"
             x32 = rand(2, cb.r_in, t)
@@ -604,8 +654,7 @@ def phase_train(torch, counters):
                                              make_train_step,
                                              synthetic_batch)
 
-    model = TimbreTrap(SR, N_OCT, BPO, SECS, latent_size=LATENT,
-                       model_complexity=COMPLEXITY, seed=1)
+    model = flagship(TimbreTrap, seed=1)
     audio, gt = synthetic_batch(model, TRAIN_CROPS, TRAIN_SECS)
     check(gt.shape == (TRAIN_CROPS, 540, 3072), f"ground truth {gt.shape}")
     w0 = {k: v.clone() for k, v in model.net.state_dict().items()}
@@ -897,9 +946,7 @@ def phase_reconstruct(torch, model, audio, counters, card):
           f"{d_stream}")
     del whole
 
-    compat = TimbreTrap(SR, N_OCT, BPO, SECS, latent_size=LATENT,
-                        model_complexity=COMPLEXITY, seed=0,
-                        transform_compat="cqt_pytorch")
+    compat = flagship(TimbreTrap, seed=0, transform_compat="cqt_pytorch")
     clip = chord(9.0, SR, seed=2)
     zero_counts(counters)
     y_c = compat.reconstruct(clip)
@@ -910,10 +957,8 @@ def phase_reconstruct(torch, model, audio, counters, card):
     del compat
     # The flagship end to end against an independent path: the same seeded
     # compat model on the CPU, where every kernel's plain twin runs.
-    y_cpu = TimbreTrap(SR, N_OCT, BPO, SECS, latent_size=LATENT,
-                       model_complexity=COMPLEXITY, seed=0,
-                       transform_compat="cqt_pytorch",
-                       device="cpu").reconstruct(clip)
+    y_cpu = flagship(TimbreTrap, seed=0, transform_compat="cqt_pytorch",
+                     device="cpu").reconstruct(clip)
     d_flag = (y_c.cpu() - y_cpu).abs().max().item()
     print(f"main: flagship compat reconstruct card vs CPU max abs diff "
           f"{d_flag:.3e}")
@@ -947,6 +992,368 @@ def phase_reconstruct(torch, model, audio, counters, card):
           f"included; decode of the clip's coefficients alone {synth_ms:.3f} "
           f"ms) on {card}")
     return numbers, launches
+
+
+def route_convs(spec):
+    """The conv stages (K1 launches) of one inference forward."""
+    specs = [spec] if hasattr(spec, "items") else spec.especs + spec.dspecs
+    return sum(1 for s in specs for _ in s.convs())
+
+
+def forward_parity(torch, model, chunks, counters):
+    """One flagship forward of ``model``'s inference route on the 4-chunk
+    group ``chunks`` through the kernels against the same route through the
+    plain twins on the card (float32): the transcribe branch in bf16 (within
+    5e-2 * max|ref|) and float32 (1e-4), the reconstruction branch in
+    float32 where the family has two channels. Each kernel run must launch
+    K1 once per conv stage, on its dtype's tensor-core route. Returns
+    {branch: relative error}."""
+    from timbre_trap_tpu_torch.models.fused import fused_forward
+
+    feats = model.features_from_audio(chunks)
+    branches = [(True, torch.bfloat16), (True, torch.float32)]
+    if model.net.in_channels == 2:
+        branches.append((False, torch.float32))
+    out = {}
+    for transcribe, dtype in branches:
+        spec = model._spec(transcribe)
+        name = (f"{'transcribe' if transcribe else 'reconstruct'} "
+                f"{str(dtype)[6:]}")
+        ref = fused_forward(model.net, feats, transcribe, torch.float32, spec,
+                            plain=True)
+        zero_counts(counters)
+        got = fused_forward(model.net, feats, transcribe, dtype, spec)
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        n = route_convs(spec)
+        route = ".mma" if dtype == torch.bfloat16 else ".mma_f32"
+        check(launches["banded_conv"] == n == launches["banded_conv" + route],
+              f"{model.variant} forward {name}: launches {launches}, "
+              f"expected {n} on the {route[1:]} route")
+        err, scale = rel_err(got, ref)
+        tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+        check(err <= tol * scale, f"{model.variant} (skips "
+              f"{model.net.skip_connections}) forward {name}: error {err} > "
+              f"{tol} * {scale}")
+        out[name] = err / max(scale, 1e-30)
+    return out
+
+
+def plain_transcribe(model, audio):
+    """``model.transcribe(audio)`` with every level through the plain twins
+    on the card (the same storage dtype and casts as the kernels)."""
+    from timbre_trap_tpu_torch.models.fused import fused_forward
+
+    infer = model._infer
+
+    def plain(chunks, transcribe):
+        return fused_forward(model.net, model.features_from_audio(chunks),
+                             transcribe, model._dtype(transcribe),
+                             model._spec(transcribe), plain=True)
+
+    model._infer = plain
+    try:
+        return model.transcribe(audio)
+    finally:
+        model._infer = infer
+
+
+@contextlib.contextmanager
+def float64_forward(model):
+    """Within the block, ``model``'s forwards run in float64 through its
+    NCHW network (the plain check of the same function): a reference for
+    its float32 runs, rounded to float32 only by the overlap-add."""
+    net64 = copy.deepcopy(model.net).double()
+    infer = model._infer
+
+    def forward(chunks, transcribe):
+        feats = model.features_from_audio(chunks).double().movedim(-1, 1)
+        return net64(feats, transcribe)
+
+    model._infer = forward
+    try:
+        yield model
+    finally:
+        model._infer = infer
+
+
+def count_forwards(model):
+    """Counts the model's inference forwards (chunk groups) in ``.n``."""
+    infer = model._infer
+
+    def counted(audio, transcribe):
+        counted.n += 1
+        return infer(audio, transcribe)
+
+    counted.n = 0
+    model._infer = counted
+    return counted
+
+
+def phase_variants(torch, audio, chunks, counters, card):
+    """The variants and persistence (phase 3d): the flagship base model
+    with skip connections, counted: transcribe of the 100-s clip + peak
+    mask (58 bf16 K1 launches a forward, K2 launched, within 5e-2 of the
+    float32 run, mask equal to the plain version's), reconstruct (58
+    split-TF32 launches a forward, no K2, max|y| = 1), first and second
+    calls timed; one flagship forward of base + skips, FiLM, Mag and MagDB
+    without skips and FiLM with skips against the plain twins; a small model
+    of every family x skips on the card against the CPU (<= 1e-4); save ->
+    load_model round trips on the card, bit for bit. Returns the numbers
+    and the launch counts."""
+    from timbre_trap_tpu_torch.models import (TimbreTrap, TimbreTrapFiLM,
+                                              TimbreTrapMag, TimbreTrapMagDB,
+                                              load_model)
+    from timbre_trap_tpu_torch.ops import _build
+    from timbre_trap_tpu_torch.ops.peaks import peak_mask, peak_mask_reference
+
+    model = flagship(TimbreTrap, skip_connections=True, seed=0)
+    per_fwd = route_convs(model._spec(True))
+    check(per_fwd == 58, f"the skip route has {per_fwd} conv stages, not 58")
+    parity = {"base+skips": forward_parity(torch, model, chunks, counters)}
+    L = model.sliCQ.block_length
+    n_samples = -(-audio.shape[-1] // L) * L
+    forwards = count_forwards(model)
+
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acts = model.transcribe(audio)
+    mask = peak_mask(acts, 0.5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    n_fwd = forwards.n
+    check(tuple(acts.shape) == (1, model.sliCQ.n_bins,
+                                -(-audio.shape[-1] // L)
+                                * model.sliCQ.max_window_length),
+          f"skips: activations {tuple(acts.shape)}")
+    check(bool(torch.isfinite(acts).all()) and acts.min().item() >= 0.0
+          and acts.max().item() <= 1.0, "skips: activations not finite or "
+          "outside [0, 1]")
+    check(torch.equal(mask, peak_mask_reference(acts, 0.5)),
+          "skips: the peak mask differs from its plain version")
+    check(launches["banded_conv"] == per_fwd * n_fwd > 0
+          and launches["banded_conv.mma"] == launches["banded_conv"],
+          f"skips transcribe: K1 launches {launches} for {n_fwd} forwards, "
+          f"expected {per_fwd} bf16 launches a forward")
+    check(launches["peak_mask"] > 0, "skips transcribe: K2 not launched")
+    t0 = time.perf_counter()
+    peak_mask(model.transcribe(audio), 0.5)
+    torch.cuda.synchronize()
+    wall_warm = time.perf_counter() - t0
+    model.fused = "f32"
+    acts32 = model.transcribe(audio)
+    model.fused = "auto"
+    diff = (acts - acts32).abs().max().item()
+    # bf16 storage with skip adds departs from float32 by more than the
+    # base chain (the JAX package's bf16 skip route does the same on these
+    # weights): the kernels are held to the plain bf16 route's own
+    # departure, and to 5e-2 where that is smaller.
+    diff_plain = (plain_transcribe(model, audio) - acts32).abs().max().item()
+    check(diff <= max(5e-2, 1.5 * diff_plain), f"skips: bf16 activations "
+          f"differ from f32 by {diff} (the plain bf16 route by {diff_plain})")
+    print(f"variants: base + skips transcribe {CLIP_SECS:.0f} s clip, "
+          f"{n_fwd} forwards, launches {launches}; bf16 vs f32 max abs diff "
+          f"{diff:.3e} (plain bf16 route {diff_plain:.3e})")
+
+    forwards.n = 0
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = model.reconstruct(audio)
+    torch.cuda.synchronize()
+    wall_rec = time.perf_counter() - t0
+    launches_rec = read_counts(counters)
+    n_rec = forwards.n
+    check_recon(torch, y, n_samples, launches_rec, "skips reconstruct")
+    check(launches_rec["banded_conv"] == per_fwd * n_rec,
+          f"skips reconstruct: launches {launches_rec} for {n_rec} forwards")
+    t0 = time.perf_counter()
+    model.reconstruct(audio)
+    torch.cuda.synchronize()
+    wall_rec_warm = time.perf_counter() - t0
+    print(f"variants: base + skips reconstruct, {n_rec} forwards, "
+          f"launches {launches_rec}")
+
+    # The skip route's forward alone at the main path's shape.
+    from timbre_trap_tpu_torch.models.fused import fused_forward
+
+    feats = model.features_from_audio(chunks)
+    spec16, spec32 = model._spec(True), model._spec(False)
+    route_ms = time_ms(torch, lambda: fused_forward(
+        model.net, feats, True, torch.bfloat16, spec16))
+    route_ms32 = time_ms(torch, lambda: fused_forward(
+        model.net, feats, False, torch.float32, spec32))
+    route_plain = time_ms(torch, lambda: fused_forward(
+        model.net, feats, True, torch.bfloat16, spec16, plain=True), 3)
+
+    # Each family's flagship forward against the plain twins, and its
+    # transcribe of a 9-s clip through K2 (MagDB's activations are the
+    # sigmoid output itself, no tanh).
+    clip9 = chord(9.0, SR, seed=2)
+    peaks = {}
+    for cls, skip in ((TimbreTrapFiLM, False), (TimbreTrapMag, False),
+                      (TimbreTrapMagDB, False), (TimbreTrapFiLM, True)):
+        m = flagship(cls, skip_connections=skip, seed=3)
+        label = m.variant + ("+skips" if skip else "")
+        parity[label] = forward_parity(torch, m, chunks, counters)
+        zero_counts(counters)
+        a = m.transcribe(clip9)
+        mask = peak_mask(a, 0.5)
+        torch.cuda.synchronize()
+        n_k2 = read_counts(counters)["peak_mask"]
+        check(bool(torch.isfinite(a).all()) and a.min().item() >= 0.0
+              and a.max().item() <= 1.0, f"{label}: activations not finite "
+              f"or outside [0, 1]")
+        check(n_k2 == 1 and torch.equal(mask, peak_mask_reference(a, 0.5)),
+              f"{label}: K2 launched {n_k2} times or differs from its plain "
+              f"version")
+        peaks[label] = int(mask.sum())
+        del m
+    for label, errs in parity.items():
+        print(f"variants: {label:11s} flagship forward vs plain twins: "
+              + ", ".join(f"{k} rel {v:.2e}" for k, v in errs.items())
+              + (f"; 9-s transcribe, K2 exact, {peaks[label]} peaks"
+                 if label in peaks else ""))
+
+    ckpt = _build.BUILD_DIR / "smoke_ckpt"
+    small_diff, small_f64, round_trips, db_diff = 0.0, 0.0, 0, 0.0
+    clip = chord(2.3, 8000, seed=4)
+    for cls in (TimbreTrap, TimbreTrapFiLM, TimbreTrapMag, TimbreTrapMagDB):
+        for skip in (False, True):
+            kw = dict(SMALL, fused="f32", seed=5, skip_connections=skip)
+            on_card, on_cpu = cls(**kw), cls(**kw, device="cpu")
+            if cls is TimbreTrapMagDB:
+                # The dB of bins near the 80-dB floor turns the analysis'
+                # rounding (cuFFT against the CPU's FFT, ~1e-7 of the
+                # largest magnitude) into ~1e-4 of the rescaled features:
+                # the CPU model reads the card's features, and the dB
+                # features' own difference is reported.
+                x = torch.from_numpy(clip[..., :on_card.sliCQ.block_length])
+                db_diff = max(db_diff, (on_card.features_from_audio(x).cpu()
+                                        - on_cpu.features_from_audio(x)
+                                        ).abs().max().item())
+                on_cpu.features_from_audio = (
+                    lambda a, card=on_card: card.features_from_audio(
+                        a.to(card.device)).cpu())
+            got = on_card.transcribe(clip)
+            entries = ["transcribe"] + (
+                ["reconstruct"] if on_card.net.in_channels == 2 else [])
+            for entry in entries:
+                out_card = (got if entry == "transcribe"
+                            else on_card.reconstruct(clip)).cpu()
+                out_cpu = getattr(on_cpu, entry)(clip)
+                with float64_forward(on_cpu):
+                    ref = getattr(on_cpu, entry)(clip)
+                d = (out_card - out_cpu).abs().max().item()
+                d_card = (out_card - ref).abs().max().item()
+                d_cpu = (out_cpu - ref).abs().max().item()
+                # Both are float32 runs of a deep random network: where
+                # their roundings part by more than 1e-4, the card must be
+                # as close to float64 as the CPU, within the 3x that the
+                # float32 kernels are held to.
+                check(d <= 1e-4 or d_card <= 3 * d_cpu,
+                      f"small {cls.__name__} skips {skip} {entry}: "
+                      f"card and CPU disagree by {d}; from float64 the card "
+                      f"is {d_card} off, the CPU {d_cpu}")
+                small_diff = max(small_diff, d)
+                small_f64 = max(small_f64, d_card / max(d_cpu, 1e-30))
+            path = on_card.save(str(ckpt / f"{cls.variant}-{skip}"))
+            loaded = load_model(path, overrides={"fused": "f32"})
+            check(type(loaded) is cls and loaded.hparams == on_card.hparams,
+                  f"load_model rebuilt {type(loaded).__name__}")
+            check(torch.equal(loaded.transcribe(clip), got),
+                  f"small {cls.__name__} skips {skip}: reloaded model differs")
+            round_trips += 1
+    path = model.save(str(ckpt / "flagship-skips"))
+    check(torch.equal(load_model(path).transcribe(clip9),
+                      model.transcribe(clip9)),
+          "flagship base + skips: reloaded model differs")
+    round_trips += 1
+    shutil.rmtree(ckpt)
+    print(f"variants: small models of every family x skips, card vs CPU max "
+          f"abs diff {small_diff:.3e}, the card's distance from float64 at "
+          f"most {small_f64:.2f}x the CPU's (MagDB's dB features card vs CPU "
+          f"{db_diff:.3e}); {round_trips} save -> load_model round trips on "
+          f"the card, bit for bit")
+    numbers = {"transcribe_rtf": CLIP_SECS / wall,
+               "transcribe_rtf_second": CLIP_SECS / wall_warm,
+               "reconstruct_rtf": CLIP_SECS / wall_rec,
+               "reconstruct_rtf_second": CLIP_SECS / wall_rec_warm,
+               "bf16_vs_f32": diff, "launches_per_forward": per_fwd,
+               "forwards": n_fwd, "forward_vs_plain": parity,
+               "route_ms": route_ms, "route_ms_f32": route_ms32,
+               "route_plain_ms": route_plain,
+               "bf16_vs_f32_plain_route": diff_plain,
+               "small_card_vs_cpu": small_diff,
+               "small_card_vs_cpu_f64_ratio": small_f64,
+               "magdb_features_card_vs_cpu": db_diff,
+               "round_trips": round_trips}
+    print(f"variants: transcribe_rtf {CLIP_SECS / wall:.2f} first call, "
+          f"{CLIP_SECS / wall_warm:.2f} second call; reconstruct_rtf "
+          f"{CLIP_SECS / wall_rec:.2f} / {CLIP_SECS / wall_rec_warm:.2f} "
+          f"(base + skips, {CLIP_SECS:.0f} s clip); skip route forward "
+          f"{route_ms:.3f} ms bf16, {route_ms32:.3f} ms float32, plain "
+          f"{route_plain:.3f} ms, on {card}")
+    return numbers, {"transcribe": launches, "reconstruct": launches_rec}
+
+
+def stage_numbers(torch, stage_only, batch, frames):
+    """K1 alone on each variant geometry at the main path's (batch, R,
+    frames): kernel and plain times in bf16 and float32, and the bound."""
+    from timbre_trap_tpu_torch.ops.fused_level import (banded_conv,
+                                                       banded_conv_reference)
+    from timbre_trap_tpu_torch.ops.fused_level import LevelSpec
+
+    out = {}
+    for name, cb in stage_only:
+        dev = cb.blocks.device
+        x32 = torch.randn((batch, cb.r_in, frames), device=dev)
+        flops = needed_flops(LevelSpec([("conv", cb, True)], cb.r_in), batch,
+                             frames)
+        row = {}
+        for dtype, size in ((torch.bfloat16, 2), (torch.float32, 4)):
+            x = x32.to(dtype)
+            sfx = "" if dtype == torch.bfloat16 else "_f32"
+            row["ms" + sfx] = time_ms(torch, lambda: banded_conv(x, cb, True))
+            row["plain_ms" + sfx] = time_ms(
+                torch, lambda: banded_conv_reference(x, cb, True), 3)
+            t_bytes = ((cb.r_in + cb.r_out) * batch * frames * size
+                       + cb.blocks.numel() * size) / PEAK_BYTES * 1e3
+            t_ops = (f32_ops_ms(flops) if sfx
+                     else flops / PEAK_BF16_FLOPS * 1e3)
+            row["bound_ms" + sfx] = max(t_ops, t_bytes)
+            row["bound_by" + sfx] = ("operations" if t_ops >= t_bytes
+                                     else "bytes")
+        out[name] = row
+        print(f"K1 stage {name} ({batch}, {cb.r_in}, {frames}) -> "
+              f"{cb.r_out} rows: bf16 {row['ms']:.4f} ms (plain "
+              f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} by "
+              f"{row['bound_by']}), float32 {row['ms_f32']:.4f} ms (plain "
+              f"{row['plain_ms_f32']:.4f}, bound {row['bound_ms_f32']:.4f} by "
+              f"{row['bound_by_f32']})")
+    return out
+
+
+def variant_stages(torch):
+    """The conv stages the variants add to K1's geometries: the standalone
+    convin and convout of a network with skip connections (2 -> 4, 4 -> 2)
+    and those of the one-channel families (1 -> 4, 4 -> 1), from seeded
+    flagship nets on the card."""
+    from timbre_trap_tpu_torch.models.fused import forward_spec
+    from timbre_trap_tpu_torch.models.modules import (TimbreTrapNet,
+                                                      init_weights)
+
+    out = []
+    for variant, tag in (("base", ""), ("mag", "-mag")):
+        net = init_weights(TimbreTrapNet(N_OCT * BPO, LATENT, COMPLEXITY,
+                                         variant, True),
+                           torch.Generator().manual_seed(6)).cuda()
+        route = forward_spec(net, True)
+        out += [(f"convin{tag}", route.especs[0].items[0][1]),
+                (f"convout{tag}", route.dspecs[-1].items[0][1])]
+    return out
 
 
 def main():
@@ -983,8 +1390,7 @@ def main():
     sass = phase_build(_build)
 
     # 2. parity at the flagship shapes, on real features of the clip
-    model = TimbreTrap(SR, N_OCT, BPO, SECS, latent_size=LATENT,
-                       model_complexity=COMPLEXITY, seed=0)
+    model = flagship(TimbreTrap, seed=0)
     L = model.sliCQ.block_length
     audio = chord(CLIP_SECS, SR)
     hop = L // 2
@@ -1002,7 +1408,9 @@ def main():
     with torch.no_grad():
         train_specs = sum(level_specs(hwio_params(model.net), model.net,
                                       True), [])
-    band_err, band_err32 = phase_band_parity(torch, model._spec(True), train_specs)
+    stage_only = variant_stages(torch)
+    band_err, band_err32 = phase_band_parity(torch, model._spec(True),
+                                             train_specs, stage_only)
     print(f"parity: {time.perf_counter() - t_par:.1f} s")
 
     # 3. the main path: transcribe + peak_mask, counted
@@ -1077,6 +1485,11 @@ def main():
     recon, launches_rec = phase_reconstruct(torch, model, audio,
                                             (banded_conv, peak_mask), card)
 
+    # 3d. the model families, skip connections and persistence, counted
+    variants, launches_var = phase_variants(
+        torch, audio, torch.from_numpy(chunks).cuda(),
+        (banded_conv, peak_mask), card)
+
     # 3c. the training main path, counted
     k3_wrappers = (banded_conv_dx, banded_conv_dw, elu_backward)
     train, train_launches, train_model = phase_train(
@@ -1142,6 +1555,8 @@ def main():
     t_ops = conv_flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = (w_bytes + io_bytes) / PEAK_BYTES * 1e3
 
+    stages = stage_numbers(torch, stage_only, x.shape[0], x.shape[-1])
+
     k2_ms = time_ms(torch, lambda: peak_mask(acts, 0.5), 50)
     k2_plain = time_ms(torch, lambda: peak_mask_reference(acts, 0.5), 50)
     k2_bound = acts.numel() * (4 + 1) / PEAK_BYTES * 1e3
@@ -1163,6 +1578,15 @@ def main():
          "launches_mma": launches["banded_conv.mma"],
          "launches_reconstruct": launches_rec["banded_conv"],
          "launches_train": train_launches["banded_conv"],
+         "launches_variants": {
+             "transcribe": launches_var["transcribe"]["banded_conv"],
+             "reconstruct": launches_var["reconstruct"]["banded_conv"],
+             "per_forward": variants["launches_per_forward"],
+             "forwards": variants["forwards"]},
+         "variant_stages": stages,
+         "skip_route_ms": variants["route_ms"],
+         "skip_route_ms_f32": variants["route_ms_f32"],
+         "skip_route_plain_ms": variants["route_plain_ms"],
          "max_abs_err": k1_err, "band_max_rel_err": band_err,
          "band_max_rel_err_f32": band_err32, "sass": sass,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": max(t_ops, t_bytes),
@@ -1184,6 +1608,7 @@ def main():
          "source": "timbre_trap_tpu_torch/csrc/peak_mask.cu",
          "replaces": "timbre_trap_tpu/ops/pallas_kernels.py:26",
          "launches": launches["peak_mask"], "max_abs_err": k2_err,
+         "launches_variants": launches_var["transcribe"]["peak_mask"],
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": "bytes", "library_ms": None,
          "shape": f"{tuple(acts.shape)} float32 -> uint8"},
@@ -1205,6 +1630,7 @@ def main():
           f"{rtf32:.2f} second call ({wall32:.3f} s wall)")
     print(json.dumps({"train": train}))
     print(json.dumps({"transform": transform, "reconstruct": recon}))
+    print(json.dumps({"variants": variants}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

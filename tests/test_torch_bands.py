@@ -32,20 +32,27 @@ def _rand(rng, *shape, scale=1.0):
 
 
 def _net_specs(geometry):
-    """Every ConvBlocks of a net's inference chain and of its training
-    levels, adjoints included, built from the blocks alone (no forward)."""
+    """Every ConvBlocks of a net's inference route and of its training
+    levels, adjoints included, built from the blocks alone (no forward).
+    ``geometry`` is the size, then optionally the family with skip
+    connections (``flagship-mag-skips``)."""
+    size, *family = geometry.split("-")
     f, latent, complexity = {"small": (60, 16, 1),
-                             "flagship": (540, 128, 2)}[geometry]
-    net = init_weights(TimbreTrapNet(f, latent, complexity),
+                             "flagship": (540, 128, 2)}[size]
+    variant, skips = (family[0], True) if family else ("base", False)
+    net = init_weights(TimbreTrapNet(f, latent, complexity, variant, skips),
                        torch.Generator().manual_seed(0))
     with torch.no_grad():
-        specs = [forward_spec(net, True)]
+        route = forward_spec(net, True)
+        specs = route.especs + route.dspecs if skips else [route]
         especs, dspecs = level_specs(hwio_params(net), net, True)
     convs = [cb for s in specs + especs + dspecs for cb in s.convs()]
     return convs + [cb.adjoint for cb in convs if cb.adjoint is not None]
 
 
-@pytest.mark.parametrize("geometry", ["small", "flagship"])
+@pytest.mark.parametrize("geometry", ["small", "flagship",
+                                      "flagship-base-skips",
+                                      "flagship-mag-skips"])
 def test_bands_cover_every_structural_nonzero(geometry):
     """The weights are random, so a block entry is zero only where the
     tap map puts none: every nonzero entry of a sub-tile's rows lies in its
@@ -82,6 +89,11 @@ def _conv_cases():
                                              _rand(rng, 4), 540)
     cases["convout"] = pc.build_conv2d_blocks(_rand(rng, 3, 3, 4, 2),
                                               _rand(rng, 2), 540)
+    # The one-channel families' convin and convout (Mag, MagDB).
+    cases["convin-c1"] = pc.build_conv2d_blocks(_rand(rng, 3, 3, 1, 4),
+                                                _rand(rng, 4), 540)
+    cases["convout-c1"] = pc.build_conv2d_blocks(_rand(rng, 3, 3, 4, 1),
+                                                 _rand(rng, 1), 540)
     cases["sconv"] = pc.build_sconv_blocks(_rand(rng, 4, 1, 8, 16),
                                            _rand(rng, 16), 269)
     cases["tconv"] = pc.build_tconv_blocks(_rand(rng, 4, 1, 16, 8),

@@ -19,14 +19,17 @@ import pytest
 import torch
 
 from timbre_trap_tpu_torch.interop import hwio_params
-from timbre_trap_tpu_torch.models import TimbreTrap, TimbreTrapNet, forward_spec
+from timbre_trap_tpu_torch.models import (TimbreTrap, TimbreTrapFiLM,
+                                          TimbreTrapMagDB, TimbreTrapNet,
+                                          forward_spec, fused_forward,
+                                          load_model)
 from timbre_trap_tpu_torch.models.fused import level_specs
 from timbre_trap_tpu_torch.models.modules import init_weights
 from timbre_trap_tpu_torch.ops import packed_conv as pc
 from timbre_trap_tpu_torch.ops.fused_level import (
-    banded_conv, banded_conv_dw, banded_conv_dw_reference, banded_conv_dx,
-    banded_conv_dx_reference, banded_conv_reference, chain_flops,
-    elu_backward, fused_level_apply, level_backward,
+    HALO, banded_conv, banded_conv_dw, banded_conv_dw_reference,
+    banded_conv_dx, banded_conv_dx_reference, banded_conv_reference,
+    chain_flops, elu_backward, fused_level_apply, level_backward,
     level_backward_reference, packed_level_apply, spec_time_reach)
 from timbre_trap_tpu_torch.ops.peaks import peak_mask, peak_mask_reference
 
@@ -60,6 +63,28 @@ def _conv_cases(device="cpu"):
     for cb in out.values():
         cb.blocks, cb.bias = cb.blocks.to(device), cb.bias.to(device)
     return out
+
+
+def _flagship_net(variant="base", skips=False, device="cpu"):
+    return init_weights(TimbreTrapNet(540, 128, 2, variant, skips),
+                        torch.Generator().manual_seed(0)).to(device)
+
+
+def _variant_stages(device="cpu"):
+    """The stages the skip route and the one-channel families add at the
+    flagship widths: the standalone convin (2 -> 4) and convout (4 -> 2),
+    and Mag's (1 -> 4, 4 -> 1)."""
+    out = {}
+    for variant, tag in (("base", ""), ("mag", "-mag")):
+        route = forward_spec(_flagship_net(variant, True, device), True)
+        out[f"convin{tag}"] = route.especs[0].items[0][1]
+        out[f"convout{tag}"] = route.dspecs[-1].items[0][1]
+    return out
+
+
+def _route_convs(route):
+    specs = route.especs + route.dspecs if hasattr(route, "especs") else [route]
+    return sum(1 for s in specs for _ in s.convs())
 
 
 def _train_specs(device="cpu"):
@@ -225,6 +250,27 @@ def test_flagship_chain_geometry():
     assert spec_time_reach(spec) == 50
     assert (spec.r_in, spec.r_out) == (1080, 1080)
     assert chain_flops(spec, 1) == 81789440
+
+
+def test_skip_route_geometry():
+    """The flagship skip route: 58 convs (convin, 4 encoder levels; 4
+    decoder levels, convout), every level inside the halo; the one-channel
+    stages keep their geometry (a 7-row margin shift rounded to 8, a
+    272-column band in a 288-column operand, 540 output rows in a partial
+    last block)."""
+    for variant in ("base", "mag"):
+        route = forward_spec(_flagship_net(variant, True), True)
+        assert len(route.especs) == len(route.dspecs) == 5
+        assert _route_convs(route) == 58
+        assert all(spec_time_reach(s) <= HALO
+                   for s in route.especs + route.dspecs)
+    stages = _variant_stages()
+    assert [(cb.c_in, cb.c_out) for cb in stages.values()] == [
+        (2, 4), (4, 2), (1, 4), (4, 1)]
+    cin, cout = stages["convin-mag"], stages["convout-mag"]
+    assert (cin.margin, cin.k, cin.band_width) == (8, 41, 32)
+    assert cout.bands == ((0, 272), (256, 272)) and cout.band_width == 288
+    assert (cout.r_out, cout.n_out_blocks) == (540, 5)
 
 
 # --------------------------------------------------------------------- #
@@ -479,3 +525,79 @@ def test_band_kernels_reject_what_they_do_not_take(cuda_device):
     for dtype in (torch.float32, torch.bfloat16):
         with pytest.raises(ValueError):
             banded_conv_dx(c, dense, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_banded_conv_kernel_on_variant_geometries(cuda_device, dtype):
+    """K1 on the stages the variants add (standalone convin and convout,
+    one input or output channel) at T = 3072, 1001, 70 and 1, plain and
+    with ELU and residual: float32 within 1e-4 * max|ref|, bf16 within
+    1e-2 * max|ref| of the bf16 twin."""
+    dtype = getattr(torch, dtype)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    rng = np.random.default_rng(17)
+    for name, cb in _variant_stages(cuda_device).items():
+        for t in (3072, 1001, 70, 1):
+            x = _rand(rng, 2, cb.r_in, t).to(cuda_device, dtype)
+            res = _rand(rng, 2, cb.r_out, t).to(cuda_device, dtype)
+            for act, r in ((False, None), (True, res)):
+                before = _routes(banded_conv)
+                got = banded_conv(x, cb, act, r)
+                assert _routes(banded_conv) == _bumped(before, dtype)
+                want = banded_conv_reference(x, cb, act, r)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                scale = want.float().abs().max().item()
+                assert err <= tol * scale, (name, t, act, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,skips", [("base", True), ("film", False),
+                                           ("mag", False), ("magdb", False),
+                                           ("film", True)])
+def test_variant_forward_kernels_match_plain(cuda_device, variant, skips):
+    """One flagship forward of each route through the kernels against the
+    same route through the plain twins on the card: one K1 launch per conv
+    stage; float32 within 1e-4 * max|ref|, bf16 within 5e-2 * max|ref| of
+    the float32 plain run."""
+    net = _flagship_net(variant, skips, cuda_device)
+    x = _rand(np.random.default_rng(18), 2, 540, 256, net.in_channels,
+              scale=0.3).to(cuda_device)
+    for transcribe in (True, False):
+        spec = forward_spec(net, transcribe)
+        ref = fused_forward(net, x, transcribe, spec=spec, plain=True)
+        scale = ref.abs().max().item()
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+            before = banded_conv.launches
+            got = fused_forward(net, x, transcribe, dtype, spec)
+            assert banded_conv.launches == before + _route_convs(spec)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            assert err <= tol * scale, (transcribe, dtype, err, scale)
+
+
+@pytest.mark.cuda
+def test_variants_on_card_match_cpu_and_reload(cuda_device, tmp_path):
+    """Small FiLM and MagDB models with skips: the card's transcribe
+    against the CPU's within 1e-4 (MagDB's CPU model reads the card's
+    features: their dB form turns the FFTs' rounding near the 80-dB floor
+    into ~1e-4); a save -> load_model round trip on the card gives the
+    same activations bit for bit."""
+    hp = dict(sample_rate=8000, n_octaves=5, bins_per_octave=12,
+              secs_per_block=0.5, latent_size=16, model_complexity=1,
+              fused="f32", seed=3, skip_connections=True)
+    audio = (0.3 * np.random.default_rng(19).standard_normal((1, 1, 18400))
+             ).astype(np.float32)
+    for cls in (TimbreTrapFiLM, TimbreTrapMagDB):
+        card, cpu = cls(**hp), cls(**hp, device="cpu")
+        if cls is TimbreTrapMagDB:
+            cpu.features_from_audio = lambda a: card.features_from_audio(
+                a.to(cuda_device)).cpu()
+        got = card.transcribe(audio)
+        np.testing.assert_allclose(got.cpu().numpy(),
+                                   cpu.transcribe(audio).numpy(), atol=1e-4)
+        path = card.save(str(tmp_path / cls.variant))
+        loaded = load_model(path, overrides={"fused": "f32"})
+        assert type(loaded) is cls and loaded.hparams == card.hparams
+        assert torch.equal(loaded.transcribe(audio), got)

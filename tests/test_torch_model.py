@@ -15,7 +15,7 @@ import jax
 import jax.numpy as jnp
 
 from timbre_trap_tpu.models import TimbreTrap as JaxTimbreTrap
-from timbre_trap_tpu_torch.models import TimbreTrap
+from timbre_trap_tpu_torch.models import TimbreTrap, TimbreTrapFiLM
 from timbre_trap_tpu_torch.transform import CQT
 
 torch.set_num_threads(2)
@@ -194,12 +194,14 @@ def test_fused_mode_is_validated():
         TimbreTrap(**HP, fused="off", device="cpu")
 
 
-@pytest.mark.parametrize("entry", ["TimbreTrap", "CQT", "TimbreTrap-compat"])
+@pytest.mark.parametrize("entry", ["TimbreTrap", "CQT", "TimbreTrap-compat",
+                                   "TimbreTrapFiLM", "TimbreTrap-skips"])
 def test_no_cpu_fallback_without_cuda(entry):
     """device=None means the card: with no CUDA device it raises. The
     model's entry points (``transcribe``, ``reconstruct``) run on the device
     the constructor resolved, so the constructor is where the rule holds,
-    on either transform frame."""
+    on either transform frame, for every family, with or without skip
+    connections."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -207,6 +209,10 @@ def test_no_cpu_fallback_without_cuda(entry):
             TimbreTrap(**HP)
         elif entry == "TimbreTrap-compat":
             TimbreTrap(**HP, transform_compat="cqt_pytorch")
+        elif entry == "TimbreTrapFiLM":
+            TimbreTrapFiLM(**HP)
+        elif entry == "TimbreTrap-skips":
+            TimbreTrap(**HP, skip_connections=True)
         else:
             CQT(HP["n_octaves"], HP["bins_per_octave"], HP["sample_rate"],
                 HP["secs_per_block"])

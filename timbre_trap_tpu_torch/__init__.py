@@ -1,8 +1,10 @@
 """timbre_trap_tpu_torch — the PyTorch/CUDA port of timbre_trap_tpu.
 
 The same sliCQ transform (native and ``cqt_pytorch`` compat frames,
-analysis and synthesis), Timbre-Trap network, streaming ``transcribe`` and
-``reconstruct``, training step and evaluation metrics as the JAX package,
+analysis and synthesis), Timbre-Trap model families (base, FiLM, Mag,
+MagDB, with or without skip connections) and their persistence, streaming
+``transcribe`` and ``reconstruct``, training step and evaluation metrics
+as the JAX package,
 run on an NVIDIA Hopper GPU: the conv chain, its backward and the peak mask
 go through kernels written by hand for ``sm_90a`` (``csrc/``), each with a
 plain PyTorch twin that the CPU takes.

@@ -5,10 +5,13 @@ The port's own copy of the layout rules of
 
 * Conv2d weight           (kh, kw, in, out) -> (out, in, kh, kw)
 * ConvTranspose2d weight  (kh, kw, in, out) -> (in, out, kh, kw)
+* Linear (FiLM) weight    (in, out)         -> (out, in)
+* ``skip_weights``        (5,), flat at the top of the tree
 
 with the reference module names (convs followed by an ELU sit at index 0
-of an ``nn.Sequential``: ``encoder.convin.0.weight``), so
-``state_dict_from_jax(params)`` loads into ``TimbreTrapNet`` verbatim.
+of an ``nn.Sequential``: ``encoder.convin.0.weight``; the FiLM layer's
+``film_layer.gamma.weight``), so ``state_dict_from_jax(params)`` loads into
+``TimbreTrapNet`` of any family verbatim.
 ``hwio_params`` goes the other way, viewing the port's parameters in the
 flax layout that the packed block builders take; the views keep autograd,
 so a training spec built from them passes its gradients back to the
@@ -22,6 +25,8 @@ __all__ = ["state_dict_from_jax", "hwio_params"]
 
 # Parameter paths that are transposed convolutions in the reference.
 _TRANSPOSE_CONV_PATHS = ("decoder.convin",)
+# Dense layers (flax kernel (in, out), torch weight (out, in)).
+_LINEAR_PATHS = ("film_layer.gamma", "film_layer.beta")
 # Convs wrapped as nn.Sequential(conv, ELU) in the reference modules.
 _SEQUENTIAL_PATHS = ("encoder.convin", "decoder.convin")
 _SEQUENTIAL_LEAVES = ("conv1", "conv2", "sconv", "tconv")
@@ -54,8 +59,13 @@ def state_dict_from_jax(params):
     for path, value in sorted(_flatten(params).items()):
         value = np.asarray(value, dtype=np.float32)
         clean = ".".join(path[:-1])
+        if path == ("skip_weights",):
+            state_dict["skip_weights"] = torch.from_numpy(value.copy())
+            continue
         if path[-1] == "kernel":
-            if _is_tconv(clean):
+            if clean in _LINEAR_PATHS:
+                value = value.T
+            elif _is_tconv(clean):
                 value = value.transpose(2, 3, 0, 1)
             elif value.ndim == 4:
                 value = value.transpose(3, 2, 0, 1)
@@ -78,8 +88,12 @@ def hwio_params(net):
         clean = ".".join(parts[:-1])
         if parts[-1] == "weight":
             leaf = "kernel"
-            value = (value.permute(2, 3, 0, 1) if _is_tconv(clean)
-                     else value.permute(2, 3, 1, 0))
+            if clean in _LINEAR_PATHS:
+                value = value.T
+            elif _is_tconv(clean):
+                value = value.permute(2, 3, 0, 1)
+            else:
+                value = value.permute(2, 3, 1, 0)
         else:
             leaf = parts[-1]
         node = tree

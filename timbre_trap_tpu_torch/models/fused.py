@@ -1,19 +1,28 @@
-"""Packed-layout forward of the network: inference chain and training.
+"""Packed-layout forward of the network: inference routes and training.
 
-Counterpart of ``timbre_trap_tpu/models/fused.py`` for the base model
-without skip connections (FiLM and skips are not ported; ``TimbreTrap``
-raises ``NotImplementedError`` for skips).
+Counterpart of ``timbre_trap_tpu/models/fused.py``: inference for every
+family (``base``, ``film``, ``mag``, ``magdb``) with and without skip
+connections; training for the base model without skips.
 
-Inference: the whole forward (4 encoder levels with convin fused into the
-first, the latent bridge, 4 decoder levels with convout fused into the
-last) is ONE item chain ``especs + [bridge] + dspecs``, run by
-``ops/fused_level.fused_level_apply``: on the card one ``banded_conv``
+Inference without skips: the whole forward (4 encoder levels with convin
+fused into the first, the latent bridge, 4 decoder levels with convout
+fused into the last) is ONE item chain ``especs + [bridge] + dspecs``, run
+by ``ops/fused_level.fused_level_apply``: on the card one ``banded_conv``
 kernel launch per conv stage (60 at the flagship geometry), for both
 float32 and bfloat16. The JAX package keeps the single chain to bf16 only
 because of TPU compile time, which has no counterpart here. The bridge is
 two dense items: convlat (reference kernel ``(E, 1)``) and the decoder's
-ConvTranspose expansion, with the decoder switch (a constant indicator row
-``float(not transcribe)``) folded into the expansion's bias.
+ConvTranspose expansion with the decoder switch folded in (the indicator
+row into the bias; FiLM into column scales and the bias).
+
+Inference with skips (``SkipRoute``): the skip adds land on level
+boundaries, so convin and convout run as one-conv levels of their own and
+every level is its own chain (58 launches at the flagship geometry); the
+latent bridge is two einsums between them, computed in float64 and
+rounded once to float32 (float32-accurate whatever TF32 flags are set);
+each skip add happens in float32 and goes back to the chain's dtype, as in
+the JAX package. The variant's output activation (ReLU for ``mag``,
+sigmoid for ``magdb``) follows the chain in float32 on both routes.
 
 Training (``packed_train_forward``): one differentiable call per level,
 the latent matmuls in plain ``torch.einsum`` between them, as the JAX
@@ -29,14 +38,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..interop import hwio_params
-from ..ops.fused_level import (LevelSpec, decoder_level_spec,
-                               encoder_level_spec, fuse_level_specs,
-                               fused_level_apply, fused_level_train,
-                               packed_level_apply)
+from ..ops.fused_level import (LevelSpec, conv2d_level_spec,
+                               decoder_level_spec, encoder_level_spec,
+                               fuse_level_specs, fused_level_apply,
+                               fused_level_train, packed_level_apply)
 from ..ops.packed_conv import build_dense_blocks, pack_nhwc
 from .modules import embedding_sizes
 
-__all__ = ["packed_to_nchw", "forward_spec", "fused_forward",
+__all__ = ["packed_to_nchw", "forward_spec", "fused_forward", "SkipRoute",
            "TRAIN_BACKENDS", "level_specs", "encode_packed", "decode_packed",
            "packed_train_forward"]
 
@@ -68,61 +77,139 @@ def _latent_matmuls(params):
 
 
 def level_specs(params, net, with_adjoints=False):
-    """(encoder specs, decoder specs) of the no-skip path: convin fused into
-    encoder level 1, convout into decoder level 4. ``with_adjoints``
+    """(encoder specs, decoder specs). Without skips, 4 + 4: convin fused
+    into encoder level 1, convout into decoder level 4. With skips, 5 + 5:
+    convin is the first encoder spec (whose outputs are the 5
+    embeddings), convout the last decoder spec. ``with_adjoints``
     attaches the adjoint blocks the training backward needs."""
     sizes, paddings = embedding_sizes(net.feature_size)
     enc, dec = params["encoder"], params["decoder"]
+    skip = net.skip_connections
     especs, f = [], net.feature_size
+    if skip:
+        especs.append(conv2d_level_spec(enc["convin"], f, True,
+                                        with_adjoints))
     for i in range(4):
         especs.append(encoder_level_spec(
             enc[f"block{i + 1}"], f,
-            convin_params=enc["convin"] if i == 0 else None,
+            convin_params=enc["convin"] if i == 0 and not skip else None,
             with_adjoints=with_adjoints))
         f = sizes[i]
     dspecs, f = [], sizes[-1]
     for i in range(4):
         dspecs.append(decoder_level_spec(
             dec[f"block{i + 1}"], f, output_padding=paddings[i],
-            convout_params=dec["convout"] if i == 3 else None,
+            convout_params=dec["convout"] if i == 3 and not skip else None,
             with_adjoints=with_adjoints))
         f = dspecs[-1].items[0][1].f_out
+    if skip:
+        dspecs.append(conv2d_level_spec(dec["convout"], f, False,
+                                        with_adjoints))
     return especs, dspecs
 
 
-def _latent_bridge_spec(params, transcribe):
-    """convlat + the switch-conditioned decoder expansion as two dense items.
+def _switch(params, net, transcribe):
+    """The decoder switch of one branch as an affine map of the latents,
+    folded into the expansion: ``(w_cond, b_cond)`` with
+    ``W @ switch(x) + b == w_cond @ x + b_cond``. The indicator row
+    v = float(not transcribe) contributes ``v * W[:, -1]`` to the bias;
+    FiLM, ``gamma * x + beta`` with gamma, beta affine in the one-hot
+    condition ``[transcribe, not transcribe]``, gives column scales
+    ``W * gamma`` and bias ``b + W @ beta`` (exact in real math; the
+    product is taken in float64 and rounded once)."""
+    _, _, w_dec, b_dec = _latent_matmuls(params)
+    if net.variant != "film":
+        v = float(not transcribe)
+        return w_dec[:, :-1], b_dec + v * w_dec[:, -1]
+    film = params["film_layer"]
+    k = 1 - int(bool(transcribe))       # the condition's hot entry
+    gamma = film["gamma"]["kernel"][k] + film["gamma"]["bias"]
+    beta = film["beta"]["kernel"][k] + film["beta"]["bias"]
+    w_beta = (w_dec.double() @ beta.double()).float()
+    return w_dec * gamma[None, :], b_dec + w_beta
 
-    The indicator row v = float(not transcribe) is constant per branch, so
-    it contributes ``v * W[:, -1]`` to the expansion's bias.
-    """
-    w_lat, b_lat, w_dec, b_dec = _latent_matmuls(params)
+
+def _latent_bridge_spec(params, net, transcribe):
+    """convlat + the switch-conditioned decoder expansion as two dense
+    items."""
+    w_lat, b_lat, _, _ = _latent_matmuls(params)
     cb_lat = build_dense_blocks(w_lat.T, b_lat)
-    v = float(not transcribe)
-    cb_exp = build_dense_blocks(w_dec[:, :-1], b_dec + v * w_dec[:, -1])
+    cb_exp = build_dense_blocks(*_switch(params, net, transcribe))
     return LevelSpec([("conv", cb_lat, False), ("conv", cb_exp, True)],
                      cb_lat.r_in)
 
 
+class SkipRoute:
+    """The inference forward of a network with skip connections: 5
+    encoder specs, the two bridge maps in float64 (convlat, and the
+    switch-conditioned expansion), 5 decoder specs, and the 5 skip
+    weights."""
+
+    def __init__(self, params, net, transcribe):
+        self.especs, self.dspecs = level_specs(params, net)
+        w_lat, b_lat, _, _ = _latent_matmuls(params)
+        w_cond, b_cond = _switch(params, net, transcribe)
+        self.w_lat, self.b_lat = w_lat.double(), b_lat.double()
+        self.w_cond, self.b_cond = w_cond.double(), b_cond.double()
+        self.skip_weights = params["skip_weights"].float()
+
+    def apply(self, x, dtype, level_apply):
+        """Packed (B, F*C_in, T) at ``dtype`` -> (B, F*C_out, T) float32,
+        each level through ``level_apply``."""
+        embeddings = []
+        for spec in self.especs:
+            x = level_apply(x, spec, dtype)
+            embeddings.append(x)
+        latents = (torch.einsum("rl,brt->blt", self.w_lat, x.double())
+                   + self.b_lat[None, :, None])
+        y = (torch.einsum("ri,bit->brt", self.w_cond, latents)
+             + self.b_cond[None, :, None]).float()
+        y = torch.nn.functional.elu(y).to(dtype)
+        skips = [w * e.float() for w, e in zip(self.skip_weights, embeddings)]
+        y = (y.float() + skips[4]).to(dtype)
+        for i, spec in enumerate(self.dspecs[:4]):
+            y = (level_apply(y, spec, dtype).float() + skips[3 - i]).to(dtype)
+        return level_apply(y, self.dspecs[4], dtype).float()
+
+
 @torch.no_grad()
 def forward_spec(net, transcribe):
-    """The whole forward of ``net`` as one chain (blocks on the net's device)."""
+    """The whole inference forward of ``net`` for one decoder branch
+    (blocks on the net's device): one chain (a ``LevelSpec``) without skip
+    connections, a ``SkipRoute`` with them."""
     params = hwio_params(net)
+    if net.skip_connections:
+        return SkipRoute(params, net, transcribe)
     especs, dspecs = level_specs(params, net)
-    bridge = _latent_bridge_spec(params, transcribe)
+    bridge = _latent_bridge_spec(params, net, transcribe)
     return fuse_level_specs(especs + [bridge] + dspecs)
 
 
+def _output_activation(net, y):
+    if net.variant == "mag":
+        return torch.relu(y)
+    if net.variant == "magdb":
+        return torch.sigmoid(y)
+    return y
+
+
 @torch.no_grad()
-def fused_forward(net, features, transcribe, dtype=torch.float32, spec=None):
+def fused_forward(net, features, transcribe, dtype=torch.float32, spec=None,
+                  plain=False):
     """Features (B, F, T, C_in) NHWC -> coefficients (B, C_out, F, T) NCHW,
     float32. ``dtype`` is the chain's storage type; ``spec`` a prebuilt
-    ``forward_spec(net, transcribe)``."""
+    ``forward_spec(net, transcribe)``; ``plain`` runs every level through
+    the kernels' plain twin (``packed_level_apply``) on any device."""
     if spec is None:
         spec = forward_spec(net, transcribe)
+    level_apply = packed_level_apply if plain else fused_level_apply
     x = pack_nhwc(features).to(dtype)
-    y = fused_level_apply(x, spec, dtype=dtype).to(torch.float32)
-    return packed_to_nchw(y, net.feature_size, net.in_channels)
+    if isinstance(spec, SkipRoute):
+        y = spec.apply(x, dtype, level_apply)
+    else:
+        y = level_apply(x, spec, dtype).to(torch.float32)
+    return packed_to_nchw(_output_activation(net, y), net.feature_size,
+                          net.in_channels)
 
 
 # --------------------------------------------------------------------- #
@@ -179,6 +266,10 @@ def packed_train_forward(params, net, features, consistency,
     if backend not in TRAIN_BACKENDS:
         raise ValueError(f"backend must be one of {tuple(TRAIN_BACKENDS)}, "
                          f"not {backend!r}")
+    if net.variant != "base" or net.skip_connections:
+        raise NotImplementedError(
+            "training is ported for the base model without skip "
+            "connections only")
     especs, dspecs = level_specs(params, net, backend != "packed")
 
     def decode_pair(latents):

@@ -1,9 +1,11 @@
 """PyTorch (NCHW) network modules of the Timbre-Trap autoencoder.
 
-Counterpart of ``timbre_trap_tpu/models/modules.py`` for the base variant
-without skip connections. The modules hold their weights under the
-reference names (``encoder.convin.0.weight``, ``encoder.block1.sconv.0.bias``,
-``decoder.convin.0.weight``, ...), convs with an activation being wrapped in
+Counterpart of ``timbre_trap_tpu/models/modules.py`` for every family
+(``base``, ``film``, ``mag``, ``magdb``), with or without skip
+connections. The modules hold their weights under the reference names
+(``encoder.convin.0.weight``, ``encoder.block1.sconv.0.bias``,
+``decoder.convin.0.weight``, ``film_layer.gamma.weight``,
+``skip_weights``, ...), convs with an activation being wrapped in
 ``nn.Sequential(conv, ELU)``, so a reference state_dict, or the output of
 ``export_torch_state_dict(params, like=net.state_dict().keys())``, loads
 verbatim. ``forward`` is a plain CPU check of the same function: inference
@@ -16,8 +18,11 @@ import torch
 from torch import nn
 
 __all__ = ["embedding_sizes", "default_latent_size", "ResidualConv2dBlock",
-           "EncoderBlock", "DecoderBlock", "Encoder", "Decoder",
-           "TimbreTrapNet", "init_weights"]
+           "EncoderBlock", "DecoderBlock", "Encoder", "Decoder", "FiLM",
+           "TimbreTrapNet", "VARIANTS", "init_weights"]
+
+# The model families: input/output channels, decoder switch, output.
+VARIANTS = ("base", "film", "mag", "magdb")
 
 
 def _channel_widths(model_complexity):
@@ -93,7 +98,8 @@ class DecoderBlock(nn.Module):
 
 
 class Encoder(nn.Module):
-    """Coefficients (B, C_in, F, T) -> latents (B, D, T)."""
+    """Coefficients (B, C_in, F, T) -> latents (B, D, T) and the 5
+    embeddings (after convin + ELU, then after each level)."""
 
     def __init__(self, feature_size, latent_size, model_complexity,
                  in_channels=2):
@@ -109,20 +115,25 @@ class Encoder(nn.Module):
 
     def forward(self, x):
         x = self.convin(x)
+        embeddings = [x]
         for i in range(4):
             x = getattr(self, f"block{i + 1}")(x)
-        return self.convlat(x).squeeze(-2)
+            embeddings.append(x)
+        return self.convlat(x).squeeze(-2), embeddings
 
 
 class Decoder(nn.Module):
-    """Latents plus the switch row (B, D + 1, T) -> coefficients (B, C, F, T)."""
+    """Conditioned latents (B, D_in, T) -> coefficients (B, C, F, T):
+    ``D_in`` is the latent size plus the switch row, or the latent size
+    alone under FiLM (``switch_row=False``)."""
 
     def __init__(self, feature_size, latent_size, model_complexity,
-                 out_channels=2):
+                 out_channels=2, switch_row=True):
         super().__init__()
         channels = _channel_widths(model_complexity)[::-1]
         sizes, paddings = embedding_sizes(feature_size)
-        self.convin = _conv_elu(nn.ConvTranspose2d(latent_size + 1,
+        self.convin = _conv_elu(nn.ConvTranspose2d(latent_size
+                                                   + int(switch_row),
                                                    channels[0],
                                                    (sizes[-1], 1)))
         for i in range(4):
@@ -131,20 +142,53 @@ class Decoder(nn.Module):
                                  padding=paddings[i]))
         self.convout = nn.Conv2d(channels[4], out_channels, 3, padding="same")
 
-    def forward(self, latents):
+    def forward(self, latents, embeddings=None):
+        """``embeddings``: the 5 scaled encoder embeddings (skip
+        connections), added after convin and after each level."""
         y = self.convin(latents.unsqueeze(-2))
+        if embeddings is not None:
+            y = y + embeddings[-1]
         for i in range(4):
             y = getattr(self, f"block{i + 1}")(y)
+            if embeddings is not None:
+                y = y + embeddings[-(i + 2)]
         return self.convout(y)
 
 
-class TimbreTrapNet(nn.Module):
-    """The autoencoder (base variant, no skip connections)."""
+class FiLM(nn.Module):
+    """Feature-wise linear modulation of latents (B, D, T) by a one-hot
+    condition (n_conditions,)."""
 
-    in_channels = 2
-
-    def __init__(self, feature_size, latent_size=None, model_complexity=1):
+    def __init__(self, embedding_size, n_conditions=2):
         super().__init__()
+        self.gamma = nn.Linear(n_conditions, embedding_size)
+        self.beta = nn.Linear(n_conditions, embedding_size)
+
+    def forward(self, x, condition):
+        return (x * self.gamma(condition)[:, None]
+                + self.beta(condition)[:, None])
+
+
+class TimbreTrapNet(nn.Module):
+    """The autoencoder of one family (``VARIANTS``):
+
+    * ``base``  -- real/imag in and out, indicator-row decoder switch;
+    * ``film``  -- real/imag in and out, FiLM decoder switch;
+    * ``mag``   -- one magnitude channel in and out, ReLU output;
+    * ``magdb`` -- one rescaled-dB channel in and out, sigmoid output.
+
+    ``skip_connections`` adds each encoder embedding, scaled by the
+    learnable ``skip_weights`` (ones at init), to the decoder at the same
+    resolution.
+    """
+
+    def __init__(self, feature_size, latent_size=None, model_complexity=1,
+                 variant="base", skip_connections=False):
+        super().__init__()
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown variant {variant!r}")
+        self.variant = variant
+        self.skip_connections = bool(skip_connections)
         self.feature_size = int(feature_size)
         self.model_complexity = int(model_complexity)
         self.latent_size = int(latent_size
@@ -152,31 +196,62 @@ class TimbreTrapNet(nn.Module):
         self.encoder = Encoder(feature_size, self.latent_size,
                                model_complexity, self.in_channels)
         self.decoder = Decoder(feature_size, self.latent_size,
-                               model_complexity, self.in_channels)
+                               model_complexity, self.in_channels,
+                               switch_row=variant != "film")
+        if self.skip_connections:
+            self.skip_weights = nn.Parameter(torch.ones(5))
+        if variant == "film":
+            self.film_layer = FiLM(self.latent_size)
+
+    @property
+    def in_channels(self):
+        return 1 if self.variant in ("mag", "magdb") else 2
 
     def encode(self, coefficients):
-        """(B, C_in, F, T) -> latents (B, D, T)."""
+        """(B, C_in, F, T) -> latents (B, D, T) and the 5 embeddings."""
         return self.encoder(coefficients)
 
-    def decode(self, latents, transcribe=False):
-        """Latents (B, D, T) -> coefficients (B, C, F, T); the indicator row
-        ``float(not transcribe)`` is the decoder switch."""
-        indicator = torch.full_like(latents[:, :1], float(not transcribe))
-        return self.decoder(torch.cat([latents, indicator], dim=1))
+    def apply_skip_connections(self, embeddings):
+        """The embeddings scaled by ``skip_weights``, or None without skip
+        connections."""
+        if not self.skip_connections:
+            return None
+        return [self.skip_weights[i] * e for i, e in enumerate(embeddings)]
+
+    def decode(self, latents, embeddings=None, transcribe=False):
+        """Latents (B, D, T) -> coefficients (B, C, F, T). The switch is
+        the one-hot FiLM condition ``[transcribe, not transcribe]``, or an
+        indicator row ``float(not transcribe)``."""
+        if self.variant == "film":
+            condition = torch.tensor([float(transcribe), float(not transcribe)],
+                                     dtype=latents.dtype, device=latents.device)
+            latents = self.film_layer(latents, condition)
+        else:
+            indicator = torch.full_like(latents[:, :1], float(not transcribe))
+            latents = torch.cat([latents, indicator], dim=1)
+        coefficients = self.decoder(latents, embeddings)
+        if self.variant == "mag":
+            coefficients = torch.relu(coefficients)
+        elif self.variant == "magdb":
+            coefficients = torch.sigmoid(coefficients)
+        return coefficients
 
     def forward(self, coefficients, transcribe=False):
-        return self.decode(self.encode(coefficients), transcribe)
+        latents, embeddings = self.encode(coefficients)
+        return self.decode(latents, self.apply_skip_connections(embeddings),
+                           transcribe)
 
 
 @torch.no_grad()
 def init_weights(module, generator):
-    """Seeded random init: every conv weight ~ N(0, 1/fan_in) (fan_in counts
-    the input channels times the kernel's taps), biases zero."""
+    """Seeded random init: every conv and FiLM weight ~ N(0, 1/fan_in)
+    (fan_in counts the input channels times the kernel's taps), biases
+    zero; ``skip_weights`` keep their ones."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = m.weight
             c_in = w.shape[0] if isinstance(m, nn.ConvTranspose2d) else w.shape[1]
-            fan_in = c_in * w.shape[2] * w.shape[3]
+            fan_in = c_in * math.prod(w.shape[2:])
             w.copy_(torch.randn(w.shape, generator=generator)
                     / math.sqrt(fan_in))
             m.bias.zero_()

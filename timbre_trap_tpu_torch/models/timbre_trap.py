@@ -1,10 +1,12 @@
-"""Public Timbre-Trap model (base variant): transform + network +
-transcribe and reconstruct.
+"""Public Timbre-Trap model families: transform + network + transcribe and
+reconstruct, and their persistence.
 
-Counterpart of ``timbre_trap_tpu/models/timbre_trap.py:TimbreTrap`` for the
-inference paths: ``features_from_audio``, ``inference``,
-``chunked_inference``, ``to_activations``, and the streaming ``transcribe``
-and ``reconstruct``. Public layouts match the JAX package (coefficients
+Counterpart of ``timbre_trap_tpu/models/timbre_trap.py`` (``TimbreTrap``,
+``TimbreTrapFiLM``, ``TimbreTrapMag``, ``TimbreTrapMagDB``, with or without
+skip connections) for the inference paths: ``features_from_audio``,
+``inference``, ``chunked_inference``, ``to_activations``, and the
+streaming ``transcribe`` and ``reconstruct``; and for ``save``, ``load``
+and ``load_model``. Public layouts match the JAX package (coefficients
 ``(B, C, F, T)``, activations ``(B, F, T)``, audio ``(B, 1, N)``).
 
 Precision policy, as in the JAX package: ``transcribe`` runs the conv chain
@@ -17,6 +19,9 @@ The model runs on the card unless the caller asks for the CPU
 present, ``device=None`` raises instead of falling back to the CPU.
 """
 
+import json
+import os
+
 import numpy as np
 import torch
 
@@ -26,9 +31,12 @@ from ..transform import CQT
 from .fused import forward_spec, fused_forward
 from .modules import TimbreTrapNet, init_weights
 
-__all__ = ["TimbreTrap"]
+__all__ = ["TimbreTrap", "TimbreTrapFiLM", "TimbreTrapMag", "TimbreTrapMagDB",
+           "load_model"]
 
 _FUSED_MODES = ("auto", "f32")
+# The weights file of a ``save`` directory (beside ``hparams.json``).
+WEIGHTS_FILE = "weights.pt"
 
 
 def _host_array(audio):
@@ -42,7 +50,9 @@ def _host_array(audio):
 
 
 class TimbreTrap:
-    """Base (real/imaginary coefficient) model with indicator-channel switch."""
+    """Base (real/imaginary coefficient) model with indicator-channel
+    switch; the other families subclass it. ``skip_connections`` adds the
+    scaled encoder embeddings to the decoder (every family)."""
 
     variant = "base"
     # Chunks of the 50%-overlap stream run per forward.
@@ -58,9 +68,14 @@ class TimbreTrap:
                  secs_per_block=3, latent_size=None, model_complexity=1,
                  skip_connections=False, seed=0, fused="auto",
                  transform_compat="native", compat_tables=None, device=None):
-        if skip_connections:
-            raise NotImplementedError(
-                "skip connections are not ported yet")
+        self.hparams = dict(sample_rate=sample_rate, n_octaves=n_octaves,
+                            bins_per_octave=bins_per_octave,
+                            secs_per_block=secs_per_block,
+                            latent_size=latent_size,
+                            model_complexity=model_complexity,
+                            skip_connections=skip_connections,
+                            variant=self.variant,
+                            transform_compat=transform_compat)
         self.device = resolve_device(device)
         self.fused = fused
         self.sliCQ = CQT(n_octaves=n_octaves, bins_per_octave=bins_per_octave,
@@ -68,7 +83,8 @@ class TimbreTrap:
                          secs_per_block=secs_per_block,
                          compat=transform_compat,
                          compat_tables=compat_tables, device=self.device)
-        net = TimbreTrapNet(self.sliCQ.n_bins, latent_size, model_complexity)
+        net = TimbreTrapNet(self.sliCQ.n_bins, latent_size, model_complexity,
+                            self.variant, skip_connections)
         init_weights(net, torch.Generator().manual_seed(int(seed)))
         self.net = net.to(self.device).eval()
         self._specs = {}
@@ -118,8 +134,13 @@ class TimbreTrap:
 
     @torch.no_grad()
     def features_from_audio(self, audio):
-        """Audio (B, 1, N) -> network input features (B, F, T, 2), NHWC."""
-        coefficients = self.sliCQ.encode(self._to_f32(audio))
+        """Audio (B, 1, N) -> network input features (B, F, T, C_in), NHWC."""
+        return self._features_from_complex(self.sliCQ.encode(
+            self._to_f32(audio)))
+
+    @staticmethod
+    def _features_from_complex(coefficients):
+        """Complex (B, 1, F, T) -> real/imag features (B, F, T, 2)."""
         return CQT.to_real(coefficients).movedim(-3, -1)
 
     def _dtype(self, transcribe):
@@ -189,7 +210,8 @@ class TimbreTrap:
 
     @staticmethod
     def to_activations(coefficients):
-        """Transcription coefficients (B, C, F, T) -> activations (B, F, T)."""
+        """Transcription coefficients (B, C, F, T) -> activations (B, F, T)
+        in [0, 1]."""
         return torch.tanh(CQT.to_magnitude(coefficients))
 
     def _reconstruct(self, audio):
@@ -318,8 +340,13 @@ class TimbreTrap:
         Host inputs of two pieces or more stream piece by piece, as in
         ``transcribe``, and are normalised after the concatenation; tensors
         and shorter clips take one pass. int16 and float16 host inputs
-        dequantize as in ``transcribe``.
+        dequantize as in ``transcribe``. The one-channel families (``mag``,
+        ``magdb``) have no phase to resynthesise and raise ``ValueError``.
         """
+        if self.net.in_channels != 2:
+            raise ValueError(
+                f"reconstruct needs real and imaginary channels; the "
+                f"{self.variant} model has {self.net.in_channels}")
         if not isinstance(audio, torch.Tensor):
             audio_np = _host_array(audio)
             if self._piece_route(audio_np):
@@ -328,3 +355,116 @@ class TimbreTrap:
                 return CQT._normalize(out)
             audio = torch.from_numpy(np.ascontiguousarray(audio_np))
         return self._reconstruct(audio)
+
+    # ------------------------------------------------------------------ #
+    # Persistence                                                        #
+    # ------------------------------------------------------------------ #
+
+    def save(self, path):
+        """Write ``hparams.json`` (the JAX package's keys) and
+        ``weights.pt`` (``torch.save`` of the reference-named state_dict,
+        on the CPU) under the directory ``path``."""
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "hparams.json"), "w") as fh:
+            json.dump(self.hparams, fh, indent=2)
+        state_dict = {k: v.detach().cpu()
+                      for k, v in self.net.state_dict().items()}
+        torch.save(state_dict, os.path.join(path, WEIGHTS_FILE))
+        return path
+
+    @staticmethod
+    def load(path, seed=0, device=None):
+        """Rebuild a model of any family saved by :meth:`save`."""
+        return load_model(path, seed=seed, overrides={"device": device})
+
+
+class TimbreTrapFiLM(TimbreTrap):
+    """FiLM-conditioned decoder switch."""
+
+    variant = "film"
+
+
+class TimbreTrapMag(TimbreTrap):
+    """Magnitude-sliCQ (amplitude) family: one input and output channel."""
+
+    variant = "mag"
+
+    @staticmethod
+    def _features_from_complex(coefficients):
+        return CQT.to_magnitude(CQT.to_real(coefficients))[..., None]
+
+    @staticmethod
+    def to_activations(coefficients):
+        return torch.tanh(coefficients.squeeze(-3))
+
+
+class TimbreTrapMagDB(TimbreTrapMag):
+    """Magnitude-sliCQ (rescaled decibels) family. The dB floor and the
+    rescale are relative to each item's maximum (each chunk of a chunk
+    group, as the JAX package's ``vmap``)."""
+
+    variant = "magdb"
+
+    @staticmethod
+    def _features_from_complex(coefficients):
+        magnitude = CQT.to_magnitude(CQT.to_real(coefficients))
+        return CQT.to_decibels(magnitude)[..., None]
+
+    @staticmethod
+    def to_activations(coefficients):
+        return coefficients.squeeze(-3)
+
+
+_FAMILIES = {cls.variant: cls for cls in (TimbreTrap, TimbreTrapFiLM,
+                                           TimbreTrapMag, TimbreTrapMagDB)}
+
+
+def _weights_file(path):
+    """The ``torch.save`` weights a checkpoint path names: the file
+    itself, or ``weights.pt`` in a :meth:`TimbreTrap.save` directory. A
+    directory without it (the JAX package's orbax ``weights/``) raises."""
+    if os.path.isfile(path):
+        return path
+    if os.path.isfile(os.path.join(path, WEIGHTS_FILE)):
+        return os.path.join(path, WEIGHTS_FILE)
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} holds no {WEIGHTS_FILE}: a checkpoint of the JAX package "
+            "(orbax) is not read here; convert its parameter tree with "
+            "timbre_trap_tpu_torch.interop.state_dict_from_jax and load it "
+            "with TimbreTrap.load_state_dict")
+    raise FileNotFoundError(f"no checkpoint at {path}")
+
+
+def load_model(path, seed=0, overrides=None, defaults=None):
+    """Rebuild a model of any family from a checkpoint path.
+
+    ``path`` is a :meth:`TimbreTrap.save` directory (``hparams.json`` +
+    ``weights.pt``), or a weights file whose hyperparameters sit beside it
+    as ``<path>.hparams.json`` or in its directory's ``hparams.json``; a
+    bare weights file takes its constructor arguments from ``defaults``.
+    ``overrides`` take precedence over the stored hyperparameters (e.g.
+    ``device``, ``fused``, ``transform_compat``, ``compat_tables``); a
+    None value is ignored. A JAX package checkpoint raises ``ValueError``.
+    """
+    path = os.path.normpath(path)
+    weights = _weights_file(path)
+    hparams = None
+    for candidate in (os.path.join(path, "hparams.json"),
+                      path + ".hparams.json",
+                      os.path.join(os.path.dirname(path), "hparams.json")):
+        if os.path.isfile(candidate):
+            with open(candidate) as fh:
+                hparams = json.load(fh)
+            break
+    merged = dict(defaults or {}) if hparams is None else dict(hparams)
+    merged.update({k: v for k, v in (overrides or {}).items()
+                   if v is not None})
+    if not merged:
+        raise ValueError(
+            f"{path} carries no hparams.json and no defaults were given")
+    cls = _FAMILIES[merged.pop("variant", "base")]
+    model = cls(seed=seed, **merged)
+    model.load_state_dict(torch.load(weights, map_location="cpu",
+                                     weights_only=True))
+    return model

@@ -33,7 +33,8 @@ from .packed_conv import (BLOCK_ROWS, SUB_ROWS, ConvBlocks,
                           build_conv2d_blocks, build_sconv_blocks,
                           build_tconv_blocks, packed_conv_reference)
 
-__all__ = ["HALO", "LevelSpec", "encoder_level_spec", "decoder_level_spec",
+__all__ = ["HALO", "LevelSpec", "conv2d_level_spec", "encoder_level_spec",
+           "decoder_level_spec",
            "fuse_level_specs", "spec_time_reach", "banded_conv",
            "banded_conv_reference", "packed_level_apply", "fused_level_apply",
            "chain_flops", "band_flops", "banded_conv_dx",
@@ -129,6 +130,13 @@ def _residual_items(block_params, f, with_adjoints):
              _conv2d(block_params[f"block{i + 1}"]["conv2"], f, 1,
                      with_adjoints))
             for i, d in enumerate((1, 2, 3))]
+
+
+def conv2d_level_spec(conv_params, f_in, act, with_adjoints=False):
+    """A one-conv LevelSpec: a SAME 3x3 conv (+ ELU with ``act``), the
+    standalone convin or convout of a network with skip connections."""
+    cb = _conv2d(conv_params, f_in, 1, with_adjoints)
+    return LevelSpec([("conv", cb, bool(act))], cb.r_in)
 
 
 def encoder_level_spec(block_params, f_in, convin_params=None,
