@@ -77,13 +77,33 @@ Phases, each of which exits non-zero on failure:
              1e-5 and gradients within 1e-4 * each leaf's max|g|; one
              counted float32 recipe step, whose K1 stages and K3 dX and dW
              launches must all run the split-TF32 band kernels.
+             Every family trains (3e): base + skips, FiLM, Mag + skips
+             and MagDB at the flagship width, 2 counted ``"pallas_bf16"``
+             recipe steps each (K1, K3 dX and dW and the ELU' seed
+             launched, all on the bf16 route; every metric finite;
+             ``skip_weights`` and ``film_layer.*`` move), the step's time
+             and peak memory by ``train.reference_recipe_step_time``; one
+             float32 ``"pallas"`` step against ``"packed"`` from the same
+             weights on 2 flagship crops (FiLM + skips, Mag + skips,
+             MagDB) and at the small geometry for every family x skips,
+             losses within 1e-5 and gradients within 1e-4 * each leaf's
+             max|g| (or, where leaves' two float32 gradients part by more,
+             the kernel's largest distance from a float64 run over those
+             leaves within 3x the twin's);
+             ``grad_accum_steps=2`` over 2 x 4 crops against one step on
+             the 8 (float32 ``"pallas"``): the parameters unchanged bit
+             for bit after micro-step 1, Adam's moments within 1e-5 * max
+             and the parameters within 1e-5 * max|p| after micro-step 2
+             (entries whose gradient sits at float32's noise floor within
+             2 lr); a bf16 run saved after step 1 and loaded into a fresh
+             model takes step 2 bit for bit as the run that went on.
              K1 and K3's dX and dW are, in both dtypes, the band-tiled
              tensor-core kernels of ``csrc/band_mma.cu``: phase 2 also
              holds them, on one conv of each kind at flagship widths (3x3
              at dilation 1, 2 and 3, 1x1, sconv, tconv, the dense bridge)
-             and K1 alone on the stages the variants add (the standalone
-             convin 2 -> 4 and convout 4 -> 2 of the skip route, Mag's
-             convin 1 -> 4 and convout 4 -> 1)
+             and on the stages the variants add (the standalone convin
+             2 -> 4 and convout 4 -> 2 of the skip route, Mag's convin
+             1 -> 4 and convout 4 -> 1, built with their adjoints)
              at T = 3072 and a ragged T = 1001, against their twins on the
              same tensors: the stage, dX and dW (band entries, the twin
              masked with the same bands) and dBias within 1e-4 * max|ref|
@@ -99,7 +119,10 @@ Phases, each of which exits non-zero on failure:
              synthesis time of the clip, the base + skips model's
              ``transcribe_rtf`` and ``reconstruct_rtf`` (first and second
              call) and its route's forward time, K1 alone on each variant
-             stage, and the train step's time, audio rate
+             stage and K3's dX and dW alone on each at the recipe's
+             (8, R, 3072) in both dtypes, each family's bf16 step time,
+             peak memory and K1 / K3 launches a step, and the train step's
+             time, audio rate
              and peak memory; float32 yardsticks (cuDNN with TF32 off) for
              K1 and K3; the flops the
              bf16 kernels compute beside those the convs need, the bytes a
@@ -280,17 +303,19 @@ def conv_kind(cb):
     return "1x1" if len(cb.dts) == 1 else f"3x3 d={max(cb.dts)}"
 
 
-def phase_band_parity(torch, fwd_spec, train_specs, stage_only=()):
+def phase_band_parity(torch, fwd_spec, train_specs, stages=()):
     """The tensor-core kernels on the first conv of each kind in the
     flagship specs (training levels with adjoints; the dense bridge from
-    the inference chain), at T = 3072 and 1001, batch 2, against their
-    twins on the same tensors, in float32 (split-TF32 products against the
-    IEEE twin) within 1e-4 * max|ref| and in bf16 within 1e-2 * max|ref|:
-    the stage (ELU, residual), dX (residual, raw, ELU') and dW/dBias (band
-    entries), dW and dBias bitwise stable. ``stage_only`` ((name, conv)
-    pairs: the variants' inference geometries) get the stage alone, with
-    the same tolerances. Returns the largest relative errors (bf16,
-    float32)."""
+    the inference chain) and on the variants' ``stages`` ((name, conv)
+    pairs built with adjoints: the standalone convin and convout of the
+    skip route, the one-channel convin and convout of Mag and MagDB), at
+    T = 3072 and 1001, batch 2, against their twins on the same tensors,
+    in float32 (split-TF32 products against the IEEE twin) within
+    1e-4 * max|ref| and in bf16 within 1e-2 * max|ref|: the stage (ELU,
+    residual; the variant stages also without either), dX (residual, raw,
+    ELU') and dW/dBias (band entries), dW and dBias bitwise stable.
+    Returns the largest relative errors (bf16, float32) and, per variant
+    stage and dtype, its largest K3 relative error."""
     from timbre_trap_tpu_torch.ops.fused_level import (
         banded_conv, banded_conv_dw, banded_conv_dw_reference, banded_conv_dx,
         banded_conv_dx_reference, banded_conv_reference)
@@ -314,22 +339,9 @@ def phase_band_parity(torch, fwd_spec, train_specs, stage_only=()):
         return err / max(scale, 1e-30)
 
     worst = {torch.float32: 0.0, bf16: 0.0}
+    k3_stages = {name: {} for name, _ in stages}
     for t in (3072, 1001):
-        for name, cb in stage_only:
-            x32, res32 = rand(2, cb.r_in, t), rand(2, cb.r_out, t)
-            line = []
-            for dtype, tol in ((torch.float32, 1e-4), (bf16, 1e-2)):
-                x, res = x32.to(dtype), res32.to(dtype)
-                e = max(rel(banded_conv(x, cb, act, r),
-                            banded_conv_reference(x, cb, act, r),
-                            f"{name} T={t} {str(dtype)[6:]} stage", tol)
-                        for act, r in ((False, None), (True, res)))
-                worst[dtype] = max(worst[dtype], e)
-                line.append(f"{str(dtype)[6:]} rel {e:.2e}")
-            print(f"  band {name:12s} T={t} (c_in {cb.c_in}, c_out "
-                  f"{cb.c_out}, bands {cb.bands}, band width "
-                  f"{cb.band_width}): stage; " + "; ".join(line))
-        for kind, cb in picks.items():
+        for kind, cb in list(picks.items()) + list(stages):
             dense = kind == "dense"
             x32 = rand(2, cb.r_in, t)
             res32 = None if dense else rand(2, cb.r_out, t)
@@ -338,9 +350,12 @@ def phase_band_parity(torch, fwd_spec, train_specs, stage_only=()):
                 what = f"{kind} T={t} {str(dtype)[6:]}"
                 x = x32.to(dtype)
                 res = None if dense else res32.to(dtype)
-                errs = [rel(banded_conv(x, cb, not dense, res),
-                            banded_conv_reference(x, cb, not dense, res),
-                            f"{what} stage", tol)]
+                forms = [(not dense, res)]
+                if kind in k3_stages:
+                    forms.append((False, None))
+                errs = [max(rel(banded_conv(x, cb, act, r),
+                                banded_conv_reference(x, cb, act, r),
+                                f"{what} stage", tol) for act, r in forms)]
                 if not dense:
                     adj = cb.adjoint
                     c = rand(2, adj.r_in, t)
@@ -359,13 +374,17 @@ def phase_band_parity(torch, fwd_spec, train_specs, stage_only=()):
                     errs += [rel(g, w, f"{what} dW/dBias", tol)
                              for g, w in zip(runs[0], want)]
                 worst[dtype] = max([worst[dtype]] + errs)
+                if kind in k3_stages:
+                    key = str(dtype)[6:]
+                    k3_stages[kind][key] = max(
+                        [k3_stages[kind].get(key, 0.0)] + errs[1:])
                 line.append(f"{str(dtype)[6:]} rel "
                             + " ".join(f"{e:.2e}" for e in errs))
-            print(f"  band {kind:8s} T={t} (c_in {cb.c_in}, c_out "
+            print(f"  band {kind:12s} T={t} (c_in {cb.c_in}, c_out "
                   f"{cb.c_out}, bands {cb.bands}): stage"
                   + ("" if dense else ", dX, raw, dW, dBias")
                   + "; " + "; ".join(line))
-    return worst[bf16], worst[torch.float32]
+    return worst[bf16], worst[torch.float32], k3_stages
 
 
 class ByteCount:
@@ -614,20 +633,54 @@ def grad_l2_rel(got, want):
     return (num / den) ** 0.5
 
 
-def check_kernel_step(label, got, want):
+def check_kernel_step(label, got, want, ref64=None):
     """Holds one float32 ``"pallas"`` step's (metrics, gradients) against
     the float32 ``"packed"`` step's: every loss within 1e-5 relative, every
-    leaf's gradient within 1e-4 * its max|g|. Returns both gaps."""
+    leaf's gradient within 1e-4 * its max|g|, or, given ``ref64`` (a
+    callable returning the step's float64 gradients) and where leaves'
+    two float32 gradients part by more, the kernel step's largest distance
+    from float64 over those leaves (each relative to the leaf's max|g|)
+    within 3x the twin's largest (float32 conditioning of those leaves,
+    not the kernel, when the twin lies as far from float64). Returns the
+    gaps."""
     (mp, gp), (mk, gk) = got, want
     loss_rel = max(abs(mp[k] - mk[k]) / abs(mk[k]) for k in mk
                    if k.startswith("loss/"))
     grad_rel, leaf = worst_leaf(gp, gk)
+    out = {"loss_rel": loss_rel, "grad_rel": grad_rel}
+    check(loss_rel <= 1e-5, f"{label} pallas step losses off by {loss_rel}")
+    over = [n for n, g in gk.items()
+            if (gp[n] - g).abs().max().item() > 1e-4 * g.abs().max().item()]
+    if over and ref64 is not None:
+        g64 = ref64()
+
+        def dist(g, n):
+            return ((g[n].double() - g64[n]).abs().max().item()
+                    / max(g64[n].abs().max().item(), 1e-300))
+
+        d_kernel = max((dist(gp, n), n) for n in over)
+        d_twin = max((dist(gk, n), n) for n in over)
+        ratios = sorted(dist(gp, n) / max(dist(gk, n), 1e-300) for n in over)
+        ratio = d_kernel[0] / max(d_twin[0], 1e-300)
+        print(f"main: {label} pallas vs packed, {len(over)} leaves over "
+              f"1e-4 x max|g| (worst {leaf} {grad_rel:.2e}); from float64 "
+              f"over those leaves the kernel step at most {d_kernel[0]:.2e} "
+              f"({d_kernel[1]}), the twin {d_twin[0]:.2e} ({d_twin[1]}): "
+              f"{ratio:.2f}x; leaf by leaf the kernel's distance is "
+              f"{ratios[len(ratios) // 2]:.2f}x the twin's at the median, "
+              f"{ratios[-1]:.2f}x at most")
+        check(ratio <= 3.0, f"{label} pallas step gradients {ratio}x as "
+              f"far from float64 as the twin's")
+        out.update(leaves_over=len(over), f64_kernel=d_kernel[0],
+                   f64_twin=d_twin[0], f64_ratio=ratio,
+                   f64_leaf_ratio_median=ratios[len(ratios) // 2],
+                   f64_leaf_ratio_max=ratios[-1])
+    else:
+        check(not over, f"{label} pallas step gradient of {leaf} off by "
+              f"{grad_rel} * its max|g|")
     print(f"main: {label} pallas vs packed, losses rel {loss_rel:.2e}, "
           f"gradients rel {grad_rel:.2e} (worst {leaf})")
-    check(loss_rel <= 1e-5, f"{label} pallas step losses off by {loss_rel}")
-    check(grad_rel <= 1e-4, f"{label} pallas step gradient of {leaf} off "
-          f"by {grad_rel} * its max|g|")
-    return {"loss_rel": loss_rel, "grad_rel": grad_rel}
+    return out
 
 
 def one_step(torch, model, weights, backend, audio, gt, lr):
@@ -758,6 +811,296 @@ def phase_train(torch, counters):
           f"{audio_secs / step_s:.1f} audio-s/s, peak "
           f"{peak / 2**30:.2f} GiB; float32 pallas step {wall32 * 1e3:.1f} ms")
     return numbers, launches, model
+
+
+# The families' training phase: (label, family class name, skips).
+FAMILY_STEPS = (("base+skips", "TimbreTrap", True),
+                ("film", "TimbreTrapFiLM", False),
+                ("mag+skips", "TimbreTrapMag", True),
+                ("magdb", "TimbreTrapMagDB", False))
+# float32 kernels against the plain twin on 2 flagship crops.
+FAMILY_F32 = (("film+skips", "TimbreTrapFiLM", True),
+              ("mag+skips", "TimbreTrapMag", True),
+              ("magdb", "TimbreTrapMagDB", False))
+
+
+def moved_leaves(names, skips, film):
+    """The parameters only the families and skips add."""
+    out = [n for n in names if n == "skip_weights" or n.startswith("film")]
+    check(len(out) == int(skips) + 4 * int(film),
+          f"expected skip and FiLM parameters, found {out}")
+    return out
+
+
+def float64_grads(model, weights, audio, gt):
+    """A callable giving the float64 gradients of one step of ``model``
+    from ``weights`` on the batch (``train.step_gradients_reference``)."""
+    from timbre_trap_tpu_torch.train import (TrainConfig,
+                                             step_gradients_reference)
+
+    def grads():
+        model.load_state_dict(weights)
+        return step_gradients_reference(model, TrainConfig(), audio.shape[0],
+                                        audio, gt, compact_audio_grid=True)
+    return grads
+
+
+def phase_family_train(torch, counters, card):
+    """Every family trains at the flagship width (phase 3e): for base +
+    skips, FiLM, Mag + skips and MagDB, 2 counted ``"pallas_bf16"`` steps
+    on the recipe's 8 x 9-s crops (K1, K3 dX, dW and the ELU' seed
+    launched on the bf16 route, no float32 kernel, every metric finite,
+    ``skip_weights`` and ``film_layer.*`` moved), then the step's time and
+    peak memory by ``train.reference_recipe_step_time``; one float32
+    ``"pallas"`` step against ``"packed"`` from the same weights on 2
+    flagship crops for FiLM + skips, Mag + skips and MagDB, and at the
+    small geometry for every family x skips; gradient accumulation (k = 2
+    over 2 x 4 crops against one step on the 8); exact resume of a bf16
+    run through a checkpoint. Returns (numbers, launches per family)."""
+    from timbre_trap_tpu_torch import models
+    from timbre_trap_tpu_torch.ops import _build
+    from timbre_trap_tpu_torch.train import (TrainConfig, init_train_state,
+                                             load_checkpoint,
+                                             make_train_step,
+                                             reference_recipe_step_time,
+                                             save_checkpoint,
+                                             synthetic_batch)
+
+    cfg = TrainConfig(learning_rate=TRAIN_LR)
+    numbers, launches = {}, {}
+    for label, cls_name, skips in FAMILY_STEPS:
+        model = flagship(getattr(models, cls_name), skip_connections=skips,
+                         seed=4)
+        audio, gt = synthetic_batch(model, TRAIN_CROPS, TRAIN_SECS, seed=1)
+        w0 = {k: v.clone() for k, v in model.net.state_dict().items()}
+        state = init_train_state(model, cfg)
+        step = make_train_step(model, cfg, TRAIN_CROPS,
+                               conv_backend="pallas_bf16",
+                               compact_audio_grid=True)
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        history = [{k: float(v) for k, v in step(state, audio, gt,
+                                                 TRAIN_LR).items()}
+                   for _ in range(2)]
+        torch.cuda.synchronize()
+        counts = read_counts(counters)
+        for name, n in counts.items():
+            if name.endswith(".mma_f32"):
+                check(n == 0, f"{label}: the bf16 step launched a float32 "
+                      f"kernel ({name} {n})")
+            else:
+                check(n > 0, f"{label}: {name} was not launched")
+        check(all(np.isfinite(v) for m in history for v in m.values()),
+              f"{label}: a train metric is not finite")
+        now = model.net.state_dict()
+        moved = moved_leaves(w0, skips, cls_name == "TimbreTrapFiLM")
+        check(all(not torch.equal(now[n], w0[n]) for n in moved),
+              f"{label}: {moved} did not all change")
+        del step, state
+        secs, loss0, peak = reference_recipe_step_time(
+            model, "pallas_bf16", batch=TRAIN_CROPS, blocks=3, iters=3,
+            return_memory=True)
+        launches[label] = {k: v // 2 for k, v in counts.items()}
+        numbers[label] = {"train_step_ms": secs * 1e3, "peak_bytes": peak,
+                          "loss_total": [m["loss/total"] for m in history],
+                          "measure_first_loss": loss0,
+                          "launches_per_step": launches[label]}
+        print(f"family train: {label:10s} 2 pallas_bf16 steps, loss/total "
+              + " ".join(f"{m['loss/total']:.4f}" for m in history)
+              + f"; {moved or 'no extra'} moved; a step "
+              f"{launches[label]}; train_step_ms {secs * 1e3:.1f} (least of "
+              f"3), peak {peak / 2**30:.2f} GiB, on {card}")
+        del model
+        torch.cuda.empty_cache()
+
+    # float32 kernels against the plain twin, flagship (2 crops) and small.
+    gaps = {}
+    for label, cls_name, skips in FAMILY_F32:
+        model = flagship(getattr(models, cls_name), skip_connections=skips,
+                         seed=5)
+        audio, gt = synthetic_batch(model, 2, TRAIN_SECS, seed=2)
+        w0 = {k: v.clone() for k, v in model.net.state_dict().items()}
+        gaps[label] = check_kernel_step(
+            f"{label} flagship, 2 crops",
+            one_step(torch, model, w0, "pallas", audio, gt, TRAIN_LR),
+            one_step(torch, model, w0, "packed", audio, gt, TRAIN_LR),
+            float64_grads(model, w0, audio, gt))
+        del model
+    for cls_name in ("TimbreTrap", "TimbreTrapFiLM", "TimbreTrapMag",
+                     "TimbreTrapMagDB"):
+        for skips in (False, True):
+            small = getattr(models, cls_name)(**SMALL, seed=2,
+                                              skip_connections=skips)
+            a_s, g_s = synthetic_batch(small, 2, 1.0, seed=5)
+            ws = {k: v.clone() for k, v in small.net.state_dict().items()}
+            label = f"small {small.variant}" + ("+skips" if skips else "")
+            gaps[label] = check_kernel_step(
+                label, one_step(torch, small, ws, "pallas", a_s, g_s,
+                                TRAIN_LR),
+                one_step(torch, small, ws, "packed", a_s, g_s, TRAIN_LR),
+                float64_grads(small, ws, a_s, g_s))
+    numbers["f32_kernels_vs_twin"] = gaps
+    torch.cuda.empty_cache()
+
+    # Gradient accumulation: k = 2 micro-steps on 2 x 4 crops against one
+    # step on the 8, float32 "pallas", from the same weights.
+    model = flagship(models.TimbreTrapFiLM, skip_connections=True, seed=6)
+    audio, gt = synthetic_batch(model, TRAIN_CROPS, TRAIN_SECS, seed=3)
+    w0 = {k: v.clone() for k, v in model.net.state_dict().items()}
+    full_cfg = TrainConfig(learning_rate=TRAIN_LR)
+    full_state = init_train_state(model, full_cfg)
+    make_train_step(model, full_cfg, TRAIN_CROPS, conv_backend="pallas",
+                    compact_audio_grid=True)(full_state, audio, gt, TRAIN_LR)
+    full = {k: v.clone() for k, v in model.net.state_dict().items()}
+    g_full = {n: p.grad.clone() for n, p in model.net.named_parameters()}
+    model.load_state_dict(w0)
+    acc_cfg = TrainConfig(learning_rate=TRAIN_LR, grad_accum_steps=2)
+    acc_state = init_train_state(model, acc_cfg)
+    acc_step = make_train_step(model, acc_cfg, TRAIN_CROPS // 2,
+                               conv_backend="pallas", compact_audio_grid=True)
+    half = TRAIN_CROPS // 2
+    acc_step(acc_state, audio[:half], gt[:half], TRAIN_LR)
+    after1 = model.net.state_dict()
+    check(all(torch.equal(after1[k], v) for k, v in w0.items()),
+          "accumulation: micro-step 1 changed the parameters")
+    acc_step(acc_state, audio[half:], gt[half:], TRAIN_LR)
+    check(acc_state["count"] == 1 and acc_state["mini_step"] == 0,
+          f"accumulation: count {acc_state['count']}, mini_step "
+          f"{acc_state['mini_step']} after 2 micro-steps")
+    # Adam's moments take the accumulated mean as the one step takes its
+    # gradient: within 1e-5 x each leaf's max everywhere.
+    mom_rel = max(
+        ((acc_state[m][n] - full_state[m][n]).abs().max().item()
+         / max(full_state[m][n].abs().max().item(), 1e-30), f"{m} {n}")
+        for m in ("mu", "nu") for n in full_state[m])
+    # The parameters: within 1e-5 x each leaf's max|p|. Adam's first step
+    # moves an entry by lr * g / (|g| + eps), so an entry whose gradient
+    # lies at float32's noise floor (|g| <= 1e-5 x its leaf's max|g|) may
+    # move by anything up to 2 lr between two summation orders.
+    acc_rel, acc_leaf, n_noise, noise_max = 0.0, "", 0, 0.0
+    for k, v in model.net.state_dict().items():
+        d = (v - full[k]).abs()
+        scale = max(full[k].abs().max().item(), 1e-30)
+        bar = 1e-5 * scale
+        acc_rel, acc_leaf = max((acc_rel, acc_leaf), (d.max().item() / scale,
+                                                      k))
+        g = g_full[k].abs()
+        noise = g <= 1e-5 * g.max()
+        over = d > bar
+        check(not (over & ~noise).any(), f"accumulation: {k} off the "
+              f"one-step result by {d.max().item()} > {bar} where the "
+              "gradient is above float32's noise floor")
+        n_noise += int((over & noise).sum())
+        noise_max = max(noise_max, d[noise].max().item() if noise.any()
+                        else 0.0)
+    print(f"family train: FiLM + skips, grad_accum_steps=2 over 2 x {half} "
+          f"crops vs one step on {TRAIN_CROPS}: unchanged after micro-step "
+          f"1; after micro-step 2 Adam's moments within {mom_rel[0]:.2e} x "
+          f"max ({mom_rel[1]}), the parameters within {acc_rel:.2e} x "
+          f"max|p| (worst {acc_leaf}); {n_noise} entries over 1e-5 x max|p| "
+          f"where |g| <= 1e-5 x max|g| (largest move {noise_max:.2e}, bar "
+          f"2 lr)")
+    check(mom_rel[0] <= 1e-5, f"accumulation: Adam's {mom_rel[1]} off the "
+          f"one-step result by {mom_rel[0]} x its max")
+    check(noise_max <= 2 * TRAIN_LR, f"accumulation: a noise-floor entry "
+          f"moved by {noise_max} > 2 lr")
+    numbers["accumulation"] = {"rel": acc_rel, "worst_leaf": acc_leaf,
+                               "moments_rel": mom_rel[0],
+                               "noise_floor_entries_over": n_noise,
+                               "noise_floor_max_move": noise_max}
+    del model, acc_state, acc_step, full_state, g_full
+    torch.cuda.empty_cache()
+
+    # Exact resume: save after step 1, load into a fresh model; step 2 is
+    # the continuing run's step 2 bit for bit.
+    kw = dict(skip_connections=True)
+    model = flagship(models.TimbreTrapMag, seed=7, **kw)
+    audio, gt = synthetic_batch(model, TRAIN_CROPS, TRAIN_SECS, seed=4)
+    state = init_train_state(model, cfg)
+    step = make_train_step(model, cfg, TRAIN_CROPS,
+                           conv_backend="pallas_bf16", compact_audio_grid=True)
+    step(state, audio, gt, TRAIN_LR)
+    ckpt = _build.BUILD_DIR / "smoke_train_ckpt"
+    path = save_checkpoint(str(ckpt / "model-1"), model, state, step=1)
+    going_on = {k: float(v) for k, v in step(state, audio, gt,
+                                             TRAIN_LR).items()}
+    loaded = load_checkpoint(path, map_location="cuda")
+    fresh = flagship(models.TimbreTrapMag, seed=8, **kw)
+    fresh.load_state_dict(loaded["params"])
+    resumed = {k: float(v) for k, v in make_train_step(
+        fresh, cfg, TRAIN_CROPS, conv_backend="pallas_bf16",
+        compact_audio_grid=True)(loaded["opt_state"], audio, gt,
+                                 TRAIN_LR).items()}
+    shutil.rmtree(ckpt)
+    a, b = model.net.state_dict(), fresh.net.state_dict()
+    same = (resumed == going_on and loaded["step"] == 1
+            and all(torch.equal(a[k], b[k]) for k in a)
+            and all(torch.equal(state[m][n], loaded["opt_state"][m][n])
+                    for m in ("mu", "nu") for n in state[m]))
+    check(same, f"resume: step 2 after a checkpoint differs from the "
+          f"continuing run's ({resumed} vs {going_on})")
+    print("family train: Mag + skips, bf16 step 2 after save -> load into a "
+          "fresh model equals the continuing run's bit for bit (metrics, "
+          "parameters, Adam moments)")
+    numbers["resume_bitwise"] = True
+    return numbers, launches
+
+
+def k3_stage_numbers(torch, stages, batch, frames):
+    """K3's dX and dW alone on each variant stage at the recipe step's
+    (batch, R, frames), bf16 and float32: kernel and plain times and the
+    bound. dX maps a float32 cotangent to a float32 input gradient (as for
+    the consistency encode's convin); dW reads the float32 cotangent and
+    the stored input. Bytes: every input read once, every output written
+    once, the band weights once."""
+    from timbre_trap_tpu_torch.ops.fused_level import (
+        LevelSpec, banded_conv_dw, banded_conv_dw_reference, banded_conv_dx,
+        banded_conv_dx_reference)
+    from timbre_trap_tpu_torch.ops.packed_conv import BLOCK_ROWS
+
+    out = {}
+    for name, cb in stages:
+        adj, dev = cb.adjoint, cb.blocks.device
+        c = torch.randn((batch, adj.r_in, frames), device=dev)
+        x32 = torch.randn((batch, cb.r_in, frames), device=dev)
+        flops = needed_flops(LevelSpec([("conv", cb, False)], cb.r_in), batch,
+                             frames)
+        row = {}
+        for dtype, size in ((torch.bfloat16, 2), (torch.float32, 4)):
+            sfx = "" if dtype == torch.bfloat16 else "_f32"
+            x = x32.to(dtype)
+            t_ops = (f32_ops_ms(flops) if sfx
+                     else flops / PEAK_BF16_FLOPS * 1e3)
+            w_dx = adj.band_operands(dtype)[0]
+            dx_bytes = (c.numel() * 4 + batch * adj.r_out * frames * 4
+                        + w_dx.numel() * size)
+            dw_bytes = (c.numel() * 4 + x.numel() * size
+                        + (cb.blocks.numel() + BLOCK_ROWS) * 4)
+            with torch.no_grad():
+                row["dx_ms" + sfx] = time_ms(
+                    torch, lambda: banded_conv_dx(c, adj, dtype))
+                row["dx_plain_ms" + sfx] = time_ms(
+                    torch, lambda: banded_conv_dx_reference(c, adj, dtype), 3)
+                row["dw_ms" + sfx] = time_ms(
+                    torch, lambda: banded_conv_dw(c, x, cb))
+                row["dw_plain_ms" + sfx] = time_ms(
+                    torch, lambda: banded_conv_dw_reference(c, x, cb), 3)
+            for part, n_bytes in (("dx", dx_bytes), ("dw", dw_bytes)):
+                t_bytes = n_bytes / PEAK_BYTES * 1e3
+                row[f"{part}_bound_ms{sfx}"] = max(t_ops, t_bytes)
+                row[f"{part}_bound_by{sfx}"] = ("operations" if t_ops >= t_bytes
+                                                else "bytes")
+        out[name] = row
+        print(f"K3 stage {name} ({batch}, {cb.r_in} -> {cb.r_out}, {frames}):"
+              + "".join(
+                  f" {d} dX {row['dx_ms' + x]:.4f} ms (plain "
+                  f"{row['dx_plain_ms' + x]:.4f}, bound "
+                  f"{row['dx_bound_ms' + x]:.4f} by {row['dx_bound_by' + x]}),"
+                  f" dW {row['dw_ms' + x]:.4f} ms (plain "
+                  f"{row['dw_plain_ms' + x]:.4f}, bound "
+                  f"{row['dw_bound_ms' + x]:.4f} by {row['dw_bound_by' + x]});"
+                  for d, x in (("bf16", ""), ("f32", "_f32"))))
+    return out
 
 
 def k3_band_flops(spec, batch, frames):
@@ -1299,7 +1642,7 @@ def phase_variants(torch, audio, chunks, counters, card):
     return numbers, {"transcribe": launches, "reconstruct": launches_rec}
 
 
-def stage_numbers(torch, stage_only, batch, frames):
+def stage_numbers(torch, stages, batch, frames):
     """K1 alone on each variant geometry at the main path's (batch, R,
     frames): kernel and plain times in bf16 and float32, and the bound."""
     from timbre_trap_tpu_torch.ops.fused_level import (banded_conv,
@@ -1307,7 +1650,7 @@ def stage_numbers(torch, stage_only, batch, frames):
     from timbre_trap_tpu_torch.ops.fused_level import LevelSpec
 
     out = {}
-    for name, cb in stage_only:
+    for name, cb in stages:
         dev = cb.blocks.device
         x32 = torch.randn((batch, cb.r_in, frames), device=dev)
         flops = needed_flops(LevelSpec([("conv", cb, True)], cb.r_in), batch,
@@ -1337,11 +1680,14 @@ def stage_numbers(torch, stage_only, batch, frames):
 
 
 def variant_stages(torch):
-    """The conv stages the variants add to K1's geometries: the standalone
-    convin and convout of a network with skip connections (2 -> 4, 4 -> 2)
-    and those of the one-channel families (1 -> 4, 4 -> 1), from seeded
-    flagship nets on the card."""
-    from timbre_trap_tpu_torch.models.fused import forward_spec
+    """The conv stages the variants add to K1's and K3's geometries: the
+    standalone convin and convout of a network with skip connections
+    (2 -> 4, 4 -> 2) and those of the one-channel families (1 -> 4,
+    4 -> 1), from seeded flagship nets on the card, built with their
+    adjoints (the skip route's first encoder and last decoder training
+    specs)."""
+    from timbre_trap_tpu_torch.interop import hwio_params
+    from timbre_trap_tpu_torch.models.fused import level_specs
     from timbre_trap_tpu_torch.models.modules import (TimbreTrapNet,
                                                       init_weights)
 
@@ -1350,9 +1696,10 @@ def variant_stages(torch):
         net = init_weights(TimbreTrapNet(N_OCT * BPO, LATENT, COMPLEXITY,
                                          variant, True),
                            torch.Generator().manual_seed(6)).cuda()
-        route = forward_spec(net, True)
-        out += [(f"convin{tag}", route.especs[0].items[0][1]),
-                (f"convout{tag}", route.dspecs[-1].items[0][1])]
+        with torch.no_grad():
+            especs, dspecs = level_specs(hwio_params(net), net, True)
+        out += [(f"convin{tag}", especs[0].items[0][1]),
+                (f"convout{tag}", dspecs[-1].items[0][1])]
     return out
 
 
@@ -1386,9 +1733,20 @@ def main():
     print(f"device: {kind} x{torch.cuda.device_count()}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
 
+    # Wall seconds of each phase (a phase runs until the next lap).
+    phase_s, clock = {}, [time.perf_counter(), None]
+
+    def lap(name):
+        now = time.perf_counter()
+        if clock[1] is not None:
+            phase_s[clock[1]] = now - clock[0]
+        clock[:] = [now, name]
+
+    lap('build')
     # 1. build
     sass = phase_build(_build)
 
+    lap('parity')
     # 2. parity at the flagship shapes, on real features of the clip
     model = flagship(TimbreTrap, seed=0)
     L = model.sliCQ.block_length
@@ -1408,11 +1766,12 @@ def main():
     with torch.no_grad():
         train_specs = sum(level_specs(hwio_params(model.net), model.net,
                                       True), [])
-    stage_only = variant_stages(torch)
-    band_err, band_err32 = phase_band_parity(torch, model._spec(True),
-                                             train_specs, stage_only)
+    stages = variant_stages(torch)
+    band_err, band_err32, k3_stage_err = phase_band_parity(
+        torch, model._spec(True), train_specs, stages)
     print(f"parity: {time.perf_counter() - t_par:.1f} s")
 
+    lap('transcribe')
     # 3. the main path: transcribe + peak_mask, counted
     zero_counts((banded_conv, peak_mask))
     torch.cuda.synchronize()
@@ -1480,16 +1839,19 @@ def main():
     print(f"main: small model card vs CPU max abs diff {d_small:.3e}")
     check(d_small <= 1e-4, f"card and CPU disagree by {d_small}")
 
+    lap('reconstruct')
     # 3b. reconstruct, counted, and the transform on the card
     transform = phase_transform(torch)
     recon, launches_rec = phase_reconstruct(torch, model, audio,
                                             (banded_conv, peak_mask), card)
 
+    lap('variants')
     # 3d. the model families, skip connections and persistence, counted
     variants, launches_var = phase_variants(
         torch, audio, torch.from_numpy(chunks).cuda(),
         (banded_conv, peak_mask), card)
 
+    lap('train')
     # 3c. the training main path, counted
     k3_wrappers = (banded_conv_dx, banded_conv_dw, elu_backward)
     train, train_launches, train_model = phase_train(
@@ -1499,6 +1861,12 @@ def main():
         check(train_launches[f"{name}.mma"] > 0, f"{name}'s tensor-core "
               "kernel was not launched by the train step")
 
+    lap('family_train')
+    # 3e. every family trains, counted; accumulation and exact resume
+    families, family_launches = phase_family_train(
+        torch, (banded_conv,) + k3_wrappers, card)
+
+    lap('numbers')
     # 4. numbers at the main path's shapes
     spec = model._spec(True)
     xb = x.to(torch.bfloat16)
@@ -1555,13 +1923,14 @@ def main():
     t_ops = conv_flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = (w_bytes + io_bytes) / PEAK_BYTES * 1e3
 
-    stages = stage_numbers(torch, stage_only, x.shape[0], x.shape[-1])
+    stage_ms = stage_numbers(torch, stages, x.shape[0], x.shape[-1])
 
     k2_ms = time_ms(torch, lambda: peak_mask(acts, 0.5), 50)
     k2_plain = time_ms(torch, lambda: peak_mask_reference(acts, 0.5), 50)
     k2_bound = acts.numel() * (4 + 1) / PEAK_BYTES * 1e3
 
     k3 = k3_numbers(torch, train_model, k3_launches / TRAIN_STEPS)
+    k3_stages = k3_stage_numbers(torch, stages, TRAIN_CROPS, train_frames)
 
     def k3_only(counts):
         return {k: v for k, v in counts.items()
@@ -1578,12 +1947,14 @@ def main():
          "launches_mma": launches["banded_conv.mma"],
          "launches_reconstruct": launches_rec["banded_conv"],
          "launches_train": train_launches["banded_conv"],
+         "launches_family_train_per_step": {
+             label: n["banded_conv"] for label, n in family_launches.items()},
          "launches_variants": {
              "transcribe": launches_var["transcribe"]["banded_conv"],
              "reconstruct": launches_var["reconstruct"]["banded_conv"],
              "per_forward": variants["launches_per_forward"],
              "forwards": variants["forwards"]},
-         "variant_stages": stages,
+         "variant_stages": stage_ms,
          "skip_route_ms": variants["route_ms"],
          "skip_route_ms_f32": variants["route_ms_f32"],
          "skip_route_plain_ms": variants["route_plain_ms"],
@@ -1622,13 +1993,22 @@ def main():
          "launches_train_f32": sum(train["f32_step_launches"][fn.__name__]
                                    for fn in k3_wrappers),
          "launches_by_wrapper_f32": k3_only(train["f32_step_launches"]),
+         "launches_family_train_per_step": {
+             label: k3_only(n) for label, n in family_launches.items()},
+         "variant_stages": {name: dict(row, max_rel_err=k3_stage_err[name])
+                            for name, row in k3_stages.items()},
          "max_abs_err": k3_err, **k3},
     ]
     print(f"transcribe_rtf: {rtf:.2f} first call, {rtf_warm:.2f} second call "
           f"({CLIP_SECS:.0f} s clip, {wall:.3f} s / {wall_warm:.3f} s wall, "
           f"bf16 chain, peak mask included); float32 chain "
           f"{rtf32:.2f} second call ({wall32:.3f} s wall)")
+    lap(None)
+    print(f"phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                       phase_s.items())
+          + f"; {sum(phase_s.values()):.1f} in all")
     print(json.dumps({"train": train}))
+    print(json.dumps({"family_train": families, "phase_s": phase_s}))
     print(json.dumps({"transform": transform, "reconstruct": recon}))
     print(json.dumps({"variants": variants}))
     print(card)

@@ -20,9 +20,9 @@ import torch
 
 from timbre_trap_tpu_torch.interop import hwio_params
 from timbre_trap_tpu_torch.models import (TimbreTrap, TimbreTrapFiLM,
-                                          TimbreTrapMagDB, TimbreTrapNet,
-                                          forward_spec, fused_forward,
-                                          load_model)
+                                          TimbreTrapMag, TimbreTrapMagDB,
+                                          TimbreTrapNet, forward_spec,
+                                          fused_forward, load_model)
 from timbre_trap_tpu_torch.models.fused import level_specs
 from timbre_trap_tpu_torch.models.modules import init_weights
 from timbre_trap_tpu_torch.ops import packed_conv as pc
@@ -32,6 +32,10 @@ from timbre_trap_tpu_torch.ops.fused_level import (
     chain_flops, elu_backward, fused_level_apply, level_backward,
     level_backward_reference, packed_level_apply, spec_time_reach)
 from timbre_trap_tpu_torch.ops.peaks import peak_mask, peak_mask_reference
+from timbre_trap_tpu_torch.train import (TrainConfig, init_train_state,
+                                         make_train_step,
+                                         step_gradients_reference,
+                                         synthetic_batch)
 
 torch.set_num_threads(2)
 
@@ -79,6 +83,19 @@ def _variant_stages(device="cpu"):
         route = forward_spec(_flagship_net(variant, True, device), True)
         out[f"convin{tag}"] = route.especs[0].items[0][1]
         out[f"convout{tag}"] = route.dspecs[-1].items[0][1]
+    return out
+
+
+def _variant_train_stages(device="cpu"):
+    """The same stages as ``_variant_stages``, built with their adjoints
+    (the skip route's first encoder and last decoder training specs)."""
+    out = {}
+    for variant, tag in (("base", ""), ("mag", "-mag")):
+        net = _flagship_net(variant, True, device)
+        with torch.no_grad():
+            especs, dspecs = level_specs(hwio_params(net), net, True)
+        out[f"convin{tag}"] = especs[0].items[0][1]
+        out[f"convout{tag}"] = dspecs[-1].items[0][1]
     return out
 
 
@@ -234,6 +251,26 @@ def test_f32_accuracy_tool_backward_on_cpu():
     convs = f32_accuracy._backward_convs(specs, 37,
                                          torch.Generator().manual_seed(16))
     assert len(convs) == sum(1 for s in specs for _ in s.convs())
+    for e in convs:
+        for what in ("dx", "dw", "dbias"):
+            assert e[what]["kernel"] == e[what]["ieee"] <= 1e-6, e
+
+
+def test_f32_accuracy_tool_variant_stages_on_cpu():
+    """The families' stages in ``tools/f32_accuracy.py``: the skip route's
+    standalone convin 2 -> 4 and convout 4 -> 2 and the one-channel convin
+    1 -> 4 and convout 4 -> 1 at the flagship widths, each a one-conv
+    training spec; on the CPU both routes are the IEEE plain version,
+    within a few float32 roundings of float64."""
+    from timbre_trap_tpu_torch.tools import f32_accuracy
+
+    specs = f32_accuracy.variant_stage_specs(device="cpu")
+    assert {n: (s.r_in, s.r_out) for n, s in specs.items()} == {
+        "convin": (1080, 2160), "convout": (2160, 1080),
+        "convin-mag": (540, 2160), "convout-mag": (2160, 540)}
+    convs = f32_accuracy._backward_convs(list(specs.values()), 37,
+                                         torch.Generator().manual_seed(17))
+    assert len(convs) == 4
     for e in convs:
         for what in ("dx", "dw", "dbias"):
             assert e[what]["kernel"] == e[what]["ieee"] <= 1e-6, e
@@ -550,6 +587,110 @@ def test_banded_conv_kernel_on_variant_geometries(cuda_device, dtype):
                 err = (got.float() - want.float()).abs().max().item()
                 scale = want.float().abs().max().item()
                 assert err <= tol * scale, (name, t, act, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k3_on_variant_geometries(cuda_device, dtype):
+    """K3 on the stages the variants add (standalone convin 2 -> 4 and
+    convout 4 -> 2, one-channel convin 1 -> 4 and convout 4 -> 1) at
+    T = 3072, 1001 and 70 against the twins on the same tensors: dX
+    (residual, raw, ELU' from stored tensors; 540 or 2160 output rows, a
+    partial last block) and dW/dBias (band entries; the 288-column operand
+    of convout 4 -> 1) within 1e-4 * max|ref| in float32 and 1e-2 *
+    max|ref| in bf16; dW and dBias the same bits in two runs."""
+    dtype = getattr(torch, dtype)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    rng = np.random.default_rng(21)
+
+    def close(got, want, what):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol * want.float().abs().max().item(), (what, err)
+
+    for name, cb in _variant_train_stages(cuda_device).items():
+        adj = cb.adjoint
+        for t in (3072, 1001, 70):
+            c = _rand(rng, 2, adj.r_in, t).to(cuda_device)
+            kw = dict(residual=_rand(rng, 2, adj.r_out, t).to(cuda_device),
+                      elu=(_rand(rng, 2, adj.r_out, t).to(cuda_device, dtype),
+                           _rand(rng, 2, adj.r_out, t).to(cuda_device, dtype)),
+                      keep_raw=True)
+            before = _routes(banded_conv_dx)
+            got = banded_conv_dx(c, adj, dtype, **kw)
+            assert _routes(banded_conv_dx) == _bumped(before, dtype)
+            want = banded_conv_dx_reference(c, adj, dtype, **kw)
+            torch.cuda.synchronize()
+            for g, w, what in zip(got, want, ("dX", "raw")):
+                close(g, w, f"{name} T={t} {what}")
+            x = _rand(rng, 2, cb.r_in, t).to(cuda_device, dtype)
+            dz = _rand(rng, 2, cb.r_out, t).to(cuda_device)
+            runs = [banded_conv_dw(dz, x, cb) for _ in range(2)]
+            want = banded_conv_dw_reference(dz, x, cb)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(*runs)), name
+            assert not runs[0][0][~cb.band_mask()].any(), name
+            for g, w, what in zip(runs[0], want, ("dW", "dBias")):
+                close(g, w, f"{name} T={t} {what}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls", [TimbreTrap, TimbreTrapFiLM, TimbreTrapMag,
+                                 TimbreTrapMagDB])
+@pytest.mark.parametrize("skips", [False, True])
+def test_family_step_kernels_match_twin(cuda_device, cls, skips):
+    """A small model of every family x skips: one float32 ``"pallas"``
+    step (K1 and K3) against one ``"packed"`` step (autograd through the
+    plain twin) from the same weights on the card: every loss within 1e-5
+    relative, every parameter's gradient within 1e-4 x its max|g|; a
+    ``"pallas_bf16"`` step launches K1 and K3's dX, dW and ELU' seed on
+    the bf16 route only and moves ``skip_weights`` and ``film_layer.*``."""
+    hp = dict(sample_rate=8000, n_octaves=5, bins_per_octave=12,
+              secs_per_block=0.5, latent_size=16, model_complexity=1,
+              skip_connections=skips, seed=5)
+    model = cls(**hp)
+    audio, gt = synthetic_batch(model, 2, 1.0, seed=6)
+    w0 = {k: v.clone() for k, v in model.net.state_dict().items()}
+    cfg = TrainConfig()
+    runs = {}
+    for backend in ("pallas", "packed", "pallas_bf16"):
+        model.load_state_dict(w0)
+        step = make_train_step(model, cfg, 2, conv_backend=backend,
+                               compact_audio_grid=True)
+        before = [_routes(f) for f in (banded_conv, banded_conv_dx,
+                                       banded_conv_dw)]
+        seeds = elu_backward.launches
+        metrics = step(init_train_state(model, cfg), audio, gt, 1e-3)
+        torch.cuda.synchronize()
+        runs[backend] = ({k: float(v) for k, v in metrics.items()},
+                         {n: p.grad.clone()
+                          for n, p in model.net.named_parameters()})
+    (m32, g32), (mref, gref) = runs["pallas"], runs["packed"]
+    for key, want in mref.items():
+        if key.startswith("loss/"):
+            assert abs(m32[key] - want) <= 1e-5 * abs(want), key
+    over = [n for n, want in gref.items()
+            if (g32[n] - want).abs().max().item()
+            > 1e-4 * want.abs().max().item()]
+    if over:
+        # Leaves whose float32 gradients part by more: the kernel's largest
+        # distance from float64 over them within 3x the twin's.
+        model.load_state_dict(w0)
+        g64 = step_gradients_reference(model, cfg, 2, audio, gt,
+                                       compact_audio_grid=True)
+
+        def dist(g):
+            return max((g[n].double() - g64[n]).abs().max().item()
+                       / g64[n].abs().max().item() for n in over)
+        assert dist(g32) <= 3 * dist(gref), (over, dist(g32), dist(gref))
+    after = [_routes(f) for f in (banded_conv, banded_conv_dx,
+                                  banded_conv_dw)]
+    assert all(a[0] > b[0] and a[1] == b[1] for a, b in zip(after, before))
+    assert elu_backward.launches > seeds
+    assert all(np.isfinite(v) for v in runs["pallas_bf16"][0].values())
+    moved = [n for n in w0 if n == "skip_weights" or n.startswith("film")]
+    assert len(moved) == int(skips) + 4 * (cls is TimbreTrapFiLM)
+    state = model.net.state_dict()
+    assert all(not torch.equal(state[n], w0[n]) for n in moved)
 
 
 @pytest.mark.cuda

@@ -344,8 +344,6 @@ def test_schedules_and_compact_helpers_match_jax():
 
 def test_step_rejects_what_is_not_ported():
     m = TimbreTrap(**HP, device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_train_step(m, TrainConfig(grad_accum_steps=2), 1)
     with pytest.raises(ValueError, match="conv_backend"):
         make_train_step(m, TrainConfig(), 1, conv_backend="flax")
 

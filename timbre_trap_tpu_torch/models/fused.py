@@ -1,8 +1,8 @@
 """Packed-layout forward of the network: inference routes and training.
 
-Counterpart of ``timbre_trap_tpu/models/fused.py``: inference for every
-family (``base``, ``film``, ``mag``, ``magdb``) with and without skip
-connections; training for the base model without skips.
+Counterpart of ``timbre_trap_tpu/models/fused.py`` for every family
+(``base``, ``film``, ``mag``, ``magdb``) with and without skip
+connections, for inference and for training.
 
 Inference without skips: the whole forward (4 encoder levels with convin
 fused into the first, the latent bridge, 4 decoder levels with convout
@@ -25,13 +25,17 @@ the JAX package. The variant's output activation (ReLU for ``mag``,
 sigmoid for ``magdb``) follows the chain in float32 on both routes.
 
 Training (``packed_train_forward``): one differentiable call per level,
-the latent matmuls in plain ``torch.einsum`` between them, as the JAX
-package computes them outside any Pallas kernel. The level backends keep
-JAX's names: ``"pallas"`` and ``"pallas_bf16"`` mean the hand-written CUDA
-kernels here (K1 forward, K3 backward; float32, or bfloat16 storage with
-float32 accumulation); ``"packed"`` is autograd through the plain twin
-``packed_level_apply`` in float32, checkpointed per level as the JAX
-``"packed"`` step rematerializes.
+the latent matmuls and the decoder switch (the indicator row, or FiLM's
+gamma and beta as affine maps of the one-hot condition, differentiable)
+in plain PyTorch between them, as the JAX package computes them outside
+any Pallas kernel; with skips, the 5 encoder level outputs scaled by
+``skip_weights`` and added in float32 after the expansion and after each
+decoder level. The level backends keep JAX's names: ``"pallas"`` and
+``"pallas_bf16"`` mean the hand-written CUDA kernels here (K1 forward, K3
+backward; float32, or bfloat16 storage with float32 accumulation);
+``"packed"`` is autograd through the plain twin ``packed_level_apply`` in
+float32, checkpointed per level as the JAX ``"packed"`` step
+rematerializes.
 """
 
 import torch
@@ -108,23 +112,29 @@ def level_specs(params, net, with_adjoints=False):
     return especs, dspecs
 
 
+def _film(params, transcribe):
+    """FiLM's (gamma, beta) for one branch: affine maps of the one-hot
+    condition ``[transcribe, not transcribe]``, i.e. the kernel row of the
+    hot entry plus the bias (differentiable; exact, no matmul)."""
+    film = params["film_layer"]
+    k = 1 - int(bool(transcribe))       # the condition's hot entry
+    return (film["gamma"]["kernel"][k] + film["gamma"]["bias"],
+            film["beta"]["kernel"][k] + film["beta"]["bias"])
+
+
 def _switch(params, net, transcribe):
     """The decoder switch of one branch as an affine map of the latents,
     folded into the expansion: ``(w_cond, b_cond)`` with
     ``W @ switch(x) + b == w_cond @ x + b_cond``. The indicator row
     v = float(not transcribe) contributes ``v * W[:, -1]`` to the bias;
-    FiLM, ``gamma * x + beta`` with gamma, beta affine in the one-hot
-    condition ``[transcribe, not transcribe]``, gives column scales
+    FiLM, ``gamma * x + beta`` (``_film``), gives column scales
     ``W * gamma`` and bias ``b + W @ beta`` (exact in real math; the
     product is taken in float64 and rounded once)."""
     _, _, w_dec, b_dec = _latent_matmuls(params)
     if net.variant != "film":
         v = float(not transcribe)
         return w_dec[:, :-1], b_dec + v * w_dec[:, -1]
-    film = params["film_layer"]
-    k = 1 - int(bool(transcribe))       # the condition's hot entry
-    gamma = film["gamma"]["kernel"][k] + film["gamma"]["bias"]
-    beta = film["beta"]["kernel"][k] + film["beta"]["bias"]
+    gamma, beta = _film(params, transcribe)
     w_beta = (w_dec.double() @ beta.double()).float()
     return w_dec * gamma[None, :], b_dec + w_beta
 
@@ -137,6 +147,18 @@ def _latent_bridge_spec(params, net, transcribe):
     cb_exp = build_dense_blocks(*_switch(params, net, transcribe))
     return LevelSpec([("conv", cb_lat, False), ("conv", cb_exp, True)],
                      cb_lat.r_in)
+
+
+def _scale_skips(skip_weights, embeddings):
+    """The learnable per-level skip weights times the embeddings, float32
+    (reference ``modules.py:61-66``)."""
+    return [skip_weights[i] * e.to(torch.float32)
+            for i, e in enumerate(embeddings)]
+
+
+def _add_skip(y, skip):
+    """A skip add in float32, back to the chain's dtype."""
+    return (y.to(torch.float32) + skip).to(y.dtype)
 
 
 class SkipRoute:
@@ -164,11 +186,10 @@ class SkipRoute:
                    + self.b_lat[None, :, None])
         y = (torch.einsum("ri,bit->brt", self.w_cond, latents)
              + self.b_cond[None, :, None]).float()
-        y = torch.nn.functional.elu(y).to(dtype)
-        skips = [w * e.float() for w, e in zip(self.skip_weights, embeddings)]
-        y = (y.float() + skips[4]).to(dtype)
+        skips = _scale_skips(self.skip_weights, embeddings)
+        y = _add_skip(torch.nn.functional.elu(y).to(dtype), skips[4])
         for i, spec in enumerate(self.dspecs[:4]):
-            y = (level_apply(y, spec, dtype).float() + skips[3 - i]).to(dtype)
+            y = _add_skip(level_apply(y, spec, dtype), skips[3 - i])
         return level_apply(y, self.dspecs[4], dtype).float()
 
 
@@ -223,38 +244,59 @@ def _apply_level(x, spec, backend):
     return fused_level_train(x, spec, TRAIN_BACKENDS[backend])
 
 
-def _condition_latents(latents, transcribe):
-    """The decoder switch: an indicator row ``float(not transcribe)``."""
+def _condition_latents(params, net, latents, transcribe):
+    """The decoder switch (reference ``modules.py:119-147`` / ``:780-839``):
+    FiLM's ``gamma * x + beta``, or an indicator row
+    ``float(not transcribe)`` below the latents."""
+    if net.variant == "film":
+        gamma, beta = _film(params, transcribe)
+        return latents * gamma[None, :, None] + beta[None, :, None]
     indicator = torch.full_like(latents[:, :1], float(not transcribe))
     return torch.cat([latents, indicator], dim=1)
 
 
-def encode_packed(params, x, specs, backend="pallas_bf16"):
+def encode_packed(params, x, specs, backend="pallas_bf16",
+                  with_embeddings=False):
     """Packed features (B, F*C_in, T) -> latents (B, D, T), float32, through
-    the encoder level ``specs`` (``level_specs(params, ...)[0]``)."""
+    the encoder level ``specs`` (``level_specs(params, ...)[0]``). With
+    ``with_embeddings`` (skip connections: 5 specs, convin on its own)
+    returns ``(latents, embeddings)``, the embeddings being the 5 level
+    outputs at the chain's dtype."""
+    embeddings = []
     for spec in specs:
         x = _apply_level(x, spec, backend)
+        embeddings.append(x)
     w_lat, b_lat, _, _ = _latent_matmuls(params)
-    return (torch.einsum("rl,brt->blt", w_lat, x.to(torch.float32))
-            + b_lat[None, :, None])
+    latents = (torch.einsum("rl,brt->blt", w_lat, x.to(torch.float32))
+               + b_lat[None, :, None])
+    return (latents, embeddings) if with_embeddings else latents
 
 
-def decode_packed(params, latents, transcribe, specs, backend="pallas_bf16"):
+def decode_packed(params, net, latents, transcribe, specs,
+                  backend="pallas_bf16", skips=None):
     """Latents (B, D, T) -> packed coefficients (B, F*C_out, T), float32,
-    through the decoder switch, the dense expansion and the decoder level
-    ``specs`` (``level_specs(params, ...)[1]``)."""
+    through the decoder switch, the dense expansion, the decoder level
+    ``specs`` (``level_specs(params, ...)[1]``) and the variant's output
+    activation. ``skips``: the 5 scaled encoder embeddings
+    (``_scale_skips``), added in float32 after the expansion and after
+    each of the 4 decoder levels, before the standalone convout."""
     _, _, w_dec, b_dec = _latent_matmuls(params)
-    latents = _condition_latents(latents, transcribe)
+    latents = _condition_latents(params, net, latents, transcribe)
     y = torch.einsum("ri,bit->brt", w_dec, latents) + b_dec[None, :, None]
     y = torch.nn.functional.elu(y).to(TRAIN_BACKENDS[backend])
-    for spec in specs:
+    if skips is not None:
+        y = _add_skip(y, skips[4])
+    for i, spec in enumerate(specs):
         y = _apply_level(y, spec, backend)
-    return y.to(torch.float32)
+        if skips is not None and i < 4:
+            y = _add_skip(y, skips[3 - i])
+    return _output_activation(net, y.to(torch.float32))
 
 
 def packed_train_forward(params, net, features, consistency,
                          backend="pallas_bf16"):
-    """Training-mode forward on packed tensors.
+    """Training-mode forward on packed tensors, every family, with or
+    without skip connections.
 
     Returns (reconstruction, latents, transcription, transcription_rec,
     transcription_scr), coefficients PACKED (B, F*C, T) float32 — the
@@ -266,21 +308,24 @@ def packed_train_forward(params, net, features, consistency,
     if backend not in TRAIN_BACKENDS:
         raise ValueError(f"backend must be one of {tuple(TRAIN_BACKENDS)}, "
                          f"not {backend!r}")
-    if net.variant != "base" or net.skip_connections:
-        raise NotImplementedError(
-            "training is ported for the base model without skip "
-            "connections only")
+    skip = net.skip_connections
     especs, dspecs = level_specs(params, net, backend != "packed")
 
-    def decode_pair(latents):
-        return (decode_packed(params, latents, False, dspecs, backend),
-                decode_packed(params, latents, True, dspecs, backend))
+    def encode(x):
+        if not skip:
+            return encode_packed(params, x, especs, backend), None
+        latents, embeddings = encode_packed(params, x, especs, backend, True)
+        return latents, _scale_skips(params["skip_weights"], embeddings)
 
-    latents = encode_packed(params, pack_nhwc(features), especs, backend)
-    reconstruction, transcription = decode_pair(latents)
+    def decode_pair(latents, skips):
+        return tuple(decode_packed(params, net, latents, transcribe, dspecs,
+                                   backend, skips)
+                     for transcribe in (False, True))
+
+    latents, skips = encode(pack_nhwc(features))
+    reconstruction, transcription = decode_pair(latents, skips)
     if consistency:
-        latents_t = encode_packed(params, transcription, especs, backend)
-        trn_rec, trn_scr = decode_pair(latents_t)
+        trn_rec, trn_scr = decode_pair(*encode(transcription))
     else:
         trn_rec, trn_scr = None, None
     return reconstruction, latents, transcription, trn_rec, trn_scr

@@ -3,11 +3,14 @@ reconstruct, and their persistence.
 
 Counterpart of ``timbre_trap_tpu/models/timbre_trap.py`` (``TimbreTrap``,
 ``TimbreTrapFiLM``, ``TimbreTrapMag``, ``TimbreTrapMagDB``, with or without
-skip connections) for the inference paths: ``features_from_audio``,
-``inference``, ``chunked_inference``, ``to_activations``, and the
-streaming ``transcribe`` and ``reconstruct``; and for ``save``, ``load``
-and ``load_model``. Public layouts match the JAX package (coefficients
-``(B, C, F, T)``, activations ``(B, F, T)``, audio ``(B, 1, N)``).
+skip connections): ``features_from_audio``, ``inference``,
+``chunked_inference``, ``to_activations``, the streaming ``transcribe``
+and ``reconstruct``, the differentiable ``encode``,
+``apply_skip_connections``, ``decode`` and ``forward``, and ``save``,
+``load`` and ``load_model``. Public layouts match the JAX package
+(coefficients ``(B, C, F, T)``, activations ``(B, F, T)``, latents
+``(B, D, T)``, audio ``(B, 1, N)``), except the encoder embeddings, which
+are NCHW ``(B, C, F, T)`` here and NHWC in the JAX package.
 
 Precision policy, as in the JAX package: ``transcribe`` runs the conv chain
 with bfloat16 weights and activations, float32 accumulation and float32
@@ -154,6 +157,55 @@ class TimbreTrap:
         return fused_forward(self.net, features, transcribe,
                              dtype=self._dtype(transcribe),
                              spec=self._spec(transcribe))
+
+    # ------------------------------------------------------------------ #
+    # Public API (reference layouts), differentiable                     #
+    # ------------------------------------------------------------------ #
+
+    def encode(self, audio):
+        """Audio (B, 1, N) -> (latents (B, D, T), the 5 encoder embeddings,
+        losses ``{}``), through the NCHW network with autograd (the
+        features carry no gradient, as in the reference). The embeddings
+        are NCHW ``(B, C, F, T)``; the JAX package returns them NHWC."""
+        features = self.features_from_audio(audio).movedim(-1, 1)
+        latents, embeddings = self.net.encode(features)
+        return latents, embeddings, {}
+
+    def apply_skip_connections(self, embeddings):
+        """The embeddings scaled by ``skip_weights``, or None without skip
+        connections."""
+        return self.net.apply_skip_connections(embeddings)
+
+    def decode(self, latents, embeddings=None, transcribe=False):
+        """Latents (B, D, T) -> coefficients (B, C, F, T), with the scaled
+        NCHW embeddings of ``apply_skip_connections`` under skip
+        connections."""
+        latents = torch.as_tensor(latents).to(self.device)
+        return self.net.decode(latents, embeddings, bool(transcribe))
+
+    def forward(self, audio, consistency=False):
+        """Training-mode forward (reference ``modules.py:338-393``) through
+        the NCHW network with autograd.
+
+        Returns (reconstruction, latents, transcription, transcription_rec,
+        transcription_scr, losses): coefficients (B, C, F, T), latents
+        (B, D, T); the last two coefficients are None without
+        ``consistency``.
+        """
+        latents, embeddings, losses = self.encode(audio)
+        embeddings = self.apply_skip_connections(embeddings)
+        reconstruction = self.decode(latents, embeddings)
+        transcription = self.decode(latents, embeddings, True)
+        trn_rec = trn_scr = None
+        if consistency:
+            latents_t, embeddings_t = self.net.encode(transcription)
+            embeddings_t = self.apply_skip_connections(embeddings_t)
+            trn_rec = self.decode(latents_t, embeddings_t)
+            trn_scr = self.decode(latents_t, embeddings_t, True)
+        return (reconstruction, latents, transcription, trn_rec, trn_scr,
+                losses)
+
+    __call__ = forward
 
     @torch.no_grad()
     def inference(self, audio, transcribe=False):

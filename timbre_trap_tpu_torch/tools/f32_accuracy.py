@@ -15,7 +15,11 @@ split-TF32 tensor-core products) and the IEEE plain version
    of the same net (with adjoints), at (2, ., 1001): dX (``banded_conv_dx``
    on the adjoint blocks, N(0, 1) cotangent) and dW, dBias
    (``banded_conv_dw``, 0.3 * N(0, 1) input, N(0, 1) cotangent), the
-   split-TF32 kernels beside their IEEE plain versions.
+   split-TF32 kernels beside their IEEE plain versions;
+4. the same for the four stages the families add to training, from
+   flagship nets with skip connections (seed 0): the skip route's
+   standalone convin 2 -> 4 and convout 4 -> 2, and the one-channel convin
+   1 -> 4 and convout 4 -> 1 of Mag and MagDB.
 
 Errors are max abs error / max|float64 result|. Prints one line per chain,
 one for the backward's worst ratios, and one JSON line with every number
@@ -30,7 +34,7 @@ import sys
 import torch
 
 from ..interop import hwio_params
-from ..models import TimbreTrap
+from ..models import TimbreTrap, TimbreTrapMag
 from ..models.fused import level_specs
 from ..ops.fused_level import (_apply_chain, _elu, banded_conv,
                                banded_conv_dw, banded_conv_dw_reference,
@@ -104,6 +108,20 @@ def _backward_convs(specs, t, gen):
     return out
 
 
+def variant_stage_specs(device=None):
+    """{name: one-conv training spec} of the stages the families add: the
+    first encoder and last decoder spec of flagship base and Mag nets with
+    skip connections (seed 0), built with adjoints."""
+    out = {}
+    for cls, tag in ((TimbreTrap, ""), (TimbreTrapMag, "-mag")):
+        net = cls(22050, 9, 60, 3, latent_size=128, model_complexity=2,
+                  skip_connections=True, seed=0, device=device).net
+        with torch.no_grad():
+            especs, dspecs = level_specs(hwio_params(net), net, True)
+        out[f"convin{tag}"], out[f"convout{tag}"] = especs[0], dspecs[-1]
+    return out
+
+
 def _worst_ratio(convs, what):
     return max(e[what]["kernel"] / max(e[what]["ieee"], 1e-30)
                for e in convs)
@@ -134,6 +152,9 @@ def main():
                 for k, f in _ROUTES.items()}
         especs, dspecs = level_specs(hwio_params(model.net), model.net, True)
         convs = _backward_convs(especs + dspecs, 1001, g)
+        stage_specs = variant_stage_specs()
+        stages = dict(zip(stage_specs, _backward_convs(
+            list(stage_specs.values()), 1001, g)))
     ratio = max(e["kernel"] / e["ieee"] for v in items.values() for e in v)
     for shape, e in chains.items():
         print(f"chain {shape} vs float64: kernel {e['kernel']:.3e}, IEEE "
@@ -145,13 +166,20 @@ def main():
           + " the IEEE error; largest kernel errors "
           + ", ".join(f"{w} {max(e[w]['kernel'] for e in convs):.3e}"
                       for w in worst))
+    worst_stages = {w: _worst_ratio(stages.values(), w)
+                    for w in ("dx", "dw", "dbias")}
+    print("the families' stages (" + ", ".join(stages) + "): kernel at most "
+          + ", ".join(f"{v:.2f}x ({w})" for w, v in worst_stages.items())
+          + " the IEEE error")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(json.dumps({"card": card, "chains": chains,
                       "worst_item_ratio": ratio, "items": items,
                       "backward_worst_ratio": worst,
-                      "backward_convs": convs}))
+                      "backward_convs": convs,
+                      "variant_stages_worst_ratio": worst_stages,
+                      "variant_stages": stages}))
     return 0
 
 

@@ -1,10 +1,13 @@
 """Where a training step's time goes on the card.
 
     python -m timbre_trap_tpu_torch.tools.profile_train_step [--steps N]
-        [--backend pallas_bf16|pallas] [--trace PATH]
+        [--backend pallas_bf16|pallas] [--variant base|film|mag|magdb]
+        [--skip] [--trace PATH]
 
-Builds the flagship base model (22.05 kHz, 9 x 60 bins, 3-s blocks, latent
-128, complexity 2, random weights of seed 1) and the recipe batch that
+Builds a flagship model of the family ``--variant`` (default the base
+model; ``--skip`` adds skip connections; 22.05 kHz, 9 x 60 bins, 3-s
+blocks, latent 128, complexity 2, random weights of seed 1) and the recipe
+batch that
 ``chip_smoke.py`` trains on (``train.synthetic_batch``: 8 chord-and-noise
 9-s crops as compact int16, sparse uint8 ground truth, seed 0), runs two
 warm-up steps of ``--backend`` (default ``"pallas_bf16"``, the recipe's
@@ -18,13 +21,15 @@ mixed precision; ``"pallas"`` is the float32 step), then:
    intervals over the profiled wall time) and launches per step; and the
    bytes the K3 ELU' seed moves in a step (its inputs read once, its
    outputs written once) over the card's 3.35 TB/s, its bound;
-3. the inference chain (the 60-stage bf16 forward of ``transcribe`` on a
-   (4, 1080, 1024) chunk group of seeded features): wall time per chain
-   (host clock, synchronized) beside its device time by kernel group, so
-   that host-bound launching shows as a busy share below 1;
-4. the chain's stages one by one, in bfloat16 and in float32 (CUDA
-   events, each stage on the input the chain gives it): device time, band
-   GFLOP and bytes in and out, summed by conv kind.
+3. the inference forward (the bf16 forward of ``transcribe``: the
+   60-stage chain, or the skip route's 58 stages, on a 4-chunk group of
+   seeded features, 1024 frames): wall time per forward (host clock,
+   synchronized) beside its device time by kernel group, so that
+   host-bound launching shows as a busy share below 1;
+4. the forward's stages one by one, in bfloat16 and in float32 (CUDA
+   events, each stage on the input its chain gives it; the skip route's
+   levels chained without the bridge and the skip adds): device time,
+   band GFLOP and bytes in and out, summed by conv kind.
 
 Prints one JSON line with both and the card's name and power limit. Needs
 a CUDA device; exits non-zero without one.
@@ -39,6 +44,7 @@ import time
 import torch
 
 BACKENDS = ("pallas_bf16", "pallas")
+VARIANTS = ("base", "film", "mag", "magdb")
 # HBM rate of an H100 SXM (NVIDIA data sheet, 700 W).
 PEAK_BYTES = 3.35e12
 # (group, substring of the kernel's name), first match wins; the port's
@@ -71,17 +77,23 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--backend", choices=BACKENDS, default=BACKENDS[0])
+    ap.add_argument("--variant", choices=VARIANTS, default=VARIANTS[0])
+    ap.add_argument("--skip", action="store_true",
+                    help="skip connections")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train_step: no CUDA device", file=sys.stderr)
         return 1
-    from ..models import TimbreTrap
+    from .. import models
     from ..train import (TrainConfig, init_train_state, make_train_step,
                          synthetic_batch)
 
-    model = TimbreTrap(22050, 9, 60, 3, latent_size=128, model_complexity=2,
-                       seed=1)
+    family = {"base": models.TimbreTrap, "film": models.TimbreTrapFiLM,
+              "mag": models.TimbreTrapMag,
+              "magdb": models.TimbreTrapMagDB}[args.variant]
+    model = family(22050, 9, 60, 3, latent_size=128, model_complexity=2,
+                   skip_connections=args.skip, seed=1)
     audio, gt = synthetic_batch(model, 8, 9.0)
     cfg = TrainConfig()
     state = init_train_state(model, cfg)
@@ -128,7 +140,8 @@ def main(argv=None):
                           text=True, timeout=60).stdout.strip()
     n = args.steps
     print(json.dumps({
-        "card": card, "backend": args.backend, "steps": n,
+        "card": card, "backend": args.backend, "variant": args.variant,
+        "skip_connections": args.skip, "steps": n,
         "phase_ms": phases,
         "step_wall_ms_profiled": wall_ms / n,
         "device_busy_share": busy / wall_ms if groups else None,
@@ -185,22 +198,32 @@ def _device_time(prof):
     return busy / 1e3, groups, launches
 
 
+def _features(model):
+    """Seeded features of a 4-chunk group, (4, F, 1024, C_in) NHWC."""
+    net = model.net
+    g = torch.Generator(device="cuda").manual_seed(3)
+    return 0.3 * torch.randn((4, net.feature_size, 1024, net.in_channels),
+                             generator=g, device="cuda")
+
+
 def _profile_chain(model, reps):
-    """Wall and device time per bf16 inference chain at (4, 1080, 1024)."""
-    from ..ops.fused_level import fused_level_apply
+    """Wall and device time per bf16 inference forward on ``_features``."""
+    from ..models.fused import fused_forward
 
     spec = model._spec(True)
-    g = torch.Generator(device="cuda").manual_seed(3)
-    x = (0.3 * torch.randn((4, spec.r_in, 1024), generator=g, device="cuda")
-         ).to(torch.bfloat16)
+    x = _features(model)
+
+    def forward():
+        fused_forward(model.net, x, True, torch.bfloat16, spec)
+
     for _ in range(2):
-        fused_level_apply(x, spec, torch.bfloat16)
+        forward()
 
     def run():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
-            fused_level_apply(x, spec, torch.bfloat16)
+            forward()
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
@@ -210,7 +233,7 @@ def _profile_chain(model, reps):
     with torch.profiler.profile(activities=acts) as prof:
         prof_ms = run()
     busy, groups, launches = _device_time(prof)
-    return {"shape": [4, spec.r_in, 1024], "wall_ms": wall_ms / reps,
+    return {"shape": list(x.shape), "wall_ms": wall_ms / reps,
             "wall_ms_profiled": prof_ms / reps,
             "device_busy_share_profiled": busy / prof_ms,
             "kernel_ms": {k: v / reps for k, v in sorted(groups.items())},
@@ -226,15 +249,16 @@ def _conv_kind(cb):
 
 
 def _stage_times(model, reps):
-    """Each conv stage of the (4, 1080, 1024) inference chain timed alone
+    """Each conv stage of the inference forward on ``_features`` timed alone
     (CUDA events, mean of ``reps`` launches on the input the chain gives
     it), in bfloat16 and float32: {dtype: {kind: {stages, ms, band GFLOP,
     GB in and out}}}, ms and GB summed over the kind's stages."""
     from ..ops.fused_level import _apply_chain, band_flops, banded_conv
+    from ..ops.packed_conv import pack_nhwc
 
     spec = model._spec(True)
-    g = torch.Generator(device="cuda").manual_seed(3)
-    x = 0.3 * torch.randn((4, spec.r_in, 1024), generator=g, device="cuda")
+    specs = spec.especs + spec.dspecs if hasattr(spec, "especs") else [spec]
+    x = pack_nhwc(_features(model))
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         kinds = out.setdefault(str(dtype).replace("torch.", ""), {})
@@ -259,7 +283,9 @@ def _stage_times(model, reps):
             return y
 
         with torch.no_grad():
-            _apply_chain(x, spec, dtype, stage)
+            cur = x
+            for s in specs:
+                cur = _apply_chain(cur, s, dtype, stage)
     return out
 
 

@@ -1,4 +1,5 @@
-"""The training step: loss composition, AdamW, grad telemetry.
+"""The training step: loss composition, AdamW, gradient accumulation,
+grad telemetry.
 
 Counterpart of ``timbre_trap_tpu/train/step.py`` for the packed backends.
 Loss composition mirrors the reference trainer (``experiments/train.py:
@@ -10,10 +11,13 @@ In PyTorch's idiom the parameters live in ``model.net``: the step computes
 the gradients by autograd (``p.grad`` holds them after the step), updates
 the parameters in place, and returns the metrics dict under the JAX
 package's keys. The optimizer state is a dict that the step updates in
-place. Not ported yet: ``grad_accum_steps > 1`` (``optax.MultiSteps``) and
-``shard_train_step`` (multi-GPU).
+place; with ``grad_accum_steps > 1`` it also holds the gradient
+accumulator (``MultiSteps``, the port of ``optax.MultiSteps``). Every
+family, with or without skip connections, trains on every backend. Not
+ported yet: ``shard_train_step`` (multi-GPU).
 """
 
+import copy
 from dataclasses import dataclass
 
 import numpy as np
@@ -22,10 +26,12 @@ import torch
 from ..interop import hwio_params
 from ..models.fused import TRAIN_BACKENDS, packed_to_nchw, packed_train_forward
 from ..objectives import compute_transcription_loss
-from ..ops.packed_conv import pack_nhwc
+from ..ops.packed_conv import pack_nchw, pack_nhwc
 
-__all__ = ["TrainConfig", "TRAIN_AUDIO_SCALE", "AdamW", "make_optimizer",
+__all__ = ["TrainConfig", "TRAIN_AUDIO_SCALE", "AdamW", "MultiSteps",
+           "make_optimizer",
            "make_loss_fn", "make_train_step", "init_train_state",
+           "step_gradients_reference",
            "grad_norm_telemetry", "compact_audio", "compact_ground_truth"]
 
 # int16 grid for compact trainer audio uploads: range +-8 covers the summed
@@ -106,12 +112,49 @@ class AdamW:
             p.add_(u * float(lr))
 
 
+class MultiSteps:
+    """``optax.MultiSteps`` over an inner optimizer (``AdamW``), with its
+    default running mean: each call folds the gradients into the
+    accumulator, ``acc + (g - acc) / (mini_step + 1)``; calls 1 .. k-1
+    leave the parameters and the inner state as they are (a zero update);
+    call k applies the inner optimizer once to the mean (its count
+    advances once every k calls) and resets the accumulator. The state is
+    the inner optimizer's dict plus ``mini_step`` and ``acc`` (a
+    {name: tensor} dict)."""
+
+    def __init__(self, inner, every_k):
+        self.inner = inner
+        self.every_k = int(every_k)
+
+    def init(self, params):
+        state = self.inner.init(params)
+        state["mini_step"] = 0
+        state["acc"] = {n: torch.zeros_like(p) for n, p in params.items()}
+        return state
+
+    @torch.no_grad()
+    def update(self, params, grads, state, lr):
+        """Fold ``grads`` in; on the k-th call, update ``params`` in place."""
+        n = state["mini_step"]
+        for name, g in grads.items():
+            acc = state["acc"][name]
+            acc.copy_(acc + (g - acc) / (n + 1))
+        if n + 1 < self.every_k:
+            state["mini_step"] = n + 1
+            return
+        self.inner.update(params, state["acc"], state, lr)
+        for acc in state["acc"].values():
+            acc.zero_()
+        state["mini_step"] = 0
+
+
 def make_optimizer(config: TrainConfig):
-    """The optimizer of a run; ``grad_accum_steps > 1`` is not ported."""
+    """The optimizer of a run: ``AdamW``, under ``MultiSteps`` when
+    ``grad_accum_steps > 1``."""
+    tx = AdamW(config.grad_clip, config.weight_decay)
     if config.grad_accum_steps > 1:
-        raise NotImplementedError(
-            "grad_accum_steps > 1 (optax.MultiSteps) is not ported yet")
-    return AdamW(config.grad_clip, config.weight_decay)
+        tx = MultiSteps(tx, config.grad_accum_steps)
+    return tx
 
 
 def init_train_state(model, config: TrainConfig):
@@ -138,6 +181,38 @@ def _recon_loss_packed(reconstructed, target):
     return torch.mean(torch.sum(torch.square(reconstructed - target), dim=-2))
 
 
+def _compose_losses(model, config, mpe_batch_size, outputs, target,
+                    ground_truth):
+    """The reference trainer's loss composition on the packed outputs
+    ``(reconstruction, transcription, transcription_rec,
+    transcription_scr)`` (the last two None without consistency) against
+    the packed features ``target``: ``(total, metrics)``."""
+    net = model.net
+    rec, trn, trn_rec, trn_scr = outputs
+    consistency = trn_rec is not None
+    activations = model.to_activations(
+        packed_to_nchw(trn, net.feature_size, net.in_channels))
+    loss_rec = _recon_loss_packed(rec, target)
+    loss_trn = compute_transcription_loss(activations[:mpe_batch_size],
+                                          ground_truth,
+                                          config.weight_positive_class)
+    metrics = {"loss/reconstruction": loss_rec,
+               "loss/transcription": loss_trn}
+    total = config.multiplier_reconstruction * loss_rec
+    if consistency:
+        target_c = trn[:mpe_batch_size]
+        loss_sp = _recon_loss_packed(trn_rec[:mpe_batch_size], target_c)
+        loss_sc = _recon_loss_packed(trn_scr[:mpe_batch_size], target_c)
+        metrics["loss/consistency/spectral"] = loss_sp
+        metrics["loss/consistency/score"] = loss_sc
+    if config.transcription_active:
+        total = total + config.multiplier_transcription * loss_trn
+        if consistency:
+            total = total + config.multiplier_consistency * (loss_sp + loss_sc)
+    metrics["loss/total"] = total
+    return total, metrics
+
+
 def make_loss_fn(model, config: TrainConfig, mpe_batch_size: int,
                  conv_backend="pallas_bf16"):
     """``loss_fn(features, ground_truth) -> (total, metrics)`` over the
@@ -152,37 +227,67 @@ def make_loss_fn(model, config: TrainConfig, mpe_batch_size: int,
     def loss_fn(features, ground_truth):
         rec, _, trn, trn_rec, trn_scr = packed_train_forward(
             hwio_params(net), net, features, consistency, conv_backend)
-        target = pack_nhwc(features)
-        activations = model.to_activations(
-            packed_to_nchw(trn, net.feature_size, net.in_channels))
-        loss_rec = _recon_loss_packed(rec, target)
-        loss_trn = compute_transcription_loss(activations[:mpe_batch_size],
-                                              ground_truth,
-                                              config.weight_positive_class)
-        metrics = {"loss/reconstruction": loss_rec,
-                   "loss/transcription": loss_trn}
-        total = config.multiplier_reconstruction * loss_rec
-        if consistency:
-            target_c = trn[:mpe_batch_size]
-            loss_sp = _recon_loss_packed(trn_rec[:mpe_batch_size], target_c)
-            loss_sc = _recon_loss_packed(trn_scr[:mpe_batch_size], target_c)
-            metrics["loss/consistency/spectral"] = loss_sp
-            metrics["loss/consistency/score"] = loss_sc
-        if config.transcription_active:
-            total = total + config.multiplier_transcription * loss_trn
-            if consistency:
-                total = total + config.multiplier_consistency * (loss_sp
-                                                                 + loss_sc)
-        metrics["loss/total"] = total
-        return total, metrics
+        return _compose_losses(model, config, mpe_batch_size,
+                               (rec, trn, trn_rec, trn_scr),
+                               pack_nhwc(features), ground_truth)
 
     return loss_fn
+
+
+def _upload_batch(model, audio, ground_truth, compact_audio_grid):
+    """A batch on the model's device: features of the float32 audio and
+    float32 ground truth (int16 audio on the compact grid or PCM16, uint8
+    ground truth /255)."""
+    audio = torch.as_tensor(audio).to(model.device)
+    if compact_audio_grid and audio.dtype == torch.int16:
+        audio = audio.to(torch.float32) * (1.0 / TRAIN_AUDIO_SCALE)
+    features = model.features_from_audio(audio)
+    ground_truth = torch.as_tensor(ground_truth).to(model.device)
+    if ground_truth.dtype == torch.uint8:
+        ground_truth = ground_truth.to(torch.float32) * (1.0 / 255.0)
+    return features, ground_truth
+
+
+def step_gradients_reference(model, config: TrainConfig, mpe_batch_size,
+                             audio, ground_truth, dtype=torch.float64,
+                             compact_audio_grid=False):
+    """The gradients of one step's loss (the same batch, objectives and
+    composition as ``make_train_step``) through a copy of the plain NCHW
+    network at ``dtype`` (float64 by default), on the model's device: a
+    yardstick for how far the float32 routes' gradients lie from exact
+    arithmetic. Returns {parameter name: gradient}; ``model`` is left as
+    it is."""
+    net = copy.deepcopy(model.net).to(dtype)
+    features, ground_truth = _upload_batch(model, audio, ground_truth,
+                                           compact_audio_grid)
+    x = features.to(dtype).movedim(-1, 1)
+
+    def encode(v):
+        latents, embeddings = net.encode(v)
+        return latents, net.apply_skip_connections(embeddings)
+
+    def decode_pair(latents, skips):
+        return [net.decode(latents, skips, t) for t in (False, True)]
+
+    rec, trn = decode_pair(*encode(x))
+    trn_rec = trn_scr = None
+    if config.multiplier_consistency:
+        trn_rec, trn_scr = decode_pair(*encode(trn))
+    outputs = tuple(None if o is None else pack_nchw(o)
+                    for o in (rec, trn, trn_rec, trn_scr))
+    total, _ = _compose_losses(model, config, mpe_batch_size, outputs,
+                               pack_nchw(x), ground_truth.to(dtype))
+    names = [n for n, _ in net.named_parameters()]
+    grads = torch.autograd.grad(total, list(net.parameters()))
+    return dict(zip(names, grads))
 
 
 def make_train_step(model, config: TrainConfig, mpe_batch_size: int,
                     conv_backend="pallas_bf16", compact_audio_grid=False):
     """Build the train step for a ``TimbreTrap`` of this package.
 
+    Every family (``TimbreTrap``, ``TimbreTrapFiLM``, ``TimbreTrapMag``,
+    ``TimbreTrapMagDB``), with or without skip connections.
     ``step(opt_state, audio, ground_truth, lr) -> metrics``: ``audio`` is
     (B, 1, N) with the first ``mpe_batch_size`` samples annotated,
     ``ground_truth`` (mpe_batch_size, F, T_frames); both may be numpy
@@ -211,16 +316,10 @@ def make_train_step(model, config: TrainConfig, mpe_batch_size: int,
     params = dict(model.net.named_parameters())
 
     def upload(audio, ground_truth):
-        audio = torch.as_tensor(audio).to(model.device)
-        if compact_audio_grid and audio.dtype == torch.int16:
-            audio = audio.to(torch.float32) * (1.0 / TRAIN_AUDIO_SCALE)
-        features = model.features_from_audio(audio)
-        ground_truth = torch.as_tensor(ground_truth).to(model.device)
-        if ground_truth.dtype == torch.uint8:
-            ground_truth = ground_truth.to(torch.float32) * (1.0 / 255.0)
+        batch = _upload_batch(model, audio, ground_truth, compact_audio_grid)
         for p in params.values():
             p.grad = None
-        return features, ground_truth
+        return batch
 
     def update(opt_state, metrics, lr):
         grads = {n: p.grad for n, p in params.items()}
