@@ -97,6 +97,27 @@ Phases, each of which exits non-zero on failure:
              (entries whose gradient sits at float32's noise floor within
              2 lr); a bf16 run saved after step 1 and loaded into a fresh
              model takes step 2 bit for bit as the run that went on.
+             The Trainer (3f), fed by the data package: a synthetic
+             corpus on disk (8 x 12-s chord tracks to train, 2 x 20-s to
+             validate, a .wav and an annotated .f0.npy each), the CLI's
+             split (an MPE loader of 4 shuffled 9-s crops and an
+             audio-only loader of 4), ``"pallas_bf16"``, a checkpoint and
+             a validation sweep through ``evaluate`` every 2 steps, 4
+             steps: K1 and K3 launched by the steps (bf16 only), K2
+             exactly once a validation track a sweep (4), every logged
+             metric finite, ``mpe/f1-score``, ``reconstruction/SDR`` and
+             ``loss/total`` in ``metrics.json``, the checkpoints and
+             ``hparams.json`` written, ``load_model`` of the last
+             checkpoint bit for bit; a fresh Trainer restored from the
+             first checkpoint runs to the same parameters, Adam moments
+             and trainer state bit for bit; with cuDNN's TF32 default on,
+             ``evaluate`` of a small model on the card against the CPU
+             (losses within 1e-4 relative, SDR within 1e-3 dB, ``mpe/*``
+             equal, or where masks part, the card's activations within
+             3x the CPU's distance from float64) and one ``"flax"`` step
+             (losses within 1e-5, gradients within 1e-4 * each leaf's
+             max|g| or the float64 yardstick), both leaving the flag as
+             it was.
              K1 and K3's dX and dW are, in both dtypes, the band-tiled
              tensor-core kernels of ``csrc/band_mma.cu``: phase 2 also
              holds them, on one conv of each kind at flagship widths (3x3
@@ -118,7 +139,10 @@ Phases, each of which exits non-zero on failure:
              call) with the reconstruction chain's forward time and the
              synthesis time of the clip, the base + skips model's
              ``transcribe_rtf`` and ``reconstruct_rtf`` (first and second
-             call) and its route's forward time, K1 alone on each variant
+             call) and its route's forward time, ``trainer_step_ms``
+             (``run()``'s wall less its checkpoints and sweeps, a step)
+             beside the bare step's, ``evaluate_s`` a sweep and the
+             validation RTF, K1 alone on each variant
              stage and K3's dX and dW alone on each at the recipe's
              (8, R, 3072) in both dtypes, each family's bf16 step time,
              peak memory and K1 / K3 launches a step, and the train step's
@@ -136,6 +160,7 @@ its last line ``{"ok": true, "device": {...}}``.
 import contextlib
 import copy
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -633,9 +658,10 @@ def grad_l2_rel(got, want):
     return (num / den) ** 0.5
 
 
-def check_kernel_step(label, got, want, ref64=None):
+def check_kernel_step(label, got, want, ref64=None, pair="pallas vs packed"):
     """Holds one float32 ``"pallas"`` step's (metrics, gradients) against
-    the float32 ``"packed"`` step's: every loss within 1e-5 relative, every
+    the float32 ``"packed"`` step's (or, as ``pair`` names them, another
+    float32 step's against its yardstick's): every loss within 1e-5 relative, every
     leaf's gradient within 1e-4 * its max|g|, or, given ``ref64`` (a
     callable returning the step's float64 gradients) and where leaves'
     two float32 gradients part by more, the kernel step's largest distance
@@ -648,7 +674,7 @@ def check_kernel_step(label, got, want, ref64=None):
                    if k.startswith("loss/"))
     grad_rel, leaf = worst_leaf(gp, gk)
     out = {"loss_rel": loss_rel, "grad_rel": grad_rel}
-    check(loss_rel <= 1e-5, f"{label} pallas step losses off by {loss_rel}")
+    check(loss_rel <= 1e-5, f"{label} {pair} losses off by {loss_rel}")
     over = [n for n, g in gk.items()
             if (gp[n] - g).abs().max().item() > 1e-4 * g.abs().max().item()]
     if over and ref64 is not None:
@@ -662,23 +688,23 @@ def check_kernel_step(label, got, want, ref64=None):
         d_twin = max((dist(gk, n), n) for n in over)
         ratios = sorted(dist(gp, n) / max(dist(gk, n), 1e-300) for n in over)
         ratio = d_kernel[0] / max(d_twin[0], 1e-300)
-        print(f"main: {label} pallas vs packed, {len(over)} leaves over "
+        print(f"main: {label} {pair}, {len(over)} leaves over "
               f"1e-4 x max|g| (worst {leaf} {grad_rel:.2e}); from float64 "
               f"over those leaves the kernel step at most {d_kernel[0]:.2e} "
               f"({d_kernel[1]}), the twin {d_twin[0]:.2e} ({d_twin[1]}): "
               f"{ratio:.2f}x; leaf by leaf the kernel's distance is "
               f"{ratios[len(ratios) // 2]:.2f}x the twin's at the median, "
               f"{ratios[-1]:.2f}x at most")
-        check(ratio <= 3.0, f"{label} pallas step gradients {ratio}x as "
-              f"far from float64 as the twin's")
+        check(ratio <= 3.0, f"{label} {pair}: gradients {ratio}x as "
+              f"far from float64 as the yardstick's")
         out.update(leaves_over=len(over), f64_kernel=d_kernel[0],
                    f64_twin=d_twin[0], f64_ratio=ratio,
                    f64_leaf_ratio_median=ratios[len(ratios) // 2],
                    f64_leaf_ratio_max=ratios[-1])
     else:
-        check(not over, f"{label} pallas step gradient of {leaf} off by "
+        check(not over, f"{label} {pair}: gradient of {leaf} off by "
               f"{grad_rel} * its max|g|")
-    print(f"main: {label} pallas vs packed, losses rel {loss_rel:.2e}, "
+    print(f"main: {label} {pair}, losses rel {loss_rel:.2e}, "
           f"gradients rel {grad_rel:.2e} (worst {leaf})")
     return out
 
@@ -1703,6 +1729,435 @@ def variant_stages(torch):
     return out
 
 
+# The Trainer phase (3f): a synthetic corpus in the layout of
+# tests/test_loop.py's ToyMPE (a .wav and a .f0.npy per track).
+TRAINER_TRACKS, TRAINER_TRACK_SECS = 8, 12.0
+VAL_TRACKS, VAL_SECS = 2, 20.0
+TRAINER_STEPS, TRAINER_SWEEPS = 4, 2
+
+
+def write_corpus(root, n_tracks, secs, sr, seed):
+    """``n_tracks`` chord-and-noise tracks (``train.synthetic.chord_tracks``)
+    as 16-bit WAVs under ``root``, each with its three partials annotated on
+    a 10-ms grid."""
+    from timbre_trap_tpu_torch.data.io import save_wav
+    from timbre_trap_tpu_torch.train.synthetic import chord_tracks
+
+    os.makedirs(root)
+    audio, freqs = chord_tracks(n_tracks, secs, sr, seed)
+    times = np.arange(0, secs, 0.01)
+    for i in range(n_tracks):
+        save_wav(f"{root}/tr{i}.wav", audio[i], sr)
+        np.save(f"{root}/tr{i}.f0.npy",
+                {"times": times, "pitches": [freqs[i]] * len(times)})
+    return root
+
+
+def corpus_classes():
+    """(SmokeAudio, SmokeMPE): the corpus as an audio-only and an MPE
+    dataset of the port's data package."""
+    from timbre_trap_tpu_torch.data import AudioDataset, MPEDataset
+
+    class SmokeAudio(AudioDataset):
+        @staticmethod
+        def available_splits():
+            return ["all"]
+
+        def get_tracks(self, split):
+            return sorted(f[:-4] for f in os.listdir(self.base_dir)
+                          if f.endswith(".wav"))
+
+        def get_audio_path(self, track):
+            return os.path.join(self.base_dir, f"{track}.wav")
+
+    class SmokeMPE(MPEDataset, SmokeAudio):
+        def get_tracks(self, split):
+            return SmokeAudio.get_tracks(self, split)
+
+        def get_audio_path(self, track):
+            return SmokeAudio.get_audio_path(self, track)
+
+        def get_ground_truth(self, track):
+            d = np.load(os.path.join(self.base_dir, f"{track}.f0.npy"),
+                        allow_pickle=True).item()
+            return d["times"], [np.asarray(p) for p in d["pitches"]]
+
+        def get_ground_truth_path(self, track):
+            return os.path.join(self.base_dir, f"{track}.f0.npy")
+
+    return SmokeAudio, SmokeMPE
+
+
+class Recorder:
+    """A writer that keeps what the Trainer and evaluate log."""
+
+    def __init__(self):
+        self.scalars = []
+
+    def add_scalar(self, key, value, i):
+        self.scalars.append((key, float(value), i))
+
+    def add_image(self, key, image, i):
+        pass
+
+
+def make_trainer(root, train_dir, val_dir, seed, rng_states=None):
+    """The CLI's Trainer at the flagship geometry: an MPE loader of 4
+    shuffled 9-s crops and an audio-only loader of 4 over the same WAVs
+    (batch 8), ``"pallas_bf16"``, a checkpoint and a validation sweep
+    every 2 steps, 2 epochs of 2 steps. ``rng_states`` (the datasets'
+    crop RandomStates) sets where the crops' draws start."""
+    from timbre_trap_tpu_torch.data import DataLoader
+    from timbre_trap_tpu_torch.models import TimbreTrap
+    from timbre_trap_tpu_torch.train import Trainer, TrainerConfig
+
+    SmokeAudio, SmokeMPE = corpus_classes()
+    model = flagship(TimbreTrap, seed=seed)
+    kw = dict(splits=["all"], sample_rate=SR, n_secs=TRAIN_SECS)
+    mpe = SmokeMPE(base_dir=train_dir, cqt=model.sliCQ, seed=0, **kw)
+    audio = SmokeAudio(base_dir=train_dir, seed=1, **kw)
+    if rng_states is not None:
+        for ds, st in zip((mpe, audio), rng_states):
+            ds.rng.set_state(st)
+    val = SmokeMPE(base_dir=val_dir, splits=["all"], sample_rate=SR,
+                   cqt=model.sliCQ, n_secs=None)
+    config = TrainerConfig(max_epochs=2, checkpoint_interval=2, batch_size=8,
+                           n_secs=TRAIN_SECS, learning_rate=TRAIN_LR,
+                           n_epochs_warmup=1,
+                           validation_criteria_set="SmokeMPE",
+                           conv_backend="pallas_bf16", root_dir=root)
+    trainer = Trainer(model, DataLoader(mpe, 4, shuffle=True, drop_last=True,
+                                        seed=2),
+                      DataLoader(audio, 4, shuffle=True, drop_last=True,
+                                 seed=3),
+                      [val], config, writer=Recorder())
+    return trainer, (mpe, audio)
+
+
+def timed_sweeps(torch, trainer, datasets):
+    """Wrap the trainer's checkpoint-and-validate and validate calls and
+    its steps to record their walls (synchronized), the prefetch thread's
+    time to load and compose each batch, and the datasets' crop
+    RandomStates at each checkpoint."""
+    walls = {"checkpoint": [], "evaluate": [], "step": [], "compose": []}
+    rng_states = {}
+
+    def timed(key, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            walls[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    inner = trainer._checkpoint_and_validate
+
+    def checkpoint(*args):
+        rng_states[trainer.batch_count] = [ds.rng.get_state()
+                                           for ds in datasets]
+        return inner(*args)
+
+    trainer._checkpoint_and_validate = timed("checkpoint", checkpoint)
+    trainer._validate_and_track = timed("evaluate",
+                                        trainer._validate_and_track)
+    get_step = trainer._get_step
+    trainer._get_step = lambda key: timed("step", get_step(key))
+    epoch_batches = trainer._epoch_batches
+
+    def composed(*args):
+        batches = epoch_batches(*args)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                return
+            walls["compose"].append(time.perf_counter() - t0)
+            yield batch
+
+    trainer._epoch_batches = composed
+    return walls, rng_states
+
+
+def profile_evaluate(torch, model, eval_set):
+    """Host seconds of one ``evaluate`` call under ``cProfile``, total and
+    in its parts (cumulative; the forward's device time lands in the first
+    call that waits for it, the mask's ``float``)."""
+    import cProfile
+    import pstats
+
+    from timbre_trap_tpu_torch.eval import evaluate
+
+    parts = {"__getitem__": "dataset items", "forward": "forward",
+             "features_from_audio": "features",
+             "masked_peak_estimates": "peak mask",
+             "activations_to_multi_pitch": "mask to pitches",
+             "evaluate": "evaluate", "signal_distortion_ratio": "SDR",
+             "decode": "synthesis"}
+    prof = cProfile.Profile()
+    prof.enable()
+    evaluate(model, eval_set, {"reconstruction": 1, "transcription": 1,
+                               "consistency": 1})
+    torch.cuda.synchronize()
+    prof.disable()
+    out = {}
+    for (path, _, name), row in pstats.Stats(prof).stats.items():
+        if "timbre_trap_tpu_torch" not in path or name not in parts:
+            continue
+        key = parts[name]
+        if name == "evaluate":
+            key = ("evaluate" if path.endswith("evaluation.py")
+                   else "metrics")
+        out[key] = max(out.get(key, 0.0), row[3])
+    return out
+
+
+def evaluate_card_vs_cpu(torch, root):
+    """``evaluate`` of a small model on the card against the same weights
+    on the CPU over a short toy set, with cuDNN's TF32 default on (the
+    evaluation scopes it off): losses within 1e-4 relative, the SDR within
+    1e-3 dB, the ``mpe/*`` results equal, or, where the peak masks part,
+    the card's activations within 3x the CPU's distance from a float64
+    run. Returns the gaps."""
+    from timbre_trap_tpu_torch.device import ieee_convs
+    from timbre_trap_tpu_torch.eval import evaluate
+    from timbre_trap_tpu_torch.eval.evaluation import masked_peak_estimates
+    from timbre_trap_tpu_torch.eval.multipitch import MAX_FREQ
+    from timbre_trap_tpu_torch.models import TimbreTrap
+    from timbre_trap_tpu_torch.transform.design import midi_to_hz
+
+    _, SmokeMPE = corpus_classes()
+    toy = write_corpus(f"{root}/toy", 2, 3.0, SMALL["sample_rate"], seed=7)
+    card = TimbreTrap(**SMALL, seed=3)
+    cpu = TimbreTrap(**SMALL, seed=3, device="cpu")
+    mult = {"reconstruction": 1, "transcription": 1, "consistency": 1}
+
+    def results(model):
+        ds = SmokeMPE(base_dir=toy, splits=["all"],
+                      sample_rate=SMALL["sample_rate"], cqt=model.sliCQ,
+                      n_secs=None)
+        return evaluate(model, ds, mult), ds
+
+    (got, ds), (want, _) = results(card), results(cpu)
+    check(torch.backends.cudnn.allow_tf32, "evaluate left cuDNN's TF32 "
+          "flag changed")
+    check(set(got) == set(want), f"evaluate keys {set(got) ^ set(want)}")
+    loss_rel = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+                   for k in want if k.startswith("loss/"))
+    sdr_gap = abs(got["reconstruction/SDR"] - want["reconstruction/SDR"])
+    mpe_diff = [k for k in want if k.startswith("mpe/") and got[k] != want[k]]
+    out = {"loss_rel": loss_rel, "sdr_gap_db": sdr_gap,
+           "mpe_keys_differ": mpe_diff}
+    check(loss_rel <= 1e-4, f"evaluate card vs CPU losses off by {loss_rel}")
+    check(sdr_gap <= 1e-3, f"evaluate card vs CPU SDR off by {sdr_gap} dB")
+    if mpe_diff:
+        # Where a mask bit parts, hold the card's activations to the CPU's
+        # distance from a float64 forward of the same weights.
+        net64 = copy.deepcopy(cpu.net).double()
+        bits, d_card, d_cpu = 0, 0.0, 0.0
+        invalid = midi_to_hz(cpu.sliCQ.midi_freqs) > MAX_FREQ
+        for data in ds:
+            audio = np.asarray(data["audio"], np.float32)[None]
+            audio = np.pad(audio, [(0, 0), (0, 0), (0, -audio.shape[-1]
+                                                  % cpu.sliCQ.block_length)])
+            x = torch.from_numpy(audio)
+            with torch.no_grad(), ieee_convs(card.device):
+                a_card = card.to_activations(card.forward(x.cuda())[2]).cpu()
+                a_cpu = cpu.to_activations(cpu.forward(x)[2])
+                feats = cpu.features_from_audio(x).movedim(-1, 1).double()
+                lat, emb = net64.encode(feats)
+                a64 = cpu.to_activations(net64.decode(
+                    lat, net64.apply_skip_connections(emb), True))
+            bits += int((masked_peak_estimates(a_card, invalid)
+                         != masked_peak_estimates(a_cpu, invalid)).sum())
+            d_card = max(d_card, (a_card.double() - a64).abs().max().item())
+            d_cpu = max(d_cpu, (a_cpu.double() - a64).abs().max().item())
+        print(f"trainer: evaluate card vs CPU, {mpe_diff} differ; {bits} "
+              f"mask bits part; from float64 the card's activations "
+              f"{d_card:.2e}, the CPU's {d_cpu:.2e}")
+        check(d_card <= 3 * d_cpu, f"evaluate: the card's activations "
+              f"{d_card} from float64, the CPU's {d_cpu}")
+        out.update(mask_bits_differ=bits, f64_card=d_card, f64_cpu=d_cpu)
+    print(f"trainer: evaluate card vs CPU (small model, 2 x 3-s tracks, "
+          f"TF32 default on): losses rel {loss_rel:.2e}, SDR "
+          f"{got['reconstruction/SDR']:.4f} vs {want['reconstruction/SDR']:.4f}"
+          f" dB, mpe/* {'equal' if not mpe_diff else 'differ: ' + str(mpe_diff)}")
+    return out
+
+
+def phase_trainer(torch, counters, card, train_step_ms):
+    """The Trainer on the card (phase 3f), fed by the data package and
+    validated by ``evaluate``: a counted ``run()`` of 4 steps and 2 sweeps
+    at the flagship geometry, exact resume, ``load_model`` of a Trainer
+    checkpoint; ``evaluate`` and the ``"flax"`` step card against CPU.
+    ``counters`` are (K1, K3 dX, K3 dW, the ELU' seed, K2). Returns
+    (numbers, launches)."""
+    import tempfile
+
+    from timbre_trap_tpu_torch.data.io import load_audio
+    from timbre_trap_tpu_torch.models import TimbreTrap, load_model
+    from timbre_trap_tpu_torch.train import synthetic_batch
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_dir = write_corpus(f"{tmp}/train", TRAINER_TRACKS,
+                                 TRAINER_TRACK_SECS, SR, seed=11)
+        val_dir = write_corpus(f"{tmp}/val", VAL_TRACKS, VAL_SECS, SR,
+                               seed=12)
+        # The first load builds the native audio loader where the checkout
+        # has none (native/build/ is not committed): a one-time cost kept
+        # out of the Trainer's numbers.
+        t0 = time.perf_counter()
+        load_audio(f"{train_dir}/tr0.wav", sample_rate=SR)
+        first_load_s = time.perf_counter() - t0
+        trainer, datasets = make_trainer(f"{tmp}/run_a", train_dir,
+                                         val_dir, seed=9)
+        walls, rng_states = timed_sweeps(torch, trainer, datasets)
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best, best_results = trainer.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = read_counts(counters)
+
+        check(trainer.batch_count == TRAINER_STEPS,
+              f"trainer ran {trainer.batch_count} steps")
+        for name in ("banded_conv", "banded_conv_dx", "banded_conv_dw",
+                     "elu_backward"):
+            check(launches[name] > 0, f"trainer: {name} was not launched "
+                  "by the steps")
+        for name in ("banded_conv", "banded_conv_dx", "banded_conv_dw"):
+            check(launches[f"{name}.mma"] == launches[name],
+                  f"trainer: not every {name} launch ran the bf16 "
+                  f"tensor-core kernel: {launches}")
+        check(launches["peak_mask"] == VAL_TRACKS * TRAINER_SWEEPS,
+              f"trainer: K2 launched {launches['peak_mask']} times in "
+              f"{TRAINER_SWEEPS} sweeps of {VAL_TRACKS} tracks")
+        logged = trainer.writer.scalars
+        check(all(np.isfinite(v) for _, v, _ in logged),
+              f"trainer: a logged metric is not finite: "
+              f"{[(k, v) for k, v, _ in logged if not np.isfinite(v)]}")
+        with open(f"{tmp}/run_a/metrics.json") as fh:
+            metrics = json.load(fh)
+        for key in ("mpe/f1-score", "reconstruction/SDR", "loss/total"):
+            series = metrics.get(f"SmokeMPE/{key}", {})
+            check(series.get("steps") == [2, 4]
+                  and all(np.isfinite(series["values"])),
+                  f"trainer: metrics.json SmokeMPE/{key} {series}")
+        models_dir = f"{tmp}/run_a/models"
+        for path in ("model-2/checkpoint.pt", "model-4/checkpoint.pt",
+                     "model-2.trainer.json", "model-4.trainer.json",
+                     "hparams.json"):
+            check(os.path.isfile(f"{models_dir}/{path}"),
+                  f"trainer: {path} was not written")
+        final = {k: v.clone() for k, v in trainer.model.net.state_dict().items()}
+        loaded = load_model(f"{models_dir}/model-4")
+        check(all(torch.equal(loaded.net.state_dict()[k], v)
+                  for k, v in final.items()),
+              "trainer: load_model of model-4 differs from the trained model")
+        check(type(loaded) is TimbreTrap and loaded.hparams
+              == trainer.model.hparams, "trainer: load_model hparams")
+        del loaded
+        losses = [v for k, v, _ in logged if k == "train/loss/total"]
+        eval_parts = profile_evaluate(torch, trainer.model,
+                                      trainer.validation_sets[0])
+        print("trainer: one evaluate sweep under cProfile, host s "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+                  eval_parts.items(), key=lambda kv: -kv[1])))
+        print(f"trainer: first audio load {first_load_s:.3f} s (the native "
+              "loader's build where missing); step walls (s) " + " ".join(
+            f"{w:.3f}" for w in walls["step"]) + "; batch loads + "
+            "compositions on the prefetch thread (s) " + " ".join(
+                f"{w:.3f}" for w in walls["compose"]))
+        steps_s = run_s - sum(walls["checkpoint"])
+        trainer_step_ms = steps_s / TRAINER_STEPS * 1e3
+        evaluate_s = walls["evaluate"]
+        val_rtf = VAL_TRACKS * VAL_SECS / float(np.mean(evaluate_s))
+        print(f"trainer: run() {TRAINER_STEPS} pallas_bf16 steps (batch "
+              f"4 MPE + 4 audio-only {TRAIN_SECS:g}-s crops) and "
+              f"{TRAINER_SWEEPS} "
+              f"checkpoints + sweeps in {run_s:.3f} s; loss/total "
+              + " ".join(f"{v:.4f}" for v in losses)
+              + f"; best checkpoint {best}, f1 "
+              f"{best_results['SmokeMPE']['mpe/f1-score']}; launches "
+              f"{launches}")
+        print(f"trainer_step_ms: {trainer_step_ms:.1f} (run() wall less its "
+              f"checkpoints and sweeps, over {TRAINER_STEPS} steps; bare "
+              f"train_step_ms {train_step_ms:.1f}); evaluate_s per sweep "
+              + " ".join(f"{s:.3f}" for s in evaluate_s)
+              + f" ({VAL_TRACKS} x {VAL_SECS:.0f}-s tracks, validation RTF "
+              f"{val_rtf:.1f}); checkpoint + sweep walls "
+              + " ".join(f"{s:.3f}" for s in walls["checkpoint"])
+              + f"; on {card}")
+
+        # Exact resume: a fresh Trainer (another seed's weights) restored
+        # from model-2, its datasets' crop draws where run A's stood at
+        # that checkpoint, runs to the end as run A did.
+        resumed, _ = make_trainer(f"{tmp}/run_b", train_dir, val_dir,
+                                  seed=10, rng_states=rng_states[2])
+        check(resumed.restore(f"{models_dir}/model-2") == 2,
+              "trainer: restore did not return batch 2")
+        resumed.run()
+        pa, pb = trainer.plateau, resumed.plateau
+        state_a = (trainer.batch_count, trainer.best_checkpoint,
+                   trainer.n_ckpt_elapsed, pa.scale, pa.best, pa.num_bad,
+                   pa.cooldown_counter)
+        state_b = (resumed.batch_count, resumed.best_checkpoint,
+                   resumed.n_ckpt_elapsed, pb.scale, pb.best, pb.num_bad,
+                   pb.cooldown_counter)
+        same = all(torch.equal(resumed.model.net.state_dict()[k], v)
+                   for k, v in final.items())
+        same_mu = all(torch.equal(resumed.opt_state[m][n],
+                                  trainer.opt_state[m][n])
+                      for m in ("mu", "nu") for n in trainer.opt_state[m])
+        check(same and same_mu and state_a == state_b,
+              f"trainer: the resumed run differs from the uninterrupted "
+              f"one (parameters equal {same}, Adam moments equal {same_mu},"
+              f" state {state_b} vs {state_a})")
+        print(f"trainer: restored from model-2 into a fresh model, run to "
+              f"the end: parameters and Adam moments equal bit for bit, "
+              f"state {state_b}")
+        del trainer, resumed
+        torch.cuda.empty_cache()
+
+        # The card against the CPU with cuDNN's TF32 default on: evaluate
+        # and one "flax" step scope it off themselves.
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            eval_gap = evaluate_card_vs_cpu(torch, tmp)
+            small = TimbreTrap(**SMALL, seed=4)
+            small_cpu = TimbreTrap(**SMALL, seed=4, device="cpu")
+            a_s, g_s = synthetic_batch(small, 2, 1.0, seed=6)
+            ws = {k: v.clone() for k, v in small.net.state_dict().items()}
+            got = one_step(torch, small, ws, "flax", a_s, g_s, TRAIN_LR)
+            want = one_step(torch, small_cpu, ws, "flax", a_s, g_s, TRAIN_LR)
+            check(torch.backends.cudnn.allow_tf32, "the flax step left "
+                  "cuDNN's TF32 flag changed")
+            flax_gap = check_kernel_step(
+                "small", got, ({k: v for k, v in want[0].items()},
+                               {n: g.cuda() for n, g in want[1].items()}),
+                float64_grads(small, ws, a_s, g_s),
+                pair="flax card vs CPU")
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    phase_s = time.perf_counter() - t_phase
+    print(f"trainer: phase {phase_s:.1f} s")
+    numbers = {"trainer_step_ms": trainer_step_ms,
+               "train_step_ms": train_step_ms, "run_s": run_s,
+               "evaluate_s": evaluate_s, "checkpoint_s": walls["checkpoint"],
+               "step_s": walls["step"], "compose_s": walls["compose"],
+               "first_load_s": first_load_s,
+               "evaluate_profile_s": eval_parts,
+               "validation_rtf": val_rtf, "loss_total": losses,
+               "best_checkpoint": best, "launches": launches,
+               "resume_bitwise": True, "evaluate_card_vs_cpu": eval_gap,
+               "flax_card_vs_cpu": flax_gap, "phase_s": phase_s}
+    return numbers, launches
+
+
+
 def main():
     try:
         import torch
@@ -1866,6 +2321,12 @@ def main():
     families, family_launches = phase_family_train(
         torch, (banded_conv,) + k3_wrappers, card)
 
+    lap('trainer')
+    # 3f. the Trainer, fed by the data package, validated by evaluate
+    trainer, trainer_launches = phase_trainer(
+        torch, (banded_conv,) + k3_wrappers + (peak_mask,), card,
+        train["train_step_ms"])
+
     lap('numbers')
     # 4. numbers at the main path's shapes
     spec = model._spec(True)
@@ -1947,6 +2408,7 @@ def main():
          "launches_mma": launches["banded_conv.mma"],
          "launches_reconstruct": launches_rec["banded_conv"],
          "launches_train": train_launches["banded_conv"],
+         "launches_trainer": trainer_launches["banded_conv"],
          "launches_family_train_per_step": {
              label: n["banded_conv"] for label, n in family_launches.items()},
          "launches_variants": {
@@ -1980,6 +2442,7 @@ def main():
          "replaces": "timbre_trap_tpu/ops/pallas_kernels.py:26",
          "launches": launches["peak_mask"], "max_abs_err": k2_err,
          "launches_variants": launches_var["transcribe"]["peak_mask"],
+         "launches_trainer_evaluate": trainer_launches["peak_mask"],
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": "bytes", "library_ms": None,
          "shape": f"{tuple(acts.shape)} float32 -> uint8"},
@@ -1990,6 +2453,8 @@ def main():
          "replaces": "timbre_trap_tpu/ops/fused_level.py:647",
          "launches": k3_launches,
          "launches_by_wrapper": k3_only(train_launches),
+         "launches_trainer": sum(trainer_launches[fn.__name__]
+                                 for fn in k3_wrappers),
          "launches_train_f32": sum(train["f32_step_launches"][fn.__name__]
                                    for fn in k3_wrappers),
          "launches_by_wrapper_f32": k3_only(train["f32_step_launches"]),
@@ -2011,6 +2476,7 @@ def main():
     print(json.dumps({"family_train": families, "phase_s": phase_s}))
     print(json.dumps({"transform": transform, "reconstruct": recon}))
     print(json.dumps({"variants": variants}))
+    print(json.dumps({"trainer": trainer}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

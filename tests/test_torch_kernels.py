@@ -14,10 +14,14 @@ without one; on the card run them with
 (``--noconftest`` because ``tests/conftest.py`` imports JAX).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from timbre_trap_tpu_torch.data import DataLoader, MPEDataset, device_prefetch
+from timbre_trap_tpu_torch.data.io import save_wav
 from timbre_trap_tpu_torch.interop import hwio_params
 from timbre_trap_tpu_torch.models import (TimbreTrap, TimbreTrapFiLM,
                                           TimbreTrapMag, TimbreTrapMagDB,
@@ -32,10 +36,11 @@ from timbre_trap_tpu_torch.ops.fused_level import (
     chain_flops, elu_backward, fused_level_apply, level_backward,
     level_backward_reference, packed_level_apply, spec_time_reach)
 from timbre_trap_tpu_torch.ops.peaks import peak_mask, peak_mask_reference
-from timbre_trap_tpu_torch.train import (TrainConfig, init_train_state,
-                                         make_train_step,
+from timbre_trap_tpu_torch.train import (TrainConfig, Trainer, TrainerConfig,
+                                         init_train_state, make_train_step,
                                          step_gradients_reference,
                                          synthetic_batch)
+from timbre_trap_tpu_torch.train.synthetic import chord_tracks
 
 torch.set_num_threads(2)
 
@@ -742,3 +747,151 @@ def test_variants_on_card_match_cpu_and_reload(cuda_device, tmp_path):
         loaded = load_model(path, overrides={"fused": "f32"})
         assert type(loaded) is cls and loaded.hparams == card.hparams
         assert torch.equal(loaded.transcribe(audio), got)
+
+
+# --------------------------------------------------------------------- #
+# The Trainer and its data on the card                                   #
+# --------------------------------------------------------------------- #
+
+class _ChordMPE(MPEDataset):
+    """Chord tracks with their partials annotated (a .wav and a .f0.npy
+    each, the layout of ``tests/test_loop.py``'s toy corpus)."""
+
+    @staticmethod
+    def available_splits():
+        return ["all"]
+
+    def get_tracks(self, split):
+        return sorted(f[:-4] for f in os.listdir(self.base_dir)
+                      if f.endswith(".wav"))
+
+    def get_audio_path(self, track):
+        return os.path.join(self.base_dir, f"{track}.wav")
+
+    def get_ground_truth_path(self, track):
+        return os.path.join(self.base_dir, f"{track}.f0.npy")
+
+    def get_ground_truth(self, track):
+        d = np.load(self.get_ground_truth_path(track), allow_pickle=True).item()
+        return d["times"], [np.asarray(p) for p in d["pitches"]]
+
+
+def _chord_corpus(root, n_tracks, secs, sr=8000, seed=0):
+    audio, freqs = chord_tracks(n_tracks, secs, sr, seed)
+    times = np.arange(0, secs, 0.01)
+    for i in range(n_tracks):
+        save_wav(str(root / f"tr{i}.wav"), audio[i], sr)
+        np.save(str(root / f"tr{i}.f0.npy"),
+                {"times": times, "pitches": [freqs[i]] * len(times)})
+    return str(root)
+
+
+@pytest.mark.cuda
+def test_trainer_on_card_counts_its_kernels(cuda_device, tmp_path):
+    """A small model's ``"pallas_bf16"`` Trainer run on the card: 2 steps
+    launch K1 and K3 on the bf16 route, the validation sweep after them
+    launches K2 once a track, every logged metric is finite, and the
+    checkpoint loads back bit for bit."""
+    hp = dict(sample_rate=8000, n_octaves=5, bins_per_octave=12,
+              secs_per_block=0.5, latent_size=16, model_complexity=1, seed=2)
+    model = TimbreTrap(**hp)
+    (tmp_path / "train").mkdir()
+    (tmp_path / "val").mkdir()
+    train = _chord_corpus(tmp_path / "train", 4, 1.5, seed=1)
+    val = _chord_corpus(tmp_path / "val", 3, 2.0, seed=2)
+    kw = dict(splits=["all"], sample_rate=8000, cqt=model.sliCQ)
+    loader = DataLoader(_ChordMPE(base_dir=train, n_secs=1.0, **kw),
+                        batch_size=2, shuffle=True, drop_last=True)
+    config = TrainerConfig(max_epochs=1, checkpoint_interval=2, batch_size=2,
+                           n_secs=1.0, n_epochs_warmup=1,
+                           validation_criteria_set="_ChordMPE",
+                           conv_backend="pallas_bf16",
+                           root_dir=str(tmp_path / "run"))
+
+    class Recorder:
+        def __init__(self):
+            self.scalars = []
+
+        def add_scalar(self, key, value, i):
+            self.scalars.append((key, float(value)))
+
+        def add_image(self, *args):
+            pass
+
+    trainer = Trainer(model, loader, None,
+                      [_ChordMPE(base_dir=val, n_secs=None, **kw)], config,
+                      writer=Recorder())
+    before = ([_routes(f) for f in (banded_conv, banded_conv_dx,
+                                    banded_conv_dw)]
+              + [elu_backward.launches, peak_mask.launches])
+    trainer.run()
+    after = ([_routes(f) for f in (banded_conv, banded_conv_dx,
+                                   banded_conv_dw)]
+             + [elu_backward.launches, peak_mask.launches])
+    assert trainer.batch_count == 2
+    for (bf16, f32), (bf16_0, f32_0) in zip(after[:3], before[:3]):
+        assert bf16 > bf16_0 and f32 == f32_0
+    assert after[3] > before[3]
+    assert after[4] == before[4] + 3
+    assert all(np.isfinite(v) for _, v in trainer.writer.scalars)
+    loaded = load_model(str(tmp_path / "run" / "models" / "model-2"))
+    for name, p in model.net.state_dict().items():
+        assert torch.equal(loaded.net.state_dict()[name], p), name
+
+
+@pytest.mark.cuda
+def test_flax_step_card_matches_cpu(cuda_device):
+    """One ``"flax"`` step (autograd through the NCHW network, cuDNN on the
+    card) from the same weights on the card and the CPU, with cuDNN's TF32
+    default on: the step turns it off for itself and leaves the flag as it
+    was; every loss within 1e-5 relative, every gradient within 1e-4 x its
+    leaf's max|g| (or, where a leaf parts by more, the card within 3x the
+    CPU's distance from a float64 run)."""
+    hp = dict(sample_rate=8000, n_octaves=5, bins_per_octave=12,
+              secs_per_block=0.5, latent_size=16, model_complexity=1, seed=4)
+    card, cpu = TimbreTrap(**hp), TimbreTrap(**hp, device="cpu")
+    audio, gt = synthetic_batch(card, 2, 1.0, seed=6)
+    cfg = TrainConfig()
+    runs = []
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for model in (card, cpu):
+            metrics = make_train_step(model, cfg, 2, conv_backend="flax",
+                                      compact_audio_grid=True)(
+                init_train_state(model, cfg), audio, gt, 1e-3)
+            runs.append(({k: float(v) for k, v in metrics.items()},
+                         {n: p.grad.cpu()
+                          for n, p in model.net.named_parameters()}))
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    (m_card, g_card), (m_cpu, g_cpu) = runs
+    for key, want in m_cpu.items():
+        if key.startswith("loss/"):
+            assert abs(m_card[key] - want) <= 1e-5 * abs(want), key
+    over = [n for n, want in g_cpu.items()
+            if (g_card[n] - want).abs().max().item()
+            > 1e-4 * want.abs().max().item()]
+    if over:
+        g64 = step_gradients_reference(TimbreTrap(**hp, device="cpu"), cfg,
+                                       2, audio, gt, compact_audio_grid=True)
+
+        def dist(g):
+            return max((g[n].double() - g64[n]).abs().max().item()
+                       / g64[n].abs().max().item() for n in over)
+        assert dist(g_card) <= 3 * dist(g_cpu), (over, dist(g_card),
+                                                 dist(g_cpu))
+
+
+@pytest.mark.cuda
+def test_device_prefetch_pins_for_the_card(cuda_device):
+    """``pin_memory=True`` stages each batch's arrays as page-locked host
+    tensors (made on the prefetch thread), values unchanged."""
+    batches = [(np.full((2, 3), i, np.int16), np.ones(4, np.uint8))
+               for i in range(3)]
+    staged = list(device_prefetch(iter(batches), pin_memory=True))
+    assert len(staged) == 3
+    for i, (audio, gt) in enumerate(staged):
+        assert audio.is_pinned() and gt.is_pinned()
+        assert torch.equal(audio, torch.full((2, 3), i, dtype=torch.int16))
+        assert torch.equal(gt, torch.ones(4, dtype=torch.uint8))

@@ -343,9 +343,14 @@ def test_schedules_and_compact_helpers_match_jax():
 
 
 def test_step_rejects_what_is_not_ported():
+    """Every backend of the JAX package's step is ported ("flax" through
+    the NCHW network); another name raises."""
     m = TimbreTrap(**HP, device="cpu")
+    for backend in ("flax", "packed", "pallas", "pallas_bf16"):
+        assert callable(make_train_step(m, TrainConfig(), 1,
+                                        conv_backend=backend))
     with pytest.raises(ValueError, match="conv_backend"):
-        make_train_step(m, TrainConfig(), 1, conv_backend="flax")
+        make_train_step(m, TrainConfig(), 1, conv_backend="xla")
 
 
 # --------------------------------------------------------------------- #
@@ -378,10 +383,11 @@ def _port_model(params0):
     return m
 
 
-@pytest.mark.parametrize("backend", ["packed", "pallas"])
+@pytest.mark.parametrize("backend", ["packed", "pallas", "flax"])
 def test_step_matches_jax(jax_step_result, backend):
     """One port step ("packed": autograd through the twin; "pallas": the
-    K1/K3 Function, plain on the CPU) against the JAX packed step from the
+    K1/K3 Function, plain on the CPU; "flax": autograd through the NCHW
+    network) against the JAX packed step from the
     same weights: every loss key within rel 1e-4, gradients (through Adam's
     first moment, mu = 0.1 * clip(g)) within 1e-4 x each leaf's max, and the
     updated parameters within 5e-4."""

@@ -40,6 +40,8 @@ __all__ = ["TimbreTrap", "TimbreTrapFiLM", "TimbreTrapMag", "TimbreTrapMagDB",
 _FUSED_MODES = ("auto", "f32")
 # The weights file of a ``save`` directory (beside ``hparams.json``).
 WEIGHTS_FILE = "weights.pt"
+# The file of a training checkpoint directory (``train/checkpoint.py``).
+CHECKPOINT_FILE = "checkpoint.pt"
 
 
 def _host_array(audio):
@@ -471,18 +473,26 @@ _FAMILIES = {cls.variant: cls for cls in (TimbreTrap, TimbreTrapFiLM,
                                            TimbreTrapMag, TimbreTrapMagDB)}
 
 
-def _weights_file(path):
-    """The ``torch.save`` weights a checkpoint path names: the file
-    itself, or ``weights.pt`` in a :meth:`TimbreTrap.save` directory. A
-    directory without it (the JAX package's orbax ``weights/``) raises."""
+def _load_weights(path):
+    """The reference-named state_dict a checkpoint path names: a
+    ``torch.save`` weights file, ``weights.pt`` in a :meth:`TimbreTrap.save`
+    directory, or the parameters of a Trainer step checkpoint
+    (``checkpoint.pt``). A directory with neither (the JAX package's orbax
+    ``weights/``) raises."""
+    def load(f):
+        return torch.load(f, map_location="cpu", weights_only=True)
+
     if os.path.isfile(path):
-        return path
+        return load(path)
     if os.path.isfile(os.path.join(path, WEIGHTS_FILE)):
-        return os.path.join(path, WEIGHTS_FILE)
+        return load(os.path.join(path, WEIGHTS_FILE))
+    if os.path.isfile(os.path.join(path, CHECKPOINT_FILE)):
+        return load(os.path.join(path, CHECKPOINT_FILE))["params"]
     if os.path.isdir(path):
         raise ValueError(
-            f"{path} holds no {WEIGHTS_FILE}: a checkpoint of the JAX package "
-            "(orbax) is not read here; convert its parameter tree with "
+            f"{path} holds no {WEIGHTS_FILE} nor {CHECKPOINT_FILE}: a "
+            "checkpoint of the JAX package (orbax) is not read here; convert "
+            "its parameter tree with "
             "timbre_trap_tpu_torch.interop.state_dict_from_jax and load it "
             "with TimbreTrap.load_state_dict")
     raise FileNotFoundError(f"no checkpoint at {path}")
@@ -492,15 +502,17 @@ def load_model(path, seed=0, overrides=None, defaults=None):
     """Rebuild a model of any family from a checkpoint path.
 
     ``path`` is a :meth:`TimbreTrap.save` directory (``hparams.json`` +
-    ``weights.pt``), or a weights file whose hyperparameters sit beside it
-    as ``<path>.hparams.json`` or in its directory's ``hparams.json``; a
-    bare weights file takes its constructor arguments from ``defaults``.
+    ``weights.pt``), a Trainer step checkpoint ``<run>/models/model-N``
+    (whose run directory holds the ``hparams.json`` the Trainer writes), or
+    a weights file whose hyperparameters sit beside it as
+    ``<path>.hparams.json`` or in its directory's ``hparams.json``; a bare
+    weights file takes its constructor arguments from ``defaults``.
     ``overrides`` take precedence over the stored hyperparameters (e.g.
     ``device``, ``fused``, ``transform_compat``, ``compat_tables``); a
     None value is ignored. A JAX package checkpoint raises ``ValueError``.
     """
     path = os.path.normpath(path)
-    weights = _weights_file(path)
+    weights = _load_weights(path)
     hparams = None
     for candidate in (os.path.join(path, "hparams.json"),
                       path + ".hparams.json",
@@ -517,6 +529,5 @@ def load_model(path, seed=0, overrides=None, defaults=None):
             f"{path} carries no hparams.json and no defaults were given")
     cls = _FAMILIES[merged.pop("variant", "base")]
     model = cls(seed=seed, **merged)
-    model.load_state_dict(torch.load(weights, map_location="cpu",
-                                     weights_only=True))
+    model.load_state_dict(weights)
     return model

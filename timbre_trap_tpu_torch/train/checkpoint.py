@@ -14,12 +14,10 @@ import os
 
 import torch
 
-from ..models.timbre_trap import WEIGHTS_FILE
+from ..models.timbre_trap import CHECKPOINT_FILE, WEIGHTS_FILE
 
 __all__ = ["CHECKPOINT_FILE", "save_checkpoint", "load_checkpoint",
            "latest_checkpoint", "load_params"]
-
-CHECKPOINT_FILE = "checkpoint.pt"
 
 
 def _to_cpu(tree):

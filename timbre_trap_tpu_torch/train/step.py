@@ -1,7 +1,8 @@
 """The training step: loss composition, AdamW, gradient accumulation,
 grad telemetry.
 
-Counterpart of ``timbre_trap_tpu/train/step.py`` for the packed backends.
+Counterpart of ``timbre_trap_tpu/train/step.py``: the packed backends and
+``"flax"`` (autograd through the NCHW network).
 Loss composition mirrors the reference trainer (``experiments/train.py:
 404-464``): the batch is [MPE samples | audio-only samples]; reconstruction
 loss runs on the full batch against the (no-grad) transform coefficients,
@@ -23,6 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import ieee_convs
 from ..interop import hwio_params
 from ..models.fused import TRAIN_BACKENDS, packed_to_nchw, packed_train_forward
 from ..objectives import compute_transcription_loss
@@ -181,6 +183,26 @@ def _recon_loss_packed(reconstructed, target):
     return torch.mean(torch.sum(torch.square(reconstructed - target), dim=-2))
 
 
+def _nchw_outputs(net, x, consistency):
+    """The network's training outputs on NCHW features ``x``, through the
+    plain NCHW modules with autograd: ``(reconstruction, transcription,
+    transcription_rec, transcription_scr)`` packed f-major (the last two
+    None without consistency)."""
+    def encode(v):
+        latents, embeddings = net.encode(v)
+        return latents, net.apply_skip_connections(embeddings)
+
+    def decode_pair(latents, skips):
+        return [net.decode(latents, skips, t) for t in (False, True)]
+
+    rec, trn = decode_pair(*encode(x))
+    trn_rec = trn_scr = None
+    if consistency:
+        trn_rec, trn_scr = decode_pair(*encode(trn))
+    return tuple(None if o is None else pack_nchw(o)
+                 for o in (rec, trn, trn_rec, trn_scr))
+
+
 def _compose_losses(model, config, mpe_batch_size, outputs, target,
                     ground_truth):
     """The reference trainer's loss composition on the packed outputs
@@ -213,16 +235,31 @@ def _compose_losses(model, config, mpe_batch_size, outputs, target,
     return total, metrics
 
 
+# Every backend of the step: the packed level backends, and "flax", the
+# JAX package's name for autograd through the plain network's modules.
+STEP_BACKENDS = tuple(TRAIN_BACKENDS) + ("flax",)
+
+
 def make_loss_fn(model, config: TrainConfig, mpe_batch_size: int,
                  conv_backend="pallas_bf16"):
     """``loss_fn(features, ground_truth) -> (total, metrics)`` over the
     live parameters of ``model.net``, on one of the packed backends
-    (``models/fused.py``: "pallas", "pallas_bf16", "packed")."""
-    if conv_backend not in TRAIN_BACKENDS:
-        raise ValueError(f"conv_backend must be one of "
-                         f"{tuple(TRAIN_BACKENDS)}, not {conv_backend!r}")
+    (``models/fused.py``: "pallas", "pallas_bf16", "packed") or through the
+    NCHW network ("flax", float32)."""
+    if conv_backend not in STEP_BACKENDS:
+        raise ValueError(f"conv_backend must be one of {STEP_BACKENDS}, "
+                         f"not {conv_backend!r}")
     net = model.net
     consistency = bool(config.multiplier_consistency)
+
+    if conv_backend == "flax":
+        def nchw_loss_fn(features, ground_truth):
+            x = features.movedim(-1, 1)
+            return _compose_losses(model, config, mpe_batch_size,
+                                   _nchw_outputs(net, x, consistency),
+                                   pack_nchw(x), ground_truth)
+
+        return nchw_loss_fn
 
     def loss_fn(features, ground_truth):
         rec, _, trn, trn_rec, trn_scr = packed_train_forward(
@@ -261,20 +298,7 @@ def step_gradients_reference(model, config: TrainConfig, mpe_batch_size,
     features, ground_truth = _upload_batch(model, audio, ground_truth,
                                            compact_audio_grid)
     x = features.to(dtype).movedim(-1, 1)
-
-    def encode(v):
-        latents, embeddings = net.encode(v)
-        return latents, net.apply_skip_connections(embeddings)
-
-    def decode_pair(latents, skips):
-        return [net.decode(latents, skips, t) for t in (False, True)]
-
-    rec, trn = decode_pair(*encode(x))
-    trn_rec = trn_scr = None
-    if config.multiplier_consistency:
-        trn_rec, trn_scr = decode_pair(*encode(trn))
-    outputs = tuple(None if o is None else pack_nchw(o)
-                    for o in (rec, trn, trn_rec, trn_scr))
+    outputs = _nchw_outputs(net, x, bool(config.multiplier_consistency))
     total, _ = _compose_losses(model, config, mpe_batch_size, outputs,
                                pack_nchw(x), ground_truth.to(dtype))
     names = [n for n, _ in net.named_parameters()]
@@ -299,8 +323,10 @@ def make_train_step(model, config: TrainConfig, mpe_batch_size: int,
     host sync) under the JAX package's keys.
 
     ``conv_backend``: "pallas_bf16" (the training CLI's default: K1/K3 with
-    bfloat16 storage, float32 accumulation), "pallas" (K1/K3 in float32) or
-    "packed" (autograd through the plain twin, float32).
+    bfloat16 storage, float32 accumulation), "pallas" (K1/K3 in float32),
+    "packed" (autograd through the plain twin, float32) or "flax"
+    (``TrainerConfig``'s default: autograd through the NCHW network's
+    modules, float32; on the card its cuDNN convolutions run without TF32).
 
     ``compact_audio_grid``: int16 audio means the compact ±8 upload grid
     (/TRAIN_AUDIO_SCALE, ``compact_audio``), as the Trainer uploads it;
@@ -331,8 +357,9 @@ def make_train_step(model, config: TrainConfig, mpe_batch_size: int,
         return metrics
 
     def step(opt_state, audio, ground_truth, lr):
-        total, metrics = loss_fn(*upload(audio, ground_truth))
-        total.backward()
+        with ieee_convs(model.device):
+            total, metrics = loss_fn(*upload(audio, ground_truth))
+            total.backward()
         return update(opt_state, metrics, lr)
 
     step.parts = (upload, loss_fn, update)
