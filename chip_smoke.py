@@ -118,6 +118,22 @@ Phases, each of which exits non-zero on failure:
              (losses within 1e-5, gradients within 1e-4 * each leaf's
              max|g| or the float64 yardstick), both leaving the flag as
              it was.
+             The CLIs (3g), through their ``main(argv)`` on synthetic
+             corpora in the wrappers' layouts (9 URMP pieces, 2 tracks
+             each of Bach10, Su and GuitarSet, TRIOS's 5 multitracks):
+             the train CLI with ``--debug`` and its defaults (batch 8 of
+             9-s crops, 8 loader threads, ``"pallas_bf16"``) but
+             ``--max-epochs 4 --checkpoint-interval 2``, counted: K1 348,
+             K3 173 dX, 174 dW and 24 seeds a step, all bf16, K2 once a
+             validation track a sweep; ``metrics.json`` finite,
+             ``load_model`` of its last checkpoint bit for bit; the
+             ``"flax"`` recipe step's time and peak memory; the evaluate
+             CLI on that checkpoint over the five sets, K2 once a track,
+             its printed results equal to ``evaluate`` on the model it
+             loaded; a small model through the evaluate CLI on the card
+             against ``--device cpu`` (3f's bars); the sonify CLI on the
+             Bach10 mixtures: K1 in both routes, three finite WAVs a
+             track, ``_ref`` > 60 dB against the padded input.
              K1 and K3's dX and dW are, in both dtypes, the band-tiled
              tensor-core kernels of ``csrc/band_mma.cu``: phase 2 also
              holds them, on one conv of each kind at flagship widths (3x3
@@ -151,7 +167,9 @@ Phases, each of which exits non-zero on failure:
              K1 and K3; the flops the
              bf16 kernels compute beside those the convs need, the bytes a
              stage-by-stage run must move, and the HMMA/HGMMA count of the
-             tensor-core library's SASS.
+             tensor-core library's SASS; phase 3g's ``trainer_step_ms``
+             (the CLI's threaded loader) beside 3f's, its sweep, evaluate
+             and sonify walls.
 
 Prints the kernels' JSON line and the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -1916,16 +1934,10 @@ def profile_evaluate(torch, model, eval_set):
 def evaluate_card_vs_cpu(torch, root):
     """``evaluate`` of a small model on the card against the same weights
     on the CPU over a short toy set, with cuDNN's TF32 default on (the
-    evaluation scopes it off): losses within 1e-4 relative, the SDR within
-    1e-3 dB, the ``mpe/*`` results equal, or, where the peak masks part,
-    the card's activations within 3x the CPU's distance from a float64
-    run. Returns the gaps."""
-    from timbre_trap_tpu_torch.device import ieee_convs
+    evaluation scopes it off), held by ``hold_card_to_cpu``. Returns the
+    gaps."""
     from timbre_trap_tpu_torch.eval import evaluate
-    from timbre_trap_tpu_torch.eval.evaluation import masked_peak_estimates
-    from timbre_trap_tpu_torch.eval.multipitch import MAX_FREQ
     from timbre_trap_tpu_torch.models import TimbreTrap
-    from timbre_trap_tpu_torch.transform.design import midi_to_hz
 
     _, SmokeMPE = corpus_classes()
     toy = write_corpus(f"{root}/toy", 2, 3.0, SMALL["sample_rate"], seed=7)
@@ -1942,15 +1954,31 @@ def evaluate_card_vs_cpu(torch, root):
     (got, ds), (want, _) = results(card), results(cpu)
     check(torch.backends.cudnn.allow_tf32, "evaluate left cuDNN's TF32 "
           "flag changed")
-    check(set(got) == set(want), f"evaluate keys {set(got) ^ set(want)}")
+    return hold_card_to_cpu(torch, card, cpu, ds, got, want,
+                            "trainer: evaluate card vs CPU (small model, "
+                            "2 x 3-s tracks, TF32 default on)")
+
+
+def hold_card_to_cpu(torch, card, cpu, ds, got, want, label):
+    """``evaluate`` results ``got`` of the model ``card`` on the dataset
+    ``ds`` against ``want`` of the same weights on the CPU (``cpu``):
+    losses within 1e-4 relative, the SDR within 1e-3 dB, the ``mpe/*``
+    results equal, or, where the peak masks part, the card's activations
+    within 3x the CPU's distance from a float64 run. Returns the gaps."""
+    from timbre_trap_tpu_torch.device import ieee_convs
+    from timbre_trap_tpu_torch.eval.evaluation import masked_peak_estimates
+    from timbre_trap_tpu_torch.eval.multipitch import MAX_FREQ
+    from timbre_trap_tpu_torch.transform.design import midi_to_hz
+
+    check(set(got) == set(want), f"{label}: keys {set(got) ^ set(want)}")
     loss_rel = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
                    for k in want if k.startswith("loss/"))
     sdr_gap = abs(got["reconstruction/SDR"] - want["reconstruction/SDR"])
     mpe_diff = [k for k in want if k.startswith("mpe/") and got[k] != want[k]]
     out = {"loss_rel": loss_rel, "sdr_gap_db": sdr_gap,
            "mpe_keys_differ": mpe_diff}
-    check(loss_rel <= 1e-4, f"evaluate card vs CPU losses off by {loss_rel}")
-    check(sdr_gap <= 1e-3, f"evaluate card vs CPU SDR off by {sdr_gap} dB")
+    check(loss_rel <= 1e-4, f"{label}: losses off by {loss_rel}")
+    check(sdr_gap <= 1e-3, f"{label}: SDR off by {sdr_gap} dB")
     if mpe_diff:
         # Where a mask bit parts, hold the card's activations to the CPU's
         # distance from a float64 forward of the same weights.
@@ -1973,14 +2001,13 @@ def evaluate_card_vs_cpu(torch, root):
                          != masked_peak_estimates(a_cpu, invalid)).sum())
             d_card = max(d_card, (a_card.double() - a64).abs().max().item())
             d_cpu = max(d_cpu, (a_cpu.double() - a64).abs().max().item())
-        print(f"trainer: evaluate card vs CPU, {mpe_diff} differ; {bits} "
-              f"mask bits part; from float64 the card's activations "
-              f"{d_card:.2e}, the CPU's {d_cpu:.2e}")
-        check(d_card <= 3 * d_cpu, f"evaluate: the card's activations "
+        print(f"{label}: {mpe_diff} differ; {bits} mask bits part; from "
+              f"float64 the card's activations {d_card:.2e}, the CPU's "
+              f"{d_cpu:.2e}")
+        check(d_card <= 3 * d_cpu, f"{label}: the card's activations "
               f"{d_card} from float64, the CPU's {d_cpu}")
         out.update(mask_bits_differ=bits, f64_card=d_card, f64_cpu=d_cpu)
-    print(f"trainer: evaluate card vs CPU (small model, 2 x 3-s tracks, "
-          f"TF32 default on): losses rel {loss_rel:.2e}, SDR "
+    print(f"{label}: losses rel {loss_rel:.2e}, SDR "
           f"{got['reconstruction/SDR']:.4f} vs {want['reconstruction/SDR']:.4f}"
           f" dB, mpe/* {'equal' if not mpe_diff else 'differ: ' + str(mpe_diff)}")
     return out
@@ -2158,6 +2185,411 @@ def phase_trainer(torch, counters, card, train_step_ms):
 
 
 
+# The CLI phase (3g): corpora in the layouts of their wrappers (as
+# tests/test_datasets.py writes them), of 12-s chord-and-noise tracks
+# (``train.synthetic.chord_tracks``): URMP's nine validation pieces, two
+# tracks of Bach10, Su and GuitarSet, and TRIOS's five multitracks (its
+# wrapper lists every multitrack as a track, so all five are there), cut
+# to 5 s each: about the audio of two tracks.
+URMP_VAL_SPLITS = ["01", "02", "12", "13", "24", "25", "31", "38", "39"]
+TRIOS_MULTITRACKS = ["brahms", "lussier", "mozart", "schubert", "take_five"]
+TRIOS_INSTRUMENTS = ["piano", "violin", "horn"]
+CLI_TRACK_SECS, TRIOS_SECS = 12.0, 5.0
+# The train CLI at its defaults (batch 8 of 9-s crops): the nine URMP
+# tracks make one batch an epoch, so 4 epochs with a checkpoint every 2
+# steps give 4 steps and 2 sweeps.
+CLI_EPOCHS, CLI_INTERVAL = 4, 2
+# The sets of the evaluate CLI's card-against-CPU check.
+CPU_DATASETS = ["Bach10", "Su"]
+# Launches of one recipe step of the base model on "pallas_bf16": K1
+# stages, K3's dX and dW, and the ELU' seeds.
+RECIPE_STEP_LAUNCHES = {"banded_conv": 348, "banded_conv_dx": 173,
+                        "banded_conv_dw": 174, "elu_backward": 24}
+
+
+def write_midi(path, notes):
+    """A one-track MIDI file of ``notes`` (pitch, onset s, offset s) at 480
+    ticks a beat and 120 beats a minute."""
+    def varlen(n):
+        out = [n & 0x7F]
+        n >>= 7
+        while n:
+            out.append((n & 0x7F) | 0x80)
+            n >>= 7
+        return bytes(reversed(out))
+
+    events = sorted([(int(on * 960), bytes([0x90, p, 80]))
+                     for p, on, _ in notes]
+                    + [(int(off * 960), bytes([0x80, p, 0]))
+                       for p, _, off in notes], key=lambda e: e[0])
+    track, last = b"", 0
+    for tick, msg in events:
+        track += varlen(tick - last) + msg
+        last = tick
+    track += varlen(0) + bytes([0xFF, 0x2F, 0x00])
+    header = b"MThd" + (6).to_bytes(4, "big") + (0).to_bytes(2, "big") \
+        + (1).to_bytes(2, "big") + (480).to_bytes(2, "big")
+    with open(path, "wb") as fh:
+        fh.write(header + b"MTrk" + len(track).to_bytes(4, "big") + track)
+
+
+def write_cli_corpora(root, seed):
+    """The five evaluation corpora under ``root``, at 22.05 kHz; returns
+    {dataset name: base dir}."""
+    import scipy.io
+
+    from timbre_trap_tpu_torch.data.io import save_wav
+    from timbre_trap_tpu_torch.train.synthetic import chord_tracks
+    from timbre_trap_tpu_torch.transform.design import hz_to_midi
+
+    secs = CLI_TRACK_SECS
+    n_tracks = len(URMP_VAL_SPLITS) + 6 + len(TRIOS_MULTITRACKS)
+    audio, freqs = chord_tracks(n_tracks, secs, SR, seed)
+    t = np.arange(audio.shape[-1]) / SR
+    tracks = iter(zip(audio, freqs))
+    dirs = {name: f"{root}/{name}" for name in
+            ("URMP", "Bach10", "Su", "TRIOS", "GuitarSet")}
+
+    def partial(f):
+        return (0.5 * np.sin(2 * np.pi * f * t)).astype(np.float32)
+
+    times = np.arange(0, secs, 0.01)
+    for split in URMP_VAL_SPLITS:
+        mix, fs = next(tracks)
+        track = f"{split}_Piece{split}_vn_va_vc"
+        d = f"{dirs['URMP']}/{track}"
+        os.makedirs(d)
+        save_wav(f"{d}/AuMix_{track}.wav", mix, SR)
+        for i, (ins, f) in enumerate(zip(("vn", "va", "vc"), fs), 1):
+            stem = f"{i}_{ins}_{split}_Piece{split}"
+            save_wav(f"{d}/AuSep_{stem}.wav", partial(f), SR)
+            np.savetxt(f"{d}/F0s_{stem}.txt", np.stack(
+                [times, np.full_like(times, f)], axis=-1))
+    for k in range(2):
+        mix, fs = next(tracks)
+        track = f"{k + 1:02d}-Piece{k + 1}"
+        d = f"{dirs['Bach10']}/{track}"
+        os.makedirs(d)
+        save_wav(f"{d}/{track}.wav", mix, SR)
+        n_frames = int((secs - 0.023) / 0.010)
+        gtf0 = np.zeros((4, n_frames))
+        gtf0[:3] = hz_to_midi(fs)[:, None]
+        scipy.io.savemat(f"{d}/{track}-GTF0s.mat", {"GTF0s": gtf0})
+    for name in ("audio", "gt_Note"):
+        os.makedirs(f"{dirs['Su']}/{name}")
+    for track in ("PQ02", "SQ01"):
+        mix, fs = next(tracks)
+        save_wav(f"{dirs['Su']}/audio/{track}_audio.wav", mix, SR)
+        np.savetxt(f"{dirs['Su']}/gt_Note/{track}_note.txt",
+                   np.array([[0.0, secs, f] for f in fs]))
+    for name in ("annotation", "audio_mono-mic"):
+        os.makedirs(f"{dirs['GuitarSet']}/{name}")
+    for track in ("05_BN1-129-Eb_comp", "05_Funk2-119-G_solo"):
+        mix, fs = next(tracks)
+        save_wav(f"{dirs['GuitarSet']}/audio_mono-mic/{track}_mic.wav", mix,
+                 SR)
+        jam = {"file_metadata": {"duration": secs}, "annotations": [
+            {"namespace": "pitch_contour", "data": [
+                {"time": float(tc), "duration": 0.0,
+                 "value": {"frequency": float(f), "voiced": True,
+                           "index": i}} for tc in times]}
+            for i, f in enumerate(fs)]}
+        with open(f"{dirs['GuitarSet']}/annotation/{track}.jams", "w") as fh:
+            json.dump(jam, fh)
+    n = int(TRIOS_SECS * SR)
+    for multitrack in TRIOS_MULTITRACKS:
+        mix, fs = next(tracks)
+        d = f"{dirs['TRIOS']}/{multitrack}"
+        os.makedirs(d)
+        save_wav(f"{d}/mix.wav", mix[..., :n], SR)
+        for ins, f in zip(TRIOS_INSTRUMENTS, fs):
+            save_wav(f"{d}/{ins}.wav", partial(f)[:n], SR)
+            write_midi(f"{d}/{ins}.mid",
+                       [(int(round(float(hz_to_midi(f)))), 0.0, TRIOS_SECS)])
+    return dirs
+
+
+def cli_train(torch, argv, counters):
+    """The train CLI's ``main(argv)``, its Trainer timed as phase 3f times
+    its own and its launches counted. Returns (trainer, numbers,
+    launches)."""
+    from timbre_trap_tpu_torch.experiments import train as cli
+    from timbre_trap_tpu_torch.train import Trainer
+
+    held = {}
+
+    class TimedTrainer(Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            held["walls"], _ = timed_sweeps(torch, self, ())
+            held["trainer"] = self
+
+        def run(self):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super().run()
+            torch.cuda.synchronize()
+            held["run_s"] = time.perf_counter() - t0
+            return out
+
+    cli.Trainer = TimedTrainer
+    try:
+        zero_counts(counters)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        best, best_results = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(counters)
+    finally:
+        cli.Trainer = Trainer
+    walls = held["walls"]
+    steps = held["trainer"].batch_count
+    numbers = {"wall_s": wall, "run_s": held["run_s"],
+               "trainer_step_ms": (held["run_s"] - sum(walls["checkpoint"]))
+               / max(steps, 1) * 1e3,
+               "evaluate_s": walls["evaluate"],
+               "checkpoint_s": walls["checkpoint"], "step_s": walls["step"],
+               "compose_s": walls["compose"], "steps": steps,
+               "best_checkpoint": best, "best_results": best_results,
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+    return held["trainer"], numbers, launches
+
+
+def printed_results(text):
+    """{name: results} from the evaluate CLI's "[name] {...}" lines."""
+    import ast
+
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("["):
+            name, _, rest = line.partition("] ")
+            out[name[1:]] = ast.literal_eval(rest)
+    return out
+
+
+def cli_evaluate(argv):
+    """The evaluate CLI's ``main(argv)``, its stdout kept and echoed: returns
+    (printed results, returned results, the model it loaded, wall s)."""
+    import io
+
+    from timbre_trap_tpu_torch.experiments import evaluate as cli
+
+    held = {}
+    load_model = cli.load_model
+
+    def loading(*args, **kwargs):
+        held["model"] = load_model(*args, **kwargs)
+        return held["model"]
+
+    cli.load_model = loading
+    buf = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            returned = cli.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        cli.load_model = load_model
+    sys.stdout.write(buf.getvalue())
+    return printed_results(buf.getvalue()), returned, held["model"], wall
+
+
+def phase_cli(torch, counters, card, trainer_numbers):
+    """The port's CLIs on the card (phase 3g), through their ``main(argv)``
+    at the flagship defaults on the corpora of ``write_cli_corpora``: the
+    train CLI's counted run (4 steps, 2 sweeps), the evaluate CLI on its
+    checkpoint over the five sets (its printed results equal to
+    ``evaluate`` on the same loaded model; a small model's results on the
+    card against the CPU), and the sonify CLI on the Bach10 mixtures.
+    ``counters`` are (K1, K3 dX, K3 dW, the ELU' seed, K2). Returns
+    (numbers, launches)."""
+    import tempfile
+
+    from timbre_trap_tpu_torch.data.datasets.MixedMultiPitch import Bach10
+    from timbre_trap_tpu_torch.data.io import load_audio
+    from timbre_trap_tpu_torch.eval import evaluate
+    from timbre_trap_tpu_torch.experiments import sonify
+    from timbre_trap_tpu_torch.experiments.evaluate import (DATASETS,
+                                                            evaluation_set)
+    from timbre_trap_tpu_torch.models import TimbreTrap, load_model
+    from timbre_trap_tpu_torch.train import reference_recipe_step_time
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = write_cli_corpora(f"{tmp}/corpora", seed=21)
+        n_tracks = {"URMP": len(URMP_VAL_SPLITS), "Bach10": 2, "Su": 2,
+                    "TRIOS": len(TRIOS_MULTITRACKS), "GuitarSet": 2}
+
+        # The train CLI: --debug, every other flag at its default but the
+        # steps and sweeps (cut as phase 3f cuts them).
+        root = f"{tmp}/run"
+        cuts = ["--max-epochs", str(CLI_EPOCHS), "--checkpoint-interval",
+                str(CLI_INTERVAL)]
+        print(f"cli: train {' '.join(cuts)} (cut: {CLI_EPOCHS} steps of "
+              f"the defaults' 5000 epochs x 1 step, a checkpoint and sweep "
+              f"every {CLI_INTERVAL} steps of the defaults' 250)")
+        trainer, train, launches = cli_train(
+            torch, ["--debug", "--urmp-dir", dirs["URMP"], "--root-dir", root]
+            + cuts, counters)
+        steps, sweeps = CLI_EPOCHS, CLI_EPOCHS // CLI_INTERVAL
+        check(train["steps"] == steps, f"cli train: {train['steps']} steps")
+        for fn, n in RECIPE_STEP_LAUNCHES.items():
+            check(launches[fn] == steps * n, f"cli train: {fn} launched "
+                  f"{launches[fn]} times in {steps} steps, not {steps * n}")
+        for fn in ("banded_conv", "banded_conv_dx", "banded_conv_dw"):
+            check(launches[f"{fn}.mma"] == launches[fn], f"cli train: not "
+                  f"every {fn} launch ran the bf16 kernel: {launches}")
+        check(launches["peak_mask"] == sweeps * n_tracks["URMP"],
+              f"cli train: K2 launched {launches['peak_mask']} times in "
+              f"{sweeps} sweeps of {n_tracks['URMP']} tracks")
+        with open(f"{root}/metrics.json") as fh:
+            metrics = json.load(fh)
+        for key in ("mpe/f1-score", "reconstruction/SDR", "loss/total"):
+            series = metrics.get(f"URMP/{key}", {})
+            check(series.get("steps") == list(range(CLI_INTERVAL, steps + 1,
+                                                    CLI_INTERVAL))
+                  and all(np.isfinite(series["values"])),
+                  f"cli train: metrics.json URMP/{key} {series}")
+        ckpt = f"{root}/models/model-{steps}"
+        loaded = load_model(ckpt)
+        check(all(torch.equal(loaded.net.state_dict()[k], v) for k, v in
+                  trainer.model.net.state_dict().items())
+              and loaded.hparams == trainer.model.hparams,
+              f"cli train: load_model of model-{steps} differs from the "
+              "trained model")
+        del loaded, trainer
+        torch.cuda.empty_cache()
+        print(f"cli: train wall {train['wall_s']:.3f} s (run() "
+              f"{train['run_s']:.3f} s); step walls (s) " + " ".join(
+                  f"{w:.3f}" for w in train["step_s"]) + "; batch loads + "
+              "compositions on the prefetch thread (s) " + " ".join(
+                  f"{w:.3f}" for w in train["compose_s"]) + "; sweeps (s) "
+              + " ".join(f"{w:.3f}" for w in train["evaluate_s"])
+              + f" ({n_tracks['URMP']} x {CLI_TRACK_SECS:.0f}-s tracks); "
+              f"peak {train['peak_bytes'] / 2**30:.2f} GiB; launches "
+              f"{launches}")
+        print(f"cli: trainer_step_ms {train['trainer_step_ms']:.1f} (the "
+              f"CLI's --n-workers 8, batch 8 MPE crops) beside phase 3f's "
+              f"{trainer_numbers['trainer_step_ms']:.1f} (serial loader, 4 "
+              f"MPE + 4 audio-only crops); bare train_step_ms "
+              f"{trainer_numbers['train_step_ms']:.1f}; on {card}")
+
+        # The "flax" backend's step at the recipe: the JAX CLI turns remat
+        # on for it, the port has no remat; its time and peak memory.
+        flax_s, _, flax_peak = reference_recipe_step_time(
+            flagship(TimbreTrap, seed=2), conv_backend="flax", iters=1,
+            return_memory=True)
+        torch.cuda.empty_cache()
+        print(f"cli: the \"flax\" backend's recipe step (batch 8 x 3 "
+              f"blocks, no remat) {flax_s * 1e3:.1f} ms, peak "
+              f"{flax_peak / 2**30:.2f} GiB; on {card}")
+
+        # The evaluate CLI on the train CLI's checkpoint, on the card.
+        base_dirs = [dirs[name] for name in DATASETS]
+        argv = (["--checkpoint", ckpt, "--datasets"] + DATASETS
+                + ["--base-dirs"] + base_dirs)
+        zero_counts(counters)
+        printed, returned, model, eval_wall = cli_evaluate(argv)
+        eval_launches = read_counts(counters)
+        check(printed == returned and set(printed) == set(DATASETS),
+              f"cli evaluate: printed {printed} returned {returned}")
+        check(eval_launches["peak_mask"] == sum(n_tracks.values()),
+              f"cli evaluate: K2 launched {eval_launches['peak_mask']} times "
+              f"over {sum(n_tracks.values())} tracks")
+        check(all(np.isfinite(v) for r in printed.values()
+                  for v in r.values()), "cli evaluate: a result is not finite")
+        direct = {name: evaluate(model, evaluation_set(name, dirs[name], SR,
+                                                       model.sliCQ),
+                                 {"reconstruction": 1, "transcription": 1,
+                                  "consistency": 1}) for name in DATASETS}
+        check(direct == printed, f"cli evaluate: printed results differ "
+              f"from evaluate() on the same model: {printed} vs {direct}")
+        del model
+        print(f"cli: evaluate over {sum(n_tracks.values())} tracks "
+              f"({', '.join(f'{k} {v}' for k, v in n_tracks.items())}) in "
+              f"{eval_wall:.3f} s, launches {eval_launches}; the printed "
+              f"results equal evaluate() on the loaded model")
+
+        # Card against CPU through the CLI: a small model (8 kHz) on the
+        # Bach10 (frame-level F0s) and Su (notes) sets, cut to these two for
+        # the CPU's time.
+        small = f"{tmp}/small"
+        TimbreTrap(**SMALL, seed=3).save(small)
+        argv = (["--checkpoint", small, "--sample-rate",
+                 str(SMALL["sample_rate"]), "--datasets"] + CPU_DATASETS
+                + ["--base-dirs"] + [dirs[name] for name in CPU_DATASETS])
+        got, _, card_model, _ = cli_evaluate(argv)
+        want, _, cpu_model, cpu_wall = cli_evaluate(argv + ["--device",
+                                                            "cpu"])
+        gaps = {}
+        for name in CPU_DATASETS:
+            ds = evaluation_set(name, dirs[name], SMALL["sample_rate"],
+                                cpu_model.sliCQ)
+            gaps[name] = hold_card_to_cpu(
+                torch, card_model, cpu_model, ds, got[name], want[name],
+                f"cli: evaluate {name} card vs CPU (small model)")
+        del card_model, cpu_model
+
+        # The sonify CLI on the Bach10 mixtures, counted.
+        out_dir = f"{tmp}/sonify"
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sonify.main(["--checkpoint", ckpt, "--bach10-dir", dirs["Bach10"],
+                     "--output-dir", out_dir])
+        torch.cuda.synchronize()
+        sonify_s = time.perf_counter() - t0
+        son_launches = read_counts(counters)
+        check(son_launches["banded_conv"] > 0
+              and son_launches["banded_conv.mma"] > 0
+              and son_launches["banded_conv.mma_f32"] > 0
+              and son_launches["banded_conv.mma"]
+              + son_launches["banded_conv.mma_f32"]
+              == son_launches["banded_conv"]
+              and son_launches["peak_mask"] == 0,
+              f"cli sonify: K1 did not run both routes (bf16 for _scr, "
+              f"split-TF32 for _rec), or K2 ran: {son_launches}")
+        bach10 = Bach10(base_dir=dirs["Bach10"], splits=None, sample_rate=SR,
+                        cqt=None)
+        snrs = {}
+        for track in bach10.tracks:
+            x = bach10.get_audio(track)
+            x = np.pad(x, [(0, 0), (0, -x.shape[-1] % (SECS * SR))])
+            for kind in ("ref", "rec", "scr"):
+                y, fs = load_audio(f"{out_dir}/{track}_{kind}.wav",
+                                   normalize=False)
+                check(fs == SR and y.shape == x.shape
+                      and np.isfinite(y).all(), f"cli sonify: "
+                      f"{track}_{kind}.wav {y.shape} at {fs} Hz")
+                if kind == "ref":
+                    snrs[track] = float(snr_db(x, y))
+        check(len(os.listdir(out_dir)) == 3 * len(bach10),
+              f"cli sonify: wrote {sorted(os.listdir(out_dir))}")
+        check(min(snrs.values()) > 60.0, f"cli sonify: _ref round trip "
+              f"against the padded input {snrs} dB (bar 60)")
+        print(f"cli: sonify {len(bach10)} x {CLI_TRACK_SECS:.0f}-s Bach10 "
+              f"mixtures in {sonify_s:.3f} s; _ref against the padded input "
+              + ", ".join(f"{k} {v:.2f} dB" for k, v in snrs.items())
+              + f" (> 60); launches {son_launches} (K1 bf16 for _scr, "
+              "split-TF32 for _rec)")
+    phase_s = time.perf_counter() - t_phase
+    print(f"cli: phase {phase_s:.1f} s")
+    numbers = {"train": {k: v for k, v in train.items()
+                         if k != "best_results"},
+               "train_launches": launches,
+               "trainer_step_ms_phase_3f": trainer_numbers["trainer_step_ms"],
+               "flax_step_ms": flax_s * 1e3, "flax_peak_bytes": flax_peak,
+               "evaluate_s": eval_wall, "evaluate_tracks": n_tracks,
+               "evaluate_launches": eval_launches,
+               "evaluate_results": printed, "evaluate_card_vs_cpu": gaps,
+               "evaluate_cpu_s": cpu_wall, "sonify_s": sonify_s,
+               "sonify_launches": son_launches, "sonify_ref_snr_db": snrs,
+               "phase_s": phase_s}
+    return numbers, {"train": launches, "evaluate": eval_launches,
+                     "sonify": son_launches}
+
+
 def main():
     try:
         import torch
@@ -2327,6 +2759,11 @@ def main():
         torch, (banded_conv,) + k3_wrappers + (peak_mask,), card,
         train["train_step_ms"])
 
+    lap('cli')
+    # 3g. the train, evaluate and sonify CLIs over the corpus wrappers
+    cli, cli_launches = phase_cli(
+        torch, (banded_conv,) + k3_wrappers + (peak_mask,), card, trainer)
+
     lap('numbers')
     # 4. numbers at the main path's shapes
     spec = model._spec(True)
@@ -2409,6 +2846,12 @@ def main():
          "launches_reconstruct": launches_rec["banded_conv"],
          "launches_train": train_launches["banded_conv"],
          "launches_trainer": trainer_launches["banded_conv"],
+         "launches_cli": {
+             "train": cli_launches["train"]["banded_conv"],
+             "evaluate": cli_launches["evaluate"]["banded_conv"],
+             "sonify": cli_launches["sonify"]["banded_conv"],
+             "sonify_mma": cli_launches["sonify"]["banded_conv.mma"],
+             "sonify_mma_f32": cli_launches["sonify"]["banded_conv.mma_f32"]},
          "launches_family_train_per_step": {
              label: n["banded_conv"] for label, n in family_launches.items()},
          "launches_variants": {
@@ -2443,6 +2886,8 @@ def main():
          "launches": launches["peak_mask"], "max_abs_err": k2_err,
          "launches_variants": launches_var["transcribe"]["peak_mask"],
          "launches_trainer_evaluate": trainer_launches["peak_mask"],
+         "launches_cli": {phase: n["peak_mask"]
+                          for phase, n in cli_launches.items()},
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": "bytes", "library_ms": None,
          "shape": f"{tuple(acts.shape)} float32 -> uint8"},
@@ -2455,6 +2900,7 @@ def main():
          "launches_by_wrapper": k3_only(train_launches),
          "launches_trainer": sum(trainer_launches[fn.__name__]
                                  for fn in k3_wrappers),
+         "launches_cli": {"train": k3_only(cli_launches["train"])},
          "launches_train_f32": sum(train["f32_step_launches"][fn.__name__]
                                    for fn in k3_wrappers),
          "launches_by_wrapper_f32": k3_only(train["f32_step_launches"]),
@@ -2477,6 +2923,7 @@ def main():
     print(json.dumps({"transform": transform, "reconstruct": recon}))
     print(json.dumps({"variants": variants}))
     print(json.dumps({"trainer": trainer}))
+    print(json.dumps({"cli": cli}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

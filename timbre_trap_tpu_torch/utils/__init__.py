@@ -1,5 +1,5 @@
-from .experiments import MultipitchEvaluator, seed_everything
+from .experiments import MultipitchEvaluator, print_and_log, seed_everything
 from .processing import filter_non_peaks, threshold, to_array
 
 __all__ = ["to_array", "filter_non_peaks", "threshold", "seed_everything",
-           "MultipitchEvaluator"]
+           "print_and_log", "MultipitchEvaluator"]

@@ -1,9 +1,11 @@
-"""Experiment utilities: seeding and the multipitch evaluator.
+"""Experiment utilities: seeding, console logging and the multipitch
+evaluator.
 
-The port's own copy of ``seed_everything`` and ``MultipitchEvaluator`` from
-``timbre_trap_tpu/utils/experiments.py``: the evaluator accumulates
-per-track results of the port's metric suite (``eval/multipitch.py``), adds
-the harmonic-mean ``f1-score`` and prefixes keys with ``mpe/``.
+The port's own copy of ``seed_everything``, ``print_and_log`` and
+``MultipitchEvaluator`` from ``timbre_trap_tpu/utils/experiments.py``: the
+evaluator accumulates per-track results of the port's metric suite
+(``eval/multipitch.py``), adds the harmonic-mean ``f1-score`` and prefixes
+keys with ``mpe/``.
 """
 
 import random
@@ -15,7 +17,7 @@ import torch
 
 from ..eval import multipitch as mp_metrics
 
-__all__ = ["seed_everything", "MultipitchEvaluator"]
+__all__ = ["seed_everything", "print_and_log", "MultipitchEvaluator"]
 
 
 def seed_everything(seed):
@@ -26,6 +28,14 @@ def seed_everything(seed):
     np.random.seed(seed)
     torch.manual_seed(seed)
     return torch.Generator().manual_seed(seed)
+
+
+def print_and_log(text, path=None):
+    """Print to console and optionally append to a log file."""
+    print(text)
+    if path is not None:
+        with open(path, "a") as f:
+            print(text, file=f)
 
 
 class MultipitchEvaluator:
