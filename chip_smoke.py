@@ -134,6 +134,24 @@ Phases, each of which exits non-zero on failure:
              against ``--device cpu`` (3f's bars); the sonify CLI on the
              Bach10 mixtures: K1 in both routes, three finite WAVs a
              track, ``_ref`` > 60 dB against the padded input.
+             Multi-device (3h): the ``"flax"`` recipe step with ``remat``
+             against the step without (losses within 1e-5, gradients
+             within 1e-4 * each leaf's max|g|), its time and peak memory
+             beside 3g's; an NCCL group of one rank on the card
+             (``parallel.initialize``): the sharded ``"pallas_bf16"``
+             recipe step on 4 MPE + 4 audio-only crops and the sharded
+             transcription of the 100-s clip equal the plain step and
+             ``chunked_inference`` bit for bit, counted; two gloo ranks
+             sharing the card (``chip_smoke.py --parallel-rank``; NCCL
+             takes one rank a card), 2 + 2 crops each: the sharded
+             float32 step against one rank's (1e-5, 1e-4 * max|g|, or
+             the float64 rule), the bf16 one within 2e-2 (loss) and 5e-2
+             (gradient L2), both ranks the same bits, each rank's step
+             counted (one rank's launches), the sharded transcription
+             within 2e-5 * max|ref| of ``chunked_inference``, the ranks'
+             K1 launches summing to one rank's (up to a chunk group);
+             the ranks' step and gradient all-reduce times (two ranks on
+             one card: no scaling numbers).
              K1 and K3's dX and dW are, in both dtypes, the band-tiled
              tensor-core kernels of ``csrc/band_mma.cu``: phase 2 also
              holds them, on one conv of each kind at flagship widths (3x3
@@ -171,8 +189,10 @@ Phases, each of which exits non-zero on failure:
              (the CLI's threaded loader) beside 3f's, its sweep, evaluate
              and sonify walls.
 
-Prints the kernels' JSON line and the card's name and power limit, and as
-its last line ``{"ok": true, "device": {...}}``.
+Prints the kernels' JSON line (with each kernel's launches per rank in
+phase 3h, ``launches_parallel``), the ``parallel`` JSON line and the
+card's name and power limit, and as its last line ``{"ok": true,
+"device": {...}}``.
 """
 
 import contextlib
@@ -727,16 +747,17 @@ def check_kernel_step(label, got, want, ref64=None, pair="pallas vs packed"):
     return out
 
 
-def one_step(torch, model, weights, backend, audio, gt, lr):
+def one_step(torch, model, weights, backend, audio, gt, lr, mpe=None):
     """One train step of ``backend`` from ``weights`` -> (metrics as
-    floats, gradients)."""
+    floats, gradients); the first ``mpe`` crops annotated (all of them by
+    default)."""
     from timbre_trap_tpu_torch.train import (TrainConfig, init_train_state,
                                              make_train_step)
 
     cfg = TrainConfig()
     model.load_state_dict(weights)
-    step = make_train_step(model, cfg, audio.shape[0], conv_backend=backend,
-                           compact_audio_grid=True)
+    step = make_train_step(model, cfg, mpe or audio.shape[0],
+                           conv_backend=backend, compact_audio_grid=True)
     metrics = step(init_train_state(model, cfg), audio, gt, lr)
     grads = {n: p.grad.clone() for n, p in model.net.named_parameters()}
     return {k: float(v) for k, v in metrics.items()}, grads
@@ -1819,12 +1840,14 @@ class Recorder:
         pass
 
 
-def make_trainer(root, train_dir, val_dir, seed, rng_states=None):
+def make_trainer(root, train_dir, val_dir, seed, rng_states=None,
+                 max_epochs=2, n_devices=None):
     """The CLI's Trainer at the flagship geometry: an MPE loader of 4
     shuffled 9-s crops and an audio-only loader of 4 over the same WAVs
     (batch 8), ``"pallas_bf16"``, a checkpoint and a validation sweep
-    every 2 steps, 2 epochs of 2 steps. ``rng_states`` (the datasets'
-    crop RandomStates) sets where the crops' draws start."""
+    every 2 steps, ``max_epochs`` epochs of 2 steps, over ``n_devices``
+    ranks. ``rng_states`` (the datasets' crop RandomStates) sets where the
+    crops' draws start."""
     from timbre_trap_tpu_torch.data import DataLoader
     from timbre_trap_tpu_torch.models import TimbreTrap
     from timbre_trap_tpu_torch.train import Trainer, TrainerConfig
@@ -1839,9 +1862,10 @@ def make_trainer(root, train_dir, val_dir, seed, rng_states=None):
             ds.rng.set_state(st)
     val = SmokeMPE(base_dir=val_dir, splits=["all"], sample_rate=SR,
                    cqt=model.sliCQ, n_secs=None)
-    config = TrainerConfig(max_epochs=2, checkpoint_interval=2, batch_size=8,
-                           n_secs=TRAIN_SECS, learning_rate=TRAIN_LR,
-                           n_epochs_warmup=1,
+    config = TrainerConfig(max_epochs=max_epochs, checkpoint_interval=2,
+                           batch_size=8, n_secs=TRAIN_SECS,
+                           learning_rate=TRAIN_LR, n_epochs_warmup=1,
+                           n_devices=n_devices,
                            validation_criteria_set="SmokeMPE",
                            conv_backend="pallas_bf16", root_dir=root)
     trainer = Trainer(model, DataLoader(mpe, 4, shuffle=True, drop_last=True,
@@ -2475,8 +2499,9 @@ def phase_cli(torch, counters, card, trainer_numbers):
               f"MPE + 4 audio-only crops); bare train_step_ms "
               f"{trainer_numbers['train_step_ms']:.1f}; on {card}")
 
-        # The "flax" backend's step at the recipe: the JAX CLI turns remat
-        # on for it, the port has no remat; its time and peak memory.
+        # The "flax" backend's recipe step without remat (the CLI turns
+        # remat on for it): its time and peak memory, the baseline that
+        # phase 3h's rematted step is compared with.
         flax_s, _, flax_peak = reference_recipe_step_time(
             flagship(TimbreTrap, seed=2), conv_backend="flax", iters=1,
             return_memory=True)
@@ -2588,6 +2613,428 @@ def phase_cli(torch, counters, card, trainer_numbers):
                "phase_s": phase_s}
     return numbers, {"train": launches, "evaluate": eval_launches,
                      "sonify": son_launches}
+
+
+# The parallel phase (3h): the recipe's 8 crops as 4 MPE + 4 audio-only,
+# 2 + 2 on each of two gloo ranks that share the one card.
+PAR_MPE, PAR_AUDIO, PAR_RANKS = 4, 4, 2
+# Seconds a rank waits for the others, and the phase for its ranks.
+PAR_JOIN_S, PAR_WAIT_S = 300, 600
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def local_rows(plan, audio, gt):
+    """A rank's part of the [MPE | audio-only] batch under ``plan``."""
+    return (np.concatenate([audio[:PAR_MPE][plan.mpe_rows],
+                            audio[PAR_MPE:][plan.audio_rows]]),
+            gt[plan.mpe_rows])
+
+
+def sharded_step_run(torch, model, weights, backend, mesh, audio, gt, mpe,
+                     counters):
+    """One counted step of ``shard_train_step`` from ``weights`` on
+    ``mesh``, then a second one timed part by part. Returns (metrics as
+    floats, gradients, launches of the first step, step ms, all-reduce
+    ms)."""
+    import torch.distributed as dist
+
+    from timbre_trap_tpu_torch.device import ieee_convs
+    from timbre_trap_tpu_torch.train import (TrainConfig, init_train_state,
+                                             make_train_step,
+                                             shard_train_step)
+
+    cfg = TrainConfig()
+    model.load_state_dict(weights)
+    step = shard_train_step(make_train_step(
+        model, cfg, mpe, conv_backend=backend, compact_audio_grid=True), mesh)
+    state = init_train_state(model, cfg)
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    metrics = {k: float(v) for k, v in step(state, audio, gt,
+                                             TRAIN_LR).items()}
+    launches = read_counts(counters)
+    grads = {n: p.grad.clone() for n, p in model.net.named_parameters()}
+    upload, loss_fn, reduce, update = step.parts
+    dist.barrier(group=mesh.get_group())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ieee_convs(model.device):
+        total, m = loss_fn(*upload(audio, gt))
+        total.backward()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    m = reduce(m)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    update(state, m, TRAIN_LR)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return metrics, grads, launches, (t3 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def counted_trainer_run(torch, root, corpus, counters, n_devices=None):
+    """One epoch of :func:`make_trainer` (2 steps, a checkpoint and a sweep
+    of the validation set), counted. Returns (trainer, best results,
+    launches, wall s)."""
+    trainer, _ = make_trainer(root, *corpus, seed=9, max_epochs=1,
+                              n_devices=n_devices)
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, results = trainer.run()
+    torch.cuda.synchronize()
+    return trainer, results, read_counts(counters), time.perf_counter() - t0
+
+
+def check_trainers_equal(torch, dp, dp_results, one, one_results, what):
+    """The data-parallel Trainer ``dp`` against the single-device ``one``
+    after the same run: parameters and Adam's moments bit for bit, the
+    same logs, sweep results and decisions."""
+    same = all(torch.equal(dp.params[n], p) for n, p in one.params.items())
+    same_mu = all(torch.equal(dp.opt_state[m][n], one.opt_state[m][n])
+                  for m in ("mu", "nu") for n in one.opt_state[m])
+    state = [(t.batch_count, t.best_checkpoint, t.n_ckpt_elapsed,
+              t.plateau.scale, t.plateau.best, t.plateau.num_bad)
+             for t in (dp, one)]
+    # (as JSON, where a NaN equals a NaN)
+    logs = [json.dumps([r, t.writer.scalars], sort_keys=True, default=float)
+            for r, t in ((dp_results, dp), (one_results, one))]
+    first_diff = next(((a, b) for a, b in zip(dp.writer.scalars,
+                                              one.writer.scalars)
+                       if a != b), None)
+    check(same and same_mu and state[0] == state[1] and logs[0] == logs[1],
+          f"{what}: the data-parallel Trainer differs from the "
+          f"single-device one (parameters equal {same}, Adam moments equal "
+          f"{same_mu}, state {state}, results {dp_results} vs "
+          f"{one_results}, first logs that differ {first_diff} of "
+          f"{len(dp.writer.scalars)} and {len(one.writer.scalars)})")
+
+
+def counted_sharded_inference(torch, model, mesh, audio, counters):
+    """``make_sharded_chunked_inference`` of ``audio`` (transcribe),
+    counted. Returns (coefficients, launches, wall s)."""
+    from timbre_trap_tpu_torch.parallel import make_sharded_chunked_inference
+
+    run = make_sharded_chunked_inference(model, mesh, transcribe=True)
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run(audio)
+    torch.cuda.synchronize()
+    return out, read_counts(counters), time.perf_counter() - t0
+
+
+def rank_main(rank, world, port, workdir):
+    """One of phase 3h's gloo ranks on the card (``chip_smoke.py
+    --parallel-rank RANK WORLD PORT WORKDIR``): the sharded recipe step in
+    float32 and bf16 on its 2 + 2 rows, counted, and its share of the
+    sharded transcription of the 100-s clip, counted and held against
+    ``chunked_inference`` on rank 0. Writes ``rank{r}.json`` and
+    ``rank{r}.pt`` (gradients) under ``workdir``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from timbre_trap_tpu_torch import parallel
+    from timbre_trap_tpu_torch.models import TimbreTrap
+    from timbre_trap_tpu_torch.ops.fused_level import (banded_conv,
+                                                       banded_conv_dw,
+                                                       banded_conv_dx,
+                                                       elu_backward)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = (banded_conv, banded_conv_dx, banded_conv_dw, elu_backward)
+    check(parallel.initialize(f"127.0.0.1:{port}", world, rank,
+                              timeout=datetime.timedelta(seconds=PAR_JOIN_S),
+                              backend="gloo"),
+          f"rank {rank}: initialize did not form the group")
+    mesh = parallel.make_mesh(world)
+    check(dist.get_backend() == "gloo" and mesh.size() == world,
+          f"rank {rank}: {dist.get_backend()} group of {mesh.size()}")
+    plan = parallel.plan_local_rows(PAR_MPE, PAR_AUDIO)
+    batch = np.load(f"{workdir}/batch.npz")
+    audio, gt = local_rows(plan, batch["audio"], batch["gt"])
+    weights = torch.load(f"{workdir}/weights.pt", map_location="cuda")
+    model = flagship(TimbreTrap, seed=1)
+    out, grads = {"rank": rank, "rows": plan.mpe_rows}, {}
+    for backend in ("pallas", "pallas_bf16"):
+        metrics, g, launches, step_ms, reduce_ms = sharded_step_run(
+            torch, model, weights, backend, mesh, audio, gt,
+            len(plan.gt_pos), counters)
+        grads[backend] = {n: v.cpu() for n, v in g.items()}
+        out[backend] = {"metrics": metrics, "launches": launches,
+                        "step_ms": step_ms, "allreduce_ms": reduce_ms}
+    model.load_state_dict(weights)
+    clip = chord(CLIP_SECS, SR)
+    coeffs, launches, wall = counted_sharded_inference(
+        torch, model, mesh, clip, counters[:1])
+    first = coeffs.clone()
+    dist.broadcast(first, src=0, group=mesh.get_group())
+    check(torch.equal(coeffs, first),
+          f"rank {rank}: its coefficients differ from rank 0's")
+    out["inference"] = {"launches": launches, "wall_s": wall,
+                        "shape": list(coeffs.shape)}
+    if rank == 0:
+        err, scale = rel_err(coeffs, model.chunked_inference(clip, True))
+        out["inference"].update(max_abs_err=err, max_abs_ref=scale)
+    torch.save(grads, f"{workdir}/rank{rank}.pt")
+    with open(f"{workdir}/rank{rank}.json", "w") as fh:
+        json.dump(out, fh)
+    dist.destroy_process_group()
+
+
+def phase_parallel(torch, counters, card, cli):
+    """Phase 3h: ``remat`` on the ``"flax"`` recipe step beside 3g's
+    unrematted one; an NCCL group of one rank on the card (the sharded
+    ``"pallas_bf16"`` step and the sharded transcription of the 100-s clip
+    equal to the plain ones, bit for bit); two gloo ranks sharing the card
+    (the sharded step in float32 and bf16 against one rank's, the sharded
+    transcription against ``chunked_inference``, the ranks' launches
+    against one rank's). ``counters`` are (K1, K3 dX, K3 dW, the ELU'
+    seed, K2). Returns (numbers, launches)."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from timbre_trap_tpu_torch import parallel
+    from timbre_trap_tpu_torch.models import TimbreTrap
+    from timbre_trap_tpu_torch.train import (TrainConfig,
+                                             reference_recipe_step_time,
+                                             step_gradients_reference,
+                                             synthetic_batch)
+
+    t_phase = time.perf_counter()
+    k1 = counters[:1]
+    numbers, launches = {}, {}
+
+    # (1) remat: the "flax" recipe step with its cells recomputed, against
+    # the step without (3g timed that one), from the same weights.
+    model = flagship(TimbreTrap, seed=2)
+    audio, gt = synthetic_batch(model, TRAIN_CROPS, TRAIN_SECS, seed=7)
+    w0 = {k: v.clone() for k, v in model.net.state_dict().items()}
+    plain = one_step(torch, model, w0, "flax", audio, gt, TRAIN_LR)
+    del model
+    torch.cuda.empty_cache()
+    rmodel = flagship(TimbreTrap, seed=2, remat=True)
+    remat = one_step(torch, rmodel, w0, "flax", audio, gt, TRAIN_LR)
+    gap = check_kernel_step("remat flax step", remat, plain,
+                            pair="remat vs no remat")
+    del plain, remat
+    torch.cuda.empty_cache()
+    remat_s, _, remat_peak = reference_recipe_step_time(
+        rmodel, conv_backend="flax", iters=1, return_memory=True)
+    del rmodel
+    torch.cuda.empty_cache()
+    numbers["remat"] = {"flax_step_ms": remat_s * 1e3,
+                        "flax_peak_bytes": remat_peak, **gap,
+                        "no_remat_step_ms": cli["flax_step_ms"],
+                        "no_remat_peak_bytes": cli["flax_peak_bytes"]}
+    print(f"parallel: the \"flax\" recipe step with remat "
+          f"{remat_s * 1e3:.1f} ms, peak {remat_peak / 2**30:.2f} GiB, "
+          f"beside 3g's without {cli['flax_step_ms']:.1f} ms, "
+          f"{cli['flax_peak_bytes'] / 2**30:.2f} GiB; on {card}")
+
+    # The batch of the sharded steps: the recipe's 8 crops, 4 annotated.
+    model = flagship(TimbreTrap, seed=1)
+    audio, gt = synthetic_batch(model, TRAIN_CROPS, TRAIN_SECS, seed=8)
+    gt = gt[:PAR_MPE]
+    w0 = {k: v.clone() for k, v in model.net.state_dict().items()}
+    clip = chord(CLIP_SECS, SR)
+
+    # The single-device Trainer of (2)'s data-parallel one: one epoch (2
+    # steps, a checkpoint and a sweep) on a corpus like phase 3f's.
+    corpus_dir = tempfile.TemporaryDirectory()
+    corpus = (write_corpus(f"{corpus_dir.name}/train", TRAINER_TRACKS,
+                           TRAINER_TRACK_SECS, SR, seed=11),
+              write_corpus(f"{corpus_dir.name}/val", 1, VAL_SECS, SR,
+                           seed=12))
+    one, one_results, one_launches, one_s = counted_trainer_run(
+        torch, f"{corpus_dir.name}/one", corpus, counters)
+
+    # (2) An NCCL group of one rank on cuda:0: the all-reduce and the
+    # division by 1 are exact, so the sharded step, the sharded
+    # transcription and the data-parallel Trainer equal the plain ones bit
+    # for bit.
+    check(parallel.initialize(f"127.0.0.1:{free_port()}", 1, 0,
+                              timeout=datetime.timedelta(
+                                  seconds=PAR_JOIN_S)),
+          "initialize did not form the one-rank group")
+    check(dist.get_backend() == "nccl", f"the group on the card is "
+          f"{dist.get_backend()}, not NCCL")
+    mesh = parallel.make_mesh(1)
+    m1, g1, l1, step1_ms, reduce1_ms = sharded_step_run(
+        torch, model, w0, "pallas_bf16", mesh, audio, gt, PAR_MPE, counters)
+    m0, g0 = one_step(torch, model, w0, "pallas_bf16", audio, gt, TRAIN_LR,
+                      mpe=PAR_MPE)
+    check(m1 == m0 and all(torch.equal(g1[n], g) for n, g in g0.items()),
+          "NCCL, one rank: the sharded bf16 step differs from the plain "
+          "step")
+    check(all(l1[fn] == n for fn, n in RECIPE_STEP_LAUNCHES.items()),
+          f"NCCL, one rank: the sharded step launched {l1}")
+    del g0, g1
+    model.load_state_dict(w0)
+    coeffs, l_inf1, inf1_s = counted_sharded_inference(torch, model, mesh,
+                                                       clip, k1)
+    zero_counts(k1)
+    ref = model.chunked_inference(clip, True)
+    l_chunked = read_counts(k1)
+    check(torch.equal(coeffs, ref), f"NCCL, one rank: the sharded "
+          f"transcription differs from chunked_inference by "
+          f"{rel_err(coeffs, ref)[0]}")
+    check(l_inf1["banded_conv"] == l_chunked["banded_conv"] > 0,
+          f"NCCL, one rank: K1 {l_inf1} against chunked_inference's "
+          f"{l_chunked}")
+    del coeffs
+    # The Trainer with n_devices=1 in the group: the sharded step, rank
+    # 0's sweep broadcast over NCCL to the group, the chief's writes.
+    dp, dp_results, dp_launches, dp_s = counted_trainer_run(
+        torch, f"{corpus_dir.name}/dp", corpus, counters, n_devices=1)
+    check(dp.mesh is not None and dp._steps
+          and all(len(st.parts) == 4 for st in dp._steps.values()),
+          "NCCL, one rank: the Trainer did not run the sharded step")
+    check(dp_launches == one_launches and dp_launches["peak_mask"] == 1
+          and all(dp_launches[fn] > 0 for fn in RECIPE_STEP_LAUNCHES),
+          f"NCCL, one rank: the Trainer launched {dp_launches}, the "
+          f"single-device one {one_launches}")
+    check_trainers_equal(torch, dp, dp_results, one, one_results,
+                         "NCCL, one rank")
+    for path in ("config.json", "run.json", "metrics.json",
+                 "models/model-2/checkpoint.pt", "models/hparams.json"):
+        check(os.path.isfile(f"{corpus_dir.name}/dp/{path}"),
+              f"NCCL, one rank: the chief did not write {path}")
+    dist.destroy_process_group()
+    del dp, one
+    corpus_dir.cleanup()
+    torch.cuda.empty_cache()
+    launches["nccl_1rank"] = {"step": l1, "inference": l_inf1,
+                              "trainer": dp_launches}
+    numbers["nccl_1rank"] = {"step_ms": step1_ms, "allreduce_ms": reduce1_ms,
+                             "inference_s": inf1_s, "trainer_run_s": dp_s,
+                             "single_device_trainer_run_s": one_s}
+    print(f"parallel: NCCL, one rank: the sharded pallas_bf16 step equals "
+          f"the plain step bit for bit ({step1_ms:.1f} ms, all-reduce "
+          f"{reduce1_ms:.3f} ms), launches {l1}; the sharded transcription "
+          f"of the {CLIP_SECS:.0f}-s clip equals chunked_inference bit for "
+          f"bit, K1 {l_inf1['banded_conv']}; the Trainer (n_devices=1, 2 "
+          f"steps and a sweep) equals the single-device Trainer bit for "
+          f"bit, run() {dp_s:.3f} s against {one_s:.3f} s, launches "
+          f"{dp_launches}; on {card}")
+
+    # (3) Two gloo ranks on the one card (NCCL takes one rank a card). The
+    # single-rank references first, then the ranks.
+    refs = {b: one_step(torch, model, w0, b, audio, gt, TRAIN_LR,
+                        mpe=PAR_MPE) for b in ("pallas", "pallas_bf16")}
+    per_forward = sum(1 for _ in model._spec(True).convs())
+
+    def ref64():
+        m64 = flagship(TimbreTrap, seed=1, remat=True)
+        m64.load_state_dict(w0)
+        return step_gradients_reference(m64, TrainConfig(), PAR_MPE, audio,
+                                        gt, compact_audio_grid=True)
+
+    ref = ref.cpu()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        torch.save({k: v.cpu() for k, v in w0.items()}, f"{work}/weights.pt")
+        np.savez(f"{work}/batch.npz", audio=audio, gt=gt)
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+             str(r), str(PAR_RANKS), str(port), work],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(PAR_RANKS)]
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=PAR_WAIT_S)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=60)
+        ranks_s = time.perf_counter() - t0
+        for r, (proc, out) in enumerate(zip(procs, outs)):
+            check(proc.returncode == 0, f"gloo rank {r} failed "
+                  f"(rc {proc.returncode}):\n{out[-4000:]}")
+        ranks = []
+        for r in range(PAR_RANKS):
+            with open(f"{work}/rank{r}.json") as fh:
+                ranks.append(json.load(fh))
+            ranks[-1]["grads"] = torch.load(f"{work}/rank{r}.pt")
+    for backend in ("pallas", "pallas_bf16"):
+        g_r = [{n: v.cuda() for n, v in r["grads"][backend].items()}
+               for r in ranks]
+        check(all(torch.equal(g_r[0][n], g) for n, g in g_r[1].items())
+              and ranks[0][backend]["metrics"]
+              == ranks[1][backend]["metrics"],
+              f"gloo: the two ranks' {backend} steps differ")
+        got = (ranks[0][backend]["metrics"], g_r[0])
+        for r in ranks:
+            check(all(r[backend]["launches"][fn] == n
+                      for fn, n in RECIPE_STEP_LAUNCHES.items()),
+                  f"gloo rank {r['rank']}: the {backend} step launched "
+                  f"{r[backend]['launches']}")
+        if backend == "pallas":
+            numbers["gloo_f32"] = check_kernel_step(
+                "2 gloo ranks, float32", got, refs[backend],
+                ref64=ref64, pair="vs one rank")
+        else:
+            (mb, gb), (ms, gs) = got, refs[backend]
+            d = abs(mb["loss/total"] - ms["loss/total"]) / abs(
+                ms["loss/total"])
+            l2 = grad_l2_rel(gb, gs)
+            check(d <= 2e-2 and l2 <= 5e-2, f"gloo: the bf16 step off one "
+                  f"rank's by {d} (loss), {l2} (gradient L2)")
+            numbers["gloo_bf16"] = {"loss_rel": d, "grad_l2_rel": l2}
+            print(f"parallel: 2 gloo ranks, bf16, vs one rank: loss rel "
+                  f"{d:.2e}, gradient L2 rel {l2:.2e}")
+    del g_r, got
+    inf = [r["inference"] for r in ranks]
+    total = sum(i["launches"]["banded_conv"] for i in inf)
+    check(l_chunked["banded_conv"] <= total <= l_chunked["banded_conv"]
+          + (PAR_RANKS - 1) * per_forward,
+          f"gloo: the ranks' K1 launches {[i['launches'] for i in inf]} "
+          f"against one rank's {l_chunked}")
+    err, scale = inf[0]["max_abs_err"], inf[0]["max_abs_ref"]
+    check(err <= 2e-5 * scale, f"gloo: the sharded transcription off "
+          f"chunked_inference by {err} (max|ref| {scale})")
+    launches["gloo_ranks"] = [{"step_f32": r["pallas"]["launches"],
+                               "step_bf16": r["pallas_bf16"]["launches"],
+                               "inference": r["inference"]["launches"]}
+                              for r in ranks]
+    numbers["gloo_ranks"] = {
+        "ranks": PAR_RANKS, "wall_s": ranks_s,
+        "step_ms_f32": [r["pallas"]["step_ms"] for r in ranks],
+        "allreduce_ms_f32": [r["pallas"]["allreduce_ms"] for r in ranks],
+        "step_ms_bf16": [r["pallas_bf16"]["step_ms"] for r in ranks],
+        "allreduce_ms_bf16": [r["pallas_bf16"]["allreduce_ms"]
+                              for r in ranks],
+        "inference_s": [i["wall_s"] for i in inf],
+        "inference_max_abs_err": err, "inference_max_abs_ref": scale,
+        "k1_single_rank": l_chunked["banded_conv"]}
+    print(f"parallel: 2 gloo ranks sharing the card (no scaling numbers): "
+          f"step ms f32 {numbers['gloo_ranks']['step_ms_f32']}, bf16 "
+          f"{numbers['gloo_ranks']['step_ms_bf16']}; gradient all-reduce "
+          f"ms f32 {numbers['gloo_ranks']['allreduce_ms_f32']}, bf16 "
+          f"{numbers['gloo_ranks']['allreduce_ms_bf16']}; transcription K1 "
+          f"{[i['launches']['banded_conv'] for i in inf]} against one "
+          f"rank's {l_chunked['banded_conv']}, max abs err {err:.3e} "
+          f"(max|ref| {scale:.3e}); ranks' wall {ranks_s:.1f} s; on {card}")
+    phase_s = time.perf_counter() - t_phase
+    numbers["phase_s"] = phase_s
+    print(f"parallel: phase {phase_s:.1f} s")
+    return numbers, launches
 
 
 def main():
@@ -2764,6 +3211,21 @@ def main():
     cli, cli_launches = phase_cli(
         torch, (banded_conv,) + k3_wrappers + (peak_mask,), card, trainer)
 
+    lap('parallel')
+    # 3h. remat, an NCCL group of one rank, two gloo ranks on the card
+    par, par_launches = phase_parallel(
+        torch, (banded_conv,) + k3_wrappers + (peak_mask,), card, cli)
+
+    def per_rank(fns):
+        """Phase 3h's launches of the wrappers ``fns`` (summed), per rank
+        and path."""
+        def n(counts):
+            return sum(counts.get(fn.__name__, 0) for fn in fns)
+        return {"nccl_1rank": {k: n(v) for k, v in
+                               par_launches["nccl_1rank"].items()},
+                "gloo_ranks": [{k: n(v) for k, v in r.items()}
+                               for r in par_launches["gloo_ranks"]]}
+
     lap('numbers')
     # 4. numbers at the main path's shapes
     spec = model._spec(True)
@@ -2854,6 +3316,7 @@ def main():
              "sonify_mma_f32": cli_launches["sonify"]["banded_conv.mma_f32"]},
          "launches_family_train_per_step": {
              label: n["banded_conv"] for label, n in family_launches.items()},
+         "launches_parallel": per_rank((banded_conv,)),
          "launches_variants": {
              "transcribe": launches_var["transcribe"]["banded_conv"],
              "reconstruct": launches_var["reconstruct"]["banded_conv"],
@@ -2888,6 +3351,7 @@ def main():
          "launches_trainer_evaluate": trainer_launches["peak_mask"],
          "launches_cli": {phase: n["peak_mask"]
                           for phase, n in cli_launches.items()},
+         "launches_parallel": per_rank((peak_mask,)),
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": "bytes", "library_ms": None,
          "shape": f"{tuple(acts.shape)} float32 -> uint8"},
@@ -2906,6 +3370,7 @@ def main():
          "launches_by_wrapper_f32": k3_only(train["f32_step_launches"]),
          "launches_family_train_per_step": {
              label: k3_only(n) for label, n in family_launches.items()},
+         "launches_parallel": per_rank(k3_wrappers),
          "variant_stages": {name: dict(row, max_rel_err=k3_stage_err[name])
                             for name, row in k3_stages.items()},
          "max_abs_err": k3_err, **k3},
@@ -2924,6 +3389,7 @@ def main():
     print(json.dumps({"variants": variants}))
     print(json.dumps({"trainer": trainer}))
     print(json.dumps({"cli": cli}))
+    print(json.dumps({"parallel": par, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2932,4 +3398,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        rank_main(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                  sys.argv[5])
+    else:
+        main()

@@ -16,8 +16,9 @@ each loaded by path, on the CPU:
   within 1e-5 (``_ref``) and 1e-4 x max|ref| (``_rec``; ``_scr`` with the
   port's transcription chain in float32, the precision the JAX package runs
   on the CPU; bf16, the port's default, within 5e-2 x max|ref|);
-* refusals: ``--n-devices`` and ``--distributed``, and a missing card
-  without ``--device cpu`` (that importing the CLIs loads no JAX module is
+* refusals: ``--n-devices 2`` in one process (``--distributed`` without
+  a cluster trains on one device), and a missing card without ``--device
+  cpu`` (that importing the CLIs loads no JAX module is
   held in ``tests/test_torch_datasets.py``).
 
 A real training run through the train CLI, at its fixed latent 128 and
@@ -366,10 +367,30 @@ def test_sonify_cli_matches_jax(jax_cli, checkpoints, bach10_dir,
 # --------------------------------------------------------------------- #
 
 @pytest.mark.parametrize("flags", [["--n-devices", "2"], ["--distributed"]])
-def test_train_cli_refuses_multi_device(flags, urmp_corpus, tmp_path):
-    with pytest.raises(SystemExit, match="not ported"):
-        port_train.main(["--debug", "--urmp-dir", urmp_corpus, "--root-dir",
-                         str(tmp_path), "--device", "cpu"] + flags)
+def test_train_cli_refuses_multi_device(flags, urmp_corpus, tmp_path,
+                                        monkeypatch, caplog):
+    """One process per device: ``--n-devices 2`` in one process exits
+    with the ``torchrun`` command that starts two ranks, before it builds
+    anything; ``--distributed`` with no cluster in the environment logs
+    that and trains on one device (the Trainer replaced by a recorder)."""
+    for key in ("WORLD_SIZE", "RANK", "MASTER_ADDR"):
+        monkeypatch.delenv(key, raising=False)
+    seen = _record_trainer(monkeypatch, port_train)
+    argv = ["--debug", "--urmp-dir", urmp_corpus, "--root-dir",
+            str(tmp_path / "run"), "--device", "cpu"] + GEOMETRY + flags
+    if flags[0] == "--n-devices":
+        with pytest.raises(SystemExit,
+                           match="torchrun --nproc-per-node 2 -m "
+                                 "timbre_trap_tpu_torch.experiments.train"):
+            port_train.main(argv)
+        assert not seen and not (tmp_path / "run").exists()
+        return
+    with caplog.at_level("INFO"):
+        assert port_train.main(argv) == (None, None)
+    assert "no cluster" in caplog.text
+    assert not torch.distributed.is_initialized()
+    assert seen["config"].n_devices is None
+    assert seen["model"].device == torch.device("cpu")
 
 
 @pytest.mark.parametrize("cli", ["train", "evaluate", "sonify"])

@@ -12,8 +12,9 @@ complexity 1):
   recording writer on both sides), the final parameters within
   5e-4 x each leaf's max|p|.
 
-The data-parallel case waits for the multi-device slice: ``n_devices``
-raises here.
+The data-parallel Trainer runs one process per device: in this one
+process ``n_devices=2`` raises; its two-rank case is in
+``tests/test_torch_parallel.py``.
 """
 
 import json
@@ -413,13 +414,22 @@ def test_trainer_dual_loader(model, corpus, tmp_path):
 
 
 def test_trainer_data_parallel_waits_for_its_slice(model, corpus, tmp_path):
-    """``tests/test_loop.py::test_trainer_data_parallel`` needs the
-    multi-device slice: here ``n_devices`` raises and names it."""
+    """Data-parallel training runs one process per device, so in one
+    process without a process group ``n_devices=2`` raises, names the
+    ``torchrun`` command that starts two ranks and writes nothing;
+    ``n_devices=1`` is one device with no group. The two-rank Trainer
+    against ``tests/test_loop.py::test_trainer_data_parallel``'s bar is in
+    ``tests/test_torch_parallel.py``."""
     loader = DataLoader(_train_set(ToyMPE, corpus, model.sliCQ),
                         batch_size=4, drop_last=True)
-    config = TrainerConfig(n_devices=4, root_dir=str(tmp_path / "dp"))
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    config = TrainerConfig(n_devices=2, root_dir=str(tmp_path / "dp"))
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         Trainer(model, loader, None, [], config)
+    assert not (tmp_path / "dp").exists()
+    one = Trainer(model, loader, None, [], TrainerConfig(
+        n_devices=1, conv_backend="flax", root_dir=str(tmp_path / "dp1")))
+    assert one.mesh is None and one._local_plan is None
+    assert loader.batch_rows is None
 
 
 def test_trainer_late_start(model, corpus, tmp_path):

@@ -377,22 +377,25 @@ def jax_step_result():
             {k: float(v) for k, v in metrics.items()})
 
 
-def _port_model(params0):
-    m = TimbreTrap(**HP, device="cpu")
+def _port_model(params0, **kw):
+    m = TimbreTrap(**HP, device="cpu", **kw)
     m.load_jax_params(params0)
     return m
 
 
-@pytest.mark.parametrize("backend", ["packed", "pallas", "flax"])
+@pytest.mark.parametrize("backend", ["packed", "pallas", "flax",
+                                     "flax+remat"])
 def test_step_matches_jax(jax_step_result, backend):
     """One port step ("packed": autograd through the twin; "pallas": the
     K1/K3 Function, plain on the CPU; "flax": autograd through the NCHW
-    network) against the JAX packed step from the
+    network, "+remat" with its cells recomputed in the backward pass, as
+    the train CLI builds it) against the JAX packed step from the
     same weights: every loss key within rel 1e-4, gradients (through Adam's
     first moment, mu = 0.1 * clip(g)) within 1e-4 x each leaf's max, and the
     updated parameters within 5e-4."""
     params0, audio, gt, want_params, want_mu, want_metrics = jax_step_result
-    m = _port_model(params0)
+    backend, _, remat = backend.partition("+")
+    m = _port_model(params0, remat=bool(remat))
     cfg = TrainConfig()
     state = init_train_state(m, cfg)
     metrics = make_train_step(m, cfg, 2, conv_backend=backend)(
@@ -409,6 +412,72 @@ def test_step_matches_jax(jax_step_result, backend):
     for name, want in state_dict_from_jax(want_params).items():
         np.testing.assert_allclose(m.net.state_dict()[name].numpy(),
                                    want.numpy(), atol=5e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("family,skips", [("TimbreTrap", True),
+                                          ("TimbreTrapFiLM", False),
+                                          ("TimbreTrapMag", True),
+                                          ("TimbreTrapMagDB", False)])
+def test_remat_step_equals_the_plain_step_bit_for_bit(family, skips):
+    """``remat`` recomputes the encoder's convin and levels and the
+    decoder's levels and convout in the backward pass (each block's
+    forward runs twice a pass through it) and changes no bit of the
+    "flax" step: metrics, gradients and updated parameters, every
+    family."""
+    from timbre_trap_tpu_torch import models
+
+    rng = np.random.default_rng(5)
+    out = []
+    for remat in (False, True):
+        m = getattr(models, family)(**HP, skip_connections=skips,
+                                    remat=remat, seed=3, device="cpu")
+        L, M = m.sliCQ.block_length, m.sliCQ.max_window_length
+        if not out:
+            audio = _rand(rng, 2, 1, L, scale=0.1)
+            gt = (rng.uniform(size=(2, m.sliCQ.n_bins, M)) > 0.95
+                  ).astype(np.float32)
+        calls = []
+        for cell in (m.net.encoder.convin, m.net.encoder.block2,
+                     m.net.decoder.block4, m.net.decoder.convout):
+            # A pre-hook: the recompute may stop before the forward ends.
+            cell.register_forward_pre_hook(lambda *_: calls.append(1))
+        cfg = TrainConfig()
+        metrics = make_train_step(m, cfg, 1, conv_backend="flax")(
+            init_train_state(m, cfg), audio, gt, 1e-3)
+        # 2 encodes and 4 decodes a step (consistency on); remat adds the
+        # recompute of each.
+        assert len(calls) == (2 + 2 + 4 + 4) * (2 if remat else 1)
+        out.append((metrics, {n: p.grad for n, p in
+                              m.net.named_parameters()},
+                    m.net.state_dict()))
+    for got, want in zip(out[1], out[0]):
+        assert got.keys() == want.keys()
+        assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+def test_remat_stays_out_of_hparams_and_saved_files(tmp_path):
+    """As in the JAX package, ``remat`` is how the network trains, not
+    what it is: ``hparams`` and a saved model's files are those of the
+    model without it, and the state_dict names are the same."""
+    from timbre_trap_tpu_torch.models import load_model
+
+    plain = TimbreTrap(**HP, seed=4, device="cpu")
+    remat = TimbreTrap(**HP, seed=4, remat=True, device="cpu")
+    assert remat.hparams == plain.hparams and "remat" not in remat.hparams
+    assert remat.net.encoder.remat and remat.net.decoder.remat
+    assert not plain.net.encoder.remat
+    assert list(remat.net.state_dict()) == list(plain.net.state_dict())
+    for name, m in (("plain", plain), ("remat", remat)):
+        m.save(str(tmp_path / name))
+    with open(tmp_path / "plain" / "hparams.json") as a, \
+            open(tmp_path / "remat" / "hparams.json") as b:
+        assert a.read() == b.read()
+    saved = torch.load(tmp_path / "remat" / "weights.pt")
+    assert all(torch.equal(v, plain.net.state_dict()[k])
+               for k, v in saved.items())
+    loaded = load_model(str(tmp_path / "remat"), seed=9,
+                        overrides={"device": "cpu"})
+    assert not loaded.net.encoder.remat
 
 
 def test_bf16_step_tracks_f32_and_trains(jax_step_result):

@@ -11,13 +11,23 @@ installed, else nowhere.
 Example:
     python -m timbre_trap_tpu_torch.experiments.train --root-dir runs/base \\
         --debug --urmp-dir /data/URMP
+
+Data-parallel over N cards of one machine, one process per card (the JAX
+CLI drives N devices from one process):
+    torchrun --nproc-per-node N -m timbre_trap_tpu_torch.experiments.train \\
+        --n-devices N --distributed --root-dir runs/base --debug ...
 """
 
 import argparse
 import os
 
+import torch
+
 from ..data import ComboDataset, DataLoader
 from ..models import TimbreTrap
+from ..parallel import initialize
+from ..parallel.distributed import process_count, process_index
+from ..parallel.mesh import torchrun_hint
 from ..train import Trainer, TrainerConfig, load_checkpoint
 from ..utils import seed_everything
 
@@ -46,10 +56,14 @@ def parse_args(argv=None):
     p.add_argument("--n-epochs-cooldown", type=int, default=100)
     p.add_argument("--n-epochs-early-stop", type=int, default=None)
     p.add_argument("--n-devices", type=int, default=None,
-                   help="data-parallel over N devices: not ported yet, "
-                        "refused")
+                   help="data-parallel over N devices: N processes, one per "
+                        "device, of one torch.distributed group (start them "
+                        "with torchrun --nproc-per-node N and --distributed)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process training: not ported yet, refused")
+                   help="join the process group torchrun describes "
+                        "(parallel.initialize: NCCL on the card, gloo on the "
+                        "CPU); each rank then loads only its rows of the "
+                        "global batch (parallel.plan_local_rows)")
     p.add_argument("--conv-backend", default="pallas_bf16",
                    choices=["pallas_bf16", "pallas", "packed", "flax"],
                    help="train-step conv path: 'pallas_bf16' (the "
@@ -90,7 +104,7 @@ def parse_args(argv=None):
     p.add_argument("--gset-dir", default=None)
     p.add_argument("--device", default=None,
                    help="'cpu' runs the kernels' plain PyTorch versions on "
-                        "the CPU; default the card (no card raises)")
+                        "the CPU; default this rank's card (no card raises)")
     return p.parse_args(argv)
 
 
@@ -98,16 +112,26 @@ def main(argv=None):
     """Train as the command line ``argv`` says; returns the Trainer's
     (best checkpoint, best results)."""
     args = parse_args(argv)
-    if args.n_devices is not None or args.distributed:
-        raise SystemExit("--n-devices and --distributed: multi-device "
-                         "training is not ported yet; train on one device")
+    if args.distributed:
+        initialize()
+    if args.n_devices not in (None, process_count()):
+        raise SystemExit(
+            f"--n-devices {args.n_devices}: this process has "
+            f"{process_count()} rank(s); each device is one process. Start "
+            f"them as: {torchrun_hint(args.n_devices)}")
+    device = args.device
+    if device is None and torch.distributed.is_initialized() \
+            and torch.cuda.is_available():
+        device = f"cuda:{torch.cuda.current_device()}"
     seed_everything(args.seed)
 
     model = TimbreTrap(sample_rate=args.sample_rate, n_octaves=args.n_octaves,
                        bins_per_octave=args.bins_per_octave, secs_per_block=3,
                        latent_size=128, model_complexity=2,
                        skip_connections=args.skip_connections, seed=args.seed,
-                       device=args.device)
+                       # remat matters only for the "flax" backend; the
+                       # packed backends checkpoint each level themselves.
+                       remat=(args.conv_backend == "flax"), device=device)
 
     if args.checkpoint_path is not None:
         state = load_checkpoint(args.checkpoint_path)
@@ -201,6 +225,7 @@ def main(argv=None):
         n_epochs_decay=args.n_epochs_decay,
         n_epochs_cooldown=args.n_epochs_cooldown,
         n_epochs_early_stop=args.n_epochs_early_stop,
+        n_devices=args.n_devices,
         conv_backend=args.conv_backend,
         weight_decay=args.weight_decay,
         grad_accum_steps=args.grad_accum_steps,
@@ -209,12 +234,14 @@ def main(argv=None):
         root_dir=args.root_dir,
     )
 
-    try:
-        from tensorboardX import SummaryWriter
+    writer = None
+    if process_index() == 0:  # one rank logs (the metrics are global)
+        try:
+            from tensorboardX import SummaryWriter
 
-        writer = SummaryWriter(os.path.join(args.root_dir, "models"))
-    except ImportError:
-        writer = None
+            writer = SummaryWriter(os.path.join(args.root_dir, "models"))
+        except ImportError:
+            pass
 
     trainer = Trainer(model, mpe_loader, audio_loader, validation_sets,
                       config, writer=writer)

@@ -10,12 +10,20 @@ connections. The modules hold their weights under the reference names
 ``export_torch_state_dict(params, like=net.state_dict().keys())``, loads
 verbatim. ``forward`` is a plain CPU check of the same function: inference
 runs through the packed banded chain (``models/fused.py``).
+
+``remat`` (the JAX package's ``nn.remat`` cells) recomputes in the
+backward pass what the forward would keep: the encoder's convin + ELU,
+each of the four encoder and four decoder levels, and the decoder's
+convout each run under ``torch.utils.checkpoint``; the decoder's skip
+adds stay outside those cells. It changes no result and no state_dict
+name.
 """
 
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 __all__ = ["embedding_sizes", "default_latent_size", "ResidualConv2dBlock",
            "EncoderBlock", "DecoderBlock", "Encoder", "Decoder", "FiLM",
@@ -50,6 +58,14 @@ def embedding_sizes(feature_size):
 
 def _conv_elu(conv):
     return nn.Sequential(conv, nn.ELU())
+
+
+def _cell(remat, module, x):
+    """``module(x)``, recomputed in the backward pass under ``remat`` (and
+    only where autograd records)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(module, x, use_reentrant=False)
+    return module(x)
 
 
 class ResidualConv2dBlock(nn.Module):
@@ -102,8 +118,9 @@ class Encoder(nn.Module):
     embeddings (after convin + ELU, then after each level)."""
 
     def __init__(self, feature_size, latent_size, model_complexity,
-                 in_channels=2):
+                 in_channels=2, remat=False):
         super().__init__()
+        self.remat = bool(remat)
         channels = _channel_widths(model_complexity)
         sizes, _ = embedding_sizes(feature_size)
         self.convin = _conv_elu(nn.Conv2d(in_channels, channels[0], 3,
@@ -114,10 +131,10 @@ class Encoder(nn.Module):
         self.convlat = nn.Conv2d(channels[4], latent_size, (sizes[-1], 1))
 
     def forward(self, x):
-        x = self.convin(x)
+        x = _cell(self.remat, self.convin, x)
         embeddings = [x]
         for i in range(4):
-            x = getattr(self, f"block{i + 1}")(x)
+            x = _cell(self.remat, getattr(self, f"block{i + 1}"), x)
             embeddings.append(x)
         return self.convlat(x).squeeze(-2), embeddings
 
@@ -128,8 +145,9 @@ class Decoder(nn.Module):
     alone under FiLM (``switch_row=False``)."""
 
     def __init__(self, feature_size, latent_size, model_complexity,
-                 out_channels=2, switch_row=True):
+                 out_channels=2, switch_row=True, remat=False):
         super().__init__()
+        self.remat = bool(remat)
         channels = _channel_widths(model_complexity)[::-1]
         sizes, paddings = embedding_sizes(feature_size)
         self.convin = _conv_elu(nn.ConvTranspose2d(latent_size
@@ -149,10 +167,10 @@ class Decoder(nn.Module):
         if embeddings is not None:
             y = y + embeddings[-1]
         for i in range(4):
-            y = getattr(self, f"block{i + 1}")(y)
+            y = _cell(self.remat, getattr(self, f"block{i + 1}"), y)
             if embeddings is not None:
                 y = y + embeddings[-(i + 2)]
-        return self.convout(y)
+        return _cell(self.remat, self.convout, y)
 
 
 class FiLM(nn.Module):
@@ -179,11 +197,12 @@ class TimbreTrapNet(nn.Module):
 
     ``skip_connections`` adds each encoder embedding, scaled by the
     learnable ``skip_weights`` (ones at init), to the decoder at the same
-    resolution.
+    resolution. ``remat`` recomputes the encoder's and decoder's cells in
+    the backward pass (see the module docstring).
     """
 
     def __init__(self, feature_size, latent_size=None, model_complexity=1,
-                 variant="base", skip_connections=False):
+                 variant="base", skip_connections=False, remat=False):
         super().__init__()
         if variant not in VARIANTS:
             raise ValueError(f"unknown variant {variant!r}")
@@ -194,10 +213,10 @@ class TimbreTrapNet(nn.Module):
         self.latent_size = int(latent_size
                                or default_latent_size(model_complexity))
         self.encoder = Encoder(feature_size, self.latent_size,
-                               model_complexity, self.in_channels)
+                               model_complexity, self.in_channels, remat)
         self.decoder = Decoder(feature_size, self.latent_size,
                                model_complexity, self.in_channels,
-                               switch_row=variant != "film")
+                               switch_row=variant != "film", remat=remat)
         if self.skip_connections:
             self.skip_weights = nn.Parameter(torch.ones(5))
         if variant == "film":

@@ -57,7 +57,10 @@ def _host_array(audio):
 class TimbreTrap:
     """Base (real/imaginary coefficient) model with indicator-channel
     switch; the other families subclass it. ``skip_connections`` adds the
-    scaled encoder embeddings to the decoder (every family)."""
+    scaled encoder embeddings to the decoder (every family). ``remat``
+    recomputes the NCHW network's cells in the backward pass
+    (``TimbreTrapNet``; it matters to the ``"flax"`` train backend only, as
+    the packed backends checkpoint each level themselves)."""
 
     variant = "base"
     # Chunks of the 50%-overlap stream run per forward.
@@ -71,7 +74,7 @@ class TimbreTrap:
 
     def __init__(self, sample_rate, n_octaves, bins_per_octave,
                  secs_per_block=3, latent_size=None, model_complexity=1,
-                 skip_connections=False, seed=0, fused="auto",
+                 skip_connections=False, seed=0, remat=False, fused="auto",
                  transform_compat="native", compat_tables=None, device=None):
         self.hparams = dict(sample_rate=sample_rate, n_octaves=n_octaves,
                             bins_per_octave=bins_per_octave,
@@ -88,8 +91,10 @@ class TimbreTrap:
                          secs_per_block=secs_per_block,
                          compat=transform_compat,
                          compat_tables=compat_tables, device=self.device)
+        # ``remat`` changes how the NCHW network trains, not what it is:
+        # like the JAX package, it stays out of ``hparams`` (and saved files).
         net = TimbreTrapNet(self.sliCQ.n_bins, latent_size, model_complexity,
-                            self.variant, skip_connections)
+                            self.variant, skip_connections, remat)
         init_weights(net, torch.Generator().manual_seed(int(seed)))
         self.net = net.to(self.device).eval()
         self._specs = {}
@@ -216,7 +221,7 @@ class TimbreTrap:
         return self._infer(audio, bool(transcribe))
 
     @torch.no_grad()
-    def _chunked(self, audio, transcribe):
+    def _chunked(self, audio, transcribe, share=None, reduce=None):
         """50%-overlap Hann overlap-add over chunks of one block.
 
         ``audio`` is padded to a block multiple and extended by half a block
@@ -225,6 +230,11 @@ class TimbreTrap:
         ``[k*M/2, k*M/2 + M)``, i.e. even chunks tile the frames
         contiguously and odd chunks at a half-window offset, as in the JAX
         package. The centering margins are trimmed at the end.
+
+        ``share(n_chunks) -> (lo, hi)`` runs only chunks ``[lo, hi)`` into
+        the zero accumulator of the whole signal, and ``reduce(acc)`` then
+        combines the accumulators in place before the trim (sharded
+        inference: ``parallel/inference.py``).
         """
         L = self.sliCQ.block_length
         M = self.sliCQ.max_window_length
@@ -238,9 +248,10 @@ class TimbreTrap:
                                  device=self.device)
         acc = torch.zeros((B, C, F, n_frames + 2 * M), dtype=torch.float32,
                           device=self.device)
-        G = max(1, min(self.chunk_group, n_chunks))
-        for g0 in range(0, n_chunks, G):
-            n = min(G, n_chunks - g0)
+        lo, hi = (0, n_chunks) if share is None else share(n_chunks)
+        G = max(1, min(self.chunk_group, hi - lo))
+        for g0 in range(lo, hi, G):
+            n = min(G, hi - g0)
             chunks = torch.stack([audio[..., (g0 + i) * hop:(g0 + i) * hop + L]
                                   for i in range(n)])        # (n, B, 1, L)
             out = self._infer(chunks.reshape(n * B, 1, L), transcribe)
@@ -248,6 +259,8 @@ class TimbreTrap:
             for i in range(n):
                 start = (g0 + i) * (M // 2)
                 acc[..., start:start + M] += out[i]
+        if reduce is not None:
+            reduce(acc)
         return acc[..., M // 2: n_frames - M // 2]
 
     def _pad_for_chunks(self, audio):

@@ -255,10 +255,13 @@ def banded_conv(x, cb, act=False, residual=None):
     bf16 = x.dtype == torch.bfloat16
     fn = _build.load("band_mma",
                      "tt_band_conv" if bf16 else "tt_band_conv_f32")
-    rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), res, y.data_ptr(),
-            b, r_in, cb.r_out, t, len(cb.dts), *dts, cb.col_adv, cb.margin,
-            w.shape[-1], int(cb.per_block), int(act), *_band_ints(cb),
-            _aligned(t, x), stream)
+    # The CUDA runtime launches on the thread's current device, whichever
+    # device the stream belongs to: make it the tensor's.
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), res,
+                y.data_ptr(), b, r_in, cb.r_out, t, len(cb.dts), *dts,
+                cb.col_adv, cb.margin, w.shape[-1], int(cb.per_block),
+                int(act), *_band_ints(cb), _aligned(t, x), stream)
     _build.check(rc, "banded_conv")
     banded_conv.launches += 1
     banded_conv.mma_launches += int(bf16)
@@ -380,9 +383,10 @@ def elu_backward(dy, elu=None, keep_raw=False):
     raw = torch.empty_like(out) if keep_raw else None
     if out.numel():
         fn = _build.load("banded_conv_bwd", "tt_elu_backward")
-        rc = fn(dy.data_ptr(), _ptr(s1), _ptr(s2), _ptr(raw), out.data_ptr(),
-                _DTYPES[dy.dtype], out.numel(),
-                torch.cuda.current_stream(dy.device).cuda_stream)
+        with torch.cuda.device(dy.device):
+            rc = fn(dy.data_ptr(), _ptr(s1), _ptr(s2), _ptr(raw),
+                    out.data_ptr(), _DTYPES[dy.dtype], out.numel(),
+                    torch.cuda.current_stream(dy.device).cuda_stream)
         _build.check(rc, "elu_backward")
         elu_backward.launches += 1
     return out, raw
@@ -485,9 +489,10 @@ def banded_conv_dx(c, adj, dtype, residual=None, elu=None, keep_raw=False,
                     torch.cuda.current_stream(c.device).cuda_stream)
         if bf16:
             fn = _build.load("band_mma", "tt_band_conv_dx")
-            rc = fn(*args, int(out_dtype == torch.float32), *geometry)
+            args += (int(out_dtype == torch.float32),)
         else:
             fn = _build.load("band_mma", "tt_band_conv_dx_f32")
+        with torch.cuda.device(c.device):
             rc = fn(*args, *geometry)
         _build.check(rc, "banded_conv_dx")
         banded_conv_dx.launches += 1
@@ -583,11 +588,12 @@ def banded_conv_dw(dz, x, cb):
     bf16 = x.dtype == torch.bfloat16
     fn = _build.load("band_mma",
                      "tt_band_conv_dw" if bf16 else "tt_band_conv_dw_f32")
-    rc = fn(dz.data_ptr(), x.data_ptr(), part.data_ptr(),
-            part_bias.data_ptr(), dw.data_ptr(), db.data_ptr(), b, r_in,
-            cb.r_out, t, n_dt, *dts, cb.k, cb.col_adv, cb.margin,
-            *_band_ints(cb), n_slices, _aligned(t, dz, x),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        rc = fn(dz.data_ptr(), x.data_ptr(), part.data_ptr(),
+                part_bias.data_ptr(), dw.data_ptr(), db.data_ptr(), b, r_in,
+                cb.r_out, t, n_dt, *dts, cb.k, cb.col_adv, cb.margin,
+                *_band_ints(cb), n_slices, _aligned(t, dz, x),
+                torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "banded_conv_dw")
     banded_conv_dw.launches += 1
     banded_conv_dw.mma_launches += int(bf16)

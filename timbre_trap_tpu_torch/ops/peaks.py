@@ -68,8 +68,10 @@ def peak_mask(activations, t=0.5):
     aligned = int(t_len % 4 == 0 and sb % 4 == 0 and sf % 4 == 0
                   and v.data_ptr() % 16 == 0)
     fn = _build.load("peak_mask", "tt_peak_mask")
-    rc = fn(v.data_ptr(), out.data_ptr(), batch, f, t_len, sb, sf, float(t),
-            aligned, torch.cuda.current_stream(a.device).cuda_stream)
+    with torch.cuda.device(a.device):   # launch on the tensor's device
+        rc = fn(v.data_ptr(), out.data_ptr(), batch, f, t_len, sb, sf,
+                float(t), aligned,
+                torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(rc, "peak_mask")
     peak_mask.launches += 1
     return out

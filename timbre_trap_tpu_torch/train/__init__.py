@@ -10,7 +10,8 @@ from .schedules import PlateauDecay, cosine_warmup
 from .step import (TRAIN_AUDIO_SCALE, AdamW, MultiSteps, TrainConfig,
                    compact_audio, compact_ground_truth, grad_norm_telemetry,
                    init_train_state, make_loss_fn, make_optimizer,
-                   make_train_step, step_gradients_reference)
+                   make_train_step, shard_train_step,
+                   step_gradients_reference)
 from .synthetic import synthetic_batch
 
 __all__ = ["AdamW", "CHECKPOINT_FILE", "MultiSteps", "PlateauDecay", "TRAIN_AUDIO_SCALE",
@@ -19,4 +20,5 @@ __all__ = ["AdamW", "CHECKPOINT_FILE", "MultiSteps", "PlateauDecay", "TRAIN_AUDI
            "latest_checkpoint", "load_checkpoint", "load_params",
            "make_loss_fn", "make_optimizer", "make_train_step",
            "reference_recipe_step_time", "save_checkpoint",
+           "shard_train_step",
            "step_gradients_reference", "synthetic_batch"]

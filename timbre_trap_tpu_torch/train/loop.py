@@ -11,8 +11,19 @@ snapshot of this package (the sacred-equivalent run record).
 In PyTorch's idiom the parameters live in ``model.net`` and the step
 updates them and the optimizer state in place. Batches are composed (and,
 for the card, pinned) on a prefetch thread; every CUDA call (the copy
-stream, the copies, the events) stays on the main thread. Not ported yet:
-``n_devices`` (multi-device training).
+stream, the copies, the events) stays on the main thread.
+
+Data-parallel training (``n_devices``) runs one process per device, as
+PyTorch does (the JAX package drives its mesh from one process): every
+rank of a ``torch.distributed`` group of ``n_devices`` ranks builds the
+same Trainer on its own device, loads only its rows of each global batch
+(``parallel.plan_local_rows`` wired into the loaders' ``batch_rows``; all
+ranks draw the same shuffled order, keyed by (seed, epoch)), and runs the
+sharded step, which all-reduces the gradients. Rank 0 alone runs the
+validation sweeps and broadcasts their results, so every rank takes the
+same plateau, early-stop and best-model decisions in lockstep; rank 0
+alone writes the run directory (``config.json``, ``run.json``,
+``metrics.json``, ``_sources/``, checkpoints).
 """
 
 import dataclasses
@@ -27,14 +38,17 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data import constants
 from ..data.loader import device_prefetch
 from ..eval.evaluation import evaluate
+from ..parallel import distributed
+from ..parallel.mesh import make_mesh, plan_local_rows, torchrun_hint
 from .checkpoint import load_checkpoint, save_checkpoint
 from .schedules import PlateauDecay, cosine_warmup
 from .step import (TrainConfig, compact_audio, compact_ground_truth,
-                   init_train_state, make_train_step)
+                   init_train_state, make_train_step, shard_train_step)
 
 __all__ = ["TrainerConfig", "Trainer"]
 
@@ -59,7 +73,8 @@ class TrainerConfig:
     n_epochs_decay: int = 500
     n_epochs_cooldown: int = 100
     n_epochs_early_stop: Optional[int] = None
-    # Multi-device training is not ported yet: anything but None raises.
+    # Data-parallel over a process group of this many ranks, one process
+    # per device (None: one device, no group needed).
     n_devices: Optional[int] = None
     # Train step backend (train/step.py): "flax" (autograd through the NCHW
     # network), "packed" (the packed levels' plain twin), "pallas" (K1/K3,
@@ -98,29 +113,39 @@ class Trainer:
 
     def __init__(self, model, mpe_loader, audio_loader, validation_sets,
                  config: TrainerConfig, writer=None):
-        if config.n_devices is not None:
-            raise NotImplementedError(
-                "n_devices: multi-device training is not ported yet (the "
-                "multi-device slice); leave it None for one device")
         self.model = model
         self.mpe_loader = mpe_loader
         self.audio_loader = audio_loader
         self.validation_sets = validation_sets
         self.config = config
         self.writer = writer
+        self.mesh = self._make_mesh(config.n_devices, model.device)
+        self.is_chief = distributed.process_index() == 0
 
-        os.makedirs(config.root_dir, exist_ok=True)
         self.log_dir = os.path.join(config.root_dir, "models")
-        os.makedirs(self.log_dir, exist_ok=True)
-        config.dump(os.path.join(config.root_dir, "config.json"))
-        # Sacred-parity run record (reference experiments/train.py:124 —
-        # FileStorageObserver folders carry config.json, run.json,
-        # metrics.json and _sources/ copies of the executed code).
         self._metrics_log = {}
-        self._write_run_record()
-        self._snapshot_sources()
+        if self.is_chief:
+            os.makedirs(self.log_dir, exist_ok=True)
+            config.dump(os.path.join(config.root_dir, "config.json"))
+            # Sacred-parity run record (reference experiments/train.py:124
+            # — FileStorageObserver folders carry config.json, run.json,
+            # metrics.json and _sources/ copies of the executed code).
+            self._write_run_record()
+            self._snapshot_sources()
 
         self.mpe_batch_size = mpe_loader.batch_size
+        # Each rank loads and composes only its rows of every global batch
+        # (all ranks draw the same shuffled order), and its step composes
+        # the losses over its m/n MPE rows.
+        self._local_plan = None
+        self._step_mpe_rows = self.mpe_batch_size
+        if distributed.is_multi_host():
+            audio_bs = audio_loader.batch_size if audio_loader else 0
+            self._local_plan = plan_local_rows(self.mpe_batch_size, audio_bs)
+            mpe_loader.batch_rows = self._local_plan.mpe_rows
+            if audio_loader is not None:
+                audio_loader.batch_rows = self._local_plan.audio_rows
+            self._step_mpe_rows = len(self._local_plan.gt_pos)
         self.epoch_steps = len(mpe_loader)
         if audio_loader is not None:
             self.epoch_steps = min(self.epoch_steps, len(audio_loader))
@@ -149,6 +174,33 @@ class Trainer:
         self._cuda = model.device.type == "cuda"
         self._copy_stream = None
 
+    @staticmethod
+    def _make_mesh(n_devices, device):
+        """The data mesh of ``n_devices`` ranks, or None for one device
+        without a process group. A process group must have exactly
+        ``n_devices`` ranks, and a model on the card must sit on this
+        rank's device."""
+        if n_devices is None:
+            if distributed.is_multi_host():
+                raise ValueError("a process group of several ranks trains "
+                                 "data-parallel: set n_devices to its size")
+            return None
+        n = int(n_devices)
+        if n == 1 and not dist.is_initialized():
+            return None
+        if distributed.process_count() != n:
+            raise ValueError(
+                f"n_devices={n} trains data-parallel over {n} processes, one "
+                f"per device; this process has "
+                f"{distributed.process_count()} rank(s). Start {n} ranks "
+                f"as: {torchrun_hint(n)}")
+        if device.type == "cuda":
+            here = torch.cuda.current_device()
+            if (device.index if device.index is not None else here) != here:
+                raise ValueError(f"the model sits on {device}, but this "
+                                 f"rank's device is cuda:{here}")
+        return make_mesh(n)
+
     @property
     def params(self):
         """{name: parameter} of ``model.net``, which the step updates in
@@ -168,6 +220,7 @@ class Trainer:
             "device": str(device),
             "device_name": (torch.cuda.get_device_name(device)
                             if device.type == "cuda" else "cpu"),
+            "n_processes": distributed.process_count(),
         }
         with open(os.path.join(self.config.root_dir, "run.json"), "w") as fh:
             json.dump(record, fh, indent=2)
@@ -227,10 +280,13 @@ class Trainer:
         """The train step of each late-start phase, built once."""
         key = bool(transcription_active)
         if key not in self._steps:
-            self._steps[key] = make_train_step(
-                self.model, self._train_config(key), self.mpe_batch_size,
+            step = make_train_step(
+                self.model, self._train_config(key), self._step_mpe_rows,
                 conv_backend=self.config.conv_backend,
                 compact_audio_grid=True)
+            if self.mesh is not None:
+                step = shard_train_step(step, self.mesh)
+            self._steps[key] = step
         return self._steps[key]
 
     # ---------------------------- resume ------------------------------- #
@@ -285,7 +341,9 @@ class Trainer:
     def _compose_batch(self, data_mpe, data_audio):
         """Host-side numpy composition of one training batch, on the
         prefetch thread: [MPE audio | audio-only audio] and the MPE ground
-        truth. With ``compact_uploads`` (default) the audio is quantized to
+        truth (on a rank of a data-parallel run, the loaders deliver only
+        its rows, whose composition is this rank's part of the global
+        batch). With ``compact_uploads`` (default) the audio is quantized to
         int16 on a fixed ±8 grid and the [0, 1] ground truth to uint8 for
         the copy to the device; the step dequantizes there, keeping the
         {0, 1} endpoints exact for the positive-class weighting."""
@@ -349,7 +407,7 @@ class Trainer:
             yield self._compose_batch(data_mpe, data_audio)
 
     def _log(self, metrics):
-        if self.writer is None:
+        if self.writer is None or not self.is_chief:
             return
         for key, value in metrics.items():
             self.writer.add_scalar(f"train/{key}", float(value),
@@ -425,34 +483,51 @@ class Trainer:
 
     def _checkpoint_and_validate(self, epoch, n_ckpt_elapsed):
         self.model.invalidate_specs()  # inference runs the new weights
-        # Make every run's checkpoints self-describing: load_model rebuilds
-        # the exact trained configuration (variant, skip_connections,
-        # transform) from this run-level hparams.json.
-        hparams_path = os.path.join(self.log_dir, "hparams.json")
-        if not os.path.isfile(hparams_path):
-            with open(hparams_path, "w") as fh:
-                json.dump(self.model.hparams, fh, indent=2)
         ckpt_path = os.path.join(self.log_dir, f"model-{self.batch_count}")
-        save_checkpoint(ckpt_path, self.model, self.opt_state,
-                        self.batch_count)
+        if self.is_chief:
+            # Make every run's checkpoints self-describing: load_model
+            # rebuilds the exact trained configuration (variant,
+            # skip_connections, transform) from this run-level hparams.json.
+            hparams_path = os.path.join(self.log_dir, "hparams.json")
+            if not os.path.isfile(hparams_path):
+                with open(hparams_path, "w") as fh:
+                    json.dump(self.model.hparams, fh, indent=2)
+            save_checkpoint(ckpt_path, self.model, self.opt_state,
+                            self.batch_count)
         n_ckpt_elapsed = self._validate_and_track(epoch, n_ckpt_elapsed)
         # Persist the host-side trainer scalars next to the step checkpoint
         # AFTER plateau/best updates so restore() resumes exactly.
         self.n_ckpt_elapsed = n_ckpt_elapsed
-        with open(f"{ckpt_path}.trainer.json", "w") as fh:
-            json.dump(self._trainer_state(), fh, indent=2, default=float)
+        if self.is_chief:
+            with open(f"{ckpt_path}.trainer.json", "w") as fh:
+                json.dump(self._trainer_state(), fh, indent=2, default=float)
         return n_ckpt_elapsed
+
+    def _validation_results(self):
+        """Every validation set's results through ``evaluate``. In a
+        data-parallel run rank 0 evaluates (every rank holds the same
+        weights) and broadcasts the results, so every rank takes the same
+        decisions on the same numbers."""
+        c = self.config
+        results = {}
+        if self.is_chief:
+            for val_set in self.validation_sets:
+                results[val_set.name()] = evaluate(
+                    model=self.model, eval_set=val_set,
+                    multipliers=c.multipliers, writer=self.writer,
+                    i=self.batch_count)
+        if self.mesh is not None:
+            box = [results]
+            dist.broadcast_object_list(
+                box, src=0, group=self.mesh.get_group())
+            results = box[0]
+        return results
 
     def _validate_and_track(self, epoch, n_ckpt_elapsed):
         c = self.config
 
-        validation_results = {}
-        for val_set in self.validation_sets:
-            validation_results[val_set.name()] = evaluate(
-                model=self.model, eval_set=val_set,
-                multipliers=c.multipliers, writer=self.writer,
-                i=self.batch_count)
-        if validation_results:
+        validation_results = self._validation_results()
+        if validation_results and self.is_chief:
             self._record_metrics(validation_results)
 
         warmup_active = self.batch_count < c.n_epochs_warmup * self.epoch_steps

@@ -14,8 +14,13 @@ the parameters in place, and returns the metrics dict under the JAX
 package's keys. The optimizer state is a dict that the step updates in
 place; with ``grad_accum_steps > 1`` it also holds the gradient
 accumulator (``MultiSteps``, the port of ``optax.MultiSteps``). Every
-family, with or without skip connections, trains on every backend. Not
-ported yet: ``shard_train_step`` (multi-GPU).
+family, with or without skip connections, trains on every backend.
+
+``shard_train_step`` makes a step data-parallel over the ranks of a
+``torch.distributed`` group (one process per device): each rank computes
+its rows' losses and gradients, and one all-reduce of every gradient (and
+the losses) sits between the backward pass and the optimizer, where the
+JAX package's sharded jit lets XLA emit it.
 """
 
 import copy
@@ -23,16 +28,19 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import ieee_convs
 from ..interop import hwio_params
 from ..models.fused import TRAIN_BACKENDS, packed_to_nchw, packed_train_forward
 from ..objectives import compute_transcription_loss
 from ..ops.packed_conv import pack_nchw, pack_nhwc
+from ..parallel.mesh import DATA_AXIS
 
 __all__ = ["TrainConfig", "TRAIN_AUDIO_SCALE", "AdamW", "MultiSteps",
            "make_optimizer",
-           "make_loss_fn", "make_train_step", "init_train_state",
+           "make_loss_fn", "make_train_step", "shard_train_step",
+           "init_train_state",
            "step_gradients_reference",
            "grad_norm_telemetry", "compact_audio", "compact_ground_truth"]
 
@@ -336,6 +344,7 @@ def make_train_step(model, config: TrainConfig, mpe_batch_size: int,
     for tools that time them one by one: ``step`` is ``upload`` (batch to
     the device, features, gradients cleared), ``loss_fn``,
     ``total.backward()``, ``update`` (telemetry, optimizer, cache drop).
+    ``step.model`` is ``model``.
     """
     loss_fn = make_loss_fn(model, config, mpe_batch_size, conv_backend)
     optimizer = make_optimizer(config)
@@ -356,11 +365,68 @@ def make_train_step(model, config: TrainConfig, mpe_batch_size: int,
         metrics["learning_rate"] = torch.tensor(float(lr), dtype=torch.float32)
         return metrics
 
+    return _assemble_step(model, upload, loss_fn, update)
+
+
+def _assemble_step(model, upload, loss_fn, update, reduce=None):
+    """The step that runs its parts in order: ``upload``, ``loss_fn``,
+    ``total.backward()``, ``reduce`` of the metrics (and the gradients) if
+    given, ``update``. ``step.parts`` lists them; ``step.model`` is
+    ``model``."""
+
     def step(opt_state, audio, ground_truth, lr):
         with ieee_convs(model.device):
             total, metrics = loss_fn(*upload(audio, ground_truth))
             total.backward()
+        if reduce is not None:
+            metrics = reduce(metrics)
         return update(opt_state, metrics, lr)
 
-    step.parts = (upload, loss_fn, update)
+    step.parts = ((upload, loss_fn, update) if reduce is None
+                  else (upload, loss_fn, reduce, update))
+    step.model = model
     return step
+
+
+def shard_train_step(step_fn, mesh):
+    """The step ``step_fn`` of ``make_train_step``, data-parallel over the
+    ranks of ``mesh`` (``parallel.make_mesh``).
+
+    Every rank calls the returned step on its own rows of the global batch
+    (``parallel.plan_local_rows``: m/n MPE rows then a/n audio-only rows,
+    so ``step_fn`` is built with ``mpe_batch_size`` m/n). Between
+    ``total.backward()`` and the update, every gradient and every loss
+    metric is all-reduced (SUM) as one flat float32 buffer and divided by
+    n: every loss is a mean over rows and each rank holds the same number
+    of rows, so the ranks then hold the global batch's gradient and
+    losses, as the JAX package's sharded step does. The optimizer's
+    global-norm clip, the gradient telemetry and ``MultiSteps``
+    accumulation (each call's gradients are reduced before they are
+    folded) all see the global gradient, and every rank applies the same
+    update to the same weights.
+
+    ``net`` is not wrapped in ``DistributedDataParallel``: the packed
+    backends never call ``net.forward``, whose wrapper DDP's reducer needs.
+    ``step.parts`` is ``(upload, loss_fn, reduce, update)``.
+    """
+    upload, loss_fn, update = step_fn.parts
+    model = step_fn.model
+    params = dict(model.net.named_parameters())
+    n = mesh.size()
+    group = mesh.get_group(DATA_AXIS)
+
+    def reduce(metrics):
+        keys = sorted(metrics)
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in params.values()]
+        flat = torch.cat([g.reshape(-1) for g in grads] + [torch.stack(
+            [metrics[k].detach().to(torch.float32) for k in keys])])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        flat.div_(n)
+        chunks = flat.split([g.numel() for g in grads] + [len(keys)])
+        for p, g in zip(params.values(), chunks):
+            p.grad = g.view_as(p)
+        reduced = dict(zip(keys, chunks[-1].unbind()))
+        return {k: reduced[k] for k in metrics}  # in the step's own order
+
+    return _assemble_step(model, upload, loss_fn, update, reduce)
