@@ -152,6 +152,26 @@ Phases, each of which exits non-zero on failure:
              K1 launches summing to one rank's (up to a chunk group);
              the ranks' step and gradient all-reduce times (two ranks on
              one card: no scaling numbers).
+             The last modules (3i), on 3g's corpora (plus four stems a
+             Bach10 piece) and the flagship model: its weights exported
+             to a reference state_dict and imported back bit for bit; a
+             bare state_dict save and a whole-module save through
+             ``load_torch_checkpoint`` into a fresh card model whose 9-s
+             transcribe equals the original's bit for bit; the parity CLI
+             on the flagship weights exported without ``.0`` names
+             (compat frame, Bach10: K2 once a track, K1 0, finite results,
+             the JSON written) and a small model's run on the card
+             against ``--device cpu`` (3f's bars); the comparison CLI on
+             the saved model (the lin-CQT, log-CQT and Timbre-Trap rows,
+             60 bf16 K1 launches a forward, no K2) and with
+             ``--basic-pitch --deep-salience`` (SKIP, no download);
+             ``quality_f1`` at ``bench.py``'s two frozen probe
+             configurations, F1 >= 0.9 each, K1, K3 and K2 counted
+             against the launches of a step worked out from its forwards;
+             ``collect_latents`` of the Bach10 stems (finite) and a small
+             model's on the card against the CPU (<= 1e-4 * max|ref|);
+             ``trace`` and ``annotate`` around a transcribe (the trace
+             names the band kernel and the range) with ``Timer``.
              K1 and K3's dX and dW are, in both dtypes, the band-tiled
              tensor-core kernels of ``csrc/band_mma.cu``: phase 2 also
              holds them, on one conv of each kind at flagship widths (3x3
@@ -190,7 +210,9 @@ Phases, each of which exits non-zero on failure:
              and sonify walls.
 
 Prints the kernels' JSON line (with each kernel's launches per rank in
-phase 3h, ``launches_parallel``), the ``parallel`` JSON line and the
+phase 3h, ``launches_parallel``, and phase 3i's ``launches_cli`` parity
+and comparison and ``launches_quality``), the ``parallel`` and
+``last_modules`` JSON lines and the
 card's name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``.
 """
@@ -3037,6 +3059,362 @@ def phase_parallel(torch, counters, card, cli):
     return numbers, launches
 
 
+# The last modules' phase (3i): interop both ways, the parity, comparison
+# and latents entry points, the quality probe and the profiler, on the
+# corpora of phase 3g. The probe runs bench.py's frozen configurations
+# (``eval.quality.BENCH_PROBES``) on bench.py's model, the JAX package's
+# seed-0 flagship weights (``models.flax_init``), so its F1 compares with
+# the JAX package's at the same start; F1 >= QUALITY_F1_BAR each.
+QUALITY_F1_BAR = 0.9
+# Launches of one probe step: the consistency-on step runs the recipe
+# step's objectives (2 encodes, 4 decodes); the consistency-off step runs
+# one encode and two decodes, half the level applications: K1 and dW
+# 348 / 2 and 174 / 2, the ELU' seeds 24 / 2, dX one less than dW (the
+# features take no gradient).
+PROBE_STEP_LAUNCHES = {
+    "consistency_on": RECIPE_STEP_LAUNCHES,
+    "consistency_off": {"banded_conv": 174, "banded_conv_dx": 86,
+                        "banded_conv_dw": 87, "elu_backward": 12}}
+
+
+def write_bach10_stems(bach10_dir, seed):
+    """Four instrument stems beside each Bach10 mixture of
+    ``write_cli_corpora`` (a 12-s tone of its own pitch each), for the
+    stems wrapper (``SoloMultiPitch.Bach10``)."""
+    from timbre_trap_tpu_torch.data.datasets.SoloMultiPitch import Bach10
+    from timbre_trap_tpu_torch.data.io import save_wav
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(CLI_TRACK_SECS * SR)) / SR
+    for track in sorted(os.listdir(bach10_dir)):
+        for ins in Bach10.INSTRUMENTS:
+            f = 110.0 * 2 ** (rng.integers(0, 36) / 12)
+            save_wav(f"{bach10_dir}/{track}/{track}-{ins}.wav",
+                     (0.4 * np.sin(2 * np.pi * f * t)).astype(np.float32),
+                     SR)
+
+
+def capturing(module, name, keep=None):
+    """Within the block, ``module.<name>`` (a model constructor or loader)
+    records every model it returns (or ``keep(model)``) in the yielded
+    list."""
+    @contextlib.contextmanager
+    def block():
+        held, real = [], getattr(module, name)
+
+        def build(*args, **kwargs):
+            built = real(*args, **kwargs)
+            held.append(built if keep is None else keep(built))
+            return built
+
+        setattr(module, name, build)
+        try:
+            yield held
+        finally:
+            setattr(module, name, real)
+    return block()
+
+
+def quiet_call(fn, *args):
+    """``fn(*args)`` with its stdout kept and echoed; returns (result,
+    stdout, wall s)."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    wall = time.perf_counter() - t0
+    sys.stdout.write(buf.getvalue())
+    return out, buf.getvalue(), wall
+
+
+def phase_last_modules(torch, model, counters, card):
+    """The last modules on the card (phase 3i), on the flagship ``model``
+    (seeded weights): interop round trips, the parity CLI, the comparison
+    CLI, the two quality probes of ``bench.py``, the latents of the Bach10
+    stems and a profiled ``transcribe``. ``counters`` are (K1, K3 dX, K3
+    dW, the ELU' seed, K2). Returns (numbers, launches)."""
+    import tempfile
+
+    from timbre_trap_tpu_torch.data import download
+    from timbre_trap_tpu_torch.data.datasets.SoloMultiPitch import \
+        Bach10 as Bach10Stems
+    from timbre_trap_tpu_torch.eval import quality_f1
+    from timbre_trap_tpu_torch.eval.quality import BENCH_PROBES
+    from timbre_trap_tpu_torch.experiments import comparison, parity
+    from timbre_trap_tpu_torch.experiments.evaluate import evaluation_set
+    from timbre_trap_tpu_torch.experiments import latents as latents_cli
+    from timbre_trap_tpu_torch.experiments.latents import collect_latents
+    from timbre_trap_tpu_torch.interop import (_flatten,
+                                               export_torch_state_dict,
+                                               hwio_params,
+                                               import_torch_state_dict,
+                                               load_torch_checkpoint)
+    from timbre_trap_tpu_torch.models import TimbreTrap
+    from timbre_trap_tpu_torch.models.flax_init import jax_package_params
+    from timbre_trap_tpu_torch.utils.profiling import Timer, annotate, trace
+
+    t_phase = time.perf_counter()
+    k1, peak_mask = counters[0], counters[-1]
+    numbers, launches = {}, {}
+    per_forward = sum(1 for _ in model._spec(True).convs())
+    clip = chord(9.0, SR, seed=5)
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = write_cli_corpora(f"{tmp}/corpora", seed=21)
+        write_bach10_stems(dirs["Bach10"], seed=22)
+        n_bach10 = len(os.listdir(dirs["Bach10"]))
+
+        # (1) Interop: the flagship weights out to a reference state_dict
+        # and back, bit for bit; both kinds of torch save through
+        # load_torch_checkpoint into a fresh card model, whose transcribe
+        # equals the original's bit for bit.
+        params = {k: v.detach().cpu().numpy()
+                  for k, v in _flatten(hwio_params(model.net)).items()}
+        exported = export_torch_state_dict(hwio_params(model.net))
+        back = _flatten(import_torch_state_dict(exported,
+                                                hwio_params(model.net)))
+        check(set(back) == set(params) and all(
+            np.array_equal(back[k], v) and back[k].dtype == v.dtype
+            for k, v in params.items()),
+            "interop: export -> import does not give the weights back")
+        want_acts = model.transcribe(clip)
+        bare, whole = f"{tmp}/bare.pt", f"{tmp}/whole.pt"
+        torch.save({k: torch.from_numpy(np.array(v))
+                    for k, v in exported.items()}, bare)
+        torch.save(model.net, whole)
+        for path in (bare, whole):
+            fresh = flagship(TimbreTrap, seed=9)
+            n = parity.load_checkpoint_into(fresh, path)
+            check(n == len(model.net.state_dict()), f"interop: {path} "
+                  f"gave {n} tensors")
+            check(all(torch.equal(fresh.net.state_dict()[k], v) for k, v in
+                      model.net.state_dict().items()), f"interop: "
+                  f"{os.path.basename(path)} loads other weights")
+            check(torch.equal(fresh.transcribe(clip), want_acts),
+                  f"interop: transcribe after loading "
+                  f"{os.path.basename(path)} differs from the original's")
+            del fresh
+        print(f"interop: {len(params)} tensors export -> import bit for "
+              f"bit; a bare state_dict save and a whole-module save load "
+              f"into a fresh card model whose 9-s transcribe equals the "
+              f"original's bit for bit")
+        numbers["interop_tensors"] = len(params)
+
+        # (2) The parity CLI on the card: the flagship weights exported
+        # without ``like`` (no ``.0`` segments, as the JAX package's test
+        # writes them), the synthetic Bach10, the compat frame; counted.
+        ckpt = f"{tmp}/tt-flagship.pt"
+        torch.save({k: torch.from_numpy(np.array(v))
+                    for k, v in exported.items()}, ckpt)
+        out_json = f"{tmp}/parity.json"
+        argv = ["--checkpoint", ckpt, "--datasets", "Bach10", "--base-dirs",
+                dirs["Bach10"], "--out", out_json]
+        zero_counts(counters)
+        table, _, parity_s = quiet_call(parity.main, argv)
+        torch.cuda.synchronize()
+        launches["parity"] = read_counts(counters)
+        check(launches["parity"]["peak_mask"] == n_bach10
+              and launches["parity"]["banded_conv"] == 0,
+              f"parity: K2 launched {launches['parity']['peak_mask']} times "
+              f"over {n_bach10} tracks, K1 {launches['parity']['banded_conv']}"
+              f" (evaluate runs the NCHW net: 0)")
+        with open(out_json) as fh:
+            written = json.load(fh)
+        check(written["compat"] == "cqt_pytorch"
+              and written["results"] == table
+              and all(np.isfinite(v) for v in table["Bach10"].values()),
+              f"parity: results {table}, written {written}")
+        # A small model's weights through the CLI on the card and on the
+        # CPU, held to evaluate's card-vs-CPU bars.
+        small_ckpt = f"{tmp}/tt-small.pt"
+        torch.save({k: v.cpu() for k, v in
+                    TimbreTrap(**SMALL, seed=3).net.state_dict().items()},
+                   small_ckpt)
+        small_argv = ["--checkpoint", small_ckpt, "--datasets", "Bach10",
+                      "--base-dirs", dirs["Bach10"], "--sample-rate",
+                      str(SMALL["sample_rate"]), "--n-octaves",
+                      str(SMALL["n_octaves"]), "--bins-per-octave",
+                      str(SMALL["bins_per_octave"]), "--secs-per-block",
+                      str(SMALL["secs_per_block"]), "--latent-size",
+                      str(SMALL["latent_size"]), "--model-complexity",
+                      str(SMALL["model_complexity"])]
+        with capturing(parity, "TimbreTrap") as built:
+            got, _, _ = quiet_call(parity.main, small_argv)
+            want, _, _ = quiet_call(parity.main, small_argv
+                                    + ["--device", "cpu"])
+        card_model, cpu_model = built
+        ds = evaluation_set("Bach10", dirs["Bach10"], SMALL["sample_rate"],
+                            cpu_model.sliCQ)
+        numbers["parity_small_card_vs_cpu"] = hold_card_to_cpu(
+            torch, card_model, cpu_model, ds, got["Bach10"], want["Bach10"],
+            "parity: small model card vs CPU (compat frame)")
+        del card_model, cpu_model, built
+        numbers.update(parity_s=parity_s, parity_results=table["Bach10"])
+        print(f"parity: flagship weights (exported without .0 names) on the "
+              f"compat frame over {n_bach10} x {CLI_TRACK_SECS:.0f}-s Bach10 "
+              f"mixtures in {parity_s:.3f} s; launches {launches['parity']}")
+
+        # (3) The comparison CLI on the saved flagship model, counted: the
+        # lin-CQT, log-CQT and Timbre-Trap rows; then the external flags,
+        # which skip (the download patched to refuse, so no network).
+        saved = model.save(f"{tmp}/flagship")
+        argv = ["--checkpoint", saved, "--bach10-dir", dirs["Bach10"]]
+        zero_counts(counters)
+        with capturing(comparison, "load_model", count_forwards) as counted:
+            table, text, comparison_s = quiet_call(comparison.main, argv)
+        torch.cuda.synchronize()
+        launches["comparison"] = read_counts(counters)
+        forwards = counted[0].n
+        n = launches["comparison"]
+        check(forwards > 0 and n["banded_conv"] == per_forward * forwards
+              and n["banded_conv.mma"] == n["banded_conv"]
+              and n["peak_mask"] == 0,
+              f"comparison: {forwards} forwards of the Timbre-Trap estimator"
+              f" launched {n} (bf16 K1 {per_forward} a forward, no K2)")
+        rows = ("lin-CQT", "log-CQT", "timbre-trap")
+        check(list(table.get("Bach10", {})) == list(rows)
+              and all(f"[Bach10/{r}]" in text for r in rows),
+              f"comparison: rows {table}")
+        check(all(np.isfinite(v) for r in table["Bach10"].values()
+                  for v in r.values()), f"comparison: results {table}")
+        numbers.update(comparison_s=comparison_s,
+                       comparison_results=table["Bach10"])
+        real_download = download.stream_url_resource
+
+        def refuse(url, *args, **kwargs):
+            raise OSError(f"no network here ({url})")
+
+        download.stream_url_resource = refuse
+        try:
+            skipped, text, _ = quiet_call(comparison.main, [
+                "--bach10-dir", dirs["Bach10"], "--basic-pitch",
+                "--deep-salience"])
+        finally:
+            download.stream_url_resource = real_download
+        check("[basic-pitch] SKIPPED:" in text
+              and "[deep-salience] SKIPPED:" in text
+              and list(skipped["Bach10"]) == ["lin-CQT", "log-CQT"],
+              f"comparison: the external flags did not skip cleanly: {text}")
+        print(f"comparison: {', '.join(rows)} on {n_bach10} Bach10 "
+              f"mixtures in {comparison_s:.3f} s, {forwards} forwards, "
+              f"launches {launches['comparison']}; the external flags "
+              f"print SKIP")
+
+        # (4) The quality probe at bench.py's frozen configurations on
+        # bench.py's model (the JAX package's seed-0 flagship weights),
+        # counted: the steps' K1 and K3, one transcribe (K1) and one peak
+        # mask (K2) a probe.
+        numbers["quality"] = {}
+        launches["quality"] = {}
+        bench_model = flagship(TimbreTrap, seed=0)
+        bench_model.load_jax_params(jax_package_params(
+            hwio_params(bench_model.net), seed=0))
+        for name, kw in BENCH_PROBES.items():
+            forwards = count_forwards(bench_model)
+            zero_counts(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f1 = quality_f1(bench_model, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            del bench_model._infer              # count_forwards' wrapper
+            n = read_counts(counters)
+            launches["quality"][name] = n
+            steps = kw["steps"]
+            per_step = PROBE_STEP_LAUNCHES[name]
+            check(n["banded_conv"] == steps * per_step["banded_conv"]
+                  + per_forward * forwards.n,
+                  f"quality {name}: K1 launched {n['banded_conv']} times, "
+                  f"not {steps} x {per_step['banded_conv']} + "
+                  f"{per_forward} x {forwards.n} forwards")
+            for fn in ("banded_conv_dx", "banded_conv_dw", "elu_backward"):
+                check(n[fn] == steps * per_step[fn], f"quality {name}: {fn} "
+                      f"launched {n[fn]} times, not {steps} x {per_step[fn]}")
+            for fn in ("banded_conv", "banded_conv_dx", "banded_conv_dw"):
+                check(n[f"{fn}.mma"] == n[fn], f"quality {name}: not every "
+                      f"{fn} launch ran the bf16 kernel: {n}")
+            check(n["peak_mask"] == 1, f"quality {name}: K2 launched "
+                  f"{n['peak_mask']} times")
+            print(f"quality: {name} {kw}: mpe/f1-score {f1:.5f} in "
+                  f"{wall:.3f} s ({wall / steps * 1e3:.1f} ms a step with "
+                  f"the scoring); launches {n}")
+            check(np.isfinite(f1) and f1 >= QUALITY_F1_BAR,
+                  f"quality {name}: F1 {f1} below {QUALITY_F1_BAR}")
+            numbers["quality"][name] = {"f1": f1, "wall_s": wall,
+                                        "launches_per_step": per_step}
+        del bench_model
+        torch.cuda.empty_cache()
+
+        # (5) The latents of the Bach10 stems on the card, and a small
+        # model's on the card against the CPU.
+        stems = Bach10Stems(base_dir=dirs["Bach10"], splits=None,
+                            sample_rate=SR, cqt=model.sliCQ)
+        t0 = time.perf_counter()
+        (z, labels), _, _ = quiet_call(collect_latents, model, stems)
+        latents_s = time.perf_counter() - t0
+        check(z.shape == (len(stems), LATENT) and np.isfinite(z).all()
+              and labels == Bach10Stems.INSTRUMENTS * n_bach10,
+              f"latents: {z.shape}, labels {labels}")
+        small_card = TimbreTrap(**SMALL, seed=4)
+        small_cpu = TimbreTrap(**SMALL, seed=4, device="cpu")
+
+        def small_latents(m):
+            ds = Bach10Stems(base_dir=dirs["Bach10"], splits=None,
+                             sample_rate=SMALL["sample_rate"], cqt=m.sliCQ)
+            return quiet_call(collect_latents, m, ds)[0][0]
+
+        got, want = small_latents(small_card), small_latents(small_cpu)
+        gap = float(np.abs(got - want).max() / np.abs(want).max())
+        check(gap <= 1e-4, f"latents: small model card vs CPU {gap} "
+              "x max|ref| (bar 1e-4)")
+        try:
+            import matplotlib  # noqa: F401
+            import sklearn  # noqa: F401
+        except ImportError:
+            plotting = ("matplotlib or scikit-learn is absent here, so "
+                        "plot_latents (the CLI's last step) is not run")
+        else:
+            pdf, _, _ = quiet_call(latents_cli.main, [
+                "--checkpoint", saved, "--bach10-dir", dirs["Bach10"],
+                "--output", f"{tmp}/latents.pdf", "--sample-rate", str(SR)])
+            check(os.path.getsize(pdf) > 1000, "latents: the PDF is empty")
+            plotting = "the latents CLI wrote its t-SNE PDF"
+        print(f"latents: {len(stems)} stems of {n_bach10} Bach10 pieces "
+              f"encoded on the card in {latents_s:.3f} s, ({len(stems)}, "
+              f"{LATENT}) finite; small model card vs CPU {gap:.2e} x "
+              f"max|ref| (bar 1e-4); {plotting}")
+        numbers.update(latents_s=latents_s, latents_card_vs_cpu=gap)
+
+        # (6) The profiler around one card transcribe: the trace names the
+        # band kernel and the annotation.
+        timer = Timer()
+        with trace(f"{tmp}/trace") as prof:
+            with timer("transcribe"), annotate("transcribe"):
+                model.transcribe(clip)
+                torch.cuda.synchronize()
+        (trace_file,) = os.listdir(f"{tmp}/trace")
+        with open(f"{tmp}/trace/{trace_file}") as fh:
+            names = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
+        band = sorted(n for n in names if "band_product_kernel" in n)
+        check(band and "transcribe" in names, f"profiling: the trace names "
+              f"no band kernel or no 'transcribe' range ({len(names)} names)")
+        device_ms = sum(getattr(e, "device_time_total", None)
+                        or getattr(e, "cuda_time_total", 0.0)
+                        for e in prof.key_averages()
+                        if "band_product_kernel" in e.key) / 1e3
+        print(f"profiling: the trace of one 9-s transcribe holds "
+              f"{len(names)} event names, the annotation 'transcribe' and "
+              f"{band[0][:60]}...; band kernels' device time "
+              f"{device_ms:.3f} ms; Timer {timer.summary()}")
+        numbers.update(trace_band_kernel_ms=device_ms,
+                       timer=timer.summary())
+    phase_s = time.perf_counter() - t_phase
+    numbers["phase_s"] = phase_s
+    print(f"last modules: phase {phase_s:.1f} s")
+    return numbers, launches
+
+
 def main():
     try:
         import torch
@@ -3226,6 +3604,12 @@ def main():
                 "gloo_ranks": [{k: n(v) for k, v in r.items()}
                                for r in par_launches["gloo_ranks"]]}
 
+    lap('last_modules')
+    # 3i. interop, the parity, comparison and latents entry points, the
+    # quality probe and the profiler
+    last, last_launches = phase_last_modules(
+        torch, model, (banded_conv,) + k3_wrappers + (peak_mask,), card)
+
     lap('numbers')
     # 4. numbers at the main path's shapes
     spec = model._spec(True)
@@ -3313,7 +3697,11 @@ def main():
              "evaluate": cli_launches["evaluate"]["banded_conv"],
              "sonify": cli_launches["sonify"]["banded_conv"],
              "sonify_mma": cli_launches["sonify"]["banded_conv.mma"],
-             "sonify_mma_f32": cli_launches["sonify"]["banded_conv.mma_f32"]},
+             "sonify_mma_f32": cli_launches["sonify"]["banded_conv.mma_f32"],
+             "comparison": last_launches["comparison"]["banded_conv"]},
+         "launches_quality": {
+             probe: n["banded_conv"]
+             for probe, n in last_launches["quality"].items()},
          "launches_family_train_per_step": {
              label: n["banded_conv"] for label, n in family_launches.items()},
          "launches_parallel": per_rank((banded_conv,)),
@@ -3349,8 +3737,12 @@ def main():
          "launches": launches["peak_mask"], "max_abs_err": k2_err,
          "launches_variants": launches_var["transcribe"]["peak_mask"],
          "launches_trainer_evaluate": trainer_launches["peak_mask"],
-         "launches_cli": {phase: n["peak_mask"]
-                          for phase, n in cli_launches.items()},
+         "launches_cli": {phase: n["peak_mask"] for phase, n in
+                          dict(cli_launches,
+                               parity=last_launches["parity"]).items()},
+         "launches_quality": {
+             probe: n["peak_mask"]
+             for probe, n in last_launches["quality"].items()},
          "launches_parallel": per_rank((peak_mask,)),
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": "bytes", "library_ms": None,
@@ -3365,6 +3757,9 @@ def main():
          "launches_trainer": sum(trainer_launches[fn.__name__]
                                  for fn in k3_wrappers),
          "launches_cli": {"train": k3_only(cli_launches["train"])},
+         "launches_quality": {
+             probe: k3_only(n)
+             for probe, n in last_launches["quality"].items()},
          "launches_train_f32": sum(train["f32_step_launches"][fn.__name__]
                                    for fn in k3_wrappers),
          "launches_by_wrapper_f32": k3_only(train["f32_step_launches"]),
@@ -3390,6 +3785,7 @@ def main():
     print(json.dumps({"trainer": trainer}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"parallel": par, "card": card}))
+    print(json.dumps({"last_modules": last, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -208,6 +208,7 @@ class TimbreTrapNet(nn.Module):
             raise ValueError(f"unknown variant {variant!r}")
         self.variant = variant
         self.skip_connections = bool(skip_connections)
+        self.remat = bool(remat)
         self.feature_size = int(feature_size)
         self.model_complexity = int(model_complexity)
         self.latent_size = int(latent_size

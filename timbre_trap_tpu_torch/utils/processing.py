@@ -1,14 +1,16 @@
 """Array post-processing helpers.
 
 The port's own numpy copy of ``timbre_trap_tpu/utils/processing.py``
-(``to_array``, ``filter_non_peaks``, ``threshold``); the strict local-maximum
-semantics match ``argrelmax`` with zero-padding rows.
+(``to_array``, ``debug_nans``, ``filter_non_peaks``, ``threshold``); the
+strict local-maximum semantics match ``argrelmax`` with zero-padding rows.
 """
+
+import warnings
 
 import numpy as np
 import torch
 
-__all__ = ["to_array", "filter_non_peaks", "threshold"]
+__all__ = ["to_array", "debug_nans", "filter_non_peaks", "threshold"]
 
 
 def to_array(tensor):
@@ -17,6 +19,19 @@ def to_array(tensor):
     if isinstance(tensor, torch.Tensor):
         return tensor.detach().cpu().numpy()
     return np.asarray(tensor)
+
+
+def debug_nans(tensor, tag="tensor"):
+    """Warn if a tensor (on any device) or array contains NaNs; returns
+    whether it does. A tensor is reduced where it lies: only the flag
+    leaves the device."""
+    if isinstance(tensor, torch.Tensor):
+        contains = bool(torch.isnan(tensor.detach()).any())
+    else:
+        contains = bool(np.isnan(np.asarray(tensor)).any())
+    if contains:
+        warnings.warn(f"{tag} contains NaNs!!!")
+    return contains
 
 
 def filter_non_peaks(_arr):
