@@ -6,7 +6,9 @@
 Phases, each of which exits non-zero on failure:
 
 1. build   — compile every CUDA kernel of the port from ``csrc/`` (nvcc,
-             sm_90a, in parallel) and print the build time and the card;
+             sm_90a, in parallel) and print the build time, the ptxas
+             lines and the SASS counts (HMMA in ``band_mma``; HGMMA and
+             UTMALDG, the TMA loads, in ``band_wgmma``, both required);
 2. parity  — hold each kernel against its plain PyTorch version on the
              card at the flagship shapes: the conv chain kernel (K1) item
              by item and as the whole 36-item chain at (4, 1080, 1024), in
@@ -172,8 +174,11 @@ Phases, each of which exits non-zero on failure:
              model's on the card against the CPU (<= 1e-4 * max|ref|);
              ``trace`` and ``annotate`` around a transcribe (the trace
              names the band kernel and the range) with ``Timer``.
-             K1 and K3's dX and dW are, in both dtypes, the band-tiled
-             tensor-core kernels of ``csrc/band_mma.cu``: phase 2 also
+             K1 and K3's dX and dW are band-tiled tensor-core kernels:
+             the bf16 K1 stage ``tt_band_conv_wgmma`` of
+             ``csrc/band_wgmma.cu`` (TMA-fed wgmma; every path's bf16 K1
+             launches must equal its wgmma launches), the rest in both
+             dtypes those of ``csrc/band_mma.cu``: phase 2 also
              holds them, on one conv of each kind at flagship widths (3x3
              at dilation 1, 2 and 3, 1x1, sconv, tconv, the dense bridge)
              and on the stages the variants add (the standalone convin
@@ -183,10 +188,16 @@ Phases, each of which exits non-zero on failure:
              same tensors: the stage, dX and dW (band entries, the twin
              masked with the same bands) and dBias within 1e-4 * max|ref|
              in float32 (split-TF32 against the IEEE twin) and 1e-2 *
-             max|ref| in bf16, dW and dBias the same bits in two runs; K3
+             max|ref| in bf16, dW and dBias the same bits in two runs, the
+             bf16 stage too, which is also counted against
+             ``tt_band_conv`` (mma.sync) output by output; K3
              also against its twin at (2, R_in, 1024) on every level; the
              main paths must launch the tensor-core kernels;
-4. numbers — kernel, plain-version and library times, the least time the
+4. numbers — the bf16 forward at (4, 1080, 1024) on ``tt_band_conv_wgmma``,
+             on ``tt_band_conv`` and through cuDNN, in turns, beside the
+             bound and the stage-by-stage byte floor, and one stage of
+             each kind alone on both bf16 kernels;
+             kernel, plain-version and library times, the least time the
              card could take (bound), the real-time factor of the counted
              (first) call and of a second call at the same length (and of
              a second float32 call), ``reconstruct_rtf`` (first and second
@@ -295,6 +306,23 @@ def time_ms(torch, fn, reps=10):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, reps=10):
+    """Device milliseconds a call of ``fn``: the CUDA kernels' time under
+    ``torch.profiler`` over ``reps`` calls after a warm-up call, so the
+    host's time between launches is left out."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", None)
+                or getattr(e, "cuda_time_total", 0.0)
+                for e in prof.key_averages())
+    return total / reps / 1e3
+
+
 def rel_err(got, ref):
     err = (got.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
@@ -303,7 +331,7 @@ def rel_err(got, ref):
 
 # The launch counts a kernel wrapper may carry, and their keys' suffixes.
 COUNTS = {"launches": "", "mma_launches": ".mma",
-          "mma_launches_f32": ".mma_f32"}
+          "mma_launches_f32": ".mma_f32", "wgmma_launches": ".wgmma"}
 
 
 def zero_counts(fns):
@@ -316,10 +344,19 @@ def zero_counts(fns):
 
 def read_counts(fns):
     """{wrapper: launches, wrapper.mma: bf16 tensor-core launches,
-    wrapper.mma_f32: float32 split-TF32 launches} where a wrapper has
-    them."""
-    return {fn.__name__ + sfx: getattr(fn, name) for fn in fns
-            for name, sfx in COUNTS.items() if hasattr(fn, name)}
+    wrapper.mma_f32: float32 split-TF32 launches, wrapper.wgmma: launches
+    of the TMA-fed wgmma kernel} where a wrapper has them. Every path
+    reads its counts here, so here every bf16 K1 stage is held to have
+    run the wgmma kernel."""
+    counts = {fn.__name__ + sfx: getattr(fn, name) for fn in fns
+              for name, sfx in COUNTS.items() if hasattr(fn, name)}
+    for fn in fns:
+        key = fn.__name__ + ".wgmma"
+        if key in counts:
+            check(counts[key] == counts[fn.__name__ + ".mma"],
+                  f"{fn.__name__}: {counts[key]} wgmma launches for "
+                  f"{counts[fn.__name__ + '.mma']} bf16 stages")
+    return counts
 
 
 def card_line():
@@ -363,21 +400,26 @@ def phase_build(_build):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    counts = sass_counts(_build)
-    print(f"  band_mma SASS: {counts}")
-    check(counts["HMMA"] + counts["HGMMA"] > 0,
+    counts = {"band_mma": sass_counts(_build, "band_mma"),
+              "band_wgmma": sass_counts(_build, "band_wgmma")}
+    print(f"  SASS: {counts}")
+    check(counts["band_mma"]["HMMA"] + counts["band_mma"]["HGMMA"] > 0,
           "the tensor-core library holds no HMMA or HGMMA instruction")
+    check(counts["band_wgmma"]["HGMMA"] > 0
+          and counts["band_wgmma"]["UTMALDG"] > 0,
+          "the bf16 stage's library holds no HGMMA or no UTMALDG")
     return counts
 
 
-def sass_counts(_build):
-    """HMMA and HGMMA instructions in the SASS of the tensor-core library."""
+def sass_counts(_build, name):
+    """Tensor-core (HMMA, HGMMA) and TMA load (UTMALDG) instructions in the
+    SASS of library ``name``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    out = subprocess.run([tool, "-sass", str(_build.library_path("band_mma"))],
+    out = subprocess.run([tool, "-sass", str(_build.library_path(name))],
                          capture_output=True, text=True, timeout=300)
     check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
     return {op: len(re.findall(rf"\b{op}\b", out.stdout))
-            for op in ("HMMA", "HGMMA")}
+            for op in ("HMMA", "HGMMA", "UTMALDG")}
 
 
 def conv_kind(cb):
@@ -398,12 +440,15 @@ def phase_band_parity(torch, fwd_spec, train_specs, stages=()):
     in float32 (split-TF32 products against the IEEE twin) within
     1e-4 * max|ref| and in bf16 within 1e-2 * max|ref|: the stage (ELU,
     residual; the variant stages also without either), dX (residual, raw,
-    ELU') and dW/dBias (band entries), dW and dBias bitwise stable.
-    Returns the largest relative errors (bf16, float32) and, per variant
-    stage and dtype, its largest K3 relative error."""
+    ELU') and dW/dBias (band entries), dW and dBias bitwise stable. The
+    bf16 stage (``tt_band_conv_wgmma``) also gives the same bits in two
+    runs, and its outputs are counted against ``tt_band_conv``'s on the
+    same tensors. Returns the largest relative errors (bf16, float32), per
+    variant stage and dtype its largest K3 relative error, and the share
+    of bf16 stage outputs bit-equal to ``tt_band_conv``'s."""
     from timbre_trap_tpu_torch.ops.fused_level import (
         banded_conv, banded_conv_dw, banded_conv_dw_reference, banded_conv_dx,
-        banded_conv_dx_reference, banded_conv_reference)
+        banded_conv_dx_reference, banded_conv_mma, banded_conv_reference)
 
     picks = {}
     for spec in train_specs + [fwd_spec]:
@@ -425,6 +470,7 @@ def phase_band_parity(torch, fwd_spec, train_specs, stages=()):
 
     worst = {torch.float32: 0.0, bf16: 0.0}
     k3_stages = {name: {} for name, _ in stages}
+    same, total = 0, 0
     for t in (3072, 1001):
         for kind, cb in list(picks.items()) + list(stages):
             dense = kind == "dense"
@@ -441,6 +487,15 @@ def phase_band_parity(torch, fwd_spec, train_specs, stages=()):
                 errs = [max(rel(banded_conv(x, cb, act, r),
                                 banded_conv_reference(x, cb, act, r),
                                 f"{what} stage", tol) for act, r in forms)]
+                if dtype == bf16:
+                    for act, r in forms:
+                        got = banded_conv(x, cb, act, r)
+                        check(torch.equal(got, banded_conv(x, cb, act, r)),
+                              f"band kernels: {what} stage differs in two "
+                              "runs")
+                        same += int((got == banded_conv_mma(x, cb, act, r))
+                                    .sum())
+                        total += got.numel()
                 if not dense:
                     adj = cb.adjoint
                     c = rand(2, adj.r_in, t)
@@ -469,7 +524,11 @@ def phase_band_parity(torch, fwd_spec, train_specs, stages=()):
                   f"{cb.c_out}, bands {cb.bands}): stage"
                   + ("" if dense else ", dX, raw, dW, dBias")
                   + "; " + "; ".join(line))
-    return worst[bf16], worst[torch.float32], k3_stages
+    share = same / max(total, 1)
+    print(f"  band bf16 stage: two runs bit-equal on every kind; "
+          f"{100 * share:.4f} % of {total} outputs bit-equal to "
+          f"tt_band_conv's")
+    return worst[bf16], worst[torch.float32], k3_stages, share
 
 
 class ByteCount:
@@ -1763,6 +1822,42 @@ def stage_numbers(torch, stages, batch, frames):
               f"{row['bound_by']}), float32 {row['ms_f32']:.4f} ms (plain "
               f"{row['plain_ms_f32']:.4f}, bound {row['bound_ms_f32']:.4f} by "
               f"{row['bound_by_f32']})")
+    return out
+
+
+def stage_kind_numbers(torch, spec, batch, frames):
+    """The bf16 K1 stage alone, one conv of each kind of the forward
+    chain ``spec`` (the first of its kind) at the main path's (batch, R,
+    frames): the device time of ``tt_band_conv_wgmma`` and of
+    ``tt_band_conv`` (a stage alone can be bound by the host's launch
+    time, a chain of them is not), their bit-equal share, and the bytes
+    the stage must move."""
+    from timbre_trap_tpu_torch.ops.fused_level import (banded_conv,
+                                                       banded_conv_mma)
+
+    picks = {}
+    for cb in spec.convs():
+        tag = conv_kind(cb) + ("" if cb.c_in == cb.c_out or cb.per_block
+                               else f" {cb.c_in}->{cb.c_out}")
+        picks.setdefault(f"{tag} c{cb.c_out}", cb)
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for name, cb in picks.items():
+        x = torch.randn((batch, cb.r_in, frames), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        row = {"wgmma_ms": device_ms(torch, lambda: banded_conv(x, cb, True)),
+               "mma_sync_ms": device_ms(torch,
+                                        lambda: banded_conv_mma(x, cb, True)),
+               "bytes_ms": ((cb.r_in + cb.r_out) * batch * frames * 2
+                            + cb.blocks.numel() * 2) / PEAK_BYTES * 1e3,
+               "bit_equal": (banded_conv(x, cb, True)
+                             == banded_conv_mma(x, cb, True)).float()
+                            .mean().item()}
+        out[name] = row
+    print("K1 stage by kind (bf16, (%d, R, %d)), device ms wgmma / "
+          "mma.sync / bytes: " % (batch, frames) + "; ".join(
+              f"{k} {v['wgmma_ms']:.4f} / {v['mma_sync_ms']:.4f} / "
+              f"{v['bytes_ms']:.4f}" for k, v in out.items()))
     return out
 
 
@@ -3396,13 +3491,13 @@ def phase_last_modules(torch, model, counters, card):
         (trace_file,) = os.listdir(f"{tmp}/trace")
         with open(f"{tmp}/trace/{trace_file}") as fh:
             names = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
-        band = sorted(n for n in names if "band_product_kernel" in n)
+        band = sorted(n for n in names if "band_wgmma_kernel" in n)
         check(band and "transcribe" in names, f"profiling: the trace names "
               f"no band kernel or no 'transcribe' range ({len(names)} names)")
         device_ms = sum(getattr(e, "device_time_total", None)
                         or getattr(e, "cuda_time_total", 0.0)
                         for e in prof.key_averages()
-                        if "band_product_kernel" in e.key) / 1e3
+                        if "band_wgmma_kernel" in e.key) / 1e3
         print(f"profiling: the trace of one 9-s transcribe holds "
               f"{len(names)} event names, the annotation 'transcribe' and "
               f"{band[0][:60]}...; band kernels' device time "
@@ -3430,8 +3525,8 @@ def main():
         from timbre_trap_tpu_torch.models.fused import level_specs
         from timbre_trap_tpu_torch.ops.fused_level import (
             _apply_chain, band_flops, banded_conv, banded_conv_dw,
-            banded_conv_dx, chain_flops, elu_backward, fused_level_apply,
-            packed_level_apply)
+            banded_conv_dx, banded_conv_mma, chain_flops, elu_backward,
+            fused_level_apply, packed_level_apply)
         from timbre_trap_tpu_torch.ops.packed_conv import pack_nhwc
         from timbre_trap_tpu_torch.ops.peaks import (peak_mask,
                                                      peak_mask_reference)
@@ -3479,7 +3574,7 @@ def main():
         train_specs = sum(level_specs(hwio_params(model.net), model.net,
                                       True), [])
     stages = variant_stages(torch)
-    band_err, band_err32, k3_stage_err = phase_band_parity(
+    band_err, band_err32, k3_stage_err, band_share = phase_band_parity(
         torch, model._spec(True), train_specs, stages)
     print(f"parity: {time.perf_counter() - t_par:.1f} s")
 
@@ -3614,7 +3709,6 @@ def main():
     # 4. numbers at the main path's shapes
     spec = model._spec(True)
     xb = x.to(torch.bfloat16)
-    k1_ms = time_ms(torch, lambda: fused_level_apply(xb, spec, torch.bfloat16))
     k1_plain = time_ms(torch, lambda: packed_level_apply(xb, spec,
                                                          torch.bfloat16), 3)
     k1_ms32 = time_ms(torch, lambda: fused_level_apply(x, spec, torch.float32))
@@ -3641,10 +3735,25 @@ def main():
     net32.load_state_dict(model.net.state_dict())
     net32 = net32.eval()
     nchw32 = feats.movedim(-1, 1).float().contiguous()
+    # The bf16 forward in turns, in one call: tt_band_conv_wgmma (the
+    # route), tt_band_conv (mma.sync, called directly) and cuDNN; the
+    # median of five turns each, and the device time of each chain.
+    chains = {"wgmma": lambda: fused_level_apply(xb, spec, torch.bfloat16),
+              "mma_sync": lambda: _apply_chain(xb, spec, torch.bfloat16,
+                                               banded_conv_mma),
+              "cudnn": lambda: net16(nchw, True)}
+    turns = {k: [] for k in chains}
     with torch.no_grad():
-        k1_lib = time_ms(torch, lambda: net16(nchw, True))
+        for _ in range(5):
+            for k, fn in chains.items():
+                turns[k].append(time_ms(torch, fn))
         k1_lib32 = time_ms(torch, lambda: net32(nchw32, True))
+        chain_device_ms = {k: device_ms(torch, fn, 5)
+                           for k, fn in chains.items()}
     del net16, net32
+    k1_ms, k1_mma_ms, k1_lib = (sorted(v)[len(v) // 2]
+                                for v in turns.values())
+    kind_ms = stage_kind_numbers(torch, spec, x.shape[0], x.shape[-1])
     launches_per_forward = sum(1 for _ in spec.convs())
     n_cols = x.shape[0] * x.shape[-1]
     flops = chain_flops(spec, n_cols)
@@ -3653,6 +3762,11 @@ def main():
     count = ByteCount(torch)
     with torch.no_grad():
         _apply_chain(xb, spec, torch.bfloat16, count.stage)
+    print(f"K1 forward {tuple(x.shape)} bf16, in turns (ms): "
+          + "; ".join(f"{k} " + ", ".join(f"{v:.3f}" for v in vs)
+                      for k, vs in turns.items())
+          + "; device ms a forward: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in chain_device_ms.items()))
     print(f"K1 forward {tuple(x.shape)} bf16: {k1_ms:.3f} ms (float32 "
           f"{k1_ms32:.3f} ms), plain {k1_plain:.3f} ms (float32 "
           f"{k1_plain32:.3f} ms), cuDNN net {k1_lib:.3f} ms (float32 "
@@ -3666,6 +3780,12 @@ def main():
     io_bytes = x.numel() * 2 + x.shape[0] * spec.r_out * x.shape[-1] * 2
     t_ops = conv_flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = (w_bytes + io_bytes) / PEAK_BYTES * 1e3
+    print(f"K1 forward bf16 (median of the turns): tt_band_conv_wgmma "
+          f"{k1_ms:.3f} ms, tt_band_conv {k1_mma_ms:.3f} ms, cuDNN "
+          f"{k1_lib:.3f} ms; bound "
+          f"{max(t_ops, t_bytes):.4f} ms, stage-by-stage byte floor "
+          f"{count.n / PEAK_BYTES * 1e3:.4f} ms; "
+          f"{launches_per_forward} launches; {card}")
 
     stage_ms = stage_numbers(torch, stages, x.shape[0], x.shape[-1])
 
@@ -3682,8 +3802,24 @@ def main():
 
     kernels = [
         {"name": "banded_conv", "route": "cuda",
-         "source": "timbre_trap_tpu_torch/csrc/band_mma.cu",
+         "source": "timbre_trap_tpu_torch/csrc/band_wgmma.cu",
          "source_f32": "timbre_trap_tpu_torch/csrc/band_mma.cu",
+         "entry": "tt_band_conv_wgmma",
+         "launches_wgmma": {
+             "transcribe": launches["banded_conv.wgmma"],
+             "train_per_step": train_launches["banded_conv.wgmma"]
+             / TRAIN_STEPS,
+             "trainer": trainer_launches["banded_conv.wgmma"],
+             "cli_train": cli_launches["train"]["banded_conv.wgmma"],
+             "cli_sonify": cli_launches["sonify"]["banded_conv.wgmma"],
+             "skip_route_transcribe":
+                 launches_var["transcribe"]["banded_conv.wgmma"],
+             "quality": {probe: n["banded_conv.wgmma"] for probe, n in
+                         last_launches["quality"].items()},
+             "comparison": last_launches["comparison"]["banded_conv.wgmma"]},
+         "ms_mma_sync": k1_mma_ms, "forward_turns_ms": turns,
+         "forward_device_ms": chain_device_ms,
+         "stage_kinds": kind_ms, "bit_equal_share_mma_sync": band_share,
          "launches_f32": launches32["banded_conv"],
          "launches_train_f32": train["f32_step_launches"]["banded_conv"],
          "replaces": "timbre_trap_tpu/ops/fused_level.py:463",

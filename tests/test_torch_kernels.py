@@ -1,9 +1,9 @@
 """The port's hand-written CUDA kernels against their plain PyTorch twins:
-the conv stage (K1: the band-tiled tensor-core kernels of
-``csrc/band_mma.cu``, bf16 products for bfloat16, split-TF32 products for
-float32), the peak mask (K2) and the level backward (K3: dX and dW on the
-same band tiles in both dtypes, the ELU' seed of
-``csrc/banded_conv_bwd.cu``).
+the conv stage (K1: the band-tiled tensor-core kernels, for bfloat16 the
+TMA-fed wgmma kernel of ``csrc/band_wgmma.cu``, for float32 the
+split-TF32 products of ``csrc/band_mma.cu``), the peak mask (K2) and the
+level backward (K3: dX and dW on the band tiles of ``csrc/band_mma.cu``
+in both dtypes, the ELU' seed of ``csrc/banded_conv_bwd.cu``).
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed. The tests marked ``cuda`` need a card and skip
@@ -32,7 +32,8 @@ from timbre_trap_tpu_torch.models.modules import init_weights
 from timbre_trap_tpu_torch.ops import packed_conv as pc
 from timbre_trap_tpu_torch.ops.fused_level import (
     HALO, banded_conv, banded_conv_dw, banded_conv_dw_reference,
-    banded_conv_dx, banded_conv_dx_reference, banded_conv_reference,
+    banded_conv_dx, banded_conv_dx_reference, banded_conv_mma,
+    banded_conv_reference,
     chain_flops, elu_backward, fused_level_apply, level_backward,
     level_backward_reference, packed_level_apply, spec_time_reach)
 from timbre_trap_tpu_torch.ops.peaks import peak_mask, peak_mask_reference
@@ -152,7 +153,8 @@ def cuda_device():
 def _all_counts():
     return ((banded_conv.launches, peak_mask.launches) + _k3_counts()
             + _routes(banded_conv) + _routes(banded_conv_dx)
-            + _routes(banded_conv_dw))
+            + _routes(banded_conv_dw)
+            + (banded_conv.wgmma_launches, banded_conv_mma.launches))
 
 
 def test_wrappers_take_the_twin_on_cpu_and_count_nothing(monkeypatch):
@@ -517,6 +519,39 @@ def test_band_kernels_match_plain_at_long_and_ragged_t(cuda_device, dtype, t):
         out_ref, raw_ref = banded_conv_dx_reference(c, cb, dtype, **kw)
         close(out, out_ref, f"{name} dX")
         close(raw, raw_ref, f"{name} dX raw")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [3072, 1001, 37])
+def test_wgmma_stage_matches_twin_and_mma_sync(cuda_device, t):
+    """The bf16 stage's TMA-fed wgmma kernel (``tt_band_conv_wgmma``, the
+    route of every CUDA bfloat16 ``banded_conv``) on every conv kind and
+    the variants' stages, at the recipe's T and ragged T (x padded to a
+    multiple of 8 frames): within 1e-2 * max|ref| of the twin and of the
+    mma.sync kernel (``tt_band_conv``, through ``banded_conv_mma``) on the
+    same tensors (sum order and the output rounding), the same bits in two
+    runs; each launch counts as a bf16 and a wgmma launch."""
+    rng = np.random.default_rng(31)
+    bf16 = torch.bfloat16
+    convs = dict(_conv_cases(cuda_device))
+    convs.update(_variant_stages(cuda_device))
+    for name, cb in convs.items():
+        x = _rand(rng, 2, cb.r_in, t).to(cuda_device, bf16)
+        res = None if cb.per_block else _rand(rng, 2, cb.r_out, t).to(
+            cuda_device, bf16)
+        before = (banded_conv.mma_launches, banded_conv.wgmma_launches)
+        got = banded_conv(x, cb, True, res)
+        again = banded_conv(x, cb, True, res)
+        assert (banded_conv.mma_launches, banded_conv.wgmma_launches) == (
+            before[0] + 2, before[1] + 2)
+        old = banded_conv_mma(x, cb, True, res)
+        ref = banded_conv_reference(x, cb, True, res)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), name
+        for want, what in ((ref, "twin"), (old, "mma.sync")):
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= 1e-2 * want.float().abs().max().item(), (name, what,
+                                                                   err)
 
 
 @pytest.mark.cuda

@@ -3,10 +3,13 @@
 //
 // Replaces the products of the Pallas TPU kernels
 // timbre_trap_tpu/ops/fused_level.py `_level_kernel` (K1, launched by
-// `_pallas_fwd_call`) and `_level_bwd_kernel` (K3, launched by
-// `_pallas_bwd_call`), in both storage dtypes; the wrappers in
-// ops/fused_level.py pick the entry point by dtype. K3's ELU' seed, an
-// elementwise pass, is in banded_conv_bwd.cu.
+// `_pallas_fwd_call`; float32 storage) and `_level_bwd_kernel` (K3,
+// launched by `_pallas_bwd_call`; both storage dtypes); the wrappers in
+// ops/fused_level.py pick the entry point by dtype. The bf16 K1 stage of
+// every path is band_wgmma.cu's; tt_band_conv stays here as the yardstick
+// that one is held and timed against, and its kernel template serves
+// tt_band_conv_dx. K3's ELU' seed, an elementwise pass, is in
+// banded_conv_bwd.cu.
 //
 // The banded blocks are mostly structural zeros: an output row of a conv
 // reads n_df * c_in of a block's K input rows. Each 64-row half of a
@@ -70,9 +73,12 @@
 // tensor cores. The tensor cores round their float32 sums toward zero,
 // so no float32 route keeps a long running sum in the MMA accumulators:
 // each short product goes into fresh accumulators and reaches the running
-// sum by an IEEE add. mma.sync rather than wgmma: its fragments come
-// straight from the transposed tiles with per-row addresses, where wgmma's
-// shared-memory descriptors want whole swizzled tiles at aligned offsets.
+// sum by an IEEE add. These kernels use mma.sync, whose fragments come
+// straight from the transposed tiles with per-row addresses. wgmma wants
+// whole swizzled tiles at aligned offsets, and a tap's shift breaks that
+// alignment; band_wgmma.cu gets its tiles another way (a TMA box per tap
+// at the shift rounded down to 8 frames, the rest as a shift of the tap's
+// sums across lanes), and that is the bf16 K1 stage of every path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,0 +1,696 @@
+// K1's bfloat16 conv stage on Hopper's own machinery (sm_90a): TMA loads
+// into a ring of shared-memory stages, mbarriers, one producer warp, and
+// one consumer warpgroup that multiplies with wgmma.
+//
+// Replaces the products of the Pallas TPU kernel
+// timbre_trap_tpu/ops/fused_level.py `_level_kernel` (launched by
+// `_pallas_fwd_call`) for bf16 storage; ops/fused_level.py `banded_conv`
+// sends every CUDA bfloat16 stage here (float32 stays on band_mma.cu's
+// split-TF32 route).
+//
+//   tt_band_conv_wgmma  y[64g + r, t] = epi(sum_dt sum_k W_g,dt[r, k] *
+//                       x[s_g + k, t + dt]), bf16 operands, float32
+//                       accumulators; epilogue: float32 bias, ELU as
+//                       exp(min(v, 0)) - 1 (exp by the hardware's ex2),
+//                       residual add, bf16 store. The function of
+//                       band_mma.cu's tt_band_conv.
+//
+// Design. An output tile is one 64-row sub-tile g (its band: start s_g, L
+// columns, ops/packed_conv.py `_sub_tile_bands`) x 128 frames t0.. of one
+// item; CTAs are persistent, two an SM, each walking tiles g-fastest. x
+// comes by a 3-D TMA tensor map, dims (T, r_in, B): the hardware zero-fills
+// rows above 0 (the margin) or past r_in and frames outside [0, T), so
+// every box lands whole (a 2-D map over B * r_in rows would read the next
+// item's rows at the margin instead of zeros). Its boxes are 64 band rows
+// x 64 frames, 128-byte swizzled: a wgmma B operand with frames
+// contiguous (MN-major, the transpose bit set). TMA takes a box's
+// innermost (frame) coordinate only in whole 16 bytes, 8 bf16 frames (an
+// odd one faults), so a tap dt = 8q + r (0 <= r < 8) reads its boxes at
+// frame t0 + 8q, 136 frames (two 64-frame boxes and an unswizzled 8-frame
+// one): its products go into their own float32 accumulators, whose column
+// n is output frame t0 + n - r, and once the tap's chunks are summed they
+// are added into the tile's, shifted by r frames across the lanes of a
+// quad (warp shuffles; none for r = 0). The band weights W_g,dt (64 x
+// width, K contiguous) come by a second map, 64 columns a box, 128-byte
+// swizzled: the K-major A operand. One pipeline stage is one (tap, chunk
+// of 64 band rows): 25 KB; a ring of kStages stages with full and empty
+// mbarriers, fed by one producer thread that runs ahead into the next
+// tile, drained by the consumer warpgroup with m64n64k16 wgmmas (and an
+// m64n8k16 for the 8 extra frames where r > 0). The sums run in a fixed
+// order, tap, then chunk, then k16 step, from zero, with no atomics: a run
+// is deterministic. (tt_band_conv sums chunk, then tap, in one set of
+// accumulators; the order here differs by the alignment rule.) The
+// epilogue stages the tile's float32 sums in shared memory, and each
+// thread then reads the residual and writes y 16 bytes (8 frames of a row)
+// at a time.
+//
+// TMA wants 16-byte global strides: x's rows are T bf16 long, so the
+// wrapper hands a copy padded with zero frames to a multiple of 8 where
+// T % 8 != 0 (zeros are what the edge fill gives); the residual and y
+// keep T and are read and written with masks (8 frames at a time where
+// T % 8 == 0). A tensor map depends on its base and dims only, so the
+// encoded maps are kept in a small cache.
+//
+// What bounds it: with the zeros skipped a stage needs 2 * n_dt * 64 * L
+// flops per sub-tile and frame against ~2 bytes per row and frame in and
+// out, near the card's bytes-per-flop line, so a forward chain is bound
+// by its bytes. The per-tap boxes read x n_dt times, from L2 after the
+// first, and the weights once per tile. On the card neither bandwidth
+// sets the pace yet: leaving the weight boxes out or changing the ring's
+// depth left the mainloop's time unchanged, while halving the number of
+// stages (64-row chunks) shortened it, so a stage's fixed latency does;
+// the epilogue (the ELU's exp above all) takes the rest of a tile's time.
+// TMA moves every operand without registers or address arithmetic in the
+// consumer.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <mutex>
+#include <unordered_map>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kSub = 64;                         // rows of a sub-tile (wgmma M)
+constexpr int kTileT = 128;                      // output frames per CTA
+constexpr int kBoxT = 64;                        // frames per swizzled x box: 128 bytes
+constexpr int kEdgeT = 8;                        // frames of the unswizzled edge box
+constexpr int kKc = 64;                          // band rows per stage
+constexpr int kSteps = kKc / 16;                 // k16 steps per stage
+constexpr int kStages = 3;
+constexpr int kInFlight = 1;                     // wgmma groups in flight per consumer
+constexpr int kXBox = kBoxT * kKc * 2;           // 8192 bytes
+constexpr int kWBox = kSub * kKc * 2;            // 8192 bytes
+constexpr int kEdgeBox = kEdgeT * kKc * 2;       // 1024 bytes
+constexpr int kWOff = 2 * kXBox;                 // stage layout: x, x, W, edge
+constexpr int kEdgeOff = kWOff + kWBox;
+constexpr int kStageBytes = kEdgeOff + kEdgeBox; // 25600 bytes, 1024-aligned stages
+constexpr int kConsumers = 128;                  // one warpgroup
+constexpr int kThreads = kConsumers + 32;        // + one producer warp
+constexpr int kOutPitch = kTileT + 4;            // float32 output staging rows
+constexpr int kOutBytes = kSub * kOutPitch * 4;  // 33792 bytes
+constexpr int kSmem = kStages * kStageBytes + kOutBytes + 1024;   // + alignment slack
+constexpr int kMaxDevices = 64;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed;
+// the warp leaves converged, as the wgmma that follow require.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+  __syncwarp();
+}
+
+// One TMA box of a 3-D tensor map into shared memory, completing on `bar`.
+// The innermost coordinate must be a whole 16 bytes.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), layout (0: none, 1: 128-byte
+// swizzle). Each operand here spans one swizzle atom (or one core matrix)
+// along its contiguous dimension, so only the offset between its 8-row
+// groups matters (of M for the K-major A, of K for the MN-major B); it is
+// given as both offsets.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t group_bytes,
+                                              uint32_t layout) {
+  const uint64_t off = (group_bytes >> 4) & 0x3FFF;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (off << 16) | (off << 32) |
+         (static_cast<uint64_t>(layout) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma instructions.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += A (64 x 16, K-major, descriptor a) * B (16 x 64, MN-major, b).
+__device__ __forceinline__ void wgmma_64x64x16(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d += A (64 x 16, K-major, a) * B (16 x 8, MN-major, b).
+__device__ __forceinline__ void wgmma_64x8x16(float (&d)[4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ int tap_of(const int (&v)[3], int tap) {
+  return tap == 0 ? v[0] : (tap == 1 ? v[1] : v[2]);   // no runtime index into the arguments
+}
+
+struct WgmmaArgs {
+  const float* bias;   // (128,) pattern, or (n_blocks * 128,) per block
+  const bf16* res;     // (B, r_out, T) or null
+  bf16* out;           // (B, r_out, T)
+  int r_out, t_len, n_dt, n_sub, n_tiles_t, n_tiles;
+  int off[3], shift[3];   // per tap: box frame offset (a multiple of 8), shift
+  int col_adv, margin, per_block, act, vec;
+  int kb0, kl0, nc0, kb1, kl1, nc1;
+};
+
+// One output tile: sub-tile g (the fastest index) x kTileT frames t0.. of
+// item b, its band and the input row of its band column 0.
+struct Tile {
+  int t0, g, b, kl, nc, wsub, row0;
+  __device__ __forceinline__ Tile(const WgmmaArgs& a, int tile) {
+    g = tile % a.n_sub;
+    const int rest = tile / a.n_sub;
+    t0 = (rest % a.n_tiles_t) * kTileT;
+    b = rest / a.n_tiles_t;
+    const int s = g & 1;
+    kl = s ? a.kl1 : a.kl0;
+    nc = s ? a.nc1 : a.nc0;
+    wsub = a.per_block ? g : s;
+    row0 = (g >> 1) * a.col_adv - a.margin + (s ? a.kb1 : a.kb0);
+  }
+};
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// Accumulator column n of group G (8 columns a group, 17 groups: two
+// m64n64 tiles and the m64n8 edge) for row half i, element e.
+__device__ __forceinline__ float acc_at(const float (&a0)[32], const float (&a1)[32],
+                                        const float (&a2)[4], int G, int i, int e) {
+  return G < 8 ? a0[4 * G + 2 * i + e] : (G < 16 ? a1[4 * (G - 8) + 2 * i + e] : a2[2 * i + e]);
+}
+
+// out[o] += acc[o + r] for the 128 output columns o of this thread's rows:
+// column o of group j lives in lane 4 * (lane / 4) + (o % 8) / 2 as element
+// o % 2, so a shift by r moves values between the lanes of a quad.
+__device__ __forceinline__ void add_shifted(float (&o0)[32], float (&o1)[32],
+                                            const float (&a0)[32], const float (&a1)[32],
+                                            const float (&a2)[4], int r, int lane) {
+  if (r == 0) {
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      o0[k] += a0[k];
+      o1[k] += a1[k];
+    }
+    return;
+  }
+  const int q = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int s = 2 * q + e + r;                       // source column within the group
+      const int src = (lane & ~3) | ((s & 7) >> 1);
+      const bool carry = s >= 8;                         // ... or the next group's
+      const bool odd = (r & 1) != 0;
+      float v[17];
+#pragma unroll
+      for (int G = 0; G < 17; ++G) {
+        const float mine = odd ? acc_at(a0, a1, a2, G, i, e ^ 1) : acc_at(a0, a1, a2, G, i, e);
+        v[G] = __shfl_sync(0xffffffffu, mine, src);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o0[4 * j + 2 * i + e] += carry ? v[j + 1] : v[j];
+        o1[4 * j + 2 * i + e] += carry ? v[j + 9] : v[j + 8];
+      }
+    }
+  }
+}
+
+// The ring of pipeline stages in shared memory and its barriers; the
+// producer and the consumers each walk it with their own (stage, phase).
+struct Ring {
+  uint32_t base;    // 1024-byte aligned shared address of stage 0
+  uint64_t* full;   // TMA bytes landed
+  uint64_t* empty;  // consumers done with the stage
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ uint32_t at() const { return base + stage * kStageBytes; }
+  __device__ __forceinline__ void advance() {
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+// Producer: the TMA loads of one tile, tap by tap, chunk by chunk.
+__device__ __forceinline__ void produce_tile(const WgmmaArgs& a, const Tile& tl,
+                                             const CUtensorMap* xmap, const CUtensorMap* emap,
+                                             const CUtensorMap* wmap, Ring& ring) {
+  for (int tap = 0; tap < a.n_dt; ++tap) {
+    const int f0 = tl.t0 + tap_of(a.off, tap);
+    const bool edge = tap_of(a.shift, tap) != 0;
+    for (int c = 0; c < tl.nc; ++c) {
+      mbar_wait(smem_u32(&ring.empty[ring.stage]), ring.phase ^ 1u);
+      const uint32_t bar = smem_u32(&ring.full[ring.stage]);
+      const uint32_t sb = ring.at();
+      const int row = tl.row0 + c * kKc;
+      mbar_expect_tx(bar, 2 * kXBox + kWBox + (edge ? kEdgeBox : 0));
+      tma_load_3d(sb, xmap, bar, f0, row, tl.b);
+      tma_load_3d(sb + kXBox, xmap, bar, f0 + kBoxT, row, tl.b);
+      tma_load_3d(sb + kWOff, wmap, bar, c * kKc, 0, tl.wsub * a.n_dt + tap);
+      if (edge) tma_load_3d(sb + kEdgeOff, emap, bar, f0 + 2 * kBoxT, row, tl.b);
+      ring.advance();
+    }
+  }
+}
+
+// Consumers: one tile's sums into o0, o1 (output columns 0-63, 64-127),
+// tap by tap. Thread (warp w, lane l) holds rows 16w + l/4 + 8i (i = 0, 1)
+// and, in group G (8 columns), columns 8G + 2(l%4) + e (e = 0, 1):
+// register 4G + 2i + e of an m64n64 tile, 2i + e of the m64n8 edge.
+__device__ __forceinline__ void consume_tile(const WgmmaArgs& a, const Tile& tl, Ring& ring,
+                                             int lane, float (&o0)[32], float (&o1)[32]) {
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    o0[k] = 0.f;
+    o1[k] = 0.f;
+  }
+  for (int tap = 0; tap < a.n_dt; ++tap) {
+    const int r = tap_of(a.shift, tap);
+    float a0[32], a1[32], a2[4];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      a0[k] = 0.f;
+      a1[k] = 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) a2[k] = 0.f;
+    fence_acc(a0);
+    fence_acc(a1);
+    fence_acc(a2);
+    for (int c = 0; c < tl.nc; ++c) {
+      const int ksteps = min(kSteps, (tl.kl - c * kKc) / 16);
+      mbar_wait(smem_u32(&ring.full[ring.stage]), ring.phase);
+      const uint32_t sb = ring.at();
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) {
+        if (ks < ksteps) {
+          // A: 64 rows x 16 columns at column 16ks of the 128-byte-swizzled
+          // weight box (8-row groups 1024 bytes apart). B: band rows 16ks..
+          // of each x box, frames contiguous: 128-byte swizzled (8-row
+          // groups 1024 bytes apart) or, for the edge box, unswizzled 8 x 8
+          // core matrices (128 bytes apart).
+          const uint64_t da = smem_desc(sb + kWOff + 32 * ks, 1024, 1);
+          wgmma_64x64x16(a0, da, smem_desc(sb + 2048 * ks, 1024, 1));
+          wgmma_64x64x16(a1, da, smem_desc(sb + kXBox + 2048 * ks, 1024, 1));
+          if (r != 0) wgmma_64x8x16(a2, da, smem_desc(sb + kEdgeOff + 256 * ks, 128, 0));
+        }
+      }
+      wgmma_commit();
+      // With kInFlight groups still running, the stage kInFlight back is
+      // done: hand its buffers back.
+      wgmma_wait<kInFlight>();
+      fence_acc(a0);
+      fence_acc(a1);
+      fence_acc(a2);
+      if (c >= kInFlight && lane == 0)
+        mbar_arrive(smem_u32(&ring.empty[(ring.stage + kStages - kInFlight) % kStages]));
+      ring.advance();
+    }
+    wgmma_wait<0>();
+    fence_acc(a0);
+    fence_acc(a1);
+    fence_acc(a2);
+    if (lane == 0)
+      for (int k = min(tl.nc, kInFlight); k > 0; --k)
+        mbar_arrive(smem_u32(&ring.empty[(ring.stage + kStages - k) % kStages]));
+    add_shifted(o0, o1, a0, a1, a2, r, lane);
+  }
+}
+
+// Consumers: bias, ELU, residual and the bf16 store of one tile. The
+// float32 sums pass through shared memory (`stg`, kSub x kOutPitch) so
+// that each thread then reads and writes 8 consecutive frames of a row:
+// 16-byte residual loads and stores (vec: T % 8 == 0 and 16-byte aligned
+// res and y), a warp covering two whole 256-byte rows.
+__device__ __forceinline__ void store_tile(const WgmmaArgs& a, const Tile& tl, float* stg,
+                                           int warp, int lane, const float (&o0)[32],
+                                           const float (&o1)[32]) {
+  consumer_sync();   // the previous tile's reads of stg are done
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = 16 * warp + (lane >> 2) + 8 * i;
+        const int col = kBoxT * h + 8 * j + 2 * (lane & 3);
+        const int k = 4 * j + 2 * i;
+        *reinterpret_cast<float2*>(stg + row * kOutPitch + col) =
+            h ? make_float2(o1[k], o1[k + 1]) : make_float2(o0[k], o0[k + 1]);
+      }
+  consumer_sync();
+  // Thread tid takes rows tid / 16 + 8m (m < 8), frames 8 (tid % 16)..:
+  // every load of its eight items first, then the arithmetic and stores,
+  // so that their latencies overlap.
+  constexpr int kItems = kSub * kTileT / 8 / kConsumers;   // 8
+  const int tid = 32 * warp + lane;
+  const int col = 8 * (tid % (kTileT / 8));
+  const int t = tl.t0 + col;
+  const size_t out_base = (size_t)tl.b * a.r_out * a.t_len;
+  const unsigned short* rs = reinterpret_cast<const unsigned short*>(a.res);
+  unsigned short* ys = reinterpret_cast<unsigned short*>(a.out);
+  float v[kItems][8], bias[kItems];
+  uint32_t rw[kItems][4];
+#pragma unroll
+  for (int m = 0; m < kItems; ++m) {
+    const int row = tid / (kTileT / 8) + 8 * m;
+    const int orow = tl.g * kSub + row;
+    const bool ok = orow < a.r_out && t < a.t_len;
+    const size_t o = out_base + (size_t)orow * a.t_len + t;
+    bias[m] = ok ? __ldg(a.bias + (a.per_block ? orow : (tl.g & 1) * kSub + row)) : 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) rw[m][w] = 0u;
+    if (ok && rs != nullptr) {
+      if (a.vec) {
+        const uint4 r4 = __ldg(reinterpret_cast<const uint4*>(rs + o));
+        rw[m][0] = r4.x;
+        rw[m][1] = r4.y;
+        rw[m][2] = r4.z;
+        rw[m][3] = r4.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (t + e < a.t_len)
+            rw[m][e / 2] |= static_cast<uint32_t>(__ldg(rs + o + e)) << (16 * (e & 1));
+      }
+    }
+    const float4 lo = *reinterpret_cast<const float4*>(stg + row * kOutPitch + col);
+    const float4 hi = *reinterpret_cast<const float4*>(stg + row * kOutPitch + col + 4);
+    v[m][0] = lo.x;
+    v[m][1] = lo.y;
+    v[m][2] = lo.z;
+    v[m][3] = lo.w;
+    v[m][4] = hi.x;
+    v[m][5] = hi.y;
+    v[m][6] = hi.z;
+    v[m][7] = hi.w;
+  }
+#pragma unroll
+  for (int m = 0; m < kItems; ++m) {
+    const int orow = tl.g * kSub + tid / (kTileT / 8) + 8 * m;
+    if (orow >= a.r_out || t >= a.t_len) continue;
+    uint32_t yw[4];
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      float x2[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x = v[m][2 * w + e] + bias[m];
+        if (a.act) x = x > 0.f ? x : __expf(fminf(x, 0.f)) - 1.f;
+        // The residual's bf16 bits as float32 (0 without one).
+        x += __uint_as_float(e ? (rw[m][w] & 0xFFFF0000u) : (rw[m][w] << 16));
+        x2[e] = x;
+      }
+      const __nv_bfloat162 pr = __floats2bfloat162_rn(x2[0], x2[1]);
+      yw[w] = *reinterpret_cast<const uint32_t*>(&pr);
+    }
+    const size_t o = out_base + (size_t)orow * a.t_len + t;
+    if (a.vec) {
+      *reinterpret_cast<uint4*>(ys + o) = make_uint4(yw[0], yw[1], yw[2], yw[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (t + e < a.t_len) ys[o + e] = static_cast<unsigned short>(yw[e / 2] >> (16 * (e & 1)));
+    }
+  }
+}
+
+// Persistent: CTA k walks tiles k, k + gridDim.x, ...; the producer runs
+// ahead into the next tile while the consumers finish the last one.
+__global__ void __launch_bounds__(kThreads, 2)
+    band_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap emap,
+                      const __grid_constant__ CUtensorMap wmap, const WgmmaArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages];
+  __shared__ __align__(8) uint64_t empty[kStages];
+  // The swizzled boxes want 1024-byte aligned stages; the output staging
+  // tile follows the ring.
+  const uint32_t pad = ((smem_u32(smem_raw) + 1023u) & ~1023u) - smem_u32(smem_raw);
+  Ring ring{smem_u32(smem_raw) + pad, full, empty};
+  float* stg = reinterpret_cast<float*>(smem_raw + pad + kStages * kStageBytes);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(smem_u32(&full[i]), 1);
+      mbar_init(smem_u32(&empty[i]), kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    if (lane == 0)
+      for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x)
+        produce_tile(a, Tile(a, tile), &xmap, &emap, &wmap, ring);
+    return;
+  }
+  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+    const Tile tl(a, tile);
+    float o0[32], o1[32];
+    consume_tile(a, tl, ring, lane, o0, o1);
+    store_tile(a, tl, stg, warp, lane, o0, o1);
+  }
+}
+
+// cuTensorMapEncodeTiled, a driver-API function, reached through the
+// runtime so that the library links no libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &q);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 3-D bf16 tensor map: dims (d0, d1, d2) innermost first, d0 contiguous,
+// boxes of (b0, b1, 1), zero fill outside the tensor.
+int encode_3d(EncodeTiled enc, CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
+              uint64_t d2, uint32_t b0, uint32_t b1, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
+  const cuuint32_t box[3] = {b0, b1, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -100 - static_cast<int>(r);
+}
+
+// A map depends on nothing but its base, dims, box and swizzle, so a map
+// made once serves every later launch with the same ones (the caching
+// allocator hands the same activation buffers out again, the band weights
+// stay put): a cache keeps the host's encoding off all but the first
+// launch on a buffer. It is emptied when it reaches kMaxMaps.
+struct MapKey {
+  const void* base;
+  uint64_t d0, d1, d2;
+  uint32_t b0, b1;
+  int swizzle;
+  bool operator==(const MapKey& o) const {
+    return base == o.base && d0 == o.d0 && d1 == o.d1 && d2 == o.d2 && b0 == o.b0 &&
+           b1 == o.b1 && swizzle == o.swizzle;
+  }
+};
+
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    uint64_t h = reinterpret_cast<uint64_t>(k.base);
+    for (const uint64_t v : {k.d0, k.d1, k.d2, (uint64_t)k.b0 << 32 | k.b1, (uint64_t)k.swizzle})
+      h = (h ^ v) * 0x100000001b3ull;
+    return static_cast<size_t>(h);
+  }
+};
+
+int cached_map(EncodeTiled enc, CUtensorMap* map, const MapKey& k) {
+  constexpr size_t kMaxMaps = 4096;
+  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> maps;
+  static std::mutex lock;
+  std::lock_guard<std::mutex> guard(lock);
+  const auto hit = maps.find(k);
+  if (hit != maps.end()) {
+    *map = hit->second;
+    return 0;
+  }
+  const int rc = encode_3d(enc, map, k.base, k.d0, k.d1, k.d2, k.b0, k.b1,
+                           static_cast<CUtensorMapSwizzle>(k.swizzle));
+  if (rc != 0) return rc;
+  if (maps.size() >= kMaxMaps) maps.clear();
+  maps.emplace(k, *map);
+  return 0;
+}
+
+}  // namespace
+
+// K1 stage, bf16 storage, TMA-fed wgmma. x: (B, r_in, t_pad) bf16, t_pad
+// a multiple of 8 and >= T, zeros past T, 16-byte aligned; w: band
+// weights (n_w, n_dt, 64, width) bf16, width a multiple of 32; bias
+// float32; res (or null) and y: (B, r_out, T) bf16; vec: T % 8 == 0 and
+// res, y 16-byte aligned. plan: the integers ops/fused_level.py
+// `band_tma_plan` fixes for a stage and T, in this order: T, t_pad, n_dt,
+// per tap (box offset, shift) x 3 (dt = box offset + shift, the offset a
+// multiple of 8 frames, 0 <= shift < 8), col_adv, margin, width, n_w,
+// per_block, then (start, length, chunks of 64) of the band of even and
+// of odd sub-tiles. Returns cudaGetLastError() of the launch, or a
+// negative code when the tensor maps cannot be made (-1: no encode entry
+// point; -100 - CUresult).
+extern "C" int tt_band_conv_wgmma(const void* x, const void* w, const void* bias,
+                                  const void* res, void* y, int batch, int r_in, int r_out,
+                                  int act, int vec, const int* plan, void* stream) {
+  const int t_len = plan[0], t_pad = plan[1], n_dt = plan[2];
+  const int width = plan[11], n_w = plan[12];
+  // Per device: the shared-memory opt-in, and how many CTAs the card
+  // holds at once (the persistent grid).
+  static int resident[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (resident[dev] == 0) {
+    e = cudaFuncSetAttribute(band_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmem);
+    int sms = 0, per_sm = 0;
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, band_wgmma_kernel, kThreads,
+                                                        kSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (sms * per_sm == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    resident[dev] = sms * per_sm;
+  }
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return -1;
+  CUtensorMap xmap, emap, wmap;
+  const uint64_t rows = r_in, items = batch, wsubs = (uint64_t)n_w * n_dt;
+  int rc = cached_map(enc, &xmap, {x, (uint64_t)t_pad, rows, items, kBoxT, kKc,
+                                   CU_TENSOR_MAP_SWIZZLE_128B});
+  if (rc == 0)
+    rc = cached_map(enc, &emap, {x, (uint64_t)t_pad, rows, items, kEdgeT, kKc,
+                                 CU_TENSOR_MAP_SWIZZLE_NONE});
+  if (rc == 0)
+    rc = cached_map(enc, &wmap, {w, (uint64_t)width, kSub, wsubs, kKc, kSub,
+                                 CU_TENSOR_MAP_SWIZZLE_128B});
+  if (rc != 0) return rc;
+
+  WgmmaArgs a = {};
+  a.bias = static_cast<const float*>(bias);
+  a.res = static_cast<const bf16*>(res);
+  a.out = static_cast<bf16*>(y);
+  a.r_out = r_out;
+  a.t_len = t_len;
+  a.n_dt = n_dt;
+  a.n_sub = (r_out + kSub - 1) / kSub;
+  a.n_tiles_t = (t_len + kTileT - 1) / kTileT;
+  a.n_tiles = a.n_sub * a.n_tiles_t * batch;
+  for (int i = 0; i < 3; ++i) {
+    a.off[i] = plan[3 + 2 * i];
+    a.shift[i] = plan[4 + 2 * i];
+  }
+  a.col_adv = plan[9];
+  a.margin = plan[10];
+  a.per_block = plan[13];
+  a.act = act;
+  a.vec = vec;
+  a.kb0 = plan[14];
+  a.kl0 = plan[15];
+  a.nc0 = plan[16];
+  a.kb1 = plan[17];
+  a.kl1 = plan[18];
+  a.nc1 = plan[19];
+  const int grid = a.n_tiles < resident[dev] ? a.n_tiles : resident[dev];
+  band_wgmma_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(xmap, emap,
+                                                                                  wmap, a);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -9,8 +9,9 @@ plus the item input.
 
 ``fused_level_apply`` runs the chain through hand-written CUDA kernels
 (which replace the Pallas ``_level_kernel``), one launch per conv stage:
-the band-tiled tensor-core kernels of ``csrc/band_mma.cu``, bf16 products
-for bfloat16 and split-TF32 (3xTF32) products for float32;
+band-tiled tensor-core kernels, for bfloat16 the TMA-fed wgmma kernel of
+``csrc/band_wgmma.cu`` (bf16 products), for float32 the split-TF32
+(3xTF32) kernel of ``csrc/band_mma.cu``;
 ``packed_level_apply`` is their plain PyTorch twin. Both keep the JAX
 precision policy: every stage input, weight and output is stored at
 ``dtype`` (float32 or bfloat16), accumulation and biases are float32.
@@ -26,6 +27,9 @@ for float32; dW on the bands only) and the ELU' seed of
 algorithm in plain PyTorch.
 """
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 
 from . import _build
@@ -36,7 +40,9 @@ from .packed_conv import (BLOCK_ROWS, SUB_ROWS, ConvBlocks,
 __all__ = ["HALO", "LevelSpec", "conv2d_level_spec", "encoder_level_spec",
            "decoder_level_spec",
            "fuse_level_specs", "spec_time_reach", "banded_conv",
-           "banded_conv_reference", "packed_level_apply", "fused_level_apply",
+           "banded_conv_reference", "banded_conv_mma", "BandTmaPlan",
+           "band_tma_plan", "tma_frames", "packed_level_apply",
+           "fused_level_apply",
            "chain_flops", "band_flops", "banded_conv_dx",
            "banded_conv_dx_reference",
            "banded_conv_dw", "banded_conv_dw_reference", "elu_backward",
@@ -46,8 +52,8 @@ __all__ = ["HALO", "LevelSpec", "conv2d_level_spec", "encoder_level_spec",
 # Time halo per side of the JAX kernel's tiles; a fused chain's cumulative
 # time reach must fit it there, and the same limit holds here.
 HALO = 64
-# Largest time-tap magnitude the tensor-core kernels stage (csrc/band_mma.cu
-# kHalo).
+# Largest time-tap magnitude the tensor-core kernels take (csrc/band_mma.cu
+# kHalo; every route holds to it).
 BAND_MAX_DT = 8
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -217,27 +223,73 @@ def banded_conv_reference(x, cb, act=False, residual=None):
 def banded_conv(x, cb, act=False, residual=None):
     """One conv stage with fused bias, optional ELU and residual add.
 
-    For a CUDA tensor it launches a band-tiled tensor-core kernel of
-    ``csrc/band_mma.cu``: bfloat16 ``tt_band_conv`` (bf16 products),
-    float32 ``tt_band_conv_f32`` (3xTF32 products: each operand split into
-    TF32 hi + lo, hi*hi + hi*lo + lo*hi accumulated in float32, as close to
-    the exact product as the IEEE float32 one within a small factor).
-    ``banded_conv.launches`` counts every launch,
-    ``banded_conv.mma_launches`` the bfloat16 ones and
-    ``banded_conv.mma_launches_f32`` the float32 ones. A CPU tensor takes
-    the plain twin. ``x`` is (B, r_in, T) float32 or bfloat16;
-    ``residual`` (B, r_out, T).
+    For a CUDA tensor it launches a band-tiled tensor-core kernel:
+    bfloat16 ``tt_band_conv_wgmma`` of ``csrc/band_wgmma.cu`` (TMA-fed
+    wgmma, bf16 products, walking ``band_tma_plan``), float32
+    ``tt_band_conv_f32`` of ``csrc/band_mma.cu`` (3xTF32 products: each
+    operand split into TF32 hi + lo, hi*hi + hi*lo + lo*hi accumulated in
+    float32, as close to the exact product as the IEEE float32 one within
+    a small factor). ``banded_conv.launches`` counts every launch,
+    ``banded_conv.mma_launches`` the bfloat16 ones,
+    ``banded_conv.wgmma_launches`` those of ``tt_band_conv_wgmma`` (every
+    bfloat16 one) and ``banded_conv.mma_launches_f32`` the float32 ones. A
+    CPU tensor takes the plain twin. ``x`` is (B, r_in, T) float32 or
+    bfloat16; ``residual`` (B, r_out, T).
     """
     if x.device.type == "cpu":
         return banded_conv_reference(x, cb, act, residual)
+    x, residual, w, bias, y = _stage_operands(x, cb, residual, "banded_conv")
+    if y.numel() == 0:
+        return y
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        _launch_wgmma(x, cb, act, residual, w, bias, y)
+    else:
+        _launch_band("tt_band_conv_f32", x, cb, act, residual, w, bias, y)
+    banded_conv.launches += 1
+    banded_conv.mma_launches += int(bf16)
+    banded_conv.wgmma_launches += int(bf16)
+    banded_conv.mma_launches_f32 += int(not bf16)
+    return y
+
+
+banded_conv.launches = 0
+banded_conv.mma_launches = 0
+banded_conv.wgmma_launches = 0
+banded_conv.mma_launches_f32 = 0
+
+
+def banded_conv_mma(x, cb, act=False, residual=None):
+    """The bfloat16 stage on the previous generation's instructions:
+    ``tt_band_conv`` of ``csrc/band_mma.cu`` (mma.sync fed by ldmatrix, x
+    staged through registers). No path of the package calls it; it is the
+    yardstick that ``tt_band_conv_wgmma`` is held and timed against on the
+    card. CUDA bfloat16 tensors only; ``banded_conv_mma.launches`` counts
+    its launches."""
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+        raise ValueError("banded_conv_mma takes CUDA bfloat16 tensors only")
+    x, residual, w, bias, y = _stage_operands(x, cb, residual,
+                                              "banded_conv_mma")
+    if y.numel():
+        _launch_band("tt_band_conv", x, cb, act, residual, w, bias, y)
+        banded_conv_mma.launches += 1
+    return y
+
+
+banded_conv_mma.launches = 0
+
+
+def _stage_operands(x, cb, residual, what):
+    """Check a CUDA stage's inputs; returns (x, residual) contiguous, the
+    band weights and bias at x's dtype, and the empty output."""
     if x.device.type != "cuda":
-        raise ValueError(f"banded_conv runs on cuda or cpu, not {x.device}")
+        raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
     if x.dtype not in _DTYPES:
-        raise ValueError(f"banded_conv takes float32 or bfloat16, not {x.dtype}")
+        raise ValueError(f"{what} takes float32 or bfloat16, not {x.dtype}")
     b, r_in, t = x.shape
     if r_in != cb.r_in:
         raise ValueError(f"input has {r_in} rows, conv expects {cb.r_in}")
-    _check_taps(cb, "banded_conv", x.dtype)
+    _check_taps(cb, what, x.dtype)
     x = x.contiguous()
     if residual is not None:
         if residual.shape != (b, cb.r_out, t) or residual.dtype != x.dtype:
@@ -247,31 +299,128 @@ def banded_conv(x, cb, act=False, residual=None):
     if w.device != x.device:
         raise ValueError("conv weights and input lie on different devices")
     y = torch.empty((b, cb.r_out, t), dtype=x.dtype, device=x.device)
-    if y.numel() == 0:
-        return y
+    return x, residual, w, bias, y
+
+
+def _launch_band(entry, x, cb, act, residual, w, bias, y):
+    """One launch of a ``csrc/band_mma.cu`` stage entry point."""
+    b, r_in, t = x.shape
     dts = list(cb.dts) + [0] * (3 - len(cb.dts))
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = _stream(x.device)
     res = None if residual is None else residual.data_ptr()
-    bf16 = x.dtype == torch.bfloat16
-    fn = _build.load("band_mma",
-                     "tt_band_conv" if bf16 else "tt_band_conv_f32")
-    # The CUDA runtime launches on the thread's current device, whichever
-    # device the stream belongs to: make it the tensor's.
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), res,
-                y.data_ptr(), b, r_in, cb.r_out, t, len(cb.dts), *dts,
-                cb.col_adv, cb.margin, w.shape[-1], int(cb.per_block),
-                int(act), *_band_ints(cb), _aligned(t, x), stream)
-    _build.check(rc, "banded_conv")
-    banded_conv.launches += 1
-    banded_conv.mma_launches += int(bf16)
-    banded_conv.mma_launches_f32 += int(not bf16)
-    return y
+    rc = _call_on(x.device, _build.load("band_mma", entry),
+                  x.data_ptr(), w.data_ptr(), bias.data_ptr(), res,
+                  y.data_ptr(), b, r_in, cb.r_out, t, len(cb.dts), *dts,
+                  cb.col_adv, cb.margin, w.shape[-1], int(cb.per_block),
+                  int(act), *_band_ints(cb), _aligned(t, x), stream)
+    _build.check(rc, entry)
 
 
-banded_conv.launches = 0
-banded_conv.mma_launches = 0
-banded_conv.mma_launches_f32 = 0
+def _call_on(device, fn, *args):
+    """``fn(*args)`` with ``device`` current: the CUDA runtime launches on
+    the thread's current device, whichever device the stream belongs to."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)
+
+
+# tt_band_conv_wgmma's tiles (csrc/band_wgmma.cu): an output tile is one
+# 64-row sub-tile x WGMMA_TILE_T frames; a pipeline stage is one chunk of
+# WGMMA_KC band rows of one tap, TMA boxes over the tile's frames and, for
+# a tap whose shift is not a whole 8 frames, WGMMA_EDGE_T more.
+WGMMA_TILE_T = 128
+WGMMA_EDGE_T = 8
+WGMMA_KC = 64
+# TMA takes global strides, and a box's innermost coordinate, in multiples
+# of 16 bytes: 8 bf16 frames.
+TMA_FRAME_ALIGN = 8
+
+
+class BandTmaPlan(NamedTuple):
+    """What ``tt_band_conv_wgmma`` walks for one stage at T frames.
+
+    t_pad:  frames a row of x has in the tensor map (T rounded up to
+            ``TMA_FRAME_ALIGN``; the wrapper pads x with zero frames).
+    tiles:  ``WGMMA_TILE_T``-frame tiles; an output tile is one of them x
+            one of ``n_sub`` 64-row sub-tiles x one item, and the
+            kernel's persistent CTAs walk every output tile.
+    n_sub:  64-row output sub-tiles.
+    bands:  (start, length, chunks) of the band of even and of odd
+            sub-tiles: sub-tile g's x boxes start at input row
+            ``cb.sub_start(g)``, chunk c at ``+ WGMMA_KC * c``.
+    taps:   (box offset, shift) of each tap, dt = box offset + shift: the
+            boxes of tile t0 start at frame ``t0 + box offset`` (a multiple
+            of ``TMA_FRAME_ALIGN``) and span ``WGMMA_TILE_T`` frames, plus
+            ``WGMMA_EDGE_T`` where shift > 0; the tap's sums at column n
+            belong to output frame ``t0 + n - shift``.
+    n_w:    weight sub-tiles (2, or one per sub-tile with ``per_block``).
+    """
+    t_pad: int
+    tiles: int
+    n_sub: int
+    bands: tuple
+    taps: tuple
+    n_w: int
+
+
+def band_tma_plan(cb, t):
+    """The box and tile plan of ``tt_band_conv_wgmma`` for conv ``cb`` on
+    T = ``t`` frames (see ``BandTmaPlan``)."""
+    a = TMA_FRAME_ALIGN
+    return BandTmaPlan(
+        t_pad=-(-t // a) * a, tiles=-(-t // WGMMA_TILE_T), n_sub=cb.n_sub,
+        bands=tuple((s, n, -(-n // WGMMA_KC)) for s, n in cb.bands),
+        taps=tuple((dt // a * a, dt % a) for dt in cb.dts),
+        n_w=2 * cb.n_out_blocks if cb.per_block else 2)
+
+
+def tma_frames(x, t_pad):
+    """x as the tensor map reads it: itself when its rows are ``t_pad``
+    frames and its base 16-byte aligned, else a copy padded with zero
+    frames to ``t_pad`` (zeros past T are what the map's edge fill gives,
+    so the stage is unchanged)."""
+    t = x.shape[-1]
+    if t == t_pad and x.data_ptr() % 16 == 0:
+        return x
+    return torch.nn.functional.pad(x, (0, t_pad - t)).contiguous()
+
+
+def _wgmma_plan(cb, t, width):
+    """(t_pad, the plan's integers as ``tt_band_conv_wgmma`` reads them: a
+    C int array), built once per conv and T."""
+    key = ("wgmma", t)
+    if key not in cb._cache:
+        plan = band_tma_plan(cb, t)
+        taps = list(plan.taps) + [(0, 0)] * (3 - len(plan.taps))
+        ints = (t, plan.t_pad, len(plan.taps),
+                *[v for tap in taps for v in tap], cb.col_adv, cb.margin,
+                width, plan.n_w, int(cb.per_block),
+                *[v for band in plan.bands for v in band])
+        cb._cache[key] = (plan.t_pad, (ctypes.c_int * len(ints))(*ints))
+    return cb._cache[key]
+
+
+def _stream(device):
+    """The raw handle of ``device``'s current CUDA stream (what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    building a Stream object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _launch_wgmma(x, cb, act, residual, w, bias, y):
+    """One launch of ``csrc/band_wgmma.cu:tt_band_conv_wgmma``."""
+    b, r_in, t = x.shape
+    t_pad, plan = _wgmma_plan(cb, t, w.shape[-1])
+    xp = tma_frames(x, t_pad)
+    vec = int(t % TMA_FRAME_ALIGN == 0 and y.data_ptr() % 16 == 0
+              and (residual is None or residual.data_ptr() % 16 == 0))
+    res = None if residual is None else residual.data_ptr()
+    rc = _call_on(x.device, _build.load("band_wgmma", "tt_band_conv_wgmma"),
+                  xp.data_ptr(), w.data_ptr(), bias.data_ptr(), res,
+                  y.data_ptr(), b, r_in, cb.r_out, int(act), vec, plan,
+                  _stream(x.device))
+    _build.check(rc, "banded_conv (tt_band_conv_wgmma)")
 
 
 def _check_taps(cb, what, dtype):

@@ -50,14 +50,15 @@ PEAK_BYTES = 3.35e12
 # (group, substring of the kernel's name), first match wins; the port's
 # kernels live in an anonymous namespace of their .cu file. Both steps run
 # the tensor-core kernels of band_mma.cu (bf16 products in the bf16 step,
-# split-TF32 in the float32 one; the dW reduction serves both) and the
-# ELU' seed of banded_conv_bwd.cu.
+# split-TF32 in the float32 one; the dW reduction serves both), the bf16
+# step's K1 stage that of band_wgmma.cu, and the ELU' seed of
+# banded_conv_bwd.cu.
 _OURS = "(anonymous namespace)::"
 GROUPS = (("K3 dW partial, mma", _OURS + "band_dw_partial_kernel"),
           ("K3 dW partial f32, 3xTF32", _OURS + "band_dw_tf32_kernel"),
           ("K3 dW reduce", _OURS + "band_dw_reduce_kernel"),
           ("K3 dX, mma", _OURS + "band_product_kernel<float, true"),
-          ("K1 stage, mma", _OURS + "band_product_kernel<__nv_bfloat16, false"),
+          ("K1 stage, wgmma", _OURS + "band_wgmma_kernel"),
           ("K3 dX f32, 3xTF32", _OURS + "band_tf32_kernel<true"),
           ("K1 stage f32, 3xTF32", _OURS + "band_tf32_kernel<false"),
           ("K3 ELU seed", _OURS + "elu_backward_kernel<"),
