@@ -8,14 +8,16 @@ Phases, each of which exits non-zero on failure:
 1. build   — compile every CUDA kernel of the port from ``csrc/`` (nvcc,
              sm_90a, in parallel) and print the build time, the ptxas
              lines and the SASS counts (HMMA in ``band_mma``; HGMMA and
-             UTMALDG, the TMA loads, in ``band_wgmma``, both required);
+             UTMALDG, the TMA loads, in ``band_wgmma`` and in its float32
+             kernel ``band_wgmma_f32_kernel`` alone, all required);
 2. parity  — hold each kernel against its plain PyTorch version on the
              card at the flagship shapes: the conv chain kernel (K1) item
              by item and as the whole 36-item chain at (4, 1080, 1024), in
              float32 (max abs error <= 1e-4 * max|ref|, TF32 off) and in
              bfloat16 (<= 5e-2 * max|ref| against the float32 plain
-             version; the float32 route runs split-TF32 tensor-core
-             products, held to the IEEE plain version); the peak-mask
+             version; the float32 route runs split-TF32 products on
+             TF32 wgmma, ``tt_band_conv_wgmma_f32``, held to the IEEE
+             plain version); the peak-mask
              kernel (K2) exactly, at t = 0.5 and 0;
              the whole reconstruction-spec chain (decoder switch off, as
              reconstruct runs it) in float32 within 1e-4 * max|ref|;
@@ -27,6 +29,10 @@ Phases, each of which exits non-zero on failure:
              same tensors: dX, dW and dBias float32 within 1e-4 * max|ref|,
              bfloat16 within 1e-2 * max|ref|, and the same bits in two
              runs;
+2b. f32    — ``tools/f32_accuracy.py`` in its own process: every item
+             and every stage of the float32 chain, and the whole chain,
+             against float64 beside the IEEE plain version; each item and
+             stage within 3x the plain version's error;
 3. main    — the flagship model (22.05 kHz, 9 x 60 bins, 3-s blocks,
              latent 128, complexity 2, seeded random weights) transcribes a
              ~100-s chord clip (3 pieces of 16 blocks), then peak_mask; the
@@ -175,10 +181,12 @@ Phases, each of which exits non-zero on failure:
              ``trace`` and ``annotate`` around a transcribe (the trace
              names the band kernel and the range) with ``Timer``.
              K1 and K3's dX and dW are band-tiled tensor-core kernels:
-             the bf16 K1 stage ``tt_band_conv_wgmma`` of
-             ``csrc/band_wgmma.cu`` (TMA-fed wgmma; every path's bf16 K1
-             launches must equal its wgmma launches), the rest in both
-             dtypes those of ``csrc/band_mma.cu``: phase 2 also
+             the K1 stage ``tt_band_conv_wgmma`` (bf16) and
+             ``tt_band_conv_wgmma_f32`` (float32) of
+             ``csrc/band_wgmma.cu`` (TMA-fed wgmma; every path's bf16 and
+             float32 K1 launches must equal its wgmma launches of the
+             dtype), dX and dW in both dtypes those of
+             ``csrc/band_mma.cu``: phase 2 also
              holds them, on one conv of each kind at flagship widths (3x3
              at dilation 1, 2 and 3, 1x1, sconv, tconv, the dense bridge)
              and on the stages the variants add (the standalone convin
@@ -190,13 +198,20 @@ Phases, each of which exits non-zero on failure:
              in float32 (split-TF32 against the IEEE twin) and 1e-2 *
              max|ref| in bf16, dW and dBias the same bits in two runs, the
              bf16 stage too, which is also counted against
-             ``tt_band_conv`` (mma.sync) output by output; K3
+             ``tt_band_conv`` (mma.sync) output by output, and the
+             float32 stage, whose largest difference from
+             ``tt_band_conv_f32`` (mma.sync) is printed; K3
              also against its twin at (2, R_in, 1024) on every level; the
              main paths must launch the tensor-core kernels;
 4. numbers — the bf16 forward at (4, 1080, 1024) on ``tt_band_conv_wgmma``,
              on ``tt_band_conv`` and through cuDNN, in turns, beside the
              bound and the stage-by-stage byte floor, and one stage of
-             each kind alone on both bf16 kernels;
+             each kind alone on both bf16 kernels; the float32 forward the
+             same way on ``tt_band_conv_wgmma_f32``, ``tt_band_conv_f32``
+             and cuDNN (TF32 off), the reconstruction spec on both float32
+             kernels, and one stage of each kind on both; the wrappers'
+             host microseconds a launch on both K1 routes and both
+             yardsticks;
              kernel, plain-version and library times, the least time the
              card could take (bound), the real-time factor of the counted
              (first) call and of a second call at the same length (and of
@@ -309,17 +324,22 @@ def time_ms(torch, fn, reps=10):
 def device_ms(torch, fn, reps=10):
     """Device milliseconds a call of ``fn``: the CUDA kernels' time under
     ``torch.profiler`` over ``reps`` calls after a warm-up call, so the
-    host's time between launches is left out."""
+    host's time between launches is left out. A profile that recorded no
+    kernel at all (it happens now and then) is taken again, up to three
+    times."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(getattr(e, "device_time_total", None)
-                or getattr(e, "cuda_time_total", 0.0)
-                for e in prof.key_averages())
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(getattr(e, "device_time_total", None)
+                    or getattr(e, "cuda_time_total", 0.0)
+                    for e in prof.key_averages())
+        if total > 0:
+            break
     return total / reps / 1e3
 
 
@@ -331,7 +351,12 @@ def rel_err(got, ref):
 
 # The launch counts a kernel wrapper may carry, and their keys' suffixes.
 COUNTS = {"launches": "", "mma_launches": ".mma",
-          "mma_launches_f32": ".mma_f32", "wgmma_launches": ".wgmma"}
+          "mma_launches_f32": ".mma_f32", "wgmma_launches": ".wgmma",
+          "wgmma_launches_f32": ".wgmma_f32"}
+
+
+# The suffixes of the float32 routes' counts.
+F32_COUNTS = (".mma_f32", ".wgmma_f32")
 
 
 def zero_counts(fns):
@@ -345,17 +370,20 @@ def zero_counts(fns):
 def read_counts(fns):
     """{wrapper: launches, wrapper.mma: bf16 tensor-core launches,
     wrapper.mma_f32: float32 split-TF32 launches, wrapper.wgmma: launches
-    of the TMA-fed wgmma kernel} where a wrapper has them. Every path
-    reads its counts here, so here every bf16 K1 stage is held to have
-    run the wgmma kernel."""
+    of the bf16 TMA-fed wgmma kernel, wrapper.wgmma_f32: those of the
+    float32 one} where a wrapper has them. Every path reads its counts
+    here, so here every K1 stage, bf16 and float32, is held to have run
+    its dtype's wgmma kernel."""
     counts = {fn.__name__ + sfx: getattr(fn, name) for fn in fns
               for name, sfx in COUNTS.items() if hasattr(fn, name)}
     for fn in fns:
-        key = fn.__name__ + ".wgmma"
-        if key in counts:
-            check(counts[key] == counts[fn.__name__ + ".mma"],
-                  f"{fn.__name__}: {counts[key]} wgmma launches for "
-                  f"{counts[fn.__name__ + '.mma']} bf16 stages")
+        for route, what in ((".wgmma", "bf16"), (".wgmma_f32", "float32")):
+            key = fn.__name__ + route
+            stages = fn.__name__ + (".mma" if what == "bf16" else ".mma_f32")
+            if key in counts:
+                check(counts[key] == counts[stages],
+                      f"{fn.__name__}: {counts[key]} {route[1:]} launches "
+                      f"for {counts[stages]} {what} stages")
     return counts
 
 
@@ -401,24 +429,36 @@ def phase_build(_build):
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     counts = {"band_mma": sass_counts(_build, "band_mma"),
-              "band_wgmma": sass_counts(_build, "band_wgmma")}
+              "band_wgmma": sass_counts(_build, "band_wgmma"),
+              "band_wgmma_f32_kernel": sass_counts(
+                  _build, "band_wgmma", "band_wgmma_f32_kernel")}
     print(f"  SASS: {counts}")
     check(counts["band_mma"]["HMMA"] + counts["band_mma"]["HGMMA"] > 0,
           "the tensor-core library holds no HMMA or HGMMA instruction")
     check(counts["band_wgmma"]["HGMMA"] > 0
           and counts["band_wgmma"]["UTMALDG"] > 0,
           "the bf16 stage's library holds no HGMMA or no UTMALDG")
+    check(counts["band_wgmma_f32_kernel"]["HGMMA"] > 0
+          and counts["band_wgmma_f32_kernel"]["UTMALDG"] > 0,
+          "tt_band_conv_wgmma_f32's kernel holds no HGMMA or no UTMALDG")
     return counts
 
 
-def sass_counts(_build, name):
+def sass_counts(_build, name, function=None):
     """Tensor-core (HMMA, HGMMA) and TMA load (UTMALDG) instructions in the
-    SASS of library ``name``."""
+    SASS of library ``name``, or of its kernels whose (mangled) name
+    contains ``function``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", str(_build.library_path(name))],
                          capture_output=True, text=True, timeout=300)
     check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
-    return {op: len(re.findall(rf"\b{op}\b", out.stdout))
+    sass = out.stdout
+    if function is not None:
+        parts = [p for p in sass.split("Function : ")[1:]
+                 if function in p.split("\n", 1)[0]]
+        check(len(parts) > 0, f"no kernel named {function} in {name}'s SASS")
+        sass = "".join(parts)
+    return {op: len(re.findall(rf"\b{op}\b", sass))
             for op in ("HMMA", "HGMMA", "UTMALDG")}
 
 
@@ -443,9 +483,13 @@ def phase_band_parity(torch, fwd_spec, train_specs, stages=()):
     ELU') and dW/dBias (band entries), dW and dBias bitwise stable. The
     bf16 stage (``tt_band_conv_wgmma``) also gives the same bits in two
     runs, and its outputs are counted against ``tt_band_conv``'s on the
-    same tensors. Returns the largest relative errors (bf16, float32), per
-    variant stage and dtype its largest K3 relative error, and the share
-    of bf16 stage outputs bit-equal to ``tt_band_conv``'s."""
+    same tensors; the float32 stage (``tt_band_conv_wgmma_f32``) gives the
+    same bits in two runs, and its largest difference from
+    ``tt_band_conv_f32``'s outputs (relative to max|ref|) is kept. Returns
+    the largest relative errors (bf16, float32), per variant stage and
+    dtype its largest K3 relative error, the share of bf16 stage outputs
+    bit-equal to ``tt_band_conv``'s and the float32 stage's largest
+    relative difference from ``tt_band_conv_f32``."""
     from timbre_trap_tpu_torch.ops.fused_level import (
         banded_conv, banded_conv_dw, banded_conv_dw_reference, banded_conv_dx,
         banded_conv_dx_reference, banded_conv_mma, banded_conv_reference)
@@ -470,7 +514,7 @@ def phase_band_parity(torch, fwd_spec, train_specs, stages=()):
 
     worst = {torch.float32: 0.0, bf16: 0.0}
     k3_stages = {name: {} for name, _ in stages}
-    same, total = 0, 0
+    same, total, diff32 = 0, 0, 0.0
     for t in (3072, 1001):
         for kind, cb in list(picks.items()) + list(stages):
             dense = kind == "dense"
@@ -496,6 +540,15 @@ def phase_band_parity(torch, fwd_spec, train_specs, stages=()):
                         same += int((got == banded_conv_mma(x, cb, act, r))
                                     .sum())
                         total += got.numel()
+                else:
+                    for act, r in forms:
+                        got = banded_conv(x, cb, act, r)
+                        check(torch.equal(got, banded_conv(x, cb, act, r)),
+                              f"band kernels: {what} stage differs in two "
+                              "runs")
+                        old = banded_conv_mma(x, cb, act, r)
+                        diff32 = max(diff32, (got - old).abs().max().item()
+                                     / max(old.abs().max().item(), 1e-30))
                 if not dense:
                     adj = cb.adjoint
                     c = rand(2, adj.r_in, t)
@@ -528,7 +581,10 @@ def phase_band_parity(torch, fwd_spec, train_specs, stages=()):
     print(f"  band bf16 stage: two runs bit-equal on every kind; "
           f"{100 * share:.4f} % of {total} outputs bit-equal to "
           f"tt_band_conv's")
-    return worst[bf16], worst[torch.float32], k3_stages, share
+    print(f"  band float32 stage (tt_band_conv_wgmma_f32): two runs "
+          f"bit-equal on every kind; largest difference from "
+          f"tt_band_conv_f32 {diff32:.3e} of max|ref|")
+    return worst[bf16], worst[torch.float32], k3_stages, share, diff32
 
 
 class ByteCount:
@@ -882,7 +938,7 @@ def phase_train(torch, counters):
                 "max_norm/decoder", "loss/consistency/spectral"):
         check(key in history[-1], f"train metrics lack {key}")
     for name, n in launches.items():
-        if name.endswith(".mma_f32"):
+        if name.endswith(F32_COUNTS):
             check(n == 0, f"{name}: the bf16 step launched a float32 kernel")
         else:
             check(n > 0, f"{name} was not launched by the train step")
@@ -1031,7 +1087,7 @@ def phase_family_train(torch, counters, card):
         torch.cuda.synchronize()
         counts = read_counts(counters)
         for name, n in counts.items():
-            if name.endswith(".mma_f32"):
+            if name.endswith(F32_COUNTS):
                 check(n == 0, f"{label}: the bf16 step launched a float32 "
                       f"kernel ({name} {n})")
             else:
@@ -1825,16 +1881,19 @@ def stage_numbers(torch, stages, batch, frames):
     return out
 
 
-def stage_kind_numbers(torch, spec, batch, frames):
-    """The bf16 K1 stage alone, one conv of each kind of the forward
-    chain ``spec`` (the first of its kind) at the main path's (batch, R,
-    frames): the device time of ``tt_band_conv_wgmma`` and of
-    ``tt_band_conv`` (a stage alone can be bound by the host's launch
-    time, a chain of them is not), their bit-equal share, and the bytes
-    the stage must move."""
+def stage_kind_numbers(torch, spec, batch, frames, dtype=None):
+    """The K1 stage alone in ``dtype`` (default bf16), one conv of each
+    kind of the forward chain ``spec`` (the first of its kind) at the main
+    path's (batch, R, frames): the device time of the route's wgmma kernel
+    (``tt_band_conv_wgmma``, float32 ``tt_band_conv_wgmma_f32``) and of
+    the mma.sync yardstick (``tt_band_conv``, ``tt_band_conv_f32``) (a
+    stage alone can be bound by the host's launch time, a chain of them is
+    not), their bit-equal share, and the bytes the stage must move."""
     from timbre_trap_tpu_torch.ops.fused_level import (banded_conv,
                                                        banded_conv_mma)
 
+    dtype = dtype or torch.bfloat16
+    size = 2 if dtype == torch.bfloat16 else 4
     picks = {}
     for cb in spec.convs():
         tag = conv_kind(cb) + ("" if cb.c_in == cb.c_out or cb.per_block
@@ -1844,21 +1903,59 @@ def stage_kind_numbers(torch, spec, batch, frames):
     gen = torch.Generator(device="cuda").manual_seed(7)
     for name, cb in picks.items():
         x = torch.randn((batch, cb.r_in, frames), generator=gen,
-                        device="cuda").to(torch.bfloat16)
+                        device="cuda").to(dtype)
         row = {"wgmma_ms": device_ms(torch, lambda: banded_conv(x, cb, True)),
                "mma_sync_ms": device_ms(torch,
                                         lambda: banded_conv_mma(x, cb, True)),
-               "bytes_ms": ((cb.r_in + cb.r_out) * batch * frames * 2
-                            + cb.blocks.numel() * 2) / PEAK_BYTES * 1e3,
+               "bytes_ms": ((cb.r_in + cb.r_out) * batch * frames * size
+                            + cb.blocks.numel() * size) / PEAK_BYTES * 1e3,
                "bit_equal": (banded_conv(x, cb, True)
                              == banded_conv_mma(x, cb, True)).float()
                             .mean().item()}
         out[name] = row
-    print("K1 stage by kind (bf16, (%d, R, %d)), device ms wgmma / "
-          "mma.sync / bytes: " % (batch, frames) + "; ".join(
+    print(f"K1 stage by kind ({str(dtype)[6:]}, ({batch}, R, {frames})), "
+          "device ms wgmma / mma.sync / bytes: " + "; ".join(
               f"{k} {v['wgmma_ms']:.4f} / {v['mma_sync_ms']:.4f} / "
               f"{v['bytes_ms']:.4f}" for k, v in out.items()))
     return out
+
+
+def host_us_per_launch(torch, chain, launches, reps=10):
+    """The host's microseconds a K1 launch: ``reps`` runs of the
+    ``launches``-stage ``chain`` enqueued without a synchronisation (the
+    card runs behind; 600 launches stay inside its launch queue), over
+    the launches."""
+    chain()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        chain()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / (reps * launches) * 1e6
+
+
+def phase_f32_accuracy():
+    """``tools/f32_accuracy.py`` in its own process, on the float32 route
+    (``tt_band_conv_wgmma_f32``): every item and every stage of the chain
+    within 3x the IEEE float32 plain version's error against float64.
+    Returns its JSON line without the per-entry lists."""
+    out = subprocess.run([sys.executable, "-m",
+                          "timbre_trap_tpu_torch.tools.f32_accuracy"],
+                         capture_output=True, text=True, timeout=900,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(out.returncode == 0, f"f32_accuracy failed: {out.stderr[-2000:]}")
+    lines = out.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"  f32_accuracy: {line}")
+    res = json.loads(lines[-1])
+    check(res["worst_item_ratio"] <= 3.0 and res["worst_stage_ratio"] <= 3.0,
+          f"the float32 route's error against float64 is over 3x the IEEE "
+          f"plain version's: items {res['worst_item_ratio']}, stages "
+          f"{res['worst_stage_ratio']}")
+    return {k: v for k, v in res.items()
+            if k not in ("items", "stages", "backward_convs",
+                         "variant_stages")}
 
 
 def variant_stages(torch):
@@ -3574,9 +3671,14 @@ def main():
         train_specs = sum(level_specs(hwio_params(model.net), model.net,
                                       True), [])
     stages = variant_stages(torch)
-    band_err, band_err32, k3_stage_err, band_share = phase_band_parity(
-        torch, model._spec(True), train_specs, stages)
+    (band_err, band_err32, k3_stage_err, band_share,
+     band_diff32) = phase_band_parity(torch, model._spec(True), train_specs,
+                                      stages)
     print(f"parity: {time.perf_counter() - t_par:.1f} s")
+
+    lap('f32_accuracy')
+    # 2b. the float32 route against float64, next to the IEEE plain version
+    f32_acc = phase_f32_accuracy()
 
     lap('transcribe')
     # 3. the main path: transcribe + peak_mask, counted
@@ -3711,12 +3813,14 @@ def main():
     xb = x.to(torch.bfloat16)
     k1_plain = time_ms(torch, lambda: packed_level_apply(xb, spec,
                                                          torch.bfloat16), 3)
-    k1_ms32 = time_ms(torch, lambda: fused_level_apply(x, spec, torch.float32))
     k1_plain32 = time_ms(torch, lambda: packed_level_apply(x, spec,
                                                            torch.float32), 3)
     rspec = model._spec(False)
     k1_rec_ms = time_ms(torch, lambda: fused_level_apply(x, rspec,
                                                          torch.float32))
+    k1_rec_ms_mma = time_ms(torch, lambda: _apply_chain(x, rspec,
+                                                        torch.float32,
+                                                        banded_conv_mma))
     rec_forwards = launches_rec["banded_conv"] / sum(1 for _ in rspec.convs())
     recon.update({"k1_forward_ms": k1_rec_ms, "k1_forwards": rec_forwards,
                   "k1_share": rec_forwards * k1_rec_ms / (recon["wall_s"]
@@ -3747,13 +3851,42 @@ def main():
         for _ in range(5):
             for k, fn in chains.items():
                 turns[k].append(time_ms(torch, fn))
-        k1_lib32 = time_ms(torch, lambda: net32(nchw32, True))
         chain_device_ms = {k: device_ms(torch, fn, 5)
                            for k, fn in chains.items()}
+        # The float32 forward the same way: tt_band_conv_wgmma_f32 (the
+        # route), tt_band_conv_f32 (mma.sync, called directly) and cuDNN
+        # with TF32 off.
+        chains32 = {"wgmma_f32": lambda: fused_level_apply(x, spec,
+                                                           torch.float32),
+                    "mma_sync_f32": lambda: _apply_chain(
+                        x, spec, torch.float32, banded_conv_mma),
+                    "cudnn_f32": lambda: net32(nchw32, True)}
+        turns32 = {k: [] for k in chains32}
+        for _ in range(5):
+            for k, fn in chains32.items():
+                turns32[k].append(time_ms(torch, fn))
+        chain_device_ms32 = {k: device_ms(torch, fn, 5)
+                             for k, fn in chains32.items()}
+        # The wrappers' host time a launch, both K1 routes and their
+        # mma.sync yardsticks, on the chain at the main path's shapes.
+        n_launch = sum(1 for _ in spec.convs())
+        host_us = {
+            "wgmma_bf16": host_us_per_launch(torch, chains["wgmma"],
+                                             n_launch),
+            "wgmma_f32": host_us_per_launch(torch, chains32["wgmma_f32"],
+                                            n_launch),
+            "mma_sync_bf16": host_us_per_launch(torch, chains["mma_sync"],
+                                                n_launch),
+            "mma_sync_f32": host_us_per_launch(
+                torch, chains32["mma_sync_f32"], n_launch)}
     del net16, net32
     k1_ms, k1_mma_ms, k1_lib = (sorted(v)[len(v) // 2]
                                 for v in turns.values())
+    k1_ms32, k1_mma_ms32, k1_lib32 = (sorted(v)[len(v) // 2]
+                                      for v in turns32.values())
     kind_ms = stage_kind_numbers(torch, spec, x.shape[0], x.shape[-1])
+    kind_ms32 = stage_kind_numbers(torch, spec, x.shape[0], x.shape[-1],
+                                   torch.float32)
     launches_per_forward = sum(1 for _ in spec.convs())
     n_cols = x.shape[0] * x.shape[-1]
     flops = chain_flops(spec, n_cols)
@@ -3787,6 +3920,27 @@ def main():
           f"{count.n / PEAK_BYTES * 1e3:.4f} ms; "
           f"{launches_per_forward} launches; {card}")
 
+    count32 = ByteCount(torch)
+    with torch.no_grad():
+        _apply_chain(x, spec, torch.float32, count32.stage)
+    bound32 = max(f32_ops_ms(conv_flops), 2 * t_bytes)
+    print(f"K1 forward {tuple(x.shape)} float32, in turns (ms): "
+          + "; ".join(f"{k} " + ", ".join(f"{v:.3f}" for v in vs)
+                      for k, vs in turns32.items())
+          + "; device ms a forward: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in chain_device_ms32.items()))
+    print(f"K1 forward float32 (median of the turns): tt_band_conv_wgmma_f32 "
+          f"{k1_ms32:.3f} ms, tt_band_conv_f32 {k1_mma_ms32:.3f} ms, cuDNN "
+          f"{k1_lib32:.3f} ms (cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}); bound {bound32:.4f} ms, "
+          f"stage-by-stage byte floor {count32.n / PEAK_BYTES * 1e3:.4f} ms "
+          f"({count32.n / 1e9:.3f} GB); the reconstruction spec "
+          f"{k1_rec_ms:.3f} ms on tt_band_conv_wgmma_f32, {k1_rec_ms_mma:.3f} "
+          f"on tt_band_conv_f32; {card}")
+    print("K1 wrappers' host us a launch (60-stage chain at "
+          f"{tuple(x.shape)}, enqueued): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in host_us.items()))
+
     stage_ms = stage_numbers(torch, stages, x.shape[0], x.shape[-1])
 
     k2_ms = time_ms(torch, lambda: peak_mask(acts, 0.5), 50)
@@ -3803,8 +3957,27 @@ def main():
     kernels = [
         {"name": "banded_conv", "route": "cuda",
          "source": "timbre_trap_tpu_torch/csrc/band_wgmma.cu",
-         "source_f32": "timbre_trap_tpu_torch/csrc/band_mma.cu",
+         "source_f32": "timbre_trap_tpu_torch/csrc/band_wgmma.cu",
          "entry": "tt_band_conv_wgmma",
+         "entry_f32": "tt_band_conv_wgmma_f32",
+         "launches_wgmma_f32": {
+             "transcribe_f32": launches32["banded_conv.wgmma_f32"],
+             "reconstruct": launches_rec["banded_conv.wgmma_f32"],
+             "skip_route_reconstruct":
+                 launches_var["reconstruct"]["banded_conv.wgmma_f32"],
+             "train_f32_step":
+                 train["f32_step_launches"]["banded_conv.wgmma_f32"],
+             "cli_sonify": cli_launches["sonify"]["banded_conv.wgmma_f32"]},
+         "ms_f32_mma_sync": k1_mma_ms32, "forward_turns_ms_f32": turns32,
+         "forward_device_ms_f32": chain_device_ms32,
+         "stage_kinds_f32": kind_ms32,
+         "reconstruct_spec_ms_f32": k1_rec_ms,
+         "reconstruct_spec_ms_f32_mma_sync": k1_rec_ms_mma,
+         "stage_bytes_f32": count32.n,
+         "stage_bytes_ms_f32": count32.n / PEAK_BYTES * 1e3,
+         "host_us_per_launch": host_us,
+         "band_max_rel_diff_f32_mma_sync": band_diff32,
+         "f32_accuracy": f32_acc,
          "launches_wgmma": {
              "transcribe": launches["banded_conv.wgmma"],
              "train_per_step": train_launches["banded_conv.wgmma"]
@@ -3859,7 +4032,7 @@ def main():
                   f"{tuple(x.shape)} bf16",
          "ms_f32": k1_ms32, "plain_ms_f32": k1_plain32,
          "library_ms_f32": k1_lib32,
-         "bound_ms_f32": max(f32_ops_ms(conv_flops), 2 * t_bytes),
+         "bound_ms_f32": bound32,
          "bound_by_f32": ("operations" if f32_ops_ms(conv_flops)
                           >= 2 * t_bytes else "bytes"),
          "bound_ms_f32_ffma": conv_flops / PEAK_F32_FLOPS * 1e3,

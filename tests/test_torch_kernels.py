@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernels against their plain PyTorch twins:
-the conv stage (K1: the band-tiled tensor-core kernels, for bfloat16 the
-TMA-fed wgmma kernel of ``csrc/band_wgmma.cu``, for float32 the
-split-TF32 products of ``csrc/band_mma.cu``), the peak mask (K2) and the
+the conv stage (K1: the band-tiled TMA-fed wgmma kernels of
+``csrc/band_wgmma.cu``, bf16 products for bfloat16, split-TF32 products
+for float32), the peak mask (K2) and the
 level backward (K3: dX and dW on the band tiles of ``csrc/band_mma.cu``
 in both dtypes, the ELU' seed of ``csrc/banded_conv_bwd.cu``).
 
@@ -154,7 +154,8 @@ def _all_counts():
     return ((banded_conv.launches, peak_mask.launches) + _k3_counts()
             + _routes(banded_conv) + _routes(banded_conv_dx)
             + _routes(banded_conv_dw)
-            + (banded_conv.wgmma_launches, banded_conv_mma.launches))
+            + (banded_conv.wgmma_launches, banded_conv.wgmma_launches_f32,
+               banded_conv_mma.launches))
 
 
 def test_wrappers_take_the_twin_on_cpu_and_count_nothing(monkeypatch):
@@ -246,6 +247,62 @@ def test_f32_accuracy_tool_items_on_cpu():
     assert len(items) == len(spec.items)
     for e in items:
         assert e["kernel"] == e["ieee"] <= 1e-6, e
+
+
+def test_f32_accuracy_tool_stages_on_cpu():
+    """The stage part of ``tools/f32_accuracy.py``: every conv stage of the
+    chain alone, on the input the plain chain gives it; on the CPU both
+    routes are the IEEE plain version, within a few float32 roundings of
+    float64."""
+    from timbre_trap_tpu_torch.tools import f32_accuracy
+
+    model = TimbreTrap(8000, 5, 12, 0.5, latent_size=16, model_complexity=1,
+                       seed=0, device="cpu")
+    spec = model._spec(True)
+    x = _rand(np.random.default_rng(18), 2, spec.r_in, 37, scale=0.3)
+    stages = f32_accuracy._stages(spec, x, f32_accuracy._ROUTES)
+    assert [e["stage"] for e in stages] == list(range(len(list(
+        spec.convs()))))
+    for e in stages:
+        assert e["kernel"] == e["ieee"] <= 1e-6, e
+
+
+def test_c_signatures_match_the_sources():
+    """Every entry point's ctypes argument types (``ops/_build.py``
+    ``_SIGNATURES``) follow its ``extern "C"`` declaration in ``csrc/``,
+    argument by argument: a pointer as ``c_void_p``, an int as ``c_int``,
+    a long long as ``c_longlong``, a float as ``c_float`` (ctypes would
+    pass a missing argument's value as a C int, cutting a stream
+    pointer)."""
+    import ctypes
+    import re
+
+    from timbre_trap_tpu_torch.ops import _build
+
+    kinds = {"*": ctypes.c_void_p, "long long": ctypes.c_longlong,
+             "int": ctypes.c_int, "float": ctypes.c_float}
+    for lib, entries in _build._SIGNATURES.items():
+        src = (_build._CSRC / f"{lib}.cu").read_text()
+        for name, argtypes in entries.items():
+            decl = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
+            assert decl is not None, name
+            want = [next(t for k, t in kinds.items() if k in arg)
+                    for arg in decl.group(1).split(",")]
+            assert argtypes == want, name
+
+
+def test_k1_f32_ablation_variants_match_the_source():
+    """Every variant of ``tools/k1_f32_ablation.py`` changes text that
+    ``csrc/band_wgmma.cu`` holds exactly once, so each builds the kernel
+    it names; the base variant changes nothing."""
+    from timbre_trap_tpu_torch.ops import _build
+    from timbre_trap_tpu_torch.tools import k1_f32_ablation
+
+    src = (_build._CSRC / "band_wgmma.cu").read_text()
+    assert k1_f32_ablation.VARIANTS["base"] == []
+    for name, subs in k1_f32_ablation.VARIANTS.items():
+        for old, new in subs:
+            assert src.count(old) == 1 and old != new, (name, old)
 
 
 def test_f32_accuracy_tool_backward_on_cpu():
@@ -552,6 +609,76 @@ def test_wgmma_stage_matches_twin_and_mma_sync(cuda_device, t):
             err = (got.float() - want.float()).abs().max().item()
             assert err <= 1e-2 * want.float().abs().max().item(), (name, what,
                                                                    err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [3072, 1001, 37])
+def test_wgmma_f32_stage_matches_twin_and_mma_sync(cuda_device, t):
+    """The float32 stage's TMA-fed TF32 wgmma kernel
+    (``tt_band_conv_wgmma_f32``, the route of every CUDA float32
+    ``banded_conv``) on every conv kind and the variants' stages, with and
+    without ELU and residual, at the recipe's T and ragged T (x padded to a
+    multiple of 4 frames): within 1e-4 * max|ref| of the IEEE twin and of
+    the mma.sync kernel (``tt_band_conv_f32``, through
+    ``banded_conv_mma``) on the same tensors, the same bits in two runs;
+    each launch counts as a float32 and a float32 wgmma launch."""
+    rng = np.random.default_rng(37)
+    convs = dict(_conv_cases(cuda_device))
+    convs.update(_variant_stages(cuda_device))
+    for name, cb in convs.items():
+        x = _rand(rng, 2, cb.r_in, t).to(cuda_device)
+        res = None if cb.per_block else _rand(rng, 2, cb.r_out, t).to(
+            cuda_device)
+        for act, r in ((False, None), (True, res)):
+            before = (banded_conv.mma_launches_f32,
+                      banded_conv.wgmma_launches_f32, banded_conv_mma.launches)
+            got = banded_conv(x, cb, act, r)
+            again = banded_conv(x, cb, act, r)
+            old = banded_conv_mma(x, cb, act, r)
+            assert (banded_conv.mma_launches_f32,
+                    banded_conv.wgmma_launches_f32,
+                    banded_conv_mma.launches) == (before[0] + 2,
+                                                  before[1] + 2,
+                                                  before[2] + 1)
+            ref = banded_conv_reference(x, cb, act, r)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.float32
+            assert torch.equal(got, again), (name, act)
+            for want, what in ((ref, "twin"), (old, "mma.sync")):
+                err = (got - want).abs().max().item()
+                assert err <= 1e-4 * want.abs().max().item(), (name, act, what,
+                                                                err)
+
+
+@pytest.mark.cuda
+def test_wgmma_f32_stage_refuses_what_it_does_not_take(cuda_device):
+    """The float32 route raises before any launch on what it does not
+    take: a dilation-9 tap (more than 8 frames), the wrong number of input
+    rows, a residual of another shape or dtype, weights on another device;
+    and the yardstick wrapper takes CUDA tensors only. No count moves."""
+    rng = np.random.default_rng(15)
+    wide = pc.build_conv2d_blocks(_rand(rng, 3, 3, 4, 4), _rand(rng, 4), 64,
+                                  9)
+    wide.blocks, wide.bias = wide.blocks.cuda(), wide.bias.cuda()
+    cb = _conv_cases(cuda_device)["3x3-d1"]
+    cpu_cb = _conv_cases()["3x3-d1"]
+    x = torch.zeros((1, cb.r_in, 16), device=cuda_device)
+    before = (banded_conv.launches, banded_conv.wgmma_launches_f32)
+    with pytest.raises(ValueError, match="at most 8 frames"):
+        banded_conv(torch.zeros((1, wide.r_in, 16), device=cuda_device), wide)
+    with pytest.raises(ValueError, match="rows"):
+        banded_conv(x[:, :-1], cb)
+    with pytest.raises(ValueError, match="residual"):
+        banded_conv(x, cb, residual=torch.zeros((1, cb.r_out, 15),
+                                                device=cuda_device))
+    with pytest.raises(ValueError, match="residual"):
+        banded_conv(x, cb, residual=torch.zeros(
+            (1, cb.r_out, 16), dtype=torch.bfloat16, device=cuda_device))
+    with pytest.raises(ValueError, match="different devices"):
+        banded_conv(x, cpu_cb)
+    with pytest.raises(ValueError, match="CUDA"):
+        banded_conv_mma(x.cpu(), cpu_cb)
+    assert (banded_conv.launches, banded_conv.wgmma_launches_f32) == before
 
 
 @pytest.mark.cuda

@@ -5,11 +5,12 @@
 // timbre_trap_tpu/ops/fused_level.py `_level_kernel` (K1, launched by
 // `_pallas_fwd_call`; float32 storage) and `_level_bwd_kernel` (K3,
 // launched by `_pallas_bwd_call`; both storage dtypes); the wrappers in
-// ops/fused_level.py pick the entry point by dtype. The bf16 K1 stage of
-// every path is band_wgmma.cu's; tt_band_conv stays here as the yardstick
-// that one is held and timed against, and its kernel template serves
-// tt_band_conv_dx. K3's ELU' seed, an elementwise pass, is in
-// banded_conv_bwd.cu.
+// ops/fused_level.py pick the entry point by dtype. The K1 stage of every
+// path, in both dtypes, is band_wgmma.cu's; tt_band_conv and
+// tt_band_conv_f32 stay here as the yardsticks those are held and timed
+// against (ops/fused_level.py `banded_conv_mma`), and their kernel
+// templates serve tt_band_conv_dx and tt_band_conv_dx_f32. K3's ELU' seed,
+// an elementwise pass, is in banded_conv_bwd.cu.
 //
 // The banded blocks are mostly structural zeros: an output row of a conv
 // reads n_df * c_in of a block's K input rows. Each 64-row half of a
@@ -76,9 +77,10 @@
 // sum by an IEEE add. These kernels use mma.sync, whose fragments come
 // straight from the transposed tiles with per-row addresses. wgmma wants
 // whole swizzled tiles at aligned offsets, and a tap's shift breaks that
-// alignment; band_wgmma.cu gets its tiles another way (a TMA box per tap
-// at the shift rounded down to 8 frames, the rest as a shift of the tap's
-// sums across lanes), and that is the bf16 K1 stage of every path.
+// alignment; band_wgmma.cu gets its tiles another way (bf16: a TMA box per
+// tap at the shift rounded down to 8 frames, the rest as a shift of the
+// tap's sums across lanes; float32: the transposed product, x from
+// registers), and that is the K1 stage of every path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,6 +116,25 @@ constexpr int kZItems = (kSub / 2) * (kZRows / 8);  // 320
 constexpr int kZSlots = (kZItems + kThreads - 1) / kThreads;
 constexpr int kXdItems = kDwN * (kDwT / 8);          // 512
 constexpr int kXdSlots = kXdItems / kThreads;
+
+constexpr int kMaxDevices = 64;
+
+// The dynamic shared-memory opt-in of `kernel` holds for the device that
+// was current when it was set: set it once per device (`set`, one flag a
+// device, kept by the caller for its kernel).
+template <typename Kernel>
+int smem_opt_in(Kernel kernel, int bytes, bool (&set)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!set[dev]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    set[dev] = true;
+  }
+  return 0;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -489,13 +510,9 @@ __global__ void __launch_bounds__(kThreads, sizeof(TS) == 2 ? 3 : 2)
 template <typename TS, bool kDx, typename TO>
 int launch_band_product(const BandArgs& a, int batch, cudaStream_t st) {
   const auto kernel = band_product_kernel<TS, kDx, TO>;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
-  }
+  static bool configured[kMaxDevices] = {};
+  const int rc = smem_opt_in(kernel, kFwdSmem, configured);
+  if (rc != 0) return rc;
   const dim3 grid((a.t_len + kTileT - 1) / kTileT, (a.r_out + kSub - 1) / kSub, batch);
   kernel<<<grid, kThreads, kFwdSmem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -725,13 +742,9 @@ __global__ void __launch_bounds__(kThreads, 2) band_tf32_kernel(const BandArgs a
 template <bool kDx>
 int launch_band_tf32(const BandArgs& a, int batch, cudaStream_t st) {
   const auto kernel = band_tf32_kernel<kDx>;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTf32Smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
-  }
+  static bool configured[kMaxDevices] = {};
+  const int rc = smem_opt_in(kernel, kTf32Smem, configured);
+  if (rc != 0) return rc;
   const dim3 grid((a.t_len + kTileT - 1) / kTileT, (a.r_out + kSub - 1) / kSub, batch);
   kernel<<<grid, kThreads, kTf32Smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -1347,13 +1360,9 @@ extern "C" int tt_band_conv_dw_f32(const void* dz, const void* x, void* part, vo
                                    int t_len, int n_dt, int dt0, int dt1, int dt2, int k,
                                    int col_adv, int margin, int kb0, int kl0, int kb1, int kl1,
                                    int n_slices, int aligned, void* stream) {
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        band_dw_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDwTf32Smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
-  }
+  static bool configured[kMaxDevices] = {};
+  const int rc = smem_opt_in(band_dw_tf32_kernel, kDwTf32Smem, configured);
+  if (rc != 0) return rc;
   const DwArgs a = dw_args(dz, x, part, part_bias, batch, r_in, r_out, t_len, n_dt, dt0, dt1,
                            dt2, k, col_adv, margin, kb0, kl0, kb1, kl1, n_slices, aligned);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -1,12 +1,11 @@
-// K1's bfloat16 conv stage on Hopper's own machinery (sm_90a): TMA loads
-// into a ring of shared-memory stages, mbarriers, one producer warp, and
-// one consumer warpgroup that multiplies with wgmma.
+// K1's conv stage on Hopper's own machinery (sm_90a), in both storage
+// dtypes: TMA loads into a ring of shared-memory stages, mbarriers, one
+// producer warp, and consumer warpgroups that multiply with wgmma.
 //
 // Replaces the products of the Pallas TPU kernel
 // timbre_trap_tpu/ops/fused_level.py `_level_kernel` (launched by
-// `_pallas_fwd_call`) for bf16 storage; ops/fused_level.py `banded_conv`
-// sends every CUDA bfloat16 stage here (float32 stays on band_mma.cu's
-// split-TF32 route).
+// `_pallas_fwd_call`); ops/fused_level.py `banded_conv` sends every CUDA
+// stage here, bfloat16 and float32 alike.
 //
 //   tt_band_conv_wgmma  y[64g + r, t] = epi(sum_dt sum_k W_g,dt[r, k] *
 //                       x[s_g + k, t + dt]), bf16 operands, float32
@@ -14,54 +13,102 @@
 //                       exp(min(v, 0)) - 1 (exp by the hardware's ex2),
 //                       residual add, bf16 store. The function of
 //                       band_mma.cu's tt_band_conv.
+//   tt_band_conv_wgmma_f32  the same function in float32 storage, products
+//                       float32-accurate as 3xTF32 (lo*hi + hi*lo + hi*hi
+//                       of operands split into a TF32 hi, rounded to
+//                       nearest with ties away, and the float32 remainder
+//                       lo); epilogue: float32 bias, ELU with IEEE expf,
+//                       residual add, float32 store. The function of
+//                       band_mma.cu's tt_band_conv_f32 (mma.sync m16n8k8),
+//                       which stays as the yardstick this one is held and
+//                       timed against.
 //
-// Design. An output tile is one 64-row sub-tile g (its band: start s_g, L
-// columns, ops/packed_conv.py `_sub_tile_bands`) x 128 frames t0.. of one
-// item; CTAs are persistent, two an SM, each walking tiles g-fastest. x
-// comes by a 3-D TMA tensor map, dims (T, r_in, B): the hardware zero-fills
-// rows above 0 (the margin) or past r_in and frames outside [0, T), so
-// every box lands whole (a 2-D map over B * r_in rows would read the next
-// item's rows at the margin instead of zeros). Its boxes are 64 band rows
-// x 64 frames, 128-byte swizzled: a wgmma B operand with frames
-// contiguous (MN-major, the transpose bit set). TMA takes a box's
-// innermost (frame) coordinate only in whole 16 bytes, 8 bf16 frames (an
-// odd one faults), so a tap dt = 8q + r (0 <= r < 8) reads its boxes at
-// frame t0 + 8q, 136 frames (two 64-frame boxes and an unswizzled 8-frame
-// one): its products go into their own float32 accumulators, whose column
-// n is output frame t0 + n - r, and once the tap's chunks are summed they
-// are added into the tile's, shifted by r frames across the lanes of a
-// quad (warp shuffles; none for r = 0). The band weights W_g,dt (64 x
-// width, K contiguous) come by a second map, 64 columns a box, 128-byte
-// swizzled: the K-major A operand. One pipeline stage is one (tap, chunk
-// of 64 band rows): 25 KB; a ring of kStages stages with full and empty
-// mbarriers, fed by one producer thread that runs ahead into the next
-// tile, drained by the consumer warpgroup with m64n64k16 wgmmas (and an
-// m64n8k16 for the 8 extra frames where r > 0). The sums run in a fixed
-// order, tap, then chunk, then k16 step, from zero, with no atomics: a run
-// is deterministic. (tt_band_conv sums chunk, then tap, in one set of
-// accumulators; the order here differs by the alignment rule.) The
-// epilogue stages the tile's float32 sums in shared memory, and each
-// thread then reads the residual and writes y 16 bytes (8 frames of a row)
-// at a time.
+// The float32 stage's design. TF32 wgmma reads a shared-memory operand
+// K-major only (the transpose bits are for 16-bit types), and x has its
+// frames contiguous, so the kernel computes the transposed tile, y^T (frames
+// x rows) = x^T W^T, with m64n64k8 wgmmas: A = x^T from registers, each
+// thread loading its fragment from the staged x box with 32-bit shared loads
+// at the tap's frame offset (a shift dt is an address offset, with no
+// alignment rule) and splitting it into hi and lo; B = the band weights,
+// whose rows already lie K-major, split into their hi and lo planes once per
+// conv by the wrapper (ops/packed_conv.py `ConvBlocks.band_tf32_operands`)
+// and loaded by TMA in 64-byte-swizzled boxes of 64 rows x 16 columns (16
+// float32 columns are one 64-byte swizzle atom and one fresh sum; 128-byte
+// boxes of 32 would double a stage, and the SM would hold one CTA, which
+// measured slower). x comes by a 3-D tensor map (T_pad, r_in, B), unswizzled
+// boxes of 152 frames from t0 - 8 x 16 band rows: the hardware zero-fills
+// the margin, the rows past r_in and the frames outside [0, T_pad), and rows
+// of 152 floats put a fragment load's 32 lanes in 32 banks. One stage (x box
+// plus every tap's two weight boxes) serves every tap of its 16 band rows; a
+// ring of 3 stages with full and empty mbarriers, one producer thread
+// running ahead into the next tile, two consumer warpgroups (frames 0-63 and
+// 64-127 of a 128-frame x 64-row tile), persistent CTAs, two an SM (the ring
+// is all the shared memory a CTA takes; 96 registers a thread). The tensor
+// cores round their float32 sums toward zero, so each (chunk, tap) product,
+// 16 band rows (6 wgmmas), goes into fresh accumulators (scale-d 0 on its
+// first) and reaches the running sum by an IEEE add, chunk by chunk and tap
+// by tap: the order of tt_band_conv_f32, with no atomics, so a run is
+// deterministic. The epilogue writes from the registers: in the transposed
+// tile the lanes of a warp hold 8 consecutive frames of each of 4 rows, so
+// each warp store moves whole 32-byte sectors; the producer is already
+// loading the next tile meanwhile. What bounds it: three TF32 products at
+// half the bf16 rate put a stage's products above the card's bytes-per-flop
+// line, but on the card the epilogue (bias, the ELU's IEEE expf, the
+// residual loads, the stores) is about half of a chain's time and the two
+// small products a sixth: the epilogue is bound by its latency and needs the
+// loads of all eight consumer warps in flight. Staging the sums in shared
+// memory for 16-byte stores (the bf16 stage's epilogue, with a ring of 2)
+// was slower, and one dedicated epilogue warp far slower; a ring of 2 was no
+// faster, and one CTA an SM with a ring of 6, or an L2 prefetch of the
+// residual, slower (tools/k1_f32_ablation.py). TMA needs 16-byte global
+// strides: the wrapper pads x with zero frames to a multiple of 4 where T %
+// 4 != 0.
 //
-// TMA wants 16-byte global strides: x's rows are T bf16 long, so the
-// wrapper hands a copy padded with zero frames to a multiple of 8 where
-// T % 8 != 0 (zeros are what the edge fill gives); the residual and y
-// keep T and are read and written with masks (8 frames at a time where
-// T % 8 == 0). A tensor map depends on its base and dims only, so the
-// encoded maps are kept in a small cache.
+// The bf16 stage's design. An output tile is one 64-row sub-tile g (its
+// band: start s_g, L columns, ops/packed_conv.py `_sub_tile_bands`) x 128
+// frames t0.. of one item; CTAs are persistent, two an SM, each walking
+// tiles g-fastest. x comes by a 3-D TMA tensor map, dims (T, r_in, B): the
+// hardware zero-fills rows above 0 (the margin) or past r_in and frames
+// outside [0, T), so every box lands whole (a 2-D map over B * r_in rows
+// would read the next item's rows at the margin instead of zeros). Its boxes
+// are 64 band rows x 64 frames, 128-byte swizzled: a wgmma B operand with
+// frames contiguous (MN-major, the transpose bit set). TMA takes a box's
+// innermost (frame) coordinate only in whole 16 bytes, 8 bf16 frames (an odd
+// one faults), so a tap dt = 8q + r (0 <= r < 8) reads its boxes at frame t0
+// + 8q, 136 frames (two 64-frame boxes and an unswizzled 8-frame one): its
+// products go into their own float32 accumulators, whose column n is output
+// frame t0 + n - r, and once the tap's chunks are summed they are added into
+// the tile's, shifted by r frames across the lanes of a quad (warp shuffles;
+// none for r = 0). The band weights W_g,dt (64 x width, K contiguous) come
+// by a second map, 64 columns a box, 128-byte swizzled: the K-major A
+// operand. One pipeline stage is one (tap, chunk of 64 band rows): 25 KB; a
+// ring of kStages stages with full and empty mbarriers, fed by one producer
+// thread that runs ahead into the next tile, drained by the consumer
+// warpgroup with m64n64k16 wgmmas (and an m64n8k16 for the 8 extra frames
+// where r > 0). The sums run in a fixed order, tap, then chunk, then k16
+// step, from zero, with no atomics: a run is deterministic. (tt_band_conv
+// sums chunk, then tap, in one set of accumulators; the order here differs
+// by the alignment rule.) The epilogue stages the tile's float32 sums in
+// shared memory, and each thread then reads the residual and writes y 16
+// bytes (8 frames of a row) at a time.
+//
+// TMA wants 16-byte global strides: x's rows are T bf16 long, so the wrapper
+// hands a copy padded with zero frames to a multiple of 8 where T % 8 != 0
+// (zeros are what the edge fill gives); the residual and y keep T and are
+// read and written with masks (8 frames at a time where T % 8 == 0). A
+// tensor map depends on its base and dims only, so the encoded maps are kept
+// in a small cache.
 //
 // What bounds it: with the zeros skipped a stage needs 2 * n_dt * 64 * L
 // flops per sub-tile and frame against ~2 bytes per row and frame in and
-// out, near the card's bytes-per-flop line, so a forward chain is bound
-// by its bytes. The per-tap boxes read x n_dt times, from L2 after the
-// first, and the weights once per tile. On the card neither bandwidth
-// sets the pace yet: leaving the weight boxes out or changing the ring's
-// depth left the mainloop's time unchanged, while halving the number of
-// stages (64-row chunks) shortened it, so a stage's fixed latency does;
-// the epilogue (the ELU's exp above all) takes the rest of a tile's time.
-// TMA moves every operand without registers or address arithmetic in the
-// consumer.
+// out, near the card's bytes-per-flop line, so a forward chain is bound by
+// its bytes. The per-tap boxes read x n_dt times, from L2 after the first,
+// and the weights once per tile. On the card neither bandwidth sets the pace
+// yet: leaving the weight boxes out or changing the ring's depth left the
+// mainloop's time unchanged, while halving the number of stages (64-row
+// chunks) shortened it, so a stage's fixed latency does; the epilogue (the
+// ELU's exp above all) takes the rest of a tile's time. TMA moves every
+// operand without registers or address arithmetic in the consumer.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -288,22 +335,25 @@ __device__ __forceinline__ void add_shifted(float (&o0)[32], float (&o1)[32],
   }
 }
 
-// The ring of pipeline stages in shared memory and its barriers; the
-// producer and the consumers each walk it with their own (stage, phase).
-struct Ring {
+// A ring of kN pipeline stages of kBytes in shared memory and its
+// barriers; the producer and the consumers each walk it with their own
+// (stage, phase).
+template <int kN, int kBytes>
+struct RingOf {
   uint32_t base;    // 1024-byte aligned shared address of stage 0
   uint64_t* full;   // TMA bytes landed
   uint64_t* empty;  // consumers done with the stage
   int stage = 0;
   uint32_t phase = 0;
-  __device__ __forceinline__ uint32_t at() const { return base + stage * kStageBytes; }
+  __device__ __forceinline__ uint32_t at() const { return base + stage * kBytes; }
   __device__ __forceinline__ void advance() {
-    if (++stage == kStages) {
+    if (++stage == kN) {
       stage = 0;
       phase ^= 1u;
     }
   }
 };
+typedef RingOf<kStages, kStageBytes> Ring;
 
 // Producer: the TMA loads of one tile, tap by tap, chunk by chunk.
 __device__ __forceinline__ void produce_tile(const WgmmaArgs& a, const Tile& tl,
@@ -530,6 +580,265 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// ------------------------------------------------------------------ //
+// K1 stage in float32: TMA-fed TF32 wgmma, split-TF32 (3xTF32)         //
+// ------------------------------------------------------------------ //
+
+// The float32 stage's tiles. An output tile is one 64-row sub-tile x
+// kTileF frames; its transpose, frames x rows, is two m64n64 wgmma tiles,
+// one a consumer warpgroup. A pipeline stage is one chunk of kKcF band
+// rows: the x box (kKcF rows x kBoxF frames from t0 - kHaloF, unswizzled,
+// rows of 152 floats) and the hi and lo planes of every tap's band
+// weights (64 rows x kKcF columns each, 64-byte swizzled), 34,816 bytes;
+// kStagesF of them and nothing else in shared memory, so two CTAs fit an
+// SM.
+constexpr int kTileF = 128;
+constexpr int kHaloF = 8;                          // |dt| <= 8
+constexpr int kBoxF = kTileF + 3 * kHaloF;         // 152 frames: 24 mod 32 banks
+constexpr int kKcF = 16;                           // band rows per stage and fresh sum
+constexpr int kStagesF = 3;
+constexpr int kWBoxF = kSub * kKcF * 4;            // 4096 bytes
+constexpr int kXOffF = 3 * 2 * kWBoxF;             // stage layout: W hi, lo per tap, then x
+constexpr int kXBoxF = kKcF * kBoxF * 4;           // 9728 bytes
+constexpr int kStageBytesF = 34816;                // kXOffF + kXBoxF, 1024-aligned
+constexpr int kConsumersF = 256;                   // two warpgroups
+constexpr int kThreadsF = kConsumersF + 32;        // + one producer warp
+constexpr int kSmemF = kStagesF * kStageBytesF + 1024;
+static_assert(kXOffF + kXBoxF <= kStageBytesF && kStageBytesF % 1024 == 0, "stage layout");
+
+typedef RingOf<kStagesF, kStageBytesF> RingF;
+
+// x = hi + lo: hi rounded to TF32 (nearest, ties away, as band_mma.cu's
+// split_tf32), lo the float32 remainder, of which the tensor cores keep the
+// TF32 bits.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d = A (64 x 8, registers) * B (8 x 64, K-major, descriptor b), tf32
+// operands, into fresh float32 accumulators (scale-d 0).
+__device__ __forceinline__ void wgmma_tf32_first(float (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]),
+        "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]),
+        "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]),
+        "=f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+}
+
+// d += A (64 x 8, registers) * B (8 x 64, K-major, descriptor b), tf32.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+struct WgmmaF32Args {
+  const float* bias;   // (128,) pattern, or (n_blocks * 128,) per block
+  const float* res;    // (B, r_out, T) or null
+  float* out;          // (B, r_out, T)
+  int r_out, t_len, n_dt, n_sub, n_tiles_t, n_tiles;
+  int dt[3];
+  int col_adv, margin, per_block, act;
+  int kb0, kl0, kb1, kl1;
+};
+
+// One output tile: sub-tile g (the fastest index) x kTileF frames t0.. of
+// item b, its band length and the input row of its band column 0.
+struct TileF {
+  int t0, g, b, kl, wsub, row0;
+  __device__ __forceinline__ TileF(const WgmmaF32Args& a, int tile) {
+    g = tile % a.n_sub;
+    const int rest = tile / a.n_sub;
+    t0 = (rest % a.n_tiles_t) * kTileF;
+    b = rest / a.n_tiles_t;
+    const int s = g & 1;
+    kl = s ? a.kl1 : a.kl0;
+    wsub = a.per_block ? g : s;
+    row0 = (g >> 1) * a.col_adv - a.margin + (s ? a.kb1 : a.kb0);
+  }
+};
+
+// Producer: the TMA loads of one tile, chunk by chunk: every tap's hi and
+// lo weight boxes (plane (wsub * n_dt + tap) * 2 + lo), then the x box.
+__device__ __forceinline__ void produce_tile_f32(const WgmmaF32Args& a, const TileF& tl,
+                                                 const CUtensorMap* xmap,
+                                                 const CUtensorMap* wmap, RingF& ring) {
+  const uint32_t bytes = kXBoxF + a.n_dt * 2 * kWBoxF;
+  for (int c = 0; c < tl.kl / kKcF; ++c) {
+    mbar_wait(smem_u32(&ring.empty[ring.stage]), ring.phase ^ 1u);
+    const uint32_t bar = smem_u32(&ring.full[ring.stage]);
+    const uint32_t sb = ring.at();
+    mbar_expect_tx(bar, bytes);
+    for (int p = 0; p < 2 * a.n_dt; ++p)
+      tma_load_3d(sb + p * kWBoxF, wmap, bar, c * kKcF, 0, tl.wsub * a.n_dt * 2 + p);
+    tma_load_3d(sb + kXOffF, xmap, bar, tl.t0 - kHaloF, tl.row0 + c * kKcF, tl.b);
+    ring.advance();
+  }
+}
+
+// Consumers: one tile's sums. Warpgroup q takes frames 64q.. of the tile;
+// thread (warp w of it, lane l) holds the transposed tile's rows (frames)
+// 64q + 16w + l/4 + 8i and, in group j (8 columns, output rows), columns
+// 8j + 2(l%4) + e: register 4j + 2i + e. Its A fragment of a k8 step is
+// x at band rows k + l%4 (+4) and those frames (+8), shifted by dt:
+// 32-bit shared loads at any offset. Each (chunk, tap) product goes into
+// fresh accumulators and is added into the running sum `run` by IEEE adds,
+// chunk by chunk, tap by tap.
+__device__ __forceinline__ void consume_tile_f32(const WgmmaF32Args& a, const TileF& tl,
+                                                 RingF& ring, const unsigned char* ring_ptr,
+                                                 int q, int w, int lane, float (&run)[32]) {
+#pragma unroll
+  for (int k = 0; k < 32; ++k) run[k] = 0.f;
+  const int m = 64 * q + 16 * w + (lane >> 2) + kHaloF;
+  const int kq = lane & 3;
+  for (int c = 0; c < tl.kl / kKcF; ++c) {
+    mbar_wait(smem_u32(&ring.full[ring.stage]), ring.phase);
+    const uint32_t sb = ring.at();
+    const float* xs = reinterpret_cast<const float*>(ring_ptr + ring.stage * kStageBytesF +
+                                                     kXOffF);
+    for (int tap = 0; tap < a.n_dt; ++tap) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const float* xp = xs + (8 * ks + kq) * kBoxF + m + tap_of(a.dt, tap);
+        split_tf32(xp[0], ah[ks][0], al[ks][0]);
+        split_tf32(xp[8], ah[ks][1], al[ks][1]);
+        split_tf32(xp[4 * kBoxF], ah[ks][2], al[ks][2]);
+        split_tf32(xp[4 * kBoxF + 8], ah[ks][3], al[ks][3]);
+      }
+      // B: the tap's hi and lo planes, 64 rows x 16 columns, 64-byte
+      // swizzled (8-row groups 512 bytes apart); k8 step ks at 32 ks bytes.
+      const uint32_t wh = sb + 2 * tap * kWBoxF;
+      const uint32_t wl = wh + kWBoxF;
+      float p[32];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        // Small terms first: lo * hi, hi * lo, then hi * hi.
+        if (ks == 0) {
+          wgmma_tf32_first(p, al[ks], smem_desc(wh + 32 * ks, 512, 2));
+        } else {
+          wgmma_tf32(p, al[ks], smem_desc(wh + 32 * ks, 512, 2));
+        }
+        wgmma_tf32(p, ah[ks], smem_desc(wl + 32 * ks, 512, 2));
+        wgmma_tf32(p, ah[ks], smem_desc(wh + 32 * ks, 512, 2));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(p);
+#pragma unroll
+      for (int k = 0; k < 32; ++k) run[k] += p[k];
+    }
+    // Every wgmma reading the stage has completed: hand it back.
+    if (lane == 0) mbar_arrive(smem_u32(&ring.empty[ring.stage]));
+    ring.advance();
+  }
+}
+
+// Consumers: bias, ELU (IEEE expf), residual and the float32 store of one
+// tile, from the registers: a warp's store instruction writes 8
+// consecutive frames (32 bytes) of each of 4 rows, whole sectors.
+__device__ __forceinline__ void store_tile_f32(const WgmmaF32Args& a, const TileF& tl, int q,
+                                               int w, int lane, const float (&run)[32]) {
+  const size_t out_base = (size_t)tl.b * a.r_out * a.t_len;
+  const int f0 = tl.t0 + 64 * q + 16 * w + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float v[2][2], r[2][2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = 8 * j + 2 * (lane & 3) + e;
+      const int orow = tl.g * kSub + n;
+      const float bias = orow < a.r_out
+                             ? __ldg(a.bias + (a.per_block ? orow : (tl.g & 1) * kSub + n))
+                             : 0.f;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int f = f0 + 8 * i;
+        const bool ok = orow < a.r_out && f < a.t_len;
+        v[e][i] = run[4 * j + 2 * i + e] + bias;
+        r[e][i] = ok && a.res != nullptr ? __ldg(a.res + out_base + (size_t)orow * a.t_len + f)
+                                         : 0.f;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int orow = tl.g * kSub + 8 * j + 2 * (lane & 3) + e;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int f = f0 + 8 * i;
+        if (orow >= a.r_out || f >= a.t_len) continue;
+        float x = v[e][i];
+        if (a.act) x = x > 0.f ? x : expf(fminf(x, 0.f)) - 1.f;
+        a.out[out_base + (size_t)orow * a.t_len + f] = x + r[e][i];
+      }
+    }
+  }
+}
+
+// Persistent: CTA k walks tiles k, k + gridDim.x, ...; the producer runs
+// ahead into the next tile while the consumers finish the last one.
+__global__ void __launch_bounds__(kThreadsF, 2)
+    band_wgmma_f32_kernel(const __grid_constant__ CUtensorMap xmap,
+                          const __grid_constant__ CUtensorMap wmap, const WgmmaF32Args a) {
+  extern __shared__ __align__(16) unsigned char smem_f32[];
+  __shared__ __align__(8) uint64_t full[kStagesF];
+  __shared__ __align__(8) uint64_t empty[kStagesF];
+  // The swizzled weight boxes want 1024-byte aligned stages.
+  const uint32_t pad = ((smem_u32(smem_f32) + 1023u) & ~1023u) - smem_u32(smem_f32);
+  RingF ring{smem_u32(smem_f32) + pad, full, empty};
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStagesF; ++i) {
+      mbar_init(smem_u32(&full[i]), 1);
+      mbar_init(smem_u32(&empty[i]), kConsumersF / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumersF / 32) {
+    if (lane == 0)
+      for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x)
+        produce_tile_f32(a, TileF(a, tile), &xmap, &wmap, ring);
+    return;
+  }
+  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+    const TileF tl(a, tile);
+    float run[32];
+    consume_tile_f32(a, tl, ring, smem_f32 + pad, warp >> 2, warp & 3, lane, run);
+    store_tile_f32(a, tl, warp >> 2, warp & 3, lane, run);
+  }
+}
+
 // cuTensorMapEncodeTiled, a driver-API function, reached through the
 // runtime so that the library links no libcuda.
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -555,16 +864,19 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D bf16 tensor map: dims (d0, d1, d2) innermost first, d0 contiguous,
-// boxes of (b0, b1, 1), zero fill outside the tensor.
+// A 3-D bf16 or float32 tensor map: dims (d0, d1, d2) innermost first, d0
+// contiguous, boxes of (b0, b1, 1), zero fill outside the tensor.
 int encode_3d(EncodeTiled enc, CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
-              uint64_t d2, uint32_t b0, uint32_t b1, CUtensorMapSwizzle swizzle) {
+              uint64_t d2, uint32_t b0, uint32_t b1, CUtensorMapSwizzle swizzle, bool f32) {
+  const uint64_t size = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
+  const cuuint64_t strides[2] = {d0 * size, d0 * d1 * size};
   const cuuint32_t box[3] = {b0, b1, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+  const CUtensorMapDataType type =
+      f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUresult r = enc(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -100 - static_cast<int>(r);
 }
@@ -579,16 +891,18 @@ struct MapKey {
   uint64_t d0, d1, d2;
   uint32_t b0, b1;
   int swizzle;
+  bool f32 = false;
   bool operator==(const MapKey& o) const {
     return base == o.base && d0 == o.d0 && d1 == o.d1 && d2 == o.d2 && b0 == o.b0 &&
-           b1 == o.b1 && swizzle == o.swizzle;
+           b1 == o.b1 && swizzle == o.swizzle && f32 == o.f32;
   }
 };
 
 struct MapKeyHash {
   size_t operator()(const MapKey& k) const {
     uint64_t h = reinterpret_cast<uint64_t>(k.base);
-    for (const uint64_t v : {k.d0, k.d1, k.d2, (uint64_t)k.b0 << 32 | k.b1, (uint64_t)k.swizzle})
+    for (const uint64_t v :
+         {k.d0, k.d1, k.d2, (uint64_t)k.b0 << 32 | k.b1, (uint64_t)k.swizzle << 1 | k.f32})
       h = (h ^ v) * 0x100000001b3ull;
     return static_cast<size_t>(h);
   }
@@ -605,7 +919,7 @@ int cached_map(EncodeTiled enc, CUtensorMap* map, const MapKey& k) {
     return 0;
   }
   const int rc = encode_3d(enc, map, k.base, k.d0, k.d1, k.d2, k.b0, k.b1,
-                           static_cast<CUtensorMapSwizzle>(k.swizzle));
+                           static_cast<CUtensorMapSwizzle>(k.swizzle), k.f32);
   if (rc != 0) return rc;
   if (maps.size() >= kMaxMaps) maps.clear();
   maps.emplace(k, *map);
@@ -692,5 +1006,76 @@ extern "C" int tt_band_conv_wgmma(const void* x, const void* w, const void* bias
   const int grid = a.n_tiles < resident[dev] ? a.n_tiles : resident[dev];
   band_wgmma_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(xmap, emap,
                                                                                   wmap, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1 stage, float32 storage, TMA-fed TF32 wgmma with split-TF32 products.
+// x: (B, r_in, t_pad) float32, t_pad a multiple of 4 and >= T, zeros past
+// T, 16-byte aligned; w: the band weights' TF32 planes (n_w, n_dt, 2, 64,
+// width) float32 (plane 0 hi, rounded to TF32 nearest with ties away; 1
+// lo, the remainder), width a multiple of 32; bias float32; res (or null)
+// and y: (B, r_out, T) float32. plan: the integers ops/fused_level.py
+// `band_tma_plan_f32` fixes for a stage and T, in this order: T, t_pad,
+// n_dt, dt x 3, col_adv, margin, width, n_w, per_block, then (start,
+// length) of the band of even and of odd sub-tiles (lengths multiples of
+// 16). Returns cudaGetLastError() of the launch, or a negative code when
+// the tensor maps cannot be made (-1: no encode entry point; -100 -
+// CUresult).
+extern "C" int tt_band_conv_wgmma_f32(const void* x, const void* w, const void* bias,
+                                      const void* res, void* y, int batch, int r_in, int r_out,
+                                      int act, const int* plan, void* stream) {
+  const int t_len = plan[0], t_pad = plan[1], n_dt = plan[2];
+  const int width = plan[8], n_w = plan[9];
+  // Per device: the shared-memory opt-in, and how many CTAs the card
+  // holds at once (the persistent grid).
+  static int resident[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (resident[dev] == 0) {
+    e = cudaFuncSetAttribute(band_wgmma_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemF);
+    int sms = 0, per_sm = 0;
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, band_wgmma_f32_kernel,
+                                                        kThreadsF, kSmemF);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (sms * per_sm == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    resident[dev] = sms * per_sm;
+  }
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return -1;
+  CUtensorMap xmap, wmap;
+  int rc = cached_map(enc, &xmap, {x, (uint64_t)t_pad, (uint64_t)r_in, (uint64_t)batch, kBoxF,
+                                   kKcF, CU_TENSOR_MAP_SWIZZLE_NONE, true});
+  if (rc == 0)
+    rc = cached_map(enc, &wmap, {w, (uint64_t)width, kSub, (uint64_t)n_w * n_dt * 2, kKcF, kSub,
+                                 CU_TENSOR_MAP_SWIZZLE_64B, true});
+  if (rc != 0) return rc;
+
+  WgmmaF32Args a = {};
+  a.bias = static_cast<const float*>(bias);
+  a.res = static_cast<const float*>(res);
+  a.out = static_cast<float*>(y);
+  a.r_out = r_out;
+  a.t_len = t_len;
+  a.n_dt = n_dt;
+  a.n_sub = (r_out + kSub - 1) / kSub;
+  a.n_tiles_t = (t_len + kTileF - 1) / kTileF;
+  a.n_tiles = a.n_sub * a.n_tiles_t * batch;
+  for (int i = 0; i < 3; ++i) a.dt[i] = plan[3 + i];
+  a.col_adv = plan[6];
+  a.margin = plan[7];
+  a.per_block = plan[10];
+  a.act = act;
+  a.kb0 = plan[11];
+  a.kl0 = plan[12];
+  a.kb1 = plan[13];
+  a.kl1 = plan[14];
+  const int grid = a.n_tiles < resident[dev] ? a.n_tiles : resident[dev];
+  band_wgmma_f32_kernel<<<grid, kThreadsF, kSmemF, static_cast<cudaStream_t>(stream)>>>(xmap, wmap,
+                                                                                        a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,7 +40,8 @@ _SIGNATURES = {
         "tt_band_conv_dw": [_P] * 6 + [_I] * 17 + [_P],
         "tt_band_conv_dw_f32": [_P] * 6 + [_I] * 17 + [_P],
     },
-    "band_wgmma": {"tt_band_conv_wgmma": [_P] * 5 + [_I] * 4 + [_P] * 2},
+    "band_wgmma": {"tt_band_conv_wgmma": [_P] * 5 + [_I] * 5 + [_P] * 2,
+                   "tt_band_conv_wgmma_f32": [_P] * 5 + [_I] * 4 + [_P] * 2},
 }
 
 _loaded = {}

@@ -9,9 +9,8 @@ plus the item input.
 
 ``fused_level_apply`` runs the chain through hand-written CUDA kernels
 (which replace the Pallas ``_level_kernel``), one launch per conv stage:
-band-tiled tensor-core kernels, for bfloat16 the TMA-fed wgmma kernel of
-``csrc/band_wgmma.cu`` (bf16 products), for float32 the split-TF32
-(3xTF32) kernel of ``csrc/band_mma.cu``;
+the band-tiled TMA-fed wgmma kernels of ``csrc/band_wgmma.cu``, bf16
+products for bfloat16, split-TF32 (3xTF32) products for float32;
 ``packed_level_apply`` is their plain PyTorch twin. Both keep the JAX
 precision policy: every stage input, weight and output is stored at
 ``dtype`` (float32 or bfloat16), accumulation and biases are float32.
@@ -41,7 +40,8 @@ __all__ = ["HALO", "LevelSpec", "conv2d_level_spec", "encoder_level_spec",
            "decoder_level_spec",
            "fuse_level_specs", "spec_time_reach", "banded_conv",
            "banded_conv_reference", "banded_conv_mma", "BandTmaPlan",
-           "band_tma_plan", "tma_frames", "packed_level_apply",
+           "band_tma_plan", "BandTmaPlanF32", "band_tma_plan_f32",
+           "tma_frames", "packed_level_apply",
            "fused_level_apply",
            "chain_flops", "band_flops", "banded_conv_dx",
            "banded_conv_dx_reference",
@@ -223,33 +223,37 @@ def banded_conv_reference(x, cb, act=False, residual=None):
 def banded_conv(x, cb, act=False, residual=None):
     """One conv stage with fused bias, optional ELU and residual add.
 
-    For a CUDA tensor it launches a band-tiled tensor-core kernel:
-    bfloat16 ``tt_band_conv_wgmma`` of ``csrc/band_wgmma.cu`` (TMA-fed
-    wgmma, bf16 products, walking ``band_tma_plan``), float32
-    ``tt_band_conv_f32`` of ``csrc/band_mma.cu`` (3xTF32 products: each
-    operand split into TF32 hi + lo, hi*hi + hi*lo + lo*hi accumulated in
-    float32, as close to the exact product as the IEEE float32 one within
-    a small factor). ``banded_conv.launches`` counts every launch,
+    For a CUDA tensor it launches a band-tiled TMA-fed wgmma kernel of
+    ``csrc/band_wgmma.cu``: bfloat16 ``tt_band_conv_wgmma`` (bf16
+    products, walking ``band_tma_plan``), float32
+    ``tt_band_conv_wgmma_f32`` (TF32 wgmma on the transposed tile, walking
+    ``band_tma_plan_f32``; 3xTF32 products: each operand split into TF32
+    hi + lo, hi*hi + hi*lo + lo*hi accumulated in float32, as close to the
+    exact product as the IEEE float32 one within a small factor).
+    ``banded_conv.launches`` counts every launch,
     ``banded_conv.mma_launches`` the bfloat16 ones,
     ``banded_conv.wgmma_launches`` those of ``tt_band_conv_wgmma`` (every
-    bfloat16 one) and ``banded_conv.mma_launches_f32`` the float32 ones. A
-    CPU tensor takes the plain twin. ``x`` is (B, r_in, T) float32 or
-    bfloat16; ``residual`` (B, r_out, T).
+    bfloat16 one), ``banded_conv.mma_launches_f32`` the float32 ones and
+    ``banded_conv.wgmma_launches_f32`` those of ``tt_band_conv_wgmma_f32``
+    (every float32 one). A CPU tensor takes the plain twin. ``x`` is
+    (B, r_in, T) float32 or bfloat16; ``residual`` (B, r_out, T).
     """
     if x.device.type == "cpu":
         return banded_conv_reference(x, cb, act, residual)
-    x, residual, w, bias, y = _stage_operands(x, cb, residual, "banded_conv")
+    bf16 = x.dtype == torch.bfloat16
+    x, residual, w, bias, y = _stage_operands(x, cb, residual, "banded_conv",
+                                              tf32=not bf16)
     if y.numel() == 0:
         return y
-    bf16 = x.dtype == torch.bfloat16
     if bf16:
         _launch_wgmma(x, cb, act, residual, w, bias, y)
     else:
-        _launch_band("tt_band_conv_f32", x, cb, act, residual, w, bias, y)
+        _launch_wgmma_f32(x, cb, act, residual, w, bias, y)
     banded_conv.launches += 1
     banded_conv.mma_launches += int(bf16)
     banded_conv.wgmma_launches += int(bf16)
     banded_conv.mma_launches_f32 += int(not bf16)
+    banded_conv.wgmma_launches_f32 += int(not bf16)
     return y
 
 
@@ -257,21 +261,26 @@ banded_conv.launches = 0
 banded_conv.mma_launches = 0
 banded_conv.wgmma_launches = 0
 banded_conv.mma_launches_f32 = 0
+banded_conv.wgmma_launches_f32 = 0
 
 
 def banded_conv_mma(x, cb, act=False, residual=None):
-    """The bfloat16 stage on the previous generation's instructions:
-    ``tt_band_conv`` of ``csrc/band_mma.cu`` (mma.sync fed by ldmatrix, x
-    staged through registers). No path of the package calls it; it is the
-    yardstick that ``tt_band_conv_wgmma`` is held and timed against on the
-    card. CUDA bfloat16 tensors only; ``banded_conv_mma.launches`` counts
-    its launches."""
-    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
-        raise ValueError("banded_conv_mma takes CUDA bfloat16 tensors only")
+    """The stage on the previous generation's instructions, in either
+    dtype: bfloat16 ``tt_band_conv`` of ``csrc/band_mma.cu`` (mma.sync fed
+    by ldmatrix, x staged through registers), float32 ``tt_band_conv_f32``
+    (mma.sync m16n8k8 3xTF32, cp.async). No path of the package calls it;
+    it is the yardstick that ``tt_band_conv_wgmma`` and
+    ``tt_band_conv_wgmma_f32`` are held and timed against on the card.
+    CUDA tensors only; ``banded_conv_mma.launches`` counts its launches."""
+    if x.device.type != "cuda" or x.dtype not in _DTYPES:
+        raise ValueError("banded_conv_mma takes CUDA bfloat16 or float32 "
+                         "tensors only")
     x, residual, w, bias, y = _stage_operands(x, cb, residual,
                                               "banded_conv_mma")
     if y.numel():
-        _launch_band("tt_band_conv", x, cb, act, residual, w, bias, y)
+        entry = ("tt_band_conv" if x.dtype == torch.bfloat16
+                 else "tt_band_conv_f32")
+        _launch_band(entry, x, cb, act, residual, w, bias, y)
         banded_conv_mma.launches += 1
     return y
 
@@ -279,9 +288,10 @@ def banded_conv_mma(x, cb, act=False, residual=None):
 banded_conv_mma.launches = 0
 
 
-def _stage_operands(x, cb, residual, what):
+def _stage_operands(x, cb, residual, what, tf32=False):
     """Check a CUDA stage's inputs; returns (x, residual) contiguous, the
-    band weights and bias at x's dtype, and the empty output."""
+    band weights (at x's dtype, or with ``tf32`` their TF32 hi and lo
+    planes) and bias, and the empty output."""
     if x.device.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
     if x.dtype not in _DTYPES:
@@ -295,7 +305,7 @@ def _stage_operands(x, cb, residual, what):
         if residual.shape != (b, cb.r_out, t) or residual.dtype != x.dtype:
             raise ValueError("residual must match the stage output")
         residual = residual.contiguous()
-    w, bias = cb.band_operands(x.dtype)
+    w, bias = cb.band_tf32_operands() if tf32 else cb.band_operands(x.dtype)
     if w.device != x.device:
         raise ValueError("conv weights and input lie on different devices")
     y = torch.empty((b, cb.r_out, t), dtype=x.dtype, device=x.device)
@@ -421,6 +431,84 @@ def _launch_wgmma(x, cb, act, residual, w, bias, y):
                   y.data_ptr(), b, r_in, cb.r_out, int(act), vec, plan,
                   _stream(x.device))
     _build.check(rc, "banded_conv (tt_band_conv_wgmma)")
+
+
+# tt_band_conv_wgmma_f32's tiles (csrc/band_wgmma.cu): an output tile is one
+# 64-row sub-tile x F32_TILE_T frames; a pipeline stage is one chunk of
+# F32_KC band rows: an x box of F32_BOX_T frames from t0 - BAND_MAX_DT (every
+# tap reads it at its own offset) and each tap's TF32 hi and lo weight
+# boxes. Each (chunk, tap) product is one fresh sum.
+F32_TILE_T = 128
+F32_KC = 16
+F32_BOX_T = F32_TILE_T + 3 * BAND_MAX_DT
+# TMA takes global strides in multiples of 16 bytes: 4 float32 frames.
+F32_FRAME_ALIGN = 4
+
+
+class BandTmaPlanF32(NamedTuple):
+    """What ``tt_band_conv_wgmma_f32`` walks for one stage at T frames.
+
+    t_pad:  frames a row of x has in the tensor map (T rounded up to
+            ``F32_FRAME_ALIGN``; the wrapper pads x with zero frames).
+    tiles:  ``F32_TILE_T``-frame tiles; an output tile is one of them x
+            one of ``n_sub`` 64-row sub-tiles x one item, and the
+            kernel's persistent CTAs walk every output tile.
+    n_sub:  64-row output sub-tiles.
+    bands:  (start, length, chunks) of the band of even and of odd
+            sub-tiles: sub-tile g's x boxes start at input row
+            ``cb.sub_start(g)``, chunk c at ``+ F32_KC * c``.
+    taps:   each tap's dt: the box of tile t0 spans frames
+            ``t0 - BAND_MAX_DT`` .. ``+ F32_BOX_T``, and the tap reads
+            frame ``t0 + n + dt`` of it for output frame ``t0 + n``.
+    n_w:    weight sub-tiles (2, or one per sub-tile with ``per_block``);
+            their hi and lo planes are ``cb.band_tf32_operands()``.
+    """
+    t_pad: int
+    tiles: int
+    n_sub: int
+    bands: tuple
+    taps: tuple
+    n_w: int
+
+
+def band_tma_plan_f32(cb, t):
+    """The box and tile plan of ``tt_band_conv_wgmma_f32`` for conv ``cb``
+    on T = ``t`` frames (see ``BandTmaPlanF32``)."""
+    a = F32_FRAME_ALIGN
+    return BandTmaPlanF32(
+        t_pad=-(-t // a) * a, tiles=-(-t // F32_TILE_T), n_sub=cb.n_sub,
+        bands=tuple((s, n, -(-n // F32_KC)) for s, n in cb.bands),
+        taps=tuple(cb.dts),
+        n_w=2 * cb.n_out_blocks if cb.per_block else 2)
+
+
+def _wgmma_plan_f32(cb, t, width):
+    """(t_pad, the plan's integers as ``tt_band_conv_wgmma_f32`` reads
+    them: a C int array), built once per conv and T."""
+    key = ("wgmma_f32", t)
+    if key not in cb._cache:
+        plan = band_tma_plan_f32(cb, t)
+        taps = list(plan.taps) + [0] * (3 - len(plan.taps))
+        ints = (t, plan.t_pad, len(plan.taps), *taps, cb.col_adv, cb.margin,
+                width, plan.n_w, int(cb.per_block),
+                *[v for band in plan.bands for v in band[:2]])
+        cb._cache[key] = (plan.t_pad, (ctypes.c_int * len(ints))(*ints))
+    return cb._cache[key]
+
+
+def _launch_wgmma_f32(x, cb, act, residual, w, bias, y):
+    """One launch of ``csrc/band_wgmma.cu:tt_band_conv_wgmma_f32``; ``w``
+    holds the band weights' TF32 planes."""
+    b, r_in, t = x.shape
+    t_pad, plan = _wgmma_plan_f32(cb, t, w.shape[-1])
+    xp = tma_frames(x, t_pad)
+    res = None if residual is None else residual.data_ptr()
+    rc = _call_on(x.device,
+                  _build.load("band_wgmma", "tt_band_conv_wgmma_f32"),
+                  xp.data_ptr(), w.data_ptr(), bias.data_ptr(), res,
+                  y.data_ptr(), b, r_in, cb.r_out, int(act), plan,
+                  _stream(x.device))
+    _build.check(rc, "banded_conv (tt_band_conv_wgmma_f32)")
 
 
 def _check_taps(cb, what, dtype):

@@ -31,7 +31,8 @@ import torch
 __all__ = ["BLOCK_ROWS", "pack_nhwc", "unpack_to_nhwc", "pack_nchw",
            "unpack_to_nchw", "ConvBlocks", "build_conv2d_blocks",
            "build_sconv_blocks", "build_tconv_blocks", "build_dense_blocks",
-           "packed_conv_reference", "SUB_ROWS", "band_conv_reference"]
+           "packed_conv_reference", "SUB_ROWS", "band_conv_reference",
+           "tf32_round"]
 
 BLOCK_ROWS = 128
 # Rows of a sub-tile (one warpgroup-sized M tile of the tensor-core kernels).
@@ -155,13 +156,28 @@ class ConvBlocks:
     def band_operands(self, dtype):
         """(band weights, bias) as the band-tiled tensor-core kernels read
         them: the band weights at the storage ``dtype`` (bfloat16, or
-        float32 for the split-TF32 route, which splits them in the kernel),
-        the bias in float32. Built once per dtype."""
+        float32 for the ``mma.sync`` split-TF32 kernels, which split them
+        in the kernel), the bias in float32. Built once per dtype."""
         key = ("band", dtype)
         if key not in self._cache:
             w = self.band_weights(self.blocks.detach())
             self._cache[key] = (w.to(dtype).contiguous(),
                                 self.bias.to(torch.float32).contiguous())
+        return self._cache[key]
+
+    def band_tf32_operands(self):
+        """(planes, bias) as the float32 TMA-fed wgmma kernel reads them:
+        the float32 band weights split into TF32 planes, (n_w, n_dt, 2, 64,
+        band_width), plane 0 ``hi`` (rounded to TF32, to nearest with ties
+        away from zero, as ``cvt.rna.tf32.f32``) and plane 1 ``lo = w -
+        hi`` (exact in float32), and the float32 bias. Built once, on the
+        weights' device."""
+        key = ("tf32",)
+        if key not in self._cache:
+            w, bias = self.band_operands(torch.float32)
+            hi = tf32_round(w)
+            self._cache[key] = (torch.stack((hi, w - hi), dim=2).contiguous(),
+                                bias)
         return self._cache[key]
 
     def band_mask(self):
@@ -171,6 +187,14 @@ class ConvBlocks:
         halves = [(cols >= s) & (cols < s + n) for s, n in self.bands]
         rows = torch.stack(halves).repeat_interleave(SUB_ROWS, dim=0)
         return rows[None].expand(len(self.dts), -1, -1)
+
+
+def tf32_round(x):
+    """float32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32``: on the int32 view, add
+    half of the 13 dropped bits to the magnitude and clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
 def _build_blocks(kernel_fc, bias, f_in, f_out, c_in, c_out, f_taps, dts):
