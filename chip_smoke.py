@@ -183,9 +183,8 @@ Phases, each of which exits non-zero on failure:
              K1 and K3's dX and dW are band-tiled tensor-core kernels:
              the K1 stage ``tt_band_conv_wgmma`` (bf16) and
              ``tt_band_conv_wgmma_f32`` (float32) of
-             ``csrc/band_wgmma.cu`` (TMA-fed wgmma; every path's bf16 and
-             float32 K1 launches must equal its wgmma launches of the
-             dtype), dX and dW in both dtypes those of
+             ``csrc/band_wgmma.cu`` (TMA-fed wgmma, the only route of
+             either dtype), dX and dW in both dtypes those of
              ``csrc/band_mma.cu``: phase 2 also
              holds them, on one conv of each kind at flagship widths (3x3
              at dilation 1, 2 and 3, 1x1, sconv, tconv, the dense bridge)
@@ -351,12 +350,11 @@ def rel_err(got, ref):
 
 # The launch counts a kernel wrapper may carry, and their keys' suffixes.
 COUNTS = {"launches": "", "mma_launches": ".mma",
-          "mma_launches_f32": ".mma_f32", "wgmma_launches": ".wgmma",
-          "wgmma_launches_f32": ".wgmma_f32"}
+          "mma_launches_f32": ".mma_f32"}
 
 
-# The suffixes of the float32 routes' counts.
-F32_COUNTS = (".mma_f32", ".wgmma_f32")
+# The suffix of the float32 routes' counts.
+F32_COUNTS = ".mma_f32"
 
 
 def zero_counts(fns):
@@ -369,22 +367,11 @@ def zero_counts(fns):
 
 def read_counts(fns):
     """{wrapper: launches, wrapper.mma: bf16 tensor-core launches,
-    wrapper.mma_f32: float32 split-TF32 launches, wrapper.wgmma: launches
-    of the bf16 TMA-fed wgmma kernel, wrapper.wgmma_f32: those of the
-    float32 one} where a wrapper has them. Every path reads its counts
-    here, so here every K1 stage, bf16 and float32, is held to have run
-    its dtype's wgmma kernel."""
-    counts = {fn.__name__ + sfx: getattr(fn, name) for fn in fns
-              for name, sfx in COUNTS.items() if hasattr(fn, name)}
-    for fn in fns:
-        for route, what in ((".wgmma", "bf16"), (".wgmma_f32", "float32")):
-            key = fn.__name__ + route
-            stages = fn.__name__ + (".mma" if what == "bf16" else ".mma_f32")
-            if key in counts:
-                check(counts[key] == counts[stages],
-                      f"{fn.__name__}: {counts[key]} {route[1:]} launches "
-                      f"for {counts[stages]} {what} stages")
-    return counts
+    wrapper.mma_f32: float32 split-TF32 launches} where a wrapper has them
+    (a K1 stage's bf16 launch is one of ``tt_band_conv_wgmma``, its
+    float32 launch one of ``tt_band_conv_wgmma_f32``)."""
+    return {fn.__name__ + sfx: getattr(fn, name) for fn in fns
+            for name, sfx in COUNTS.items() if hasattr(fn, name)}
 
 
 def card_line():
@@ -3961,13 +3948,13 @@ def main():
          "entry": "tt_band_conv_wgmma",
          "entry_f32": "tt_band_conv_wgmma_f32",
          "launches_wgmma_f32": {
-             "transcribe_f32": launches32["banded_conv.wgmma_f32"],
-             "reconstruct": launches_rec["banded_conv.wgmma_f32"],
+             "transcribe_f32": launches32["banded_conv.mma_f32"],
+             "reconstruct": launches_rec["banded_conv.mma_f32"],
              "skip_route_reconstruct":
-                 launches_var["reconstruct"]["banded_conv.wgmma_f32"],
+                 launches_var["reconstruct"]["banded_conv.mma_f32"],
              "train_f32_step":
-                 train["f32_step_launches"]["banded_conv.wgmma_f32"],
-             "cli_sonify": cli_launches["sonify"]["banded_conv.wgmma_f32"]},
+                 train["f32_step_launches"]["banded_conv.mma_f32"],
+             "cli_sonify": cli_launches["sonify"]["banded_conv.mma_f32"]},
          "ms_f32_mma_sync": k1_mma_ms32, "forward_turns_ms_f32": turns32,
          "forward_device_ms_f32": chain_device_ms32,
          "stage_kinds_f32": kind_ms32,
@@ -3979,17 +3966,17 @@ def main():
          "band_max_rel_diff_f32_mma_sync": band_diff32,
          "f32_accuracy": f32_acc,
          "launches_wgmma": {
-             "transcribe": launches["banded_conv.wgmma"],
-             "train_per_step": train_launches["banded_conv.wgmma"]
+             "transcribe": launches["banded_conv.mma"],
+             "train_per_step": train_launches["banded_conv.mma"]
              / TRAIN_STEPS,
-             "trainer": trainer_launches["banded_conv.wgmma"],
-             "cli_train": cli_launches["train"]["banded_conv.wgmma"],
-             "cli_sonify": cli_launches["sonify"]["banded_conv.wgmma"],
+             "trainer": trainer_launches["banded_conv.mma"],
+             "cli_train": cli_launches["train"]["banded_conv.mma"],
+             "cli_sonify": cli_launches["sonify"]["banded_conv.mma"],
              "skip_route_transcribe":
-                 launches_var["transcribe"]["banded_conv.wgmma"],
-             "quality": {probe: n["banded_conv.wgmma"] for probe, n in
+                 launches_var["transcribe"]["banded_conv.mma"],
+             "quality": {probe: n["banded_conv.mma"] for probe, n in
                          last_launches["quality"].items()},
-             "comparison": last_launches["comparison"]["banded_conv.wgmma"]},
+             "comparison": last_launches["comparison"]["banded_conv.mma"]},
          "ms_mma_sync": k1_mma_ms, "forward_turns_ms": turns,
          "forward_device_ms": chain_device_ms,
          "stage_kinds": kind_ms, "bit_equal_share_mma_sync": band_share,

@@ -29,6 +29,7 @@ from timbre_trap_tpu_torch.models.fused import fused_forward
 from timbre_trap_tpu_torch.models.modules import init_weights
 from timbre_trap_tpu_torch.ops import fused_level as fl
 from timbre_trap_tpu_torch.ops import packed_conv as pc
+from timbre_trap_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -239,8 +240,9 @@ def test_plan_covers_every_tap_and_band(small_net):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_banded_conv_takes_the_twin_on_cpu(monkeypatch, dtype):
     """On the CPU ``banded_conv`` hands its arguments to the twin and
-    returns its result; neither launch path is reached and no count
-    moves (a spy stands in for the twin)."""
+    returns its result; neither launch path is reached, no launch count
+    moves, and under a profiler the call is one ``tt.k1`` span (a spy
+    stands in for the twin)."""
     cb = _flagship_stages()["3x3-d3"]
     rng = np.random.default_rng(1)
     x = _rand(rng, 1, cb.r_in, 9).to(dtype)
@@ -257,10 +259,13 @@ def test_banded_conv_takes_the_twin_on_cpu(monkeypatch, dtype):
     monkeypatch.setattr(fl, "banded_conv_reference", spy)
     monkeypatch.setattr(fl, "_launch_wgmma", refuse)
     monkeypatch.setattr(fl, "_launch_band", refuse)
-    counts = ("launches", "mma_launches", "wgmma_launches",
-              "mma_launches_f32")
+    counts = ("launches", "mma_launches", "mma_launches_f32")
     before = [getattr(fl.banded_conv, n) for n in counts]
-    assert fl.banded_conv(x, cb, True, res) is sentinel
+    profiling.reset_record()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert fl.banded_conv(x, cb, True, res) is sentinel
+    assert profiling.record()["tt.k1"]["count"] == 1
     assert len(calls) == 1
     assert all(g is w for g, w in zip(calls[0], (x, cb, True, res)))
     assert [getattr(fl.banded_conv, n) for n in counts] == before

@@ -33,6 +33,7 @@ from timbre_trap_tpu_torch.models.fused import fused_forward
 from timbre_trap_tpu_torch.models.modules import init_weights
 from timbre_trap_tpu_torch.ops import fused_level as fl
 from timbre_trap_tpu_torch.ops import packed_conv as pc
+from timbre_trap_tpu_torch.utils import profiling
 
 from test_torch_bands import _like, _split_tf32, _tf32_rna
 
@@ -314,8 +315,9 @@ def test_plan_covers_every_tap_and_band(small_net):
 @pytest.mark.parametrize("kind", ["3x3-d3", "bridge"])
 def test_float32_banded_conv_takes_the_twin_on_cpu(monkeypatch, kind):
     """On the CPU a float32 ``banded_conv`` hands its arguments to the
-    twin and returns its result; neither launch path is reached and no
-    count moves (a spy stands in for the twin)."""
+    twin and returns its result; neither launch path is reached, no
+    launch count moves, and under a profiler the call is one ``tt.k1``
+    span (a spy stands in for the twin)."""
     cb = _flagship_stage(kind)
     rng = np.random.default_rng(1)
     x = _rand(rng, 1, cb.r_in, 9)
@@ -332,10 +334,13 @@ def test_float32_banded_conv_takes_the_twin_on_cpu(monkeypatch, kind):
     monkeypatch.setattr(fl, "banded_conv_reference", spy)
     for launch in ("_launch_wgmma_f32", "_launch_wgmma", "_launch_band"):
         monkeypatch.setattr(fl, launch, refuse)
-    counts = ("launches", "mma_launches", "wgmma_launches",
-              "mma_launches_f32", "wgmma_launches_f32")
+    counts = ("launches", "mma_launches", "mma_launches_f32")
     before = [getattr(fl.banded_conv, n) for n in counts]
-    assert fl.banded_conv(x, cb, True, res) is sentinel
+    profiling.reset_record()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert fl.banded_conv(x, cb, True, res) is sentinel
+    assert profiling.record()["tt.k1"]["count"] == 1
     assert len(calls) == 1
     assert all(g is w for g, w in zip(calls[0], (x, cb, True, res)))
     assert [getattr(fl.banded_conv, n) for n in counts] == before

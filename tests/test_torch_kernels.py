@@ -153,9 +153,7 @@ def cuda_device():
 def _all_counts():
     return ((banded_conv.launches, peak_mask.launches) + _k3_counts()
             + _routes(banded_conv) + _routes(banded_conv_dx)
-            + _routes(banded_conv_dw)
-            + (banded_conv.wgmma_launches, banded_conv.wgmma_launches_f32,
-               banded_conv_mma.launches))
+            + _routes(banded_conv_dw) + (banded_conv_mma.launches,))
 
 
 def test_wrappers_take_the_twin_on_cpu_and_count_nothing(monkeypatch):
@@ -587,7 +585,7 @@ def test_wgmma_stage_matches_twin_and_mma_sync(cuda_device, t):
     multiple of 8 frames): within 1e-2 * max|ref| of the twin and of the
     mma.sync kernel (``tt_band_conv``, through ``banded_conv_mma``) on the
     same tensors (sum order and the output rounding), the same bits in two
-    runs; each launch counts as a bf16 and a wgmma launch."""
+    runs; each launch counts once, as a launch and as a bf16 launch."""
     rng = np.random.default_rng(31)
     bf16 = torch.bfloat16
     convs = dict(_conv_cases(cuda_device))
@@ -596,10 +594,10 @@ def test_wgmma_stage_matches_twin_and_mma_sync(cuda_device, t):
         x = _rand(rng, 2, cb.r_in, t).to(cuda_device, bf16)
         res = None if cb.per_block else _rand(rng, 2, cb.r_out, t).to(
             cuda_device, bf16)
-        before = (banded_conv.mma_launches, banded_conv.wgmma_launches)
+        before = (banded_conv.launches, banded_conv.mma_launches)
         got = banded_conv(x, cb, True, res)
         again = banded_conv(x, cb, True, res)
-        assert (banded_conv.mma_launches, banded_conv.wgmma_launches) == (
+        assert (banded_conv.launches, banded_conv.mma_launches) == (
             before[0] + 2, before[1] + 2)
         old = banded_conv_mma(x, cb, True, res)
         ref = banded_conv_reference(x, cb, True, res)
@@ -621,7 +619,7 @@ def test_wgmma_f32_stage_matches_twin_and_mma_sync(cuda_device, t):
     multiple of 4 frames): within 1e-4 * max|ref| of the IEEE twin and of
     the mma.sync kernel (``tt_band_conv_f32``, through
     ``banded_conv_mma``) on the same tensors, the same bits in two runs;
-    each launch counts as a float32 and a float32 wgmma launch."""
+    each launch counts once, as a launch and as a float32 launch."""
     rng = np.random.default_rng(37)
     convs = dict(_conv_cases(cuda_device))
     convs.update(_variant_stages(cuda_device))
@@ -630,13 +628,12 @@ def test_wgmma_f32_stage_matches_twin_and_mma_sync(cuda_device, t):
         res = None if cb.per_block else _rand(rng, 2, cb.r_out, t).to(
             cuda_device)
         for act, r in ((False, None), (True, res)):
-            before = (banded_conv.mma_launches_f32,
-                      banded_conv.wgmma_launches_f32, banded_conv_mma.launches)
+            before = (banded_conv.mma_launches_f32, banded_conv.launches,
+                      banded_conv_mma.launches)
             got = banded_conv(x, cb, act, r)
             again = banded_conv(x, cb, act, r)
             old = banded_conv_mma(x, cb, act, r)
-            assert (banded_conv.mma_launches_f32,
-                    banded_conv.wgmma_launches_f32,
+            assert (banded_conv.mma_launches_f32, banded_conv.launches,
                     banded_conv_mma.launches) == (before[0] + 2,
                                                   before[1] + 2,
                                                   before[2] + 1)
@@ -663,7 +660,7 @@ def test_wgmma_f32_stage_refuses_what_it_does_not_take(cuda_device):
     cb = _conv_cases(cuda_device)["3x3-d1"]
     cpu_cb = _conv_cases()["3x3-d1"]
     x = torch.zeros((1, cb.r_in, 16), device=cuda_device)
-    before = (banded_conv.launches, banded_conv.wgmma_launches_f32)
+    before = (banded_conv.launches, banded_conv.mma_launches_f32)
     with pytest.raises(ValueError, match="at most 8 frames"):
         banded_conv(torch.zeros((1, wide.r_in, 16), device=cuda_device), wide)
     with pytest.raises(ValueError, match="rows"):
@@ -678,7 +675,7 @@ def test_wgmma_f32_stage_refuses_what_it_does_not_take(cuda_device):
         banded_conv(x, cpu_cb)
     with pytest.raises(ValueError, match="CUDA"):
         banded_conv_mma(x.cpu(), cpu_cb)
-    assert (banded_conv.launches, banded_conv.wgmma_launches_f32) == before
+    assert (banded_conv.launches, banded_conv.mma_launches_f32) == before
 
 
 @pytest.mark.cuda

@@ -413,6 +413,31 @@ def test_trainer_dual_loader(model, corpus, tmp_path):
     assert len(trainer2._steps) == 1
 
 
+def test_trainer_spans_the_loader_wait_and_each_step(model, corpus,
+                                                     tmp_path):
+    """Under a profiler the Trainer's waits on the next batch are
+    ``tt.loader.wait`` spans (one a step, and the wait that finds the
+    epoch's end), beside each step's ``tt.step.*`` spans."""
+    from timbre_trap_tpu_torch.utils import profiling
+
+    loader = DataLoader(_train_set(ToyMPE, corpus, model.sliCQ),
+                        batch_size=2, drop_last=True)
+    config = TrainerConfig(max_epochs=1, checkpoint_interval=1000,
+                           batch_size=2, n_secs=0.5,
+                           conv_backend="pallas_bf16",
+                           root_dir=str(tmp_path / "run_spans"))
+    trainer = Trainer(model, loader, None, [], config)
+    profiling.reset_record()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        trainer.run()
+    rec = profiling.record()
+    assert trainer.batch_count == 2
+    assert rec["tt.loader.wait"]["count"] == 3
+    for part in ("upload", "forward", "backward", "update"):
+        assert rec[f"tt.step.{part}"]["count"] == 2, part
+
+
 def test_trainer_data_parallel_waits_for_its_slice(model, corpus, tmp_path):
     """Data-parallel training runs one process per device, so in one
     process without a process group ``n_devices=2`` raises, names the

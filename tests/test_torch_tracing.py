@@ -1,0 +1,249 @@
+"""The port's spans (``timbre_trap_tpu_torch.utils.profiling.span``) and
+their record, on the CPU at the small geometry (8 kHz, 5 octaves x 12
+bins, 0.5-s blocks, latent 16, complexity 1):
+
+* with no profiler running a span is one shared no-op: a transcribe
+  records nothing and leaves no ``tt.*`` event behind;
+* under a CPU ``torch.profiler`` a span is a Kineto CPU op, not a user
+  annotation, nested in time inside the ``record_function`` around it;
+* the record's count, items, total and self times on a toy nesting, self
+  time per thread (a span on another thread is no child), and no update
+  lost when more threads than cores add to it at once;
+* a streamed transcribe and reconstruct record the ``_chunked``
+  arithmetic (33 chunks a 16-block piece, 9 forwards) and one ``tt.k1``
+  span a conv stage of each forward, base and skip route, and build the
+  inference chain on the first call only;
+* a ``pallas_bf16`` step on the CPU twin records each ``tt.step.*`` span
+  once a step and rebuilds its level specs once a step.
+"""
+
+import os
+import sys
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from timbre_trap_tpu_torch.models import TimbreTrap
+from timbre_trap_tpu_torch.train import (TrainConfig, init_train_state,
+                                         make_train_step, synthetic_batch)
+from timbre_trap_tpu_torch.utils import profiling
+from timbre_trap_tpu_torch.utils.profiling import record, reset_record, span
+
+torch.set_num_threads(2)
+
+HP = dict(sample_rate=8000, n_octaves=5, bins_per_octave=12,
+          secs_per_block=0.5, latent_size=16, model_complexity=1)
+CPU_ACTS = [torch.profiler.ProfilerActivity.CPU]
+
+
+def _profiled(fn):
+    """``fn()`` under a CPU profiler, the record cleared first; returns
+    (the record, the profile)."""
+    reset_record()
+    with torch.profiler.profile(activities=CPU_ACTS) as prof:
+        fn()
+    return record(), prof
+
+
+def _events(prof):
+    return list(prof.profiler.kineto_results.events())
+
+
+def _clip(seconds, seed=0):
+    rng = np.random.default_rng(seed)
+    return (0.3 * rng.standard_normal((1, 1, int(seconds * 8000)))
+            ).astype(np.float32)
+
+
+def _stages(spec):
+    """K1 stages of one forward of ``forward_spec``'s result."""
+    specs = (spec.especs + spec.dspecs) if hasattr(spec, "especs") \
+        else [spec]
+    return sum(1 for s in specs for _ in s.convs())
+
+
+def test_off_path_records_nothing_and_emits_no_event():
+    m = TimbreTrap(**HP, seed=1, device="cpu")
+    assert not torch.autograd._profiler_enabled()
+    assert span("tt.a") is span("tt.b", 4)
+    assert profiling.annotate is span
+    reset_record()
+    m.transcribe(_clip(1.0))
+    assert record() == {}
+    rec, prof = _profiled(lambda: torch.ones(4).sum())
+    assert rec == {}
+    assert not [e for e in _events(prof) if e.name().startswith("tt.")]
+
+
+def test_spans_are_cpu_ops_nested_in_their_parent():
+    def fn():
+        with torch.profiler.record_function("parent"):
+            with span("tt.outer"):
+                with span("tt.inner"):
+                    torch.ones(8, 8).sum()
+
+    rec, prof = _profiled(fn)
+    ev = {e.name(): e for e in _events(prof)}
+    parent = ev["parent"]
+    assert parent.is_user_annotation()
+    for name in ("tt.outer", "tt.inner"):
+        e = ev[name]
+        assert not e.is_user_annotation()
+        assert e.device_type() == torch.autograd.DeviceType.CPU
+        assert parent.start_ns() <= e.start_ns()
+        assert (e.start_ns() + e.duration_ns()
+                <= parent.start_ns() + parent.duration_ns())
+    outer, inner = ev["tt.outer"], ev["tt.inner"]
+    assert outer.start_ns() <= inner.start_ns()
+    assert set(rec) == {"tt.outer", "tt.inner"}
+
+
+def test_record_counts_items_and_self_time():
+    def fn():
+        for _ in range(3):
+            with span("tt.outer"):
+                time.sleep(0.002)
+                for k in (2, 5):
+                    with span("tt.inner", k):
+                        time.sleep(0.003)
+
+    rec, _ = _profiled(fn)
+    outer, inner = rec["tt.outer"], rec["tt.inner"]
+    assert (outer["count"], outer["items"]) == (3, 3)
+    assert (inner["count"], inner["items"]) == (6, 21)
+    assert inner["self_s"] == inner["total_s"] >= 6 * 0.003
+    assert outer["self_s"] == pytest.approx(
+        outer["total_s"] - inner["total_s"], abs=1e-9)
+    assert outer["self_s"] >= 3 * 0.002
+    # Timer's own view of the record keeps its keys.
+    assert set(profiling._RECORD.summary()["tt.outer"]) == {
+        "total_s", "count", "mean_ms"}
+    reset_record()
+    assert record() == {}
+
+
+def test_self_time_is_per_thread():
+    """A span on another thread (the autograd engine's, on the card) is
+    no child of the span open on this one; its own stack starts empty."""
+    def other():
+        with profiling._Span("tt.other", 1):
+            time.sleep(0.03)
+
+    def fn():
+        with span("tt.main"):
+            t = threading.Thread(target=other)
+            t.start()
+            t.join(timeout=30)
+            assert not t.is_alive()
+
+    rec, _ = _profiled(fn)
+    main, other_rec = rec["tt.main"], rec["tt.other"]
+    assert other_rec["count"] == 1 and other_rec["total_s"] >= 0.03
+    assert main["self_s"] == main["total_s"] >= other_rec["total_s"]
+
+
+def test_many_threads_lose_no_update():
+    """More threads than cores nest spans at once, the interpreter
+    switching threads every microsecond: every span is counted, and each
+    thread's inner time comes off its own outer span only."""
+    n_threads = (os.cpu_count() or 2) + 4
+    n_iter = 200
+    old = sys.getswitchinterval()
+
+    def work():
+        for _ in range(n_iter):
+            with profiling._Span("tt.outer", 1):
+                with profiling._Span("tt.inner", 2):
+                    pass
+
+    reset_record()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    rec = record()
+    n = n_threads * n_iter
+    assert (rec["tt.outer"]["count"], rec["tt.inner"]["count"]) == (n, n)
+    assert rec["tt.inner"]["items"] == 2 * n
+    assert rec["tt.outer"]["self_s"] == pytest.approx(
+        rec["tt.outer"]["total_s"] - rec["tt.inner"]["total_s"], abs=1e-6)
+    reset_record()
+
+
+@pytest.mark.parametrize("skips", [False, True])
+def test_streamed_transcribe_records_the_chunked_arithmetic(skips):
+    m = TimbreTrap(**HP, skip_connections=skips, seed=2, device="cpu")
+    rec, _ = _profiled(lambda: m.transcribe(_clip(0.5)))
+    assert rec["tt.spec_build"]["count"] == 1     # the first call builds it
+    assert rec["tt.forward"]["items"] == 3        # one block: 2 + 1 chunks
+    # 32 blocks: 2 pieces of 16 blocks, each 33 chunks in 9 forwards.
+    audio = _clip(32 * 0.5 - 0.1)
+    rec, _ = _profiled(lambda: m.transcribe(audio))
+    pieces, forwards = 2, 9 * 2
+    assert rec["tt.transcribe"]["count"] == 1
+    assert rec["tt.forward"]["items"] == 33 * pieces
+    assert rec["tt.forward"]["count"] == forwards
+    assert rec["tt.analysis"]["count"] == forwards
+    assert rec["tt.pack"]["count"] == rec["tt.unpack"]["count"] == forwards
+    # Each piece's accumulator, then each chunk group's add.
+    assert rec["tt.overlap_add"]["count"] == pieces + forwards
+    assert rec["tt.activations"]["count"] == pieces
+    assert rec["tt.concat"]["count"] == 1
+    assert "tt.spec_build" not in rec              # nor the second
+    assert rec["tt.k1"]["count"] == _stages(m._spec(True)) * forwards
+    assert rec["tt.chain"]["count"] == forwards * (10 if skips else 1)
+    if skips:
+        assert rec["tt.skip.bridge"]["count"] == forwards
+        assert rec["tt.skip.add"]["count"] == 5 * forwards
+    else:
+        assert not any(k.startswith("tt.skip.") for k in rec)
+    top = rec["tt.transcribe"]
+    assert 0 < top["self_s"] < top["total_s"]
+
+
+def test_streamed_reconstruct_records_its_spans():
+    m = TimbreTrap(**HP, seed=3, device="cpu")
+    audio = _clip(32 * 0.5)
+    m.reconstruct(audio[..., :4000])   # builds the float32 spec
+    rec, _ = _profiled(lambda: m.reconstruct(audio))
+    assert rec["tt.reconstruct"]["count"] == 1
+    assert rec["tt.forward"]["items"] == 33 * 2
+    assert rec["tt.synthesis"]["count"] == 2
+    assert rec["tt.normalize"]["count"] == 1
+    assert rec["tt.concat"]["count"] == 1
+    assert rec["tt.k1"]["count"] == _stages(m._spec(False)) * 9 * 2
+    assert "tt.spec_build" not in rec
+
+
+def test_bf16_step_records_each_part_once_a_step():
+    m = TimbreTrap(**HP, seed=4, device="cpu")
+    cfg = TrainConfig()
+    state = init_train_state(m, cfg)
+    step = make_train_step(m, cfg, 1, conv_backend="pallas_bf16",
+                           compact_audio_grid=True)
+    audio, gt = synthetic_batch(m, 2, 0.5, seed=5)
+    gt = gt[:1]
+    n_steps = 2
+
+    def run():
+        for _ in range(n_steps):
+            float(step(state, audio, gt, 1e-3)["loss/total"])
+
+    rec, _ = _profiled(run)
+    for part in ("upload", "forward", "backward", "update"):
+        assert rec[f"tt.step.{part}"]["count"] == n_steps, part
+    assert "tt.step.reduce" not in rec
+    assert rec["tt.spec_build"]["count"] == n_steps
+    assert rec["tt.analysis"]["count"] == n_steps
+    step_s = sum(rec[f"tt.step.{p}"]["total_s"]
+                 for p in ("upload", "forward", "backward", "update"))
+    assert rec["tt.spec_build"]["total_s"] < step_s

@@ -47,6 +47,7 @@ from ..ops.fused_level import (LevelSpec, conv2d_level_spec,
                                fuse_level_specs, fused_level_apply,
                                fused_level_train, packed_level_apply)
 from ..ops.packed_conv import build_dense_blocks, pack_nhwc
+from ..utils.profiling import span
 from .modules import embedding_sizes
 
 __all__ = ["packed_to_nchw", "forward_spec", "fused_forward", "SkipRoute",
@@ -182,14 +183,19 @@ class SkipRoute:
         for spec in self.especs:
             x = level_apply(x, spec, dtype)
             embeddings.append(x)
-        latents = (torch.einsum("rl,brt->blt", self.w_lat, x.double())
-                   + self.b_lat[None, :, None])
-        y = (torch.einsum("ri,bit->brt", self.w_cond, latents)
-             + self.b_cond[None, :, None]).float()
-        skips = _scale_skips(self.skip_weights, embeddings)
-        y = _add_skip(torch.nn.functional.elu(y).to(dtype), skips[4])
+        with span("tt.skip.bridge"):
+            latents = (torch.einsum("rl,brt->blt", self.w_lat, x.double())
+                       + self.b_lat[None, :, None])
+            y = (torch.einsum("ri,bit->brt", self.w_cond, latents)
+                 + self.b_cond[None, :, None]).float()
+            y = torch.nn.functional.elu(y).to(dtype)
+        with span("tt.skip.add"):
+            skips = _scale_skips(self.skip_weights, embeddings)
+            y = _add_skip(y, skips[4])
         for i, spec in enumerate(self.dspecs[:4]):
-            y = _add_skip(level_apply(y, spec, dtype), skips[3 - i])
+            y = level_apply(y, spec, dtype)
+            with span("tt.skip.add"):
+                y = _add_skip(y, skips[3 - i])
         return level_apply(y, self.dspecs[4], dtype).float()
 
 
@@ -198,12 +204,13 @@ def forward_spec(net, transcribe):
     """The whole inference forward of ``net`` for one decoder branch
     (blocks on the net's device): one chain (a ``LevelSpec``) without skip
     connections, a ``SkipRoute`` with them."""
-    params = hwio_params(net)
-    if net.skip_connections:
-        return SkipRoute(params, net, transcribe)
-    especs, dspecs = level_specs(params, net)
-    bridge = _latent_bridge_spec(params, net, transcribe)
-    return fuse_level_specs(especs + [bridge] + dspecs)
+    with span("tt.spec_build"):
+        params = hwio_params(net)
+        if net.skip_connections:
+            return SkipRoute(params, net, transcribe)
+        especs, dspecs = level_specs(params, net)
+        bridge = _latent_bridge_spec(params, net, transcribe)
+        return fuse_level_specs(especs + [bridge] + dspecs)
 
 
 def _output_activation(net, y):
@@ -224,13 +231,15 @@ def fused_forward(net, features, transcribe, dtype=torch.float32, spec=None,
     if spec is None:
         spec = forward_spec(net, transcribe)
     level_apply = packed_level_apply if plain else fused_level_apply
-    x = pack_nhwc(features).to(dtype)
+    with span("tt.pack"):
+        x = pack_nhwc(features).to(dtype)
     if isinstance(spec, SkipRoute):
         y = spec.apply(x, dtype, level_apply)
     else:
-        y = level_apply(x, spec, dtype).to(torch.float32)
-    return packed_to_nchw(_output_activation(net, y), net.feature_size,
-                          net.in_channels)
+        y = level_apply(x, spec, dtype)
+    with span("tt.unpack"):
+        y = _output_activation(net, y.to(torch.float32))
+        return packed_to_nchw(y, net.feature_size, net.in_channels)
 
 
 # --------------------------------------------------------------------- #
@@ -309,7 +318,8 @@ def packed_train_forward(params, net, features, consistency,
         raise ValueError(f"backend must be one of {tuple(TRAIN_BACKENDS)}, "
                          f"not {backend!r}")
     skip = net.skip_connections
-    especs, dspecs = level_specs(params, net, backend != "packed")
+    with span("tt.spec_build"):
+        especs, dspecs = level_specs(params, net, backend != "packed")
 
     def encode(x):
         if not skip:

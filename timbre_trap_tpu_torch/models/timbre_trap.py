@@ -31,6 +31,7 @@ import torch
 from ..device import resolve_device
 from ..interop import state_dict_from_jax
 from ..transform import CQT
+from ..utils.profiling import span
 from .fused import forward_spec, fused_forward
 from .modules import TimbreTrapNet, init_weights
 
@@ -145,8 +146,9 @@ class TimbreTrap:
     @torch.no_grad()
     def features_from_audio(self, audio):
         """Audio (B, 1, N) -> network input features (B, F, T, C_in), NHWC."""
-        return self._features_from_complex(self.sliCQ.encode(
-            self._to_f32(audio)))
+        with span("tt.analysis"):
+            return self._features_from_complex(self.sliCQ.encode(
+                self._to_f32(audio)))
 
     @staticmethod
     def _features_from_complex(coefficients):
@@ -244,21 +246,25 @@ class TimbreTrap:
         hop = L // 2
         n_chunks = (audio.shape[-1] - hop) // hop
         n_frames = self.sliCQ.get_expected_frames(audio.shape[-1])
-        window = torch.as_tensor(np.hanning(M), dtype=torch.float32,
-                                 device=self.device)
-        acc = torch.zeros((B, C, F, n_frames + 2 * M), dtype=torch.float32,
-                          device=self.device)
+        with span("tt.overlap_add"):
+            window = torch.as_tensor(np.hanning(M), dtype=torch.float32,
+                                     device=self.device)
+            acc = torch.zeros((B, C, F, n_frames + 2 * M),
+                              dtype=torch.float32, device=self.device)
         lo, hi = (0, n_chunks) if share is None else share(n_chunks)
         G = max(1, min(self.chunk_group, hi - lo))
         for g0 in range(lo, hi, G):
             n = min(G, hi - g0)
-            chunks = torch.stack([audio[..., (g0 + i) * hop:(g0 + i) * hop + L]
-                                  for i in range(n)])        # (n, B, 1, L)
-            out = self._infer(chunks.reshape(n * B, 1, L), transcribe)
-            out = out.reshape(n, B, C, F, M) * window
-            for i in range(n):
-                start = (g0 + i) * (M // 2)
-                acc[..., start:start + M] += out[i]
+            with span("tt.forward", n):
+                chunks = torch.stack([
+                    audio[..., (g0 + i) * hop:(g0 + i) * hop + L]
+                    for i in range(n)])                      # (n, B, 1, L)
+                out = self._infer(chunks.reshape(n * B, 1, L), transcribe)
+            with span("tt.overlap_add"):
+                out = out.reshape(n, B, C, F, M) * window
+                for i in range(n):
+                    start = (g0 + i) * (M // 2)
+                    acc[..., start:start + M] += out[i]
         if reduce is not None:
             reduce(acc)
         return acc[..., M // 2: n_frames - M // 2]
@@ -285,7 +291,11 @@ class TimbreTrap:
         """Pad -> chunked float32 inference -> inverse sliCQ -> normalise."""
         coefficients = self._chunked(self._pad_for_chunks(self._to_f32(audio)),
                                      False)
-        return self.sliCQ._decode_real(coefficients)
+        with span("tt.synthesis"):
+            audio = self.sliCQ.decode_raw(
+                CQT.to_complex(coefficients)[:, None])
+        with span("tt.normalize"):
+            return CQT._normalize(audio)
 
     # ------------------------------------------------------------------ #
     # Streaming transcribe and reconstruct                               #
@@ -294,7 +304,9 @@ class TimbreTrap:
     def _piece(self, segment):
         """Activations of one pre-extended piece (``piece_blocks*L + L``
         samples: the piece plus a half-block halo on each side)."""
-        return self.to_activations(self._chunked(self._to_f32(segment), True))
+        coefficients = self._chunked(self._to_f32(segment), True)
+        with span("tt.activations"):
+            return self.to_activations(coefficients)
 
     def _piece_recon(self, segment):
         """Unnormalised synthesis of one pre-extended piece.
@@ -303,7 +315,9 @@ class TimbreTrap:
         decoding the whole coefficient tensor; only the global
         infinity-norm waits for the whole signal (``reconstruct``)."""
         coefficients = self._chunked(self._to_f32(segment), False)
-        return self.sliCQ.decode_raw(CQT.to_complex(coefficients)[:, None])
+        with span("tt.synthesis"):
+            return self.sliCQ.decode_raw(
+                CQT.to_complex(coefficients)[:, None])
 
     def _stream_pieces(self, audio_np, piece_fn, out_per_block):
         """Piece-by-piece execution of ``piece_fn`` over a host array.
@@ -335,7 +349,8 @@ class TimbreTrap:
                     for i in range(n_pieces)]
         else:
             outs = self._stream_cuda(piece, n_pieces, piece_fn)
-        out = torch.cat(outs, dim=-1)
+        with span("tt.concat"):
+            out = torch.cat(outs, dim=-1)
         return out[..., :n_blocks * out_per_block]
 
     def _stream_cuda(self, piece, n_pieces, piece_fn):
@@ -343,26 +358,30 @@ class TimbreTrap:
         ``piece_fn`` computes piece i on the current stream."""
         main = torch.cuda.current_stream(self.device)
         copy = torch.cuda.Stream(self.device)
-        first = np.ascontiguousarray(piece(0))
-        pinned = [torch.empty(first.shape, dtype=torch.from_numpy(first).dtype,
-                              pin_memory=True) for _ in range(2)]
+        with span("tt.stream.stage"):
+            first = np.ascontiguousarray(piece(0))
+            pinned = [torch.empty(first.shape,
+                                  dtype=torch.from_numpy(first).dtype,
+                                  pin_memory=True) for _ in range(2)]
         copied = [None, None]
 
-        def upload(i, seg):
+        def upload(i, seg=None):
             slot = i % 2
             if copied[slot] is not None:
-                copied[slot].synchronize()   # the slot's last copy is done
-            pinned[slot].numpy()[...] = seg
-            dev = torch.empty(pinned[slot].shape, dtype=pinned[slot].dtype,
-                              device=self.device)
-            # The new block may have been freed by work still queued on the
-            # main stream: order the copy after it.
-            copy.wait_stream(main)
-            with torch.cuda.stream(copy):
-                dev.copy_(pinned[slot], non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(copy)
-            copied[slot] = done
+                with span("tt.stream.wait"):
+                    copied[slot].synchronize()   # the slot's last copy is done
+            with span("tt.stream.stage"):
+                pinned[slot].numpy()[...] = piece(i) if seg is None else seg
+                dev = torch.empty(pinned[slot].shape,
+                                  dtype=pinned[slot].dtype, device=self.device)
+                # The new block may have been freed by work still queued on
+                # the main stream: order the copy after it.
+                copy.wait_stream(main)
+                with torch.cuda.stream(copy):
+                    dev.copy_(pinned[slot], non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(copy)
+                copied[slot] = done
             return dev, done
 
         outs = []
@@ -371,7 +390,7 @@ class TimbreTrap:
             dev, done = nxt
             main.wait_event(done)
             if i + 1 < n_pieces:
-                nxt = upload(i + 1, piece(i + 1))
+                nxt = upload(i + 1)
             outs.append(piece_fn(dev))
         return outs
 
@@ -390,14 +409,17 @@ class TimbreTrap:
         more stream piece by piece; tensors and shorter clips take one
         pass over the whole padded signal.
         """
-        if not isinstance(audio, torch.Tensor):
-            audio_np = _host_array(audio)
-            if self._piece_route(audio_np):
-                return self._stream_pieces(audio_np, self._piece,
-                                           self.sliCQ.max_window_length)
-            audio = torch.from_numpy(np.ascontiguousarray(audio_np))
-        audio = self._pad_for_chunks(self._to_f32(audio))
-        return self.to_activations(self._chunked(audio, True))
+        with span("tt.transcribe"):
+            if not isinstance(audio, torch.Tensor):
+                audio_np = _host_array(audio)
+                if self._piece_route(audio_np):
+                    return self._stream_pieces(audio_np, self._piece,
+                                               self.sliCQ.max_window_length)
+                audio = torch.from_numpy(np.ascontiguousarray(audio_np))
+            audio = self._pad_for_chunks(self._to_f32(audio))
+            coefficients = self._chunked(audio, True)
+            with span("tt.activations"):
+                return self.to_activations(coefficients)
 
     @torch.no_grad()
     def reconstruct(self, audio):
@@ -414,14 +436,16 @@ class TimbreTrap:
             raise ValueError(
                 f"reconstruct needs real and imaginary channels; the "
                 f"{self.variant} model has {self.net.in_channels}")
-        if not isinstance(audio, torch.Tensor):
-            audio_np = _host_array(audio)
-            if self._piece_route(audio_np):
-                out = self._stream_pieces(audio_np, self._piece_recon,
-                                          self.sliCQ.block_length)
-                return CQT._normalize(out)
-            audio = torch.from_numpy(np.ascontiguousarray(audio_np))
-        return self._reconstruct(audio)
+        with span("tt.reconstruct"):
+            if not isinstance(audio, torch.Tensor):
+                audio_np = _host_array(audio)
+                if self._piece_route(audio_np):
+                    out = self._stream_pieces(audio_np, self._piece_recon,
+                                              self.sliCQ.block_length)
+                    with span("tt.normalize"):
+                        return CQT._normalize(out)
+                audio = torch.from_numpy(np.ascontiguousarray(audio_np))
+            return self._reconstruct(audio)
 
     # ------------------------------------------------------------------ #
     # Persistence                                                        #

@@ -16,6 +16,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from ..utils.profiling import span
+
 __all__ = ["load", "build_all", "library_path", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -100,15 +102,16 @@ def load(name, entry):
     """The ctypes entry point ``entry`` of library ``name``, building the
     library if needed."""
     if name not in _loaded:
-        build_all([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        fns = {}
-        for fn_name, argtypes in _SIGNATURES[name].items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            fns[fn_name] = fn
-        _loaded[name] = (lib, fns)
+        with span("tt.build"):
+            build_all([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            fns = {}
+            for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[fn_name] = fn
+            _loaded[name] = (lib, fns)
     return _loaded[name][1][entry]
 
 

@@ -31,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import span
 from . import _build
 from .packed_conv import (BLOCK_ROWS, SUB_ROWS, ConvBlocks,
                           build_conv2d_blocks, build_sconv_blocks,
@@ -231,37 +232,33 @@ def banded_conv(x, cb, act=False, residual=None):
     hi + lo, hi*hi + hi*lo + lo*hi accumulated in float32, as close to the
     exact product as the IEEE float32 one within a small factor).
     ``banded_conv.launches`` counts every launch,
-    ``banded_conv.mma_launches`` the bfloat16 ones,
-    ``banded_conv.wgmma_launches`` those of ``tt_band_conv_wgmma`` (every
-    bfloat16 one), ``banded_conv.mma_launches_f32`` the float32 ones and
-    ``banded_conv.wgmma_launches_f32`` those of ``tt_band_conv_wgmma_f32``
-    (every float32 one). A CPU tensor takes the plain twin. ``x`` is
+    ``banded_conv.mma_launches`` the bfloat16 ones (each on
+    ``tt_band_conv_wgmma``) and ``banded_conv.mma_launches_f32`` the
+    float32 ones (each on ``tt_band_conv_wgmma_f32``). A CPU tensor takes
+    the plain twin. Either way the stage is one ``tt.k1`` span. ``x`` is
     (B, r_in, T) float32 or bfloat16; ``residual`` (B, r_out, T).
     """
-    if x.device.type == "cpu":
-        return banded_conv_reference(x, cb, act, residual)
-    bf16 = x.dtype == torch.bfloat16
-    x, residual, w, bias, y = _stage_operands(x, cb, residual, "banded_conv",
-                                              tf32=not bf16)
-    if y.numel() == 0:
+    with span("tt.k1"):
+        if x.device.type == "cpu":
+            return banded_conv_reference(x, cb, act, residual)
+        bf16 = x.dtype == torch.bfloat16
+        x, residual, w, bias, y = _stage_operands(x, cb, residual,
+                                                  "banded_conv", tf32=not bf16)
+        if y.numel() == 0:
+            return y
+        if bf16:
+            _launch_wgmma(x, cb, act, residual, w, bias, y)
+        else:
+            _launch_wgmma_f32(x, cb, act, residual, w, bias, y)
+        banded_conv.launches += 1
+        banded_conv.mma_launches += int(bf16)
+        banded_conv.mma_launches_f32 += int(not bf16)
         return y
-    if bf16:
-        _launch_wgmma(x, cb, act, residual, w, bias, y)
-    else:
-        _launch_wgmma_f32(x, cb, act, residual, w, bias, y)
-    banded_conv.launches += 1
-    banded_conv.mma_launches += int(bf16)
-    banded_conv.wgmma_launches += int(bf16)
-    banded_conv.mma_launches_f32 += int(not bf16)
-    banded_conv.wgmma_launches_f32 += int(not bf16)
-    return y
 
 
 banded_conv.launches = 0
 banded_conv.mma_launches = 0
-banded_conv.wgmma_launches = 0
 banded_conv.mma_launches_f32 = 0
-banded_conv.wgmma_launches_f32 = 0
 
 
 def banded_conv_mma(x, cb, act=False, residual=None):
@@ -401,13 +398,14 @@ def _wgmma_plan(cb, t, width):
     C int array), built once per conv and T."""
     key = ("wgmma", t)
     if key not in cb._cache:
-        plan = band_tma_plan(cb, t)
-        taps = list(plan.taps) + [(0, 0)] * (3 - len(plan.taps))
-        ints = (t, plan.t_pad, len(plan.taps),
-                *[v for tap in taps for v in tap], cb.col_adv, cb.margin,
-                width, plan.n_w, int(cb.per_block),
-                *[v for band in plan.bands for v in band])
-        cb._cache[key] = (plan.t_pad, (ctypes.c_int * len(ints))(*ints))
+        with span("tt.prepare"):
+            plan = band_tma_plan(cb, t)
+            taps = list(plan.taps) + [(0, 0)] * (3 - len(plan.taps))
+            ints = (t, plan.t_pad, len(plan.taps),
+                    *[v for tap in taps for v in tap], cb.col_adv, cb.margin,
+                    width, plan.n_w, int(cb.per_block),
+                    *[v for band in plan.bands for v in band])
+            cb._cache[key] = (plan.t_pad, (ctypes.c_int * len(ints))(*ints))
     return cb._cache[key]
 
 
@@ -487,12 +485,13 @@ def _wgmma_plan_f32(cb, t, width):
     them: a C int array), built once per conv and T."""
     key = ("wgmma_f32", t)
     if key not in cb._cache:
-        plan = band_tma_plan_f32(cb, t)
-        taps = list(plan.taps) + [0] * (3 - len(plan.taps))
-        ints = (t, plan.t_pad, len(plan.taps), *taps, cb.col_adv, cb.margin,
-                width, plan.n_w, int(cb.per_block),
-                *[v for band in plan.bands for v in band[:2]])
-        cb._cache[key] = (plan.t_pad, (ctypes.c_int * len(ints))(*ints))
+        with span("tt.prepare"):
+            plan = band_tma_plan_f32(cb, t)
+            taps = list(plan.taps) + [0] * (3 - len(plan.taps))
+            ints = (t, plan.t_pad, len(plan.taps), *taps, cb.col_adv,
+                    cb.margin, width, plan.n_w, int(cb.per_block),
+                    *[v for band in plan.bands for v in band[:2]])
+            cb._cache[key] = (plan.t_pad, (ctypes.c_int * len(ints))(*ints))
     return cb._cache[key]
 
 
@@ -556,8 +555,9 @@ def packed_level_apply(x, spec, dtype=torch.float32):
 def fused_level_apply(x, spec, dtype=torch.float32):
     """Run a chain on packed (B, R_in, T) input -> (B, R_out, T) at
     ``dtype``: one ``banded_conv`` kernel launch per conv stage on the card,
-    the plain twin on the CPU."""
-    return _apply_chain(x, spec, dtype, banded_conv)
+    the plain twin on the CPU; one ``tt.chain`` span."""
+    with span("tt.chain"):
+        return _apply_chain(x, spec, dtype, banded_conv)
 
 
 def chain_flops(spec, columns):
@@ -609,24 +609,25 @@ def elu_backward(dy, elu=None, keep_raw=False):
 
     Launches ``csrc/banded_conv_bwd.cu:tt_elu_backward`` for a CUDA tensor
     (``elu_backward.launches`` counts the launches) and takes the plain twin
-    for a CPU tensor.
+    for a CPU tensor; either way one ``tt.k3.seed`` span.
     """
-    if dy.device.type == "cpu":
-        return elu_backward_reference(dy, elu, keep_raw)
-    _check_cuda(dy, "elu_backward")
-    dy = dy.contiguous()
-    s1, s2 = _stored(elu, dy.shape, dy.dtype, "elu_backward")
-    out = torch.empty(dy.shape, dtype=torch.float32, device=dy.device)
-    raw = torch.empty_like(out) if keep_raw else None
-    if out.numel():
-        fn = _build.load("banded_conv_bwd", "tt_elu_backward")
-        with torch.cuda.device(dy.device):
-            rc = fn(dy.data_ptr(), _ptr(s1), _ptr(s2), _ptr(raw),
-                    out.data_ptr(), _DTYPES[dy.dtype], out.numel(),
-                    torch.cuda.current_stream(dy.device).cuda_stream)
-        _build.check(rc, "elu_backward")
-        elu_backward.launches += 1
-    return out, raw
+    with span("tt.k3.seed"):
+        if dy.device.type == "cpu":
+            return elu_backward_reference(dy, elu, keep_raw)
+        _check_cuda(dy, "elu_backward")
+        dy = dy.contiguous()
+        s1, s2 = _stored(elu, dy.shape, dy.dtype, "elu_backward")
+        out = torch.empty(dy.shape, dtype=torch.float32, device=dy.device)
+        raw = torch.empty_like(out) if keep_raw else None
+        if out.numel():
+            fn = _build.load("banded_conv_bwd", "tt_elu_backward")
+            with torch.cuda.device(dy.device):
+                rc = fn(dy.data_ptr(), _ptr(s1), _ptr(s2), _ptr(raw),
+                        out.data_ptr(), _DTYPES[dy.dtype], out.numel(),
+                        torch.cuda.current_stream(dy.device).cuda_stream)
+            _build.check(rc, "elu_backward")
+            elu_backward.launches += 1
+        return out, raw
 
 
 elu_backward.launches = 0
@@ -688,54 +689,59 @@ def banded_conv_dx(c, adj, dtype, residual=None, elu=None, keep_raw=False,
     ``banded_conv``'s float32 stage). ``banded_conv_dx.launches`` counts
     every launch, ``banded_conv_dx.mma_launches`` the bfloat16 ones and
     ``banded_conv_dx.mma_launches_f32`` the float32 ones. A CPU tensor
-    takes the plain twin.
+    takes the plain twin; either way the call is one ``tt.k3.dx`` span.
     """
-    if c.device.type == "cpu":
-        return banded_conv_dx_reference(c, adj, dtype, residual, elu,
-                                        keep_raw, out_dtype)
-    _check_cuda(c, "banded_conv_dx")
-    if c.dtype != torch.float32 or dtype not in _DTYPES:
-        raise ValueError("banded_conv_dx takes a float32 cotangent and a "
-                         "float32 or bfloat16 storage dtype")
-    if out_dtype not in (torch.float32, dtype):
-        raise ValueError(f"banded_conv_dx writes float32 or {dtype}")
-    b, r_in, t = c.shape
-    if r_in != adj.r_in or adj.per_block:
-        raise ValueError("cotangent rows or adjoint geometry not supported")
-    _check_taps(adj, "banded_conv_dx", dtype)
-    shape = (b, adj.r_out, t)
-    c = c.contiguous()
-    if residual is not None:
-        if tuple(residual.shape) != shape or residual.dtype != torch.float32:
-            raise ValueError("residual must be the float32 output shape")
-        residual = residual.contiguous()
-    s1, s2 = _stored(elu, shape, dtype, "banded_conv_dx")
-    w, _ = adj.band_operands(dtype)
-    if w.device != c.device:
-        raise ValueError("adjoint blocks and cotangent lie on different devices")
-    out = torch.empty(shape, dtype=out_dtype, device=c.device)
-    raw = torch.empty(shape, dtype=torch.float32, device=c.device) \
-        if keep_raw else None
-    if out.numel():
-        bf16 = dtype == torch.bfloat16
-        dts = list(adj.dts) + [0] * (3 - len(adj.dts))
-        args = (c.data_ptr(), w.data_ptr(), _ptr(residual), _ptr(s1),
-                _ptr(s2), _ptr(raw), out.data_ptr())
-        geometry = (b, r_in, adj.r_out, t, len(adj.dts), *dts, adj.col_adv,
-                    adj.margin, w.shape[-1], *_band_ints(adj), _aligned(t, c),
-                    torch.cuda.current_stream(c.device).cuda_stream)
-        if bf16:
-            fn = _build.load("band_mma", "tt_band_conv_dx")
-            args += (int(out_dtype == torch.float32),)
-        else:
-            fn = _build.load("band_mma", "tt_band_conv_dx_f32")
-        with torch.cuda.device(c.device):
-            rc = fn(*args, *geometry)
-        _build.check(rc, "banded_conv_dx")
-        banded_conv_dx.launches += 1
-        banded_conv_dx.mma_launches += int(bf16)
-        banded_conv_dx.mma_launches_f32 += int(not bf16)
-    return out, raw
+    with span("tt.k3.dx"):
+        if c.device.type == "cpu":
+            return banded_conv_dx_reference(c, adj, dtype, residual, elu,
+                                            keep_raw, out_dtype)
+        _check_cuda(c, "banded_conv_dx")
+        if c.dtype != torch.float32 or dtype not in _DTYPES:
+            raise ValueError("banded_conv_dx takes a float32 cotangent and a "
+                             "float32 or bfloat16 storage dtype")
+        if out_dtype not in (torch.float32, dtype):
+            raise ValueError(f"banded_conv_dx writes float32 or {dtype}")
+        b, r_in, t = c.shape
+        if r_in != adj.r_in or adj.per_block:
+            raise ValueError("cotangent rows or adjoint geometry not "
+                             "supported")
+        _check_taps(adj, "banded_conv_dx", dtype)
+        shape = (b, adj.r_out, t)
+        c = c.contiguous()
+        if residual is not None:
+            if (tuple(residual.shape) != shape
+                    or residual.dtype != torch.float32):
+                raise ValueError("residual must be the float32 output shape")
+            residual = residual.contiguous()
+        s1, s2 = _stored(elu, shape, dtype, "banded_conv_dx")
+        w, _ = adj.band_operands(dtype)
+        if w.device != c.device:
+            raise ValueError("adjoint blocks and cotangent lie on different "
+                             "devices")
+        out = torch.empty(shape, dtype=out_dtype, device=c.device)
+        raw = torch.empty(shape, dtype=torch.float32, device=c.device) \
+            if keep_raw else None
+        if out.numel():
+            bf16 = dtype == torch.bfloat16
+            dts = list(adj.dts) + [0] * (3 - len(adj.dts))
+            args = (c.data_ptr(), w.data_ptr(), _ptr(residual), _ptr(s1),
+                    _ptr(s2), _ptr(raw), out.data_ptr())
+            geometry = (b, r_in, adj.r_out, t, len(adj.dts), *dts,
+                        adj.col_adv, adj.margin, w.shape[-1],
+                        *_band_ints(adj), _aligned(t, c),
+                        torch.cuda.current_stream(c.device).cuda_stream)
+            if bf16:
+                fn = _build.load("band_mma", "tt_band_conv_dx")
+                args += (int(out_dtype == torch.float32),)
+            else:
+                fn = _build.load("band_mma", "tt_band_conv_dx_f32")
+            with torch.cuda.device(c.device):
+                rc = fn(*args, *geometry)
+            _build.check(rc, "banded_conv_dx")
+            banded_conv_dx.launches += 1
+            banded_conv_dx.mma_launches += int(bf16)
+            banded_conv_dx.mma_launches_f32 += int(not bf16)
+        return out, raw
 
 
 banded_conv_dx.launches = 0
@@ -793,49 +799,50 @@ def banded_conv_dw(dz, x, cb):
     ``banded_conv_dw.launches`` counts the calls,
     ``banded_conv_dw.mma_launches`` the bfloat16 ones and
     ``banded_conv_dw.mma_launches_f32`` the float32 ones. A CPU tensor
-    takes the plain twin.
+    takes the plain twin; either way the call is one ``tt.k3.dw`` span.
     """
-    if dz.device.type == "cpu":
-        return banded_conv_dw_reference(dz, x, cb)
-    _check_cuda(x, "banded_conv_dw")
-    b, r_in, t = x.shape
-    if (dz.dtype != torch.float32 or tuple(dz.shape) != (b, cb.r_out, t)
-            or r_in != cb.r_in or cb.per_block):
-        raise ValueError("banded_conv_dw: cotangent, input or geometry not "
-                         "supported")
-    _check_taps(cb, "banded_conv_dw", x.dtype)
-    dz, x = dz.contiguous(), x.contiguous()
-    n_dt = len(cb.dts)
-    dw = torch.empty((n_dt, BLOCK_ROWS, cb.k), dtype=torch.float32,
-                     device=x.device)
-    db = torch.empty((BLOCK_ROWS,), dtype=torch.float32, device=x.device)
-    n_chunks = b * cb.n_out_blocks * -(-t // 64)
-    if n_chunks == 0:
-        return dw.zero_(), db.zero_()
-    # CTAs per slice: 2 sub-tiles x the longer band's 64-column tiles. Both
-    # kernels hold 2 CTAs an SM: slices for two waves over the H100's 132
-    # SMs, fixed by the shapes alone, so the summation order is too.
-    tiles = 2 * -(-max(n for _, n in cb.bands) // 64)
-    n_slices = max(1, min(n_chunks, -(-132 * 4 // tiles)))
-    part = torch.empty((n_slices, n_dt, BLOCK_ROWS, cb.k),
-                       dtype=torch.float32, device=x.device)
-    part_bias = torch.empty((n_slices, BLOCK_ROWS), dtype=torch.float32,
-                            device=x.device)
-    dts = list(cb.dts) + [0] * (3 - n_dt)
-    bf16 = x.dtype == torch.bfloat16
-    fn = _build.load("band_mma",
-                     "tt_band_conv_dw" if bf16 else "tt_band_conv_dw_f32")
-    with torch.cuda.device(x.device):
-        rc = fn(dz.data_ptr(), x.data_ptr(), part.data_ptr(),
-                part_bias.data_ptr(), dw.data_ptr(), db.data_ptr(), b, r_in,
-                cb.r_out, t, n_dt, *dts, cb.k, cb.col_adv, cb.margin,
-                *_band_ints(cb), n_slices, _aligned(t, dz, x),
-                torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(rc, "banded_conv_dw")
-    banded_conv_dw.launches += 1
-    banded_conv_dw.mma_launches += int(bf16)
-    banded_conv_dw.mma_launches_f32 += int(not bf16)
-    return dw, db
+    with span("tt.k3.dw"):
+        if dz.device.type == "cpu":
+            return banded_conv_dw_reference(dz, x, cb)
+        _check_cuda(x, "banded_conv_dw")
+        b, r_in, t = x.shape
+        if (dz.dtype != torch.float32 or tuple(dz.shape) != (b, cb.r_out, t)
+                or r_in != cb.r_in or cb.per_block):
+            raise ValueError("banded_conv_dw: cotangent, input or geometry "
+                             "not supported")
+        _check_taps(cb, "banded_conv_dw", x.dtype)
+        dz, x = dz.contiguous(), x.contiguous()
+        n_dt = len(cb.dts)
+        dw = torch.empty((n_dt, BLOCK_ROWS, cb.k), dtype=torch.float32,
+                         device=x.device)
+        db = torch.empty((BLOCK_ROWS,), dtype=torch.float32, device=x.device)
+        n_chunks = b * cb.n_out_blocks * -(-t // 64)
+        if n_chunks == 0:
+            return dw.zero_(), db.zero_()
+        # CTAs per slice: 2 sub-tiles x the longer band's 64-column tiles. Both
+        # kernels hold 2 CTAs an SM: slices for two waves over the H100's 132
+        # SMs, fixed by the shapes alone, so the summation order is too.
+        tiles = 2 * -(-max(n for _, n in cb.bands) // 64)
+        n_slices = max(1, min(n_chunks, -(-132 * 4 // tiles)))
+        part = torch.empty((n_slices, n_dt, BLOCK_ROWS, cb.k),
+                           dtype=torch.float32, device=x.device)
+        part_bias = torch.empty((n_slices, BLOCK_ROWS), dtype=torch.float32,
+                                device=x.device)
+        dts = list(cb.dts) + [0] * (3 - n_dt)
+        bf16 = x.dtype == torch.bfloat16
+        fn = _build.load("band_mma",
+                         "tt_band_conv_dw" if bf16 else "tt_band_conv_dw_f32")
+        with torch.cuda.device(x.device):
+            rc = fn(dz.data_ptr(), x.data_ptr(), part.data_ptr(),
+                    part_bias.data_ptr(), dw.data_ptr(), db.data_ptr(), b,
+                    r_in, cb.r_out, t, n_dt, *dts, cb.k, cb.col_adv, cb.margin,
+                    *_band_ints(cb), n_slices, _aligned(t, dz, x),
+                    torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(rc, "banded_conv_dw")
+        banded_conv_dw.launches += 1
+        banded_conv_dw.mma_launches += int(bf16)
+        banded_conv_dw.mma_launches_f32 += int(not bf16)
+        return dw, db
 
 
 banded_conv_dw.launches = 0

@@ -28,6 +28,8 @@ import math
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 __all__ = ["BLOCK_ROWS", "pack_nhwc", "unpack_to_nhwc", "pack_nchw",
            "unpack_to_nchw", "ConvBlocks", "build_conv2d_blocks",
            "build_sconv_blocks", "build_tconv_blocks", "build_dense_blocks",
@@ -160,9 +162,10 @@ class ConvBlocks:
         in the kernel), the bias in float32. Built once per dtype."""
         key = ("band", dtype)
         if key not in self._cache:
-            w = self.band_weights(self.blocks.detach())
-            self._cache[key] = (w.to(dtype).contiguous(),
-                                self.bias.to(torch.float32).contiguous())
+            with span("tt.prepare"):
+                w = self.band_weights(self.blocks.detach())
+                self._cache[key] = (w.to(dtype).contiguous(),
+                                    self.bias.to(torch.float32).contiguous())
         return self._cache[key]
 
     def band_tf32_operands(self):
@@ -175,9 +178,10 @@ class ConvBlocks:
         key = ("tf32",)
         if key not in self._cache:
             w, bias = self.band_operands(torch.float32)
-            hi = tf32_round(w)
-            self._cache[key] = (torch.stack((hi, w - hi), dim=2).contiguous(),
-                                bias)
+            with span("tt.prepare"):
+                hi = tf32_round(w)
+                self._cache[key] = (
+                    torch.stack((hi, w - hi), dim=2).contiguous(), bias)
         return self._cache[key]
 
     def band_mask(self):

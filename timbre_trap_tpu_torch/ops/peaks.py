@@ -10,6 +10,7 @@ is marked 1.
 
 import torch
 
+from ..utils.profiling import span
 from . import _build
 
 __all__ = ["filter_non_peaks", "threshold", "peak_mask", "peak_mask_reference"]
@@ -40,41 +41,44 @@ def peak_mask(activations, t=0.5):
     """(..., F, T) float32 activations -> uint8 peaks-then-threshold mask.
 
     Launches the CUDA kernel for a CUDA tensor (``peak_mask.launches`` counts
-    the launches) and takes the plain twin for a CPU tensor.
+    the launches) and takes the plain twin for a CPU tensor; either way one
+    ``tt.k2`` span.
     """
-    a = torch.as_tensor(activations)
-    if a.device.type == "cpu":
-        return peak_mask_reference(a, t)
-    if a.device.type != "cuda":
-        raise ValueError(f"peak_mask runs on cuda or cpu, not {a.device}")
-    if a.dtype != torch.float32:
-        raise ValueError(f"peak_mask takes float32 activations, not {a.dtype}")
-    if a.ndim < 2:
-        raise ValueError("peak_mask needs (..., F, T) activations")
-    out = torch.empty(a.shape, dtype=torch.uint8, device=a.device)
-    if a.numel() == 0:
+    with span("tt.k2"):
+        a = torch.as_tensor(activations)
+        if a.device.type == "cpu":
+            return peak_mask_reference(a, t)
+        if a.device.type != "cuda":
+            raise ValueError(f"peak_mask runs on cuda or cpu, not {a.device}")
+        if a.dtype != torch.float32:
+            raise ValueError(f"peak_mask takes float32 activations, not "
+                             f"{a.dtype}")
+        if a.ndim < 2:
+            raise ValueError("peak_mask needs (..., F, T) activations")
+        out = torch.empty(a.shape, dtype=torch.uint8, device=a.device)
+        if a.numel() == 0:
+            return out
+        f, t_len = a.shape[-2:]
+        batch = a.numel() // (f * t_len)
+        if batch > 65535:
+            raise ValueError(f"peak_mask takes at most 65535 (F, T) planes, "
+                             f"not {batch}")
+        # The kernel reads (batch, F, T) planes and rows at any stride with
+        # the frames contiguous (as transcribe's frame-trimmed output lies);
+        # other layouts are copied first.
+        v = (a.view(-1, f, t_len) if _planes_of_rows(a)
+             else a.contiguous().view(-1, f, t_len))
+        sb, sf = v.stride(0), v.stride(1)
+        aligned = int(t_len % 4 == 0 and sb % 4 == 0 and sf % 4 == 0
+                      and v.data_ptr() % 16 == 0)
+        fn = _build.load("peak_mask", "tt_peak_mask")
+        with torch.cuda.device(a.device):   # launch on the tensor's device
+            rc = fn(v.data_ptr(), out.data_ptr(), batch, f, t_len, sb, sf,
+                    float(t), aligned,
+                    torch.cuda.current_stream(a.device).cuda_stream)
+        _build.check(rc, "peak_mask")
+        peak_mask.launches += 1
         return out
-    f, t_len = a.shape[-2:]
-    batch = a.numel() // (f * t_len)
-    if batch > 65535:
-        raise ValueError(f"peak_mask takes at most 65535 (F, T) planes, not "
-                         f"{batch}")
-    # The kernel reads (batch, F, T) planes and rows at any stride with the
-    # frames contiguous (as transcribe's frame-trimmed output lies); other
-    # layouts are copied first.
-    v = a.view(-1, f, t_len) if _planes_of_rows(a) else a.contiguous().view(
-        -1, f, t_len)
-    sb, sf = v.stride(0), v.stride(1)
-    aligned = int(t_len % 4 == 0 and sb % 4 == 0 and sf % 4 == 0
-                  and v.data_ptr() % 16 == 0)
-    fn = _build.load("peak_mask", "tt_peak_mask")
-    with torch.cuda.device(a.device):   # launch on the tensor's device
-        rc = fn(v.data_ptr(), out.data_ptr(), batch, f, t_len, sb, sf,
-                float(t), aligned,
-                torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(rc, "peak_mask")
-    peak_mask.launches += 1
-    return out
 
 
 peak_mask.launches = 0

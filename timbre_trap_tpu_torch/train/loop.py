@@ -45,6 +45,7 @@ from ..data.loader import device_prefetch
 from ..eval.evaluation import evaluate
 from ..parallel import distributed
 from ..parallel.mesh import make_mesh, plan_local_rows, torchrun_hint
+from ..utils.profiling import span
 from .checkpoint import load_checkpoint, save_checkpoint
 from .schedules import PlateauDecay, cosine_warmup
 from .step import (TrainConfig, compact_audio, compact_ground_truth,
@@ -445,7 +446,8 @@ class Trainer:
                 depth=2, pin_memory=self._cuda)
             dev = None
             try:
-                nxt = next(batches, None)
+                with span("tt.loader.wait"):
+                    nxt = next(batches, None)
                 dev = self._transfer(nxt) if nxt is not None else None
                 while dev is not None:
                     audio, gt, done = dev
@@ -460,7 +462,8 @@ class Trainer:
                     lr *= self.plateau.scale
 
                     metrics = step_fn(self.opt_state, audio, gt, lr)
-                    nxt = next(batches, None)
+                    with span("tt.loader.wait"):
+                        nxt = next(batches, None)
                     dev = self._transfer(nxt) if nxt is not None else None
                     self._log(metrics)
 

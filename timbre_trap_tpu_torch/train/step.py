@@ -36,6 +36,7 @@ from ..models.fused import TRAIN_BACKENDS, packed_to_nchw, packed_train_forward
 from ..objectives import compute_transcription_loss
 from ..ops.packed_conv import pack_nchw, pack_nhwc
 from ..parallel.mesh import DATA_AXIS
+from ..utils.profiling import span
 
 __all__ = ["TrainConfig", "TRAIN_AUDIO_SCALE", "AdamW", "MultiSteps",
            "make_optimizer",
@@ -371,16 +372,23 @@ def make_train_step(model, config: TrainConfig, mpe_batch_size: int,
 def _assemble_step(model, upload, loss_fn, update, reduce=None):
     """The step that runs its parts in order: ``upload``, ``loss_fn``,
     ``total.backward()``, ``reduce`` of the metrics (and the gradients) if
-    given, ``update``. ``step.parts`` lists them; ``step.model`` is
-    ``model``."""
+    given, ``update``, each one span (``tt.step.upload``, ``.forward``,
+    ``.backward``, ``.reduce``, ``.update``). ``step.parts`` lists them;
+    ``step.model`` is ``model``."""
 
     def step(opt_state, audio, ground_truth, lr):
         with ieee_convs(model.device):
-            total, metrics = loss_fn(*upload(audio, ground_truth))
-            total.backward()
+            with span("tt.step.upload"):
+                batch = upload(audio, ground_truth)
+            with span("tt.step.forward"):
+                total, metrics = loss_fn(*batch)
+            with span("tt.step.backward"):
+                total.backward()
         if reduce is not None:
-            metrics = reduce(metrics)
-        return update(opt_state, metrics, lr)
+            with span("tt.step.reduce"):
+                metrics = reduce(metrics)
+        with span("tt.step.update"):
+            return update(opt_state, metrics, lr)
 
     step.parts = ((upload, loss_fn, update) if reduce is None
                   else (upload, loss_fn, reduce, update))
