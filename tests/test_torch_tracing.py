@@ -14,7 +14,11 @@ bins, 0.5-s blocks, latent 16, complexity 1):
   span a conv stage of each forward, base and skip route, and build the
   inference chain on the first call only;
 * a ``pallas_bf16`` step on the CPU twin records each ``tt.step.*`` span
-  once a step and rebuilds its level specs once a step.
+  once a step and refreshes its level specs once a step;
+* the kept specs: the geometry is built once (one ``tt.prepare``, none
+  on later steps), the band operands stay at the same addresses, two nets
+  of different geometry keep entries of their own, and ``transcribe``
+  after a step runs the stepped weights.
 """
 
 import os
@@ -26,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from timbre_trap_tpu_torch.models import TimbreTrap
+from timbre_trap_tpu_torch.models import TimbreTrap, fused
 from timbre_trap_tpu_torch.train import (TrainConfig, init_train_state,
                                          make_train_step, synthetic_batch)
 from timbre_trap_tpu_torch.utils import profiling
@@ -247,3 +251,75 @@ def test_bf16_step_records_each_part_once_a_step():
     step_s = sum(rec[f"tt.step.{p}"]["total_s"]
                  for p in ("upload", "forward", "backward", "update"))
     assert rec["tt.spec_build"]["total_s"] < step_s
+
+
+def _kept_train_specs(net):
+    """The net's kept training specs as the last refresh left them."""
+    (specs,) = [v for k, v in fused._KEPT[net].items() if k[0]]
+    return specs
+
+
+def _recipe_step(m, seed):
+    cfg = TrainConfig()
+    state = init_train_state(m, cfg)
+    step = make_train_step(m, cfg, 1, conv_backend="pallas_bf16",
+                           compact_audio_grid=True)
+    audio, gt = synthetic_batch(m, 1, 0.25, seed=seed)
+    return lambda: float(step(state, audio, gt, 1e-3)["loss/total"])
+
+
+def _operand_pointers(especs, dspecs):
+    return [t.data_ptr() for spec in especs + dspecs for cb in spec.convs()
+            for t in (*cb.band_operands(torch.bfloat16),
+                      cb.adjoint.band_operands(torch.bfloat16)[0],
+                      cb.band_operands(torch.float32)[0],
+                      cb.band_tf32_operands()[0])]
+
+
+def test_kept_specs_build_once_and_stay_put():
+    m = TimbreTrap(**HP, seed=8, device="cpu")
+    run = _recipe_step(m, 9)
+    rec, _ = _profiled(run)
+    assert rec["tt.prepare"]["count"] == 1        # the geometry, once
+    assert rec["tt.spec_build"]["count"] == 1
+    specs = _kept_train_specs(m.net)
+    pointers = _operand_pointers(*specs)
+    before = specs[0][0].store.f.clone()
+    n_steps = 3
+    rec, _ = _profiled(lambda: [run() for _ in range(n_steps)])
+    assert "tt.prepare" not in rec
+    assert rec["tt.spec_build"]["count"] == n_steps
+    again = _kept_train_specs(m.net)
+    assert all(a is b for a, b in zip(again[0] + again[1],
+                                      specs[0] + specs[1]))
+    assert _operand_pointers(*again) == pointers
+    assert not torch.equal(again[0][0].store.f, before)   # refreshed
+
+
+def test_nets_of_other_geometry_keep_their_own_specs():
+    a = TimbreTrap(**HP, seed=10, device="cpu")
+    b = TimbreTrap(**dict(HP, n_octaves=4), seed=10, device="cpu")
+    steps = [_recipe_step(m, 11) for m in (a, b)]
+    for run in steps:
+        run()
+    store_a, store_b = (_kept_train_specs(m.net)[0][0].store for m in (a, b))
+    assert store_a is not store_b
+    f_ins = [[cb.f_in for cb in store.specs[0].convs()]
+             for store in (store_a, store_b)]
+    assert f_ins[0] != f_ins[1]
+    assert fused._KEPT[a.net].keys().isdisjoint(fused._KEPT[b.net].keys())
+    f_a = store_a.f.clone()
+    steps[1]()
+    assert torch.equal(store_a.f, f_a)          # b's refresh leaves a's
+
+
+def test_transcribe_after_kept_step_runs_the_stepped_weights():
+    m = TimbreTrap(**HP, seed=12, device="cpu")
+    clip = _clip(1.0)
+    before = m.transcribe(clip)
+    _recipe_step(m, 13)()
+    after = m.transcribe(clip)
+    fresh = TimbreTrap(**HP, seed=0, device="cpu")
+    fresh.net.load_state_dict(m.net.state_dict())
+    assert not torch.equal(after, before)
+    assert torch.equal(after, fresh.transcribe(clip))

@@ -651,3 +651,96 @@ def test_synthetic_batch_is_seeded_and_shaped():
     again = synthetic_batch(m, 3, 1.0, seed=4)
     assert np.array_equal(audio, again[0]) and np.array_equal(gt, again[1])
     assert not np.array_equal(audio, synthetic_batch(m, 3, 1.0, seed=5)[0])
+
+
+# --------------------------------------------------------------------- #
+# Kept level specs                                                       #
+# --------------------------------------------------------------------- #
+
+def _kept_specs(net):
+    """The net's kept training specs as the last refresh left them."""
+    from timbre_trap_tpu_torch.models import fused
+    (specs,) = [v for k, v in fused._KEPT[net].items() if k[0]]
+    return specs
+
+
+def _band_operands(especs, dspecs, dtype):
+    """Every conv's band weights and bias at ``dtype`` (and float32's TF32
+    planes) and its adjoint's band weights."""
+    out = []
+    for spec in especs + dspecs:
+        for cb in spec.convs():
+            out += [*cb.band_operands(dtype),
+                    cb.adjoint.band_operands(dtype)[0]]
+            if dtype == torch.float32:
+                out += list(cb.band_tf32_operands())
+    return out
+
+
+@pytest.mark.parametrize("family,skips,backend", [
+    ("TimbreTrap", False, "pallas_bf16"), ("TimbreTrap", False, "pallas"),
+    ("TimbreTrap", True, "pallas_bf16"), ("TimbreTrap", True, "pallas"),
+    ("TimbreTrapFiLM", False, "pallas_bf16"),
+    ("TimbreTrapFiLM", False, "pallas")])
+def test_kept_specs_step_as_specs_built_every_step(family, skips, backend):
+    """Three steps on the net's kept specs (the geometry built once, the
+    band operands refreshed from the weights each step) against three
+    steps whose specs are built from an empty geometry cache every step:
+    every step's forward band operands are bit-equal to the per-step
+    block builder's (``level_specs`` of the step's weights), and the
+    parameters and optimizer state agree within a few float32 ulps."""
+    from timbre_trap_tpu_torch import models
+    from timbre_trap_tpu_torch.interop import hwio_params
+    from timbre_trap_tpu_torch.models import fused
+
+    cfg = TrainConfig()
+    dtype = fused.TRAIN_BACKENDS[backend]
+    results = []
+    for keep in (True, False):
+        m = getattr(models, family)(**HP, skip_connections=skips, seed=6,
+                                    device="cpu")
+        audio, gt = synthetic_batch(m, 1, 0.25, seed=7)
+        state = init_train_state(m, cfg)
+        step = make_train_step(m, cfg, 1, conv_backend=backend,
+                               compact_audio_grid=True)
+        kept = []
+        for _ in range(3):
+            if not keep:
+                fused._KEPT.pop(m.net, None)
+            with torch.no_grad():
+                want = _band_operands(
+                    *fused.level_specs(hwio_params(m.net), m.net, True),
+                    dtype)
+            step(state, audio, gt, 1e-3)
+            kept.append(_kept_specs(m.net))
+            got = _band_operands(*kept[-1], dtype)
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g, w)
+        same = [k[0][0] is kept[0][0][0] for k in kept]
+        assert same == ([True] * 3 if keep else [True, False, False])
+        results.append((m.net.state_dict(), state))
+    (p_keep, s_keep), (p_built, s_built) = results
+    ulps = dict(rtol=4 * 2.0 ** -23, atol=0)
+    for name, v in p_keep.items():
+        torch.testing.assert_close(v, p_built[name], msg=name, **ulps)
+    assert s_keep["count"] == s_built["count"] == 3
+    for part in ("mu", "nu"):
+        for name, v in s_keep[part].items():
+            torch.testing.assert_close(v, s_built[part][name],
+                                       msg=f"{part} {name}", **ulps)
+
+
+def test_refresh_between_forward_and_backward_raises():
+    """A level's backward reads the kept operands its forward read: a
+    refresh in between (the next step's, before this one's backward)
+    raises instead of differentiating the wrong weights."""
+    from timbre_trap_tpu_torch.models import fused
+
+    m = TimbreTrap(**HP, seed=6, device="cpu")
+    especs, _ = fused.kept_level_specs(m.net, True)
+    x = torch.randn(1, especs[0].r_in, 16)
+    y = fl.fused_level_train(x, especs[0], torch.float32).sum()
+    fused.kept_level_specs(m.net, True)
+    with pytest.raises(RuntimeError, match="refreshed"):
+        y.backward()

@@ -36,12 +36,21 @@ backward; float32, or bfloat16 storage with float32 accumulation);
 ``"packed"`` is autograd through the plain twin ``packed_level_apply`` in
 float32, checkpointed per level as the JAX ``"packed"`` step
 rematerializes.
+
+Both routes run the net's kept level specs (``kept_level_specs``): the
+convs' geometry, their K1 plans and the band store's tables are built once
+per net and shapes, and each step (each inference chain) refreshes the
+band operands from the weights in place by one gather, whose backward is a
+fixed-order segment sum (``ops/band_store.py``).
 """
+
+import weakref
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..interop import hwio_params
+from ..interop import _flax_tree, hwio_params
+from ..ops.band_store import BandStore
 from ..ops.fused_level import (LevelSpec, conv2d_level_spec,
                                decoder_level_spec, encoder_level_spec,
                                fuse_level_specs, fused_level_apply,
@@ -51,8 +60,8 @@ from ..utils.profiling import span
 from .modules import embedding_sizes
 
 __all__ = ["packed_to_nchw", "forward_spec", "fused_forward", "SkipRoute",
-           "TRAIN_BACKENDS", "level_specs", "encode_packed", "decode_packed",
-           "packed_train_forward"]
+           "TRAIN_BACKENDS", "level_specs", "kept_level_specs",
+           "encode_packed", "decode_packed", "packed_train_forward"]
 
 # Level backend -> storage dtype of its level chains.
 TRAIN_BACKENDS = {"pallas": torch.float32, "pallas_bf16": torch.bfloat16,
@@ -113,6 +122,48 @@ def level_specs(params, net, with_adjoints=False):
     return especs, dspecs
 
 
+# net -> {geometry key: (encoder specs, decoder specs)}: the kept specs,
+# dropped with their net.
+_KEPT = weakref.WeakKeyDictionary()
+
+
+def kept_level_specs(net, with_adjoints=False):
+    """``level_specs(hwio_params(net), net, with_adjoints)``, kept: the
+    geometry (the specs' convs, their K1 plans, the band store's index
+    tables and buffers, ``ops/band_store.py``) is built once per net and
+    key, the key being what the geometry depends on (the parameters' names
+    and shapes, the feature size, skips, variant, device and dtype); every
+    call refreshes the band operands from the net's current weights in
+    place (``BandStore.refresh``, differentiable). A miss is one
+    ``tt.prepare`` span."""
+    named = list(net.named_parameters())
+    first = named[0][1]
+    key = (bool(with_adjoints), first.device, first.dtype, net.feature_size,
+           net.skip_connections, net.variant,
+           tuple((n, tuple(p.shape)) for n, p in named))
+    kept = _KEPT.setdefault(net, {})
+    if key not in kept:
+        with span("tt.prepare"):
+            kept[key] = _build_kept(net, named, with_adjoints, first.device)
+    especs, dspecs = kept[key]
+    especs[0].store.refresh([p for _, p in named])
+    return especs, dspecs
+
+
+def _build_kept(net, named, with_adjoints, device):
+    """The level specs of ``net`` built once on the CPU from
+    position-valued parameters (``1 + i`` for element i of the
+    parameters in order), taken over by a ``BandStore`` on ``device``."""
+    positions, start = [], 1
+    for name, p in named:
+        positions.append((name, torch.arange(
+            start, start + p.numel(), dtype=torch.float32).view(p.shape)))
+        start += p.numel()
+    especs, dspecs = level_specs(_flax_tree(positions), net, with_adjoints)
+    BandStore(especs + dspecs, [p.shape for _, p in named], device)
+    return especs, dspecs
+
+
 def _film(params, transcribe):
     """FiLM's (gamma, beta) for one branch: affine maps of the one-hot
     condition ``[transcribe, not transcribe]``, i.e. the kernel row of the
@@ -169,7 +220,7 @@ class SkipRoute:
     weights."""
 
     def __init__(self, params, net, transcribe):
-        self.especs, self.dspecs = level_specs(params, net)
+        self.especs, self.dspecs = kept_level_specs(net)
         w_lat, b_lat, _, _ = _latent_matmuls(params)
         w_cond, b_cond = _switch(params, net, transcribe)
         self.w_lat, self.b_lat = w_lat.double(), b_lat.double()
@@ -203,12 +254,13 @@ class SkipRoute:
 def forward_spec(net, transcribe):
     """The whole inference forward of ``net`` for one decoder branch
     (blocks on the net's device): one chain (a ``LevelSpec``) without skip
-    connections, a ``SkipRoute`` with them."""
+    connections, a ``SkipRoute`` with them; its levels are the net's kept
+    specs (``kept_level_specs``), refreshed from the current weights."""
     with span("tt.spec_build"):
         params = hwio_params(net)
         if net.skip_connections:
             return SkipRoute(params, net, transcribe)
-        especs, dspecs = level_specs(params, net)
+        especs, dspecs = kept_level_specs(net)
         bridge = _latent_bridge_spec(params, net, transcribe)
         return fuse_level_specs(especs + [bridge] + dspecs)
 
@@ -311,15 +363,22 @@ def packed_train_forward(params, net, features, consistency,
     transcription_scr), coefficients PACKED (B, F*C, T) float32 — the
     quantities of the reference's training forward in the padding-free
     layout (the JAX ``packed_train_forward`` with ``batch_pairs=False``).
-    ``params`` is ``hwio_params(net)``: the level specs are built once from
-    it, with autograd, and serve both encodes and all four decodes.
+    ``params`` is ``hwio_params(net)``. The level specs are the net's kept
+    specs (``kept_level_specs``), refreshed once a call from its weights,
+    with autograd, before they serve both encodes and all four decodes:
+    the kernel backends' operands at the storage dtype, or the dense
+    blocks that ``"packed"`` reads.
     """
     if backend not in TRAIN_BACKENDS:
         raise ValueError(f"backend must be one of {tuple(TRAIN_BACKENDS)}, "
                          f"not {backend!r}")
     skip = net.skip_connections
     with span("tt.spec_build"):
-        especs, dspecs = level_specs(params, net, backend != "packed")
+        especs, dspecs = kept_level_specs(net, backend != "packed")
+        if backend == "packed":
+            especs[0].store.dense_views()
+        else:
+            especs[0].store.prepare(TRAIN_BACKENDS[backend])
 
     def encode(x):
         if not skip:

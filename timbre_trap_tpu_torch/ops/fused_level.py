@@ -61,11 +61,19 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 class LevelSpec:
-    """Static description of a chain of conv items (one level or several)."""
+    """Static description of a chain of conv items (one level or several).
+
+    A level of a network's kept specs also carries its ``BandStore``
+    (``store``), the latest refresh's gradient route (``grad_route``: the
+    level's dense blocks and biases, one differentiable vector) and where
+    each conv's dW and dBias lie in that vector (``grad_offsets``,
+    ``grad_size``)."""
 
     def __init__(self, items, r_in):
         self.items = items
         self.r_in = int(r_in)
+        self.store = self.grad_route = self.grad_offsets = None
+        self.grad_size = 0
         r = self.r_in
         for it in items:
             cb = it[1]
@@ -749,8 +757,9 @@ banded_conv_dx.mma_launches = 0
 banded_conv_dx.mma_launches_f32 = 0
 
 
-def banded_conv_dw_reference(dz, x, cb):
-    """Plain twin of ``banded_conv_dw``: one einsum per time tap over the
+def banded_conv_dw_reference(dz, x, cb, out=None, offset=0):
+    """Plain twin of ``banded_conv_dw`` (``out`` and ``offset`` as there):
+    one einsum per time tap over the
     chunked view of the zero-margined input (as ``packed_conv_reference``),
     float32 accumulation (float64 for float64 inputs); dW is kept on the
     bands only (``cb.band_mask()``), zero elsewhere, as the kernels write
@@ -778,10 +787,15 @@ def banded_conv_dw_reference(dz, x, cb):
         dw = torch.einsum("bjrt,bojkt->rok", ops, xw)
         dws.append(dw.reshape(BLOCK_ROWS, nw * A)[:, :cb.k])
     dw = torch.stack(dws) * cb.band_mask().to(x.device)
-    return dw, db
+    if out is None:
+        return dw, db
+    n_w = dw.numel()
+    out[offset:offset + n_w].copy_(dw.flatten())
+    out[offset + n_w:offset + n_w + BLOCK_ROWS].copy_(db)
+    return None, None
 
 
-def banded_conv_dw(dz, x, cb):
+def banded_conv_dw(dz, x, cb, out=None, offset=0):
     """Weight and bias gradients of one conv stage: ``dW`` (n_dt, 128, K)
     and ``dBias`` (128,), float32, from the float32 cotangent ``dz``
     (B, r_out, T) of the stage's pre-activation and its input ``x``
@@ -800,10 +814,22 @@ def banded_conv_dw(dz, x, cb):
     ``banded_conv_dw.mma_launches`` the bfloat16 ones and
     ``banded_conv_dw.mma_launches_f32`` the float32 ones. A CPU tensor
     takes the plain twin; either way the call is one ``tt.k3.dw`` span.
+
+    With ``out`` (a contiguous float32 vector), dW's n_dt·128·K entries and
+    then dBias's 128 are written into it from ``offset`` on, and
+    ``(None, None)`` is returned.
     """
     with span("tt.k3.dw"):
+        n_w = len(cb.dts) * BLOCK_ROWS * cb.k
+        if out is not None and (out.dtype != torch.float32
+                                or not out.is_contiguous()
+                                or offset + n_w + BLOCK_ROWS > out.numel()):
+            raise ValueError("banded_conv_dw: out must be a contiguous "
+                             "float32 vector with room at offset")
         if dz.device.type == "cpu":
-            return banded_conv_dw_reference(dz, x, cb)
+            if out is None:
+                return banded_conv_dw_reference(dz, x, cb)
+            return banded_conv_dw_reference(dz, x, cb, out, offset)
         _check_cuda(x, "banded_conv_dw")
         b, r_in, t = x.shape
         if (dz.dtype != torch.float32 or tuple(dz.shape) != (b, cb.r_out, t)
@@ -813,11 +839,21 @@ def banded_conv_dw(dz, x, cb):
         _check_taps(cb, "banded_conv_dw", x.dtype)
         dz, x = dz.contiguous(), x.contiguous()
         n_dt = len(cb.dts)
-        dw = torch.empty((n_dt, BLOCK_ROWS, cb.k), dtype=torch.float32,
-                         device=x.device)
-        db = torch.empty((BLOCK_ROWS,), dtype=torch.float32, device=x.device)
+        if out is None:
+            dw = torch.empty((n_dt, BLOCK_ROWS, cb.k), dtype=torch.float32,
+                             device=x.device)
+            db = torch.empty((BLOCK_ROWS,), dtype=torch.float32,
+                             device=x.device)
+            dw_ptr, db_ptr = dw.data_ptr(), db.data_ptr()
+        else:
+            dw = db = None
+            dw_ptr = out.data_ptr() + out.element_size() * offset
+            db_ptr = dw_ptr + out.element_size() * n_w
         n_chunks = b * cb.n_out_blocks * -(-t // 64)
         if n_chunks == 0:
+            if out is not None:
+                out[offset:offset + n_w + BLOCK_ROWS].zero_()
+                return None, None
             return dw.zero_(), db.zero_()
         # CTAs per slice: 2 sub-tiles x the longer band's 64-column tiles. Both
         # kernels hold 2 CTAs an SM: slices for two waves over the H100's 132
@@ -834,7 +870,7 @@ def banded_conv_dw(dz, x, cb):
                          "tt_band_conv_dw" if bf16 else "tt_band_conv_dw_f32")
         with torch.cuda.device(x.device):
             rc = fn(dz.data_ptr(), x.data_ptr(), part.data_ptr(),
-                    part_bias.data_ptr(), dw.data_ptr(), db.data_ptr(), b,
+                    part_bias.data_ptr(), dw_ptr, db_ptr, b,
                     r_in, cb.r_out, t, n_dt, *dts, cb.k, cb.col_adv, cb.margin,
                     *_band_ints(cb), n_slices, _aligned(t, dz, x),
                     torch.cuda.current_stream(x.device).cuda_stream)
@@ -953,23 +989,38 @@ class _FusedLevelTrain(torch.autograd.Function):
     """Forward: the chain through K1 at the storage dtype; saved: the level
     input; backward: ``level_backward`` (K3) on the card, its plain twin on
     the CPU. Gradients: dX at the input's dtype, float32 for every blocks
-    and bias tensor."""
+    and bias tensor, or, for a level of the kept specs, one float32 vector
+    of every conv's dW and dBias (K3 writes them into it in place) for its
+    gradient route."""
 
     @staticmethod
     def forward(ctx, x, spec, dtype, *arrays):
         xs = x.to(dtype)
         ctx.save_for_backward(xs)
         ctx.spec, ctx.dtype, ctx.x_dtype = spec, dtype, x.dtype
+        ctx.gen = None if spec.store is None else spec.store.gen
         return fused_level_apply(xs, spec, dtype)
 
     @staticmethod
     def backward(ctx, dy):
         (xs,) = ctx.saved_tensors
-        fn = level_backward if xs.device.type == "cuda" \
-            else level_backward_reference
-        dx, grads = fn(xs, ctx.spec, dy.contiguous(), ctx.dtype,
-                       input_grad=ctx.needs_input_grad[0],
-                       dx_dtype=ctx.x_dtype)
+        spec = ctx.spec
+        ops = _KERNEL_OPS if xs.device.type == "cuda" else _PLAIN_OPS
+        flat = None
+        if spec.store is not None:
+            if spec.store.gen != ctx.gen:
+                raise RuntimeError("the level's band operands were refreshed "
+                                   "after its forward; run the backward "
+                                   "before the next refresh")
+            flat = torch.empty(spec.grad_size, dtype=torch.float32,
+                               device=xs.device)
+            dw_fn, at = ops[2], spec.grad_offsets
+            ops = ops[:2] + (lambda dz, x, cb: dw_fn(
+                dz, x, cb, out=flat, offset=at[cb]),) + ops[3:]
+        dx, grads = _level_backward(xs, spec, dy.contiguous(), ctx.dtype,
+                                    ctx.needs_input_grad[0], ctx.x_dtype, ops)
+        if flat is not None:
+            return dx, None, None, flat
         return (dx, None, None) + tuple(g for pair in grads for g in pair)
 
 
@@ -978,10 +1029,14 @@ def fused_level_train(x, spec, dtype=torch.float32):
     packed (B, r_in, T) input -> (B, r_out, T) at ``dtype`` (float32, or
     bfloat16 storage with float32 accumulation). Gradients flow to ``x``
     and to every conv's ``blocks`` and ``bias`` (and through them to the
-    parameters they were built from). The spec must be built
-    ``with_adjoints``."""
+    parameters they were built from), or, for a level of the kept specs, to
+    its ``grad_route`` (and through the refresh to the parameters). The
+    spec must be built ``with_adjoints``."""
     convs = list(spec.convs())
     if any(cb.adjoint is None for cb in convs):
         raise ValueError("fused_level_train needs a spec built with_adjoints")
-    arrays = [a for cb in convs for a in (cb.blocks, cb.bias)]
+    if spec.grad_route is not None:
+        arrays = [spec.grad_route]
+    else:
+        arrays = [a for cb in convs for a in (cb.blocks, cb.bias)]
     return _FusedLevelTrain.apply(x, spec, dtype, *arrays)

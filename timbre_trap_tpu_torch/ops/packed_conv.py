@@ -87,7 +87,14 @@ class ConvBlocks:
                 no weight). A ``per_block`` map has one band, all of ``k``.
       adjoint:  the transpose of the conv as another repeating banded conv
                 (its dX map), attached by a training spec, else None.
+
+    A conv of a network's kept specs (``ops/band_store.py``) is backed by
+    its ``BandStore``: its band operands are views of the store's buffers,
+    refreshed from the weights in place, and ``blocks`` and ``bias`` views
+    of the store's dense blocks, built when first read after a refresh.
     """
+
+    _store = None
 
     def __init__(self, blocks, dts, bias, col_adv, margin, f_in, f_out,
                  c_in, c_out, per_block=False, bands=None):
@@ -106,6 +113,26 @@ class ConvBlocks:
         self.bands = tuple((int(s), int(n)) for s, n in bands)
         self.adjoint = None
         self._cache = {}
+
+    @property
+    def blocks(self):
+        if self._store is not None:
+            self._store.dense_views()
+        return self._blocks
+
+    @blocks.setter
+    def blocks(self, value):
+        self._blocks = value
+
+    @property
+    def bias(self):
+        if self._store is not None:
+            self._store.dense_views()
+        return self._bias
+
+    @bias.setter
+    def bias(self, value):
+        self._bias = value
 
     @property
     def r_in(self):
@@ -160,6 +187,8 @@ class ConvBlocks:
         them: the band weights at the storage ``dtype`` (bfloat16, or
         float32 for the ``mma.sync`` split-TF32 kernels, which split them
         in the kernel), the bias in float32. Built once per dtype."""
+        if self._store is not None:
+            return self._store.band_operands(self, dtype)
         key = ("band", dtype)
         if key not in self._cache:
             with span("tt.prepare"):
@@ -175,6 +204,8 @@ class ConvBlocks:
         away from zero, as ``cvt.rna.tf32.f32``) and plane 1 ``lo = w -
         hi`` (exact in float32), and the float32 bias. Built once, on the
         weights' device."""
+        if self._store is not None:
+            return self._store.tf32_operands(self)
         key = ("tf32",)
         if key not in self._cache:
             w, bias = self.band_operands(torch.float32)
