@@ -1571,9 +1571,24 @@ def forward_parity(torch, model, chunks, counters):
     return out
 
 
+@contextlib.contextmanager
+def eager_groups():
+    """Within the block, every model's chunk groups run eagerly on the card
+    (``_infer`` called, no CUDA graph captured or replayed)."""
+    from timbre_trap_tpu_torch.models import timbre_trap
+
+    replays = timbre_trap._replays_graphs
+    timbre_trap._replays_graphs = lambda device: False
+    try:
+        yield
+    finally:
+        timbre_trap._replays_graphs = replays
+
+
 def plain_transcribe(model, audio):
     """``model.transcribe(audio)`` with every level through the plain twins
-    on the card (the same storage dtype and casts as the kernels)."""
+    on the card (the same storage dtype and casts as the kernels), its
+    chunk groups run eagerly."""
     from timbre_trap_tpu_torch.models.fused import fused_forward
 
     infer = model._infer
@@ -1585,7 +1600,8 @@ def plain_transcribe(model, audio):
 
     model._infer = plain
     try:
-        return model.transcribe(audio)
+        with eager_groups():
+            return model.transcribe(audio)
     finally:
         model._infer = infer
 
@@ -1594,7 +1610,8 @@ def plain_transcribe(model, audio):
 def float64_forward(model):
     """Within the block, ``model``'s forwards run in float64 through its
     NCHW network (the plain check of the same function): a reference for
-    its float32 runs, rounded to float32 only by the overlap-add."""
+    its float32 runs, rounded to float32 only by the overlap-add. The chunk
+    groups run eagerly, as in ``plain_transcribe``."""
     net64 = copy.deepcopy(model.net).double()
     infer = model._infer
 
@@ -1604,21 +1621,33 @@ def float64_forward(model):
 
     model._infer = forward
     try:
-        yield model
+        with eager_groups():
+            yield model
     finally:
         model._infer = infer
 
 
 def count_forwards(model):
-    """Counts the model's inference forwards (chunk groups) in ``.n``."""
-    infer = model._infer
+    """Counts the model's inference forwards that run on the card in
+    ``.n``: every chunk group (the replay of its CUDA graph) and each
+    graph's eager warm-up (its capture runs nothing). ``.restore()`` takes
+    the counting off the model."""
+    group, capture = model._group, model._capture
 
-    def counted(audio, transcribe):
+    def counted(*args):
         counted.n += 1
-        return infer(audio, transcribe)
+        return group(*args)
+
+    def captured(*args):
+        counted.n += 1                  # the capture's eager warm-up
+        return capture(*args)
+
+    def restore():
+        del model._group, model._capture
 
     counted.n = 0
-    model._infer = counted
+    counted.restore = restore
+    model._group, model._capture = counted, captured
     return counted
 
 
@@ -2920,10 +2949,12 @@ def check_trainers_equal(torch, dp, dp_results, one, one_results, what):
 
 def counted_sharded_inference(torch, model, mesh, audio, counters):
     """``make_sharded_chunked_inference`` of ``audio`` (transcribe),
-    counted. Returns (coefficients, launches, wall s)."""
+    counted, after a first run that captures the chunk groups' graphs.
+    Returns (coefficients, launches, wall s)."""
     from timbre_trap_tpu_torch.parallel import make_sharded_chunked_inference
 
     run = make_sharded_chunked_inference(model, mesh, transcribe=True)
+    run(audio)
     zero_counts(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3497,7 +3528,7 @@ def phase_last_modules(torch, model, counters, card):
             f1 = quality_f1(bench_model, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            del bench_model._infer              # count_forwards' wrapper
+            forwards.restore()
             n = read_counts(counters)
             launches["quality"][name] = n
             steps = kw["steps"]

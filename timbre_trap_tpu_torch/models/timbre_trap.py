@@ -20,16 +20,26 @@ is float32.
 The model runs on the card unless the caller asks for the CPU
 (``device="cpu"``, where the kernels' plain twins run). With no CUDA device
 present, ``device=None`` raises instead of falling back to the CPU.
+
+On the card every chunk group of the overlap-add stream (``_chunked``: the
+sliCQ analysis and the whole forward of up to ``chunk_group`` chunks) is the
+replay of one CUDA graph, captured once per key (branch, compute dtype,
+chunks in the group, batch) into one memory pool a model, and dropped with
+the inference chains (``invalidate_specs``, ``load_state_dict``). K1's
+launch counts follow the card: a capture adds nothing to them, each replay
+the launches it recorded.
 """
 
 import json
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..interop import state_dict_from_jax
+from ..ops.fused_level import banded_conv
 from ..transform import CQT
 from ..utils.profiling import span
 from .fused import forward_spec, fused_forward
@@ -43,6 +53,39 @@ _FUSED_MODES = ("auto", "f32")
 WEIGHTS_FILE = "weights.pt"
 # The file of a training checkpoint directory (``train/checkpoint.py``).
 CHECKPOINT_FILE = "checkpoint.pt"
+
+
+def _replays_graphs(device):
+    """Whether chunk groups on ``device`` run as CUDA graph replays: on
+    the card, always."""
+    return device.type == "cuda"
+
+
+# The launch counts of K1's wrapper (``banded_conv``), the counted kernel
+# of a chunk group's forward.
+_COUNTS = ("launches", "mma_launches", "mma_launches_f32")
+
+
+def _launch_counts():
+    return tuple(getattr(banded_conv, name) for name in _COUNTS)
+
+
+def _add_launch_counts(counts):
+    for name, k in zip(_COUNTS, counts):
+        setattr(banded_conv, name, getattr(banded_conv, name) + k)
+
+
+class _GroupGraph(NamedTuple):
+    """One chunk group's forward captured as a CUDA graph: the static input
+    (n·B, 1, L) that each replay reads, the static output (n·B, C, F, M)
+    that it writes, the spec it was captured on, kept alive with it (the
+    graph reads its operands in place), and the K1 launch counts
+    (``_COUNTS``) of one replay."""
+    graph: object
+    input: torch.Tensor
+    output: torch.Tensor
+    spec: object
+    launches: tuple
 
 
 def _host_array(audio):
@@ -99,6 +142,12 @@ class TimbreTrap:
         init_weights(net, torch.Generator().manual_seed(int(seed)))
         self.net = net.to(self.device).eval()
         self._specs = {}
+        self._graphs = {}
+        self._graph_pool = None
+        # The overlap-add's symmetric Hann window, resident on the device.
+        self._window = torch.as_tensor(
+            np.hanning(self.sliCQ.max_window_length), dtype=torch.float32,
+            device=self.device)
 
     @property
     def fused(self):
@@ -118,9 +167,11 @@ class TimbreTrap:
 
     def invalidate_specs(self):
         """Drop the cached inference chains (and the kernel operands they
-        hold): call after changing ``self.net``'s weights in place, as the
-        train step does."""
+        hold) and the chunk groups' CUDA graphs captured on them: call after
+        changing ``self.net``'s weights in place, as the train step does."""
         self._specs.clear()
+        self._graphs = {}
+        self._graph_pool = None
 
     def load_jax_params(self, params):
         """Load a flax parameter tree of the JAX package's TimbreTrapNet."""
@@ -227,9 +278,9 @@ class TimbreTrap:
         """50%-overlap Hann overlap-add over chunks of one block.
 
         ``audio`` is padded to a block multiple and extended by half a block
-        on each side. Chunks run ``chunk_group`` at a time; chunk k (scaled
-        by a symmetric ``np.hanning(M)`` window) adds into frames
-        ``[k*M/2, k*M/2 + M)``, i.e. even chunks tile the frames
+        on each side. Chunks run ``chunk_group`` at a time (``_group``);
+        chunk k (scaled by a symmetric ``np.hanning(M)`` window) adds into
+        frames ``[k*M/2, k*M/2 + M)``, i.e. even chunks tile the frames
         contiguously and odd chunks at a half-window offset, as in the JAX
         package. The centering margins are trimmed at the end.
 
@@ -247,8 +298,6 @@ class TimbreTrap:
         n_chunks = (audio.shape[-1] - hop) // hop
         n_frames = self.sliCQ.get_expected_frames(audio.shape[-1])
         with span("tt.overlap_add"):
-            window = torch.as_tensor(np.hanning(M), dtype=torch.float32,
-                                     device=self.device)
             acc = torch.zeros((B, C, F, n_frames + 2 * M),
                               dtype=torch.float32, device=self.device)
         lo, hi = (0, n_chunks) if share is None else share(n_chunks)
@@ -256,18 +305,78 @@ class TimbreTrap:
         for g0 in range(lo, hi, G):
             n = min(G, hi - g0)
             with span("tt.forward", n):
-                chunks = torch.stack([
-                    audio[..., (g0 + i) * hop:(g0 + i) * hop + L]
-                    for i in range(n)])                      # (n, B, 1, L)
-                out = self._infer(chunks.reshape(n * B, 1, L), transcribe)
+                out = self._group(audio, g0, n, transcribe)
             with span("tt.overlap_add"):
-                out = out.reshape(n, B, C, F, M) * window
+                out = out.reshape(n, B, C, F, M) * self._window
                 for i in range(n):
                     start = (g0 + i) * (M // 2)
                     acc[..., start:start + M] += out[i]
         if reduce is not None:
             reduce(acc)
         return acc[..., M // 2: n_frames - M // 2]
+
+    def _group(self, audio, g0, n, transcribe):
+        """Coefficients (n·B, C, F, M) of chunks ``[g0, g0 + n)`` of
+        ``audio``: on the card the replay of the group's CUDA graph, whose
+        static input takes the chunks in one copy; on the CPU one ``_infer``
+        of the stacked chunks."""
+        L = self.sliCQ.block_length
+        hop = L // 2
+        B = audio.shape[0]
+        if not _replays_graphs(self.device):
+            chunks = torch.stack([
+                audio[..., (g0 + i) * hop:(g0 + i) * hop + L]
+                for i in range(n)])                          # (n, B, 1, L)
+            return self._infer(chunks.reshape(n * B, 1, L), transcribe)
+        group = self._graph(transcribe, n, B)
+        group.input.view(n, B, 1, L).copy_(
+            audio.unfold(-1, L, hop).narrow(-2, g0, n).movedim(-2, 0))
+        with span("tt.graph.replay", n):
+            group.graph.replay()
+        _add_launch_counts(group.launches)
+        return group.output
+
+    def _graph(self, transcribe, n, B):
+        """The CUDA graph of a chunk group of ``n`` chunks of a batch of
+        ``B``, captured on a miss. The key holds what the captured work
+        depends on, never the clip's length: ``fused`` changes only the
+        compute dtype, so graphs of both modes stand side by side."""
+        key = (transcribe, self._dtype(transcribe), n, B)
+        group = self._graphs.get(key)
+        if group is None:
+            with span("tt.graph.capture"):
+                group = self._graphs[key] = self._capture(transcribe, n * B)
+        return group
+
+    def _capture(self, transcribe, rows):
+        """``_infer`` of a static (rows, 1, L) input captured as one CUDA
+        graph, as PyTorch's recipe has it: the spec built first, one eager
+        run on a side stream (plans, operands, FFT plans), then the capture
+        into the model's graph pool. A failed capture raises. The capture
+        launches nothing, so K1's counts are set back to what they were
+        before it, and the graph keeps what it recorded for its replays."""
+        spec = self._spec(transcribe)
+        static_in = torch.zeros((rows, 1, self.sliCQ.block_length),
+                                dtype=torch.float32, device=self.device)
+        with torch.cuda.device(self.device):
+            main = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                self._infer(static_in, transcribe)
+            main.wait_stream(side)
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            counts = _launch_counts()
+            # Thread-local: another thread (the Trainer's batch prefetch)
+            # may issue CUDA work while this one captures.
+            with torch.cuda.graph(graph, pool=self._graph_pool,
+                                  capture_error_mode="thread_local"):
+                static_out = self._infer(static_in, transcribe)
+            launched = tuple(b - a for a, b in zip(counts, _launch_counts()))
+            _add_launch_counts(tuple(-k for k in launched))
+        return _GroupGraph(graph, static_in, static_out, spec, launched)
 
     def _pad_for_chunks(self, audio):
         """Block-multiple + half-block centering pads."""

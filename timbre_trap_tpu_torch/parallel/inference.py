@@ -23,7 +23,8 @@ def make_sharded_chunked_inference(model, mesh, transcribe=True):
 
     ``run`` pads and frames the audio as ``TimbreTrap.chunked_inference``
     does; rank r of n runs chunks ``[r * K / n, (r + 1) * K / n)`` of the
-    K chunks, ``model.chunk_group`` at a time, through ``model._infer``,
+    K chunks, ``model.chunk_group`` at a time, through ``model._infer``
+    (on the card each group the replay of its CUDA graph: ``_chunked``),
     windows and overlap-adds them, all-reduces the accumulator and trims
     it. The JAX package's ``run(params, audio)`` takes the parameters; here
     they are the model's own (``model.net``), so ``run`` takes the audio
