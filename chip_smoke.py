@@ -350,11 +350,12 @@ def rel_err(got, ref):
 
 # The launch counts a kernel wrapper may carry, and their keys' suffixes.
 COUNTS = {"launches": "", "mma_launches": ".mma",
-          "mma_launches_f32": ".mma_f32"}
+          "mma_launches_f32": ".mma_f32",
+          "tma_epilogue_launches_f32": ".tma_f32"}
 
 
-# The suffix of the float32 routes' counts.
-F32_COUNTS = ".mma_f32"
+# The suffixes of the float32 routes' counts.
+F32_COUNTS = (".mma_f32", ".tma_f32")
 
 
 def zero_counts(fns):
@@ -367,9 +368,10 @@ def zero_counts(fns):
 
 def read_counts(fns):
     """{wrapper: launches, wrapper.mma: bf16 tensor-core launches,
-    wrapper.mma_f32: float32 split-TF32 launches} where a wrapper has them
-    (a K1 stage's bf16 launch is one of ``tt_band_conv_wgmma``, its
-    float32 launch one of ``tt_band_conv_wgmma_f32``)."""
+    wrapper.mma_f32: float32 split-TF32 launches, wrapper.tma_f32: those
+    with the TMA epilogue} where a wrapper has them (a K1 stage's bf16
+    launch is one of ``tt_band_conv_wgmma``, its float32 launch one of
+    ``tt_band_conv_wgmma_f32``)."""
     return {fn.__name__ + sfx: getattr(fn, name) for fn in fns
             for name, sfx in COUNTS.items() if hasattr(fn, name)}
 
@@ -982,6 +984,7 @@ def phase_train(torch, counters):
               and launches32[f"{name}.mma_f32"] == launches32[name],
               f"the float32 step's {name} launches did not all run the "
               f"split-TF32 band kernel: {launches32}")
+    check_tma_epilogue(launches32, "the float32 step")
     print(f"main: float32 pallas step launches {launches32}")
     step_s = float(np.mean(walls[1:]))
     audio_secs = TRAIN_CROPS * TRAIN_SECS
@@ -1431,6 +1434,13 @@ def phase_transform(torch):
     return out
 
 
+def check_tma_epilogue(launches, what):
+    """A main path's float32 K1 launches (T a multiple of 4: chunks of 1024
+    frames, crops of 3072) all took the TMA epilogue."""
+    check(launches["banded_conv.tma_f32"] == launches["banded_conv.mma_f32"],
+          f"{what}: float32 K1 launches without the TMA epilogue: {launches}")
+
+
 def check_recon(torch, y, n_samples, launches, what):
     """reconstruct()'s output and counts: shape (1, 1, n_samples), finite,
     max|y| = 1 within 1e-6; every K1 launch split-TF32; no K2."""
@@ -1466,6 +1476,7 @@ def phase_reconstruct(torch, model, audio, counters, card):
     wall = time.perf_counter() - t0
     launches = read_counts(counters)
     check_recon(torch, y, n_samples, launches, "reconstruct")
+    check_tma_epilogue(launches, "reconstruct")
     t0 = time.perf_counter()
     model.reconstruct(audio)
     torch.cuda.synchronize()
@@ -1728,6 +1739,7 @@ def phase_variants(torch, audio, chunks, counters, card):
     launches_rec = read_counts(counters)
     n_rec = forwards.n
     check_recon(torch, y, n_samples, launches_rec, "skips reconstruct")
+    check_tma_epilogue(launches_rec, "skips reconstruct")
     check(launches_rec["banded_conv"] == per_fwd * n_rec,
           f"skips reconstruct: launches {launches_rec} for {n_rec} forwards")
     t0 = time.perf_counter()
@@ -2805,6 +2817,7 @@ def phase_cli(torch, counters, card, trainer_numbers):
               and son_launches["peak_mask"] == 0,
               f"cli sonify: K1 did not run both routes (bf16 for _scr, "
               f"split-TF32 for _rec), or K2 ran: {son_launches}")
+        check_tma_epilogue(son_launches, "cli sonify")
         bach10 = Bach10(base_dir=dirs["Bach10"], splits=None, sample_rate=SR,
                         cqt=None)
         snrs = {}
@@ -3744,6 +3757,7 @@ def main():
           and launches32["banded_conv.mma_f32"] == launches32["banded_conv"],
           f"the float32 transcribe's K1 stages did not all run the "
           f"split-TF32 band kernel: {launches32}")
+    check_tma_epilogue(launches32, "the float32 transcribe")
     print(f"main: float32 transcribe launches {launches32}")
     t0 = time.perf_counter()
     peak_mask(model.transcribe(audio), 0.5)
@@ -3986,6 +4000,14 @@ def main():
              "train_f32_step":
                  train["f32_step_launches"]["banded_conv.mma_f32"],
              "cli_sonify": cli_launches["sonify"]["banded_conv.mma_f32"]},
+         "launches_tma_epilogue_f32": {
+             "transcribe_f32": launches32["banded_conv.tma_f32"],
+             "reconstruct": launches_rec["banded_conv.tma_f32"],
+             "skip_route_reconstruct":
+                 launches_var["reconstruct"]["banded_conv.tma_f32"],
+             "train_f32_step":
+                 train["f32_step_launches"]["banded_conv.tma_f32"],
+             "cli_sonify": cli_launches["sonify"]["banded_conv.tma_f32"]},
          "ms_f32_mma_sync": k1_mma_ms32, "forward_turns_ms_f32": turns32,
          "forward_device_ms_f32": chain_device_ms32,
          "stage_kinds_f32": kind_ms32,

@@ -309,7 +309,24 @@ def test_plan_covers_every_tap_and_band(small_net):
                 assert list(ints) == [t, plan.t_pad, len(cb.dts), *taps,
                                       cb.col_adv, cb.margin, cb.band_width,
                                       plan.n_w, int(cb.per_block),
-                                      *[v for band in cb.bands for v in band]]
+                                      *[v for band in cb.bands for v in band],
+                                      plan.tma_epilogue]
+
+
+@pytest.mark.parametrize("t,tma", [(1024, 1), (3072, 1), (1001, 0),
+                                   (37, 0)])
+def test_plan_picks_the_epilogue_by_t(small_net, t, tma):
+    """The plan's last integer picks the epilogue from T alone: the TMA
+    epilogue (residual and y by tensor maps, whose rows must be a whole 16
+    bytes) where T is a multiple of 4, as the chunks of 1024 frames and
+    the recipe's 3072-frame crops are, for every stage alike; the one from
+    the registers at a ragged T. It is the last integer the kernel
+    reads."""
+    for net in (small_net, TimbreTrapNet(540, 128, 2)):
+        for cb in forward_spec(net, True).convs():
+            assert fl.band_tma_plan_f32(cb, t).tma_epilogue == tma
+            t_pad, ints = fl._wgmma_plan_f32(cb, t, cb.band_width)
+            assert len(ints) == 16 and ints[15] == tma
 
 
 @pytest.mark.parametrize("kind", ["3x3-d3", "bridge"])
@@ -334,7 +351,8 @@ def test_float32_banded_conv_takes_the_twin_on_cpu(monkeypatch, kind):
     monkeypatch.setattr(fl, "banded_conv_reference", spy)
     for launch in ("_launch_wgmma_f32", "_launch_wgmma", "_launch_band"):
         monkeypatch.setattr(fl, launch, refuse)
-    counts = ("launches", "mma_launches", "mma_launches_f32")
+    counts = ("launches", "mma_launches", "mma_launches_f32",
+              "tma_epilogue_launches_f32")
     before = [getattr(fl.banded_conv, n) for n in counts]
     profiling.reset_record()
     with torch.profiler.profile(

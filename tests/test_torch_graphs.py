@@ -66,12 +66,13 @@ class _StubGraph:
         self.run()
 
 
-# K1's launch counts: all, bf16, float32.
-K1_COUNTS = ("launches", "mma_launches", "mma_launches_f32")
+# K1's launch counts: all, bf16, float32, float32 with the TMA epilogue.
+K1_COUNTS = ("launches", "mma_launches", "mma_launches_f32",
+             "tma_epilogue_launches_f32")
 
 # The K1 launch counts the stub's graphs record for a
 # replay, as the card's would for a forward of 60 conv stages.
-STUB_LAUNCHES = {True: (60, 60, 0), False: (60, 0, 60)}
+STUB_LAUNCHES = {True: (60, 60, 0, 0), False: (60, 0, 60, 60)}
 
 
 @pytest.fixture
@@ -389,7 +390,8 @@ def _k1_counts(fn):
 def test_k1_counts_follow_the_card(cuda_device, monkeypatch, transcribe):
     """A warm call counts the launches of its replays, as many as the eager
     groups launch; a first call those and one eager warm-up a graph; the
-    capture none. Every launch on the branch's dtype route."""
+    capture none. Every launch on the branch's dtype route, every float32
+    one with the TMA epilogue (chunks of 1024 frames)."""
     m = TimbreTrap(**FLAGSHIP, seed=41, device=cuda_device)
     run = m.transcribe if transcribe else m.reconstruct
     clip = _flagship_clip(40, 42)
@@ -403,3 +405,4 @@ def test_k1_counts_follow_the_card(cuda_device, monkeypatch, transcribe):
     assert first[0] == eager[0] + per_forward * len(m._graphs)
     route = 1 if transcribe else 2
     assert first[route] == first[0] and first[3 - route] == 0
+    assert first[3] == first[2] and warm[3] == warm[2]

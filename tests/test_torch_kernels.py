@@ -153,7 +153,9 @@ def cuda_device():
 def _all_counts():
     return ((banded_conv.launches, peak_mask.launches) + _k3_counts()
             + _routes(banded_conv) + _routes(banded_conv_dx)
-            + _routes(banded_conv_dw) + (banded_conv_mma.launches,))
+            + _routes(banded_conv_dw) + (
+                banded_conv_mma.launches,
+                banded_conv.tma_epilogue_launches_f32))
 
 
 def test_wrappers_take_the_twin_on_cpu_and_count_nothing(monkeypatch):
@@ -610,33 +612,39 @@ def test_wgmma_stage_matches_twin_and_mma_sync(cuda_device, t):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [3072, 1001, 37])
+@pytest.mark.parametrize("t", [3072, 1024, 1001, 37])
 def test_wgmma_f32_stage_matches_twin_and_mma_sync(cuda_device, t):
     """The float32 stage's TMA-fed TF32 wgmma kernel
     (``tt_band_conv_wgmma_f32``, the route of every CUDA float32
-    ``banded_conv``) on every conv kind and the variants' stages, with and
-    without ELU and residual, at the recipe's T and ragged T (x padded to a
-    multiple of 4 frames): within 1e-4 * max|ref| of the IEEE twin and of
-    the mma.sync kernel (``tt_band_conv_f32``, through
-    ``banded_conv_mma``) on the same tensors, the same bits in two runs;
-    each launch counts once, as a launch and as a float32 launch."""
+    ``banded_conv``) on every conv kind and the variants' stages (3x3 at
+    each dilation, 1x1, the per-block bridge maps, r_out not a multiple of
+    64), with and without ELU and residual, at the recipe's T and the
+    chunks' T (the TMA epilogue) and at ragged T (x padded to a multiple
+    of 4 frames, the epilogue from the registers): within 1e-4 * max|ref|
+    of the IEEE twin and of the mma.sync kernel (``tt_band_conv_f32``,
+    through ``banded_conv_mma``) on the same tensors, the same bits in two
+    runs; each launch counts once, as a launch and as a float32 launch,
+    and as a TMA-epilogue launch where T % 4 == 0."""
     rng = np.random.default_rng(37)
     convs = dict(_conv_cases(cuda_device))
     convs.update(_variant_stages(cuda_device))
+    tma = int(t % 4 == 0)
     for name, cb in convs.items():
         x = _rand(rng, 2, cb.r_in, t).to(cuda_device)
         res = None if cb.per_block else _rand(rng, 2, cb.r_out, t).to(
             cuda_device)
         for act, r in ((False, None), (True, res)):
             before = (banded_conv.mma_launches_f32, banded_conv.launches,
-                      banded_conv_mma.launches)
+                      banded_conv_mma.launches,
+                      banded_conv.tma_epilogue_launches_f32)
             got = banded_conv(x, cb, act, r)
             again = banded_conv(x, cb, act, r)
             old = banded_conv_mma(x, cb, act, r)
             assert (banded_conv.mma_launches_f32, banded_conv.launches,
-                    banded_conv_mma.launches) == (before[0] + 2,
-                                                  before[1] + 2,
-                                                  before[2] + 1)
+                    banded_conv_mma.launches,
+                    banded_conv.tma_epilogue_launches_f32) == (
+                        before[0] + 2, before[1] + 2, before[2] + 1,
+                        before[3] + 2 * tma)
             ref = banded_conv_reference(x, cb, act, r)
             torch.cuda.synchronize()
             assert got.dtype == torch.float32
@@ -676,6 +684,28 @@ def test_wgmma_f32_stage_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="CUDA"):
         banded_conv_mma(x.cpu(), cpu_cb)
     assert (banded_conv.launches, banded_conv.mma_launches_f32) == before
+
+
+@pytest.mark.cuda
+def test_wgmma_f32_tma_epilogue_takes_unaligned_residual_views(cuda_device):
+    """Where T % 4 == 0 the float32 stage reads the residual by a tensor
+    map, whose base must be 16-byte aligned: a residual view that starts
+    off that alignment is copied first, and the stage gives the same bits
+    as on an aligned residual, with the TMA epilogue both times."""
+    rng = np.random.default_rng(41)
+    cb = _conv_cases(cuda_device)["3x3-d2"]
+    x = _rand(rng, 2, cb.r_in, 1024).to(cuda_device)
+    res = _rand(rng, 2, cb.r_out, 1024).to(cuda_device)
+    view = torch.empty(res.numel() + 1, device=cuda_device)[1:].view(
+        res.shape)
+    view.copy_(res)
+    assert view.data_ptr() % 16 != 0
+    before = banded_conv.tma_epilogue_launches_f32
+    got = banded_conv(x, cb, True, view)
+    want = banded_conv(x, cb, True, res)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert banded_conv.tma_epilogue_launches_f32 == before + 2
 
 
 @pytest.mark.cuda

@@ -40,29 +40,44 @@
 // the margin, the rows past r_in and the frames outside [0, T_pad), and rows
 // of 152 floats put a fragment load's 32 lanes in 32 banks. One stage (x box
 // plus every tap's two weight boxes) serves every tap of its 16 band rows; a
-// ring of 3 stages with full and empty mbarriers, one producer thread
+// ring of 2 stages with full and empty mbarriers, one producer thread
 // running ahead into the next tile, two consumer warpgroups (frames 0-63 and
-// 64-127 of a 128-frame x 64-row tile), persistent CTAs, two an SM (the ring
-// is all the shared memory a CTA takes; 96 registers a thread). The tensor
-// cores round their float32 sums toward zero, so each (chunk, tap) product,
-// 16 band rows (6 wgmmas), goes into fresh accumulators (scale-d 0 on its
-// first) and reaches the running sum by an IEEE add, chunk by chunk and tap
-// by tap: the order of tt_band_conv_f32, with no atomics, so a run is
-// deterministic. The epilogue writes from the registers: in the transposed
-// tile the lanes of a warp hold 8 consecutive frames of each of 4 rows, so
-// each warp store moves whole 32-byte sectors; the producer is already
-// loading the next tile meanwhile. What bounds it: three TF32 products at
-// half the bf16 rate put a stage's products above the card's bytes-per-flop
-// line, but on the card the epilogue (bias, the ELU's IEEE expf, the
-// residual loads, the stores) is about half of a chain's time and the two
-// small products a sixth: the epilogue is bound by its latency and needs the
-// loads of all eight consumer warps in flight. Staging the sums in shared
-// memory for 16-byte stores (the bf16 stage's epilogue, with a ring of 2)
-// was slower, and one dedicated epilogue warp far slower; a ring of 2 was no
-// faster, and one CTA an SM with a ring of 6, or an L2 prefetch of the
-// residual, slower (tools/k1_f32_ablation.py). TMA needs 16-byte global
-// strides: the wrapper pads x with zero frames to a multiple of 4 where T %
-// 4 != 0.
+// 64-127 of a 128-frame x 64-row tile), an epilogue warp, persistent CTAs,
+// two an SM (the ring and a 32-KB epilogue buffer are all the shared memory
+// a CTA takes; 96 registers a thread). The tensor cores round their float32
+// sums toward zero, so each (chunk, tap) product, 16 band rows (6 wgmmas),
+// goes into fresh accumulators (scale-d 0 on its first) and reaches the
+// running sum by an IEEE add, chunk by chunk and tap by tap: the order of
+// tt_band_conv_f32, with no atomics, so a run is deterministic.
+//
+// The float32 epilogue (bias, the ELU's IEEE expf, the residual, the store)
+// took half of a chain's time when the consumers read the residual from
+// global memory and stored from the registers: both warpgroups of a CTA,
+// and its twin on the SM, sat in it at once while the tensor cores idled.
+// So where T % 4 == 0 (TMA's 16-byte global strides) it runs by TMA. One
+// thread of the epilogue warp loads the tile's residual, 4 boxes of 64 rows
+// x 32 frames (128-byte swizzled, so a warp's 8 frames x 4 rows meet 32
+// banks), into the epilogue buffer while the tile's products run; each
+// consumer adds the bias, applies the ELU and adds the residual from the
+// buffer, in the order of the register epilogue, writes the result back in
+// place and goes straight on to the next tile's products; the same thread
+// then stores the tile by TMA (the hardware clips the rows past r_out and
+// the frames past T) and, box by box as the store has read it, loads the
+// next tile's residual. The producer's loads never wait on the epilogue's
+// copies (the producer itself issuing them measured slower). Every main-path
+// T (chunks of 1024 frames, 9-s crops of 3072) takes it; elsewhere the
+// epilogue runs from the registers: in the transposed tile the lanes of a
+// warp hold 8 consecutive frames of each of 4 rows, so each warp store moves
+// whole 32-byte sectors. What bounds the
+// stage: three TF32 products at half the bf16 rate put its products above
+// the card's bytes-per-flop line, but the mainloop waits for each (chunk,
+// tap) product before the IEEE add, so it is bound by that latency, and the
+// epilogue's arithmetic (the ELU above all) still runs while the tensor
+// cores wait. Staging the sums in shared memory for 16-byte stores from the
+// consumers' threads, one epilogue warp doing the arithmetic and global
+// loads, one CTA an SM with a deeper ring, or an L2 prefetch of the residual
+// were slower (tools/k1_f32_ablation.py). The wrapper pads x with zero
+// frames to a multiple of 4 where T % 4 != 0.
 //
 // The bf16 stage's design. An output tile is one 64-row sub-tile g (its
 // band: start s_g, L columns, ops/packed_conv.py `_sub_tile_bands`) x 128
@@ -589,21 +604,26 @@ __global__ void __launch_bounds__(kThreads, 2)
 // one a consumer warpgroup. A pipeline stage is one chunk of kKcF band
 // rows: the x box (kKcF rows x kBoxF frames from t0 - kHaloF, unswizzled,
 // rows of 152 floats) and the hi and lo planes of every tap's band
-// weights (64 rows x kKcF columns each, 64-byte swizzled), 34,816 bytes;
-// kStagesF of them and nothing else in shared memory, so two CTAs fit an
-// SM.
+// weights (64 rows x kKcF columns each, 64-byte swizzled), 34,816 bytes.
+// kStagesF of them and the epilogue buffer (the output tile as four boxes
+// of 64 rows x kEpiBoxT frames, 128-byte swizzled, 32 KB) are all the
+// shared memory a CTA takes, so two CTAs fit an SM.
 constexpr int kTileF = 128;
 constexpr int kHaloF = 8;                          // |dt| <= 8
 constexpr int kBoxF = kTileF + 3 * kHaloF;         // 152 frames: 24 mod 32 banks
 constexpr int kKcF = 16;                           // band rows per stage and fresh sum
-constexpr int kStagesF = 3;
+constexpr int kStagesF = 2;
 constexpr int kWBoxF = kSub * kKcF * 4;            // 4096 bytes
 constexpr int kXOffF = 3 * 2 * kWBoxF;             // stage layout: W hi, lo per tap, then x
 constexpr int kXBoxF = kKcF * kBoxF * 4;           // 9728 bytes
 constexpr int kStageBytesF = 34816;                // kXOffF + kXBoxF, 1024-aligned
+constexpr int kEpiBoxT = 32;                       // frames per epilogue box: 128 bytes
+constexpr int kEpiBoxes = kTileF / kEpiBoxT;       // 4, two a consumer warpgroup
+constexpr int kEpiBoxBytes = kSub * kEpiBoxT * 4;  // 8192 bytes
+constexpr int kEpiOffF = kStagesF * kStageBytesF;  // the epilogue buffer follows the ring
 constexpr int kConsumersF = 256;                   // two warpgroups
-constexpr int kThreadsF = kConsumersF + 32;        // + one producer warp
-constexpr int kSmemF = kStagesF * kStageBytesF + 1024;
+constexpr int kThreadsF = kConsumersF + 64;        // + the producer and epilogue warps
+constexpr int kSmemF = kEpiOffF + kEpiBoxes * kEpiBoxBytes + 1024;
 static_assert(kXOffF + kXBoxF <= kStageBytesF && kStageBytesF % 1024 == 0, "stage layout");
 
 typedef RingOf<kStagesF, kStageBytesF> RingF;
@@ -666,7 +686,46 @@ struct WgmmaF32Args {
   int dt[3];
   int col_adv, margin, per_block, act;
   int kb0, kl0, kb1, kl1;
+  int tma_epi;         // 1: the residual and y move by TMA (T % 4 == 0)
 };
+
+// The epilogue buffer and its barriers: `full` completes when a tile's
+// residual boxes have landed (or, without a residual, when the epilogue
+// warp has handed the buffer over), `done` when every consumer warp has
+// written the tile's results into it.
+struct EpiF {
+  uint32_t base;       // 1024-byte aligned shared address of box 0
+  float* ptr;          // the same, generic
+  uint64_t* full;
+  uint64_t* done;
+};
+
+// One TMA store of a shared-memory box into a 3-D tensor map (the hardware
+// clips what lies outside the tensor), in this thread's bulk group.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups have not yet read
+// their shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until this thread's bulk stores have completed.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
 
 // One output tile: sub-tile g (the fastest index) x kTileF frames t0.. of
 // item b, its band length and the input row of its band column 0.
@@ -700,6 +759,49 @@ __device__ __forceinline__ void produce_tile_f32(const WgmmaF32Args& a, const Ti
     tma_load_3d(sb + kXOffF, xmap, bar, tl.t0 - kHaloF, tl.row0 + c * kKcF, tl.b);
     ring.advance();
   }
+}
+
+// The epilogue warp (TMA epilogue), tile after tile of the CTA: once the
+// consumers have written tile k - 1's results into the epilogue buffer, its
+// store by TMA, a bulk group a box (the hardware clips the rows past r_out
+// and the frames past T; a box wholly past T is not stored); as each box's
+// store has read it, tile k's residual box into it, or without a residual
+// a bare arrival once all four are read. It runs beside the producer, so
+// neither waits on the other's copies.
+__device__ __forceinline__ void epilogue_copies_f32(const WgmmaF32Args& a,
+                                                    const CUtensorMap* rmap,
+                                                    const CUtensorMap* ymap, const EpiF& epi) {
+  const uint32_t bar = smem_u32(epi.full);
+  for (int tile = blockIdx.x, k = 0;; tile += gridDim.x, ++k) {
+    if (k > 0) {
+      const TileF pt(a, tile - static_cast<int>(gridDim.x));
+      mbar_wait(smem_u32(epi.done), (k - 1) & 1);
+      for (int bx = 0; bx < kEpiBoxes; ++bx) {
+        if (pt.t0 + kEpiBoxT * bx < a.t_len)
+          tma_store_3d(ymap, epi.base + bx * kEpiBoxBytes, pt.t0 + kEpiBoxT * bx, pt.g * kSub,
+                       pt.b);
+        bulk_commit();
+      }
+    }
+    if (tile >= a.n_tiles) break;
+    const TileF tl(a, tile);
+    if (a.res == nullptr) {
+      bulk_wait_read<0>();
+      mbar_arrive(bar);
+      continue;
+    }
+    mbar_expect_tx(bar, kEpiBoxes * kEpiBoxBytes);
+#pragma unroll
+    for (int bx = 0; bx < kEpiBoxes; ++bx) {
+      if (bx == 0) bulk_wait_read<3>();
+      if (bx == 1) bulk_wait_read<2>();
+      if (bx == 2) bulk_wait_read<1>();
+      if (bx == 3) bulk_wait_read<0>();
+      tma_load_3d(epi.base + bx * kEpiBoxBytes, rmap, bar, tl.t0 + kEpiBoxT * bx, tl.g * kSub,
+                  tl.b);
+    }
+  }
+  bulk_wait();
 }
 
 // Consumers: one tile's sums. Warpgroup q takes frames 64q.. of the tile;
@@ -802,17 +904,70 @@ __device__ __forceinline__ void store_tile_f32(const WgmmaF32Args& a, const Tile
   }
 }
 
+// Consumers, TMA epilogue: bias, ELU (IEEE expf) and the residual of one
+// tile (the CTA's k-th) in the epilogue buffer, for the epilogue warp's store.
+// Warpgroup q's half of the tile, frames 64q.., is boxes 2q and 2q + 1;
+// row n of a box is 128 bytes, its 16-byte chunk c at c ^ (n % 8) (the
+// 128-byte swizzle), so a warp's access, 8 frames x 4 rows, meets 32
+// banks. Each thread reads the residual where it writes the result; once
+// its warp's results are in, the warp goes on to the next tile's products.
+__device__ __forceinline__ void finish_tile_f32_tma(const WgmmaF32Args& a, const TileF& tl,
+                                                    const EpiF& epi, int k, int q, int w,
+                                                    int lane, const float (&run)[32]) {
+  float bias[8][2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = 8 * j + 2 * (lane & 3) + e;
+      const int orow = tl.g * kSub + n;
+      bias[j][e] = orow < a.r_out
+                       ? __ldg(a.bias + (a.per_block ? orow : (tl.g & 1) * kSub + n))
+                       : 0.f;
+    }
+  mbar_wait(smem_u32(epi.full), k & 1);
+  float* box = epi.ptr + (2 * q + (w >> 1)) * (kEpiBoxBytes / 4);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = 8 * j + 2 * (lane & 3) + e;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int f = 16 * (w & 1) + 8 * i + (lane >> 2);
+        float* p = box + n * kEpiBoxT + ((((f >> 2) ^ (n & 7)) << 2) | (f & 3));
+        float x = run[4 * j + 2 * i + e] + bias[j][e];
+        if (a.act) x = x > 0.f ? x : expf(fminf(x, 0.f)) - 1.f;
+        *p = x + (a.res != nullptr ? *p : 0.f);
+      }
+    }
+  // The results, written by this warp's threads, for the TMA's reads.
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncwarp();
+  if (lane == 0) mbar_arrive(smem_u32(epi.done));
+}
+
 // Persistent: CTA k walks tiles k, k + gridDim.x, ...; the producer runs
-// ahead into the next tile while the consumers finish the last one.
+// ahead into the next tile while the consumers finish the last one. With
+// the TMA epilogue (a.tma_epi) the residual comes in by rmap and y goes out
+// by ymap, both moved by one thread of the epilogue warp; else the epilogue
+// runs from the registers, that warp does nothing and the two maps are not
+// read.
 __global__ void __launch_bounds__(kThreadsF, 2)
     band_wgmma_f32_kernel(const __grid_constant__ CUtensorMap xmap,
-                          const __grid_constant__ CUtensorMap wmap, const WgmmaF32Args a) {
+                          const __grid_constant__ CUtensorMap wmap,
+                          const __grid_constant__ CUtensorMap rmap,
+                          const __grid_constant__ CUtensorMap ymap, const WgmmaF32Args a) {
   extern __shared__ __align__(16) unsigned char smem_f32[];
   __shared__ __align__(8) uint64_t full[kStagesF];
   __shared__ __align__(8) uint64_t empty[kStagesF];
-  // The swizzled weight boxes want 1024-byte aligned stages.
+  __shared__ __align__(8) uint64_t epi_bars[2];   // full, done
+  // The swizzled boxes want 1024-byte aligned stages and epilogue boxes.
   const uint32_t pad = ((smem_u32(smem_f32) + 1023u) & ~1023u) - smem_u32(smem_f32);
   RingF ring{smem_u32(smem_f32) + pad, full, empty};
+  const EpiF epi{smem_u32(smem_f32) + pad + kEpiOffF,
+                 reinterpret_cast<float*>(smem_f32 + pad + kEpiOffF), &epi_bars[0],
+                 &epi_bars[1]};
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
@@ -821,6 +976,8 @@ __global__ void __launch_bounds__(kThreadsF, 2)
       mbar_init(smem_u32(&full[i]), 1);
       mbar_init(smem_u32(&empty[i]), kConsumersF / 32);
     }
+    mbar_init(smem_u32(epi.full), 1);
+    mbar_init(smem_u32(epi.done), kConsumersF / 32);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -831,11 +988,18 @@ __global__ void __launch_bounds__(kThreadsF, 2)
         produce_tile_f32(a, TileF(a, tile), &xmap, &wmap, ring);
     return;
   }
-  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+  if (warp == kConsumersF / 32 + 1) {
+    if (lane == 0 && a.tma_epi) epilogue_copies_f32(a, &rmap, &ymap, epi);
+    return;
+  }
+  for (int tile = blockIdx.x, k = 0; tile < a.n_tiles; tile += gridDim.x, ++k) {
     const TileF tl(a, tile);
     float run[32];
     consume_tile_f32(a, tl, ring, smem_f32 + pad, warp >> 2, warp & 3, lane, run);
-    store_tile_f32(a, tl, warp >> 2, warp & 3, lane, run);
+    if (a.tma_epi)
+      finish_tile_f32_tma(a, tl, epi, k, warp >> 2, warp & 3, lane, run);
+    else
+      store_tile_f32(a, tl, warp >> 2, warp & 3, lane, run);
   }
 }
 
@@ -1014,13 +1178,14 @@ extern "C" int tt_band_conv_wgmma(const void* x, const void* w, const void* bias
 // T, 16-byte aligned; w: the band weights' TF32 planes (n_w, n_dt, 2, 64,
 // width) float32 (plane 0 hi, rounded to TF32 nearest with ties away; 1
 // lo, the remainder), width a multiple of 32; bias float32; res (or null)
-// and y: (B, r_out, T) float32. plan: the integers ops/fused_level.py
-// `band_tma_plan_f32` fixes for a stage and T, in this order: T, t_pad,
-// n_dt, dt x 3, col_adv, margin, width, n_w, per_block, then (start,
-// length) of the band of even and of odd sub-tiles (lengths multiples of
-// 16). Returns cudaGetLastError() of the launch, or a negative code when
-// the tensor maps cannot be made (-1: no encode entry point; -100 -
-// CUresult).
+// and y: (B, r_out, T) float32, 16-byte aligned for the TMA epilogue.
+// plan: the integers ops/fused_level.py `band_tma_plan_f32` fixes for a
+// stage and T, in this order: T, t_pad, n_dt, dt x 3, col_adv, margin,
+// width, n_w, per_block, (start, length) of the band of even and of odd
+// sub-tiles (lengths multiples of 16), then the epilogue: 1 (T % 4 == 0)
+// for the TMA epilogue, 0 for the one from the registers. Returns
+// cudaGetLastError() of the launch, or a negative code when the tensor maps
+// cannot be made (-1: no encode entry point; -100 - CUresult).
 extern "C" int tt_band_conv_wgmma_f32(const void* x, const void* w, const void* bias,
                                       const void* res, void* y, int batch, int r_in, int r_out,
                                       int act, const int* plan, void* stream) {
@@ -1047,12 +1212,20 @@ extern "C" int tt_band_conv_wgmma_f32(const void* x, const void* w, const void* 
   }
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return -1;
-  CUtensorMap xmap, wmap;
+  const int tma_epi = plan[15];
+  CUtensorMap xmap, wmap, rmap = {}, ymap = {};
   int rc = cached_map(enc, &xmap, {x, (uint64_t)t_pad, (uint64_t)r_in, (uint64_t)batch, kBoxF,
                                    kKcF, CU_TENSOR_MAP_SWIZZLE_NONE, true});
   if (rc == 0)
     rc = cached_map(enc, &wmap, {w, (uint64_t)width, kSub, (uint64_t)n_w * n_dt * 2, kKcF, kSub,
                                  CU_TENSOR_MAP_SWIZZLE_64B, true});
+  // The epilogue's maps: the output tile's boxes in y and in the residual.
+  if (rc == 0 && tma_epi)
+    rc = cached_map(enc, &ymap, {y, (uint64_t)t_len, (uint64_t)r_out, (uint64_t)batch, kEpiBoxT,
+                                 kSub, CU_TENSOR_MAP_SWIZZLE_128B, true});
+  if (rc == 0 && tma_epi && res != nullptr)
+    rc = cached_map(enc, &rmap, {res, (uint64_t)t_len, (uint64_t)r_out, (uint64_t)batch,
+                                 kEpiBoxT, kSub, CU_TENSOR_MAP_SWIZZLE_128B, true});
   if (rc != 0) return rc;
 
   WgmmaF32Args a = {};
@@ -1074,8 +1247,9 @@ extern "C" int tt_band_conv_wgmma_f32(const void* x, const void* w, const void* 
   a.kl0 = plan[12];
   a.kb1 = plan[13];
   a.kl1 = plan[14];
+  a.tma_epi = tma_epi;
   const int grid = a.n_tiles < resident[dev] ? a.n_tiles : resident[dev];
-  band_wgmma_f32_kernel<<<grid, kThreadsF, kSmemF, static_cast<cudaStream_t>(stream)>>>(xmap, wmap,
-                                                                                        a);
+  band_wgmma_f32_kernel<<<grid, kThreadsF, kSmemF, static_cast<cudaStream_t>(stream)>>>(
+      xmap, wmap, rmap, ymap, a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -63,7 +63,8 @@ def _replays_graphs(device):
 
 # The launch counts of K1's wrapper (``banded_conv``), the counted kernel
 # of a chunk group's forward.
-_COUNTS = ("launches", "mma_launches", "mma_launches_f32")
+_COUNTS = ("launches", "mma_launches", "mma_launches_f32",
+           "tma_epilogue_launches_f32")
 
 
 def _launch_counts():

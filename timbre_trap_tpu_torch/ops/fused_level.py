@@ -241,8 +241,11 @@ def banded_conv(x, cb, act=False, residual=None):
     exact product as the IEEE float32 one within a small factor).
     ``banded_conv.launches`` counts every launch,
     ``banded_conv.mma_launches`` the bfloat16 ones (each on
-    ``tt_band_conv_wgmma``) and ``banded_conv.mma_launches_f32`` the
-    float32 ones (each on ``tt_band_conv_wgmma_f32``). A CPU tensor takes
+    ``tt_band_conv_wgmma``), ``banded_conv.mma_launches_f32`` the
+    float32 ones (each on ``tt_band_conv_wgmma_f32``) and
+    ``banded_conv.tma_epilogue_launches_f32`` those of the float32 ones
+    whose epilogue runs by TMA (the plan's ``tma_epilogue``: T a multiple
+    of 4, as on every main path). A CPU tensor takes
     the plain twin. Either way the stage is one ``tt.k1`` span. ``x`` is
     (B, r_in, T) float32 or bfloat16; ``residual`` (B, r_out, T).
     """
@@ -254,19 +257,22 @@ def banded_conv(x, cb, act=False, residual=None):
                                                   "banded_conv", tf32=not bf16)
         if y.numel() == 0:
             return y
+        tma_epilogue = False
         if bf16:
             _launch_wgmma(x, cb, act, residual, w, bias, y)
         else:
-            _launch_wgmma_f32(x, cb, act, residual, w, bias, y)
+            tma_epilogue = _launch_wgmma_f32(x, cb, act, residual, w, bias, y)
         banded_conv.launches += 1
         banded_conv.mma_launches += int(bf16)
         banded_conv.mma_launches_f32 += int(not bf16)
+        banded_conv.tma_epilogue_launches_f32 += int(tma_epilogue)
         return y
 
 
 banded_conv.launches = 0
 banded_conv.mma_launches = 0
 banded_conv.mma_launches_f32 = 0
+banded_conv.tma_epilogue_launches_f32 = 0
 
 
 def banded_conv_mma(x, cb, act=False, residual=None):
@@ -443,7 +449,8 @@ def _launch_wgmma(x, cb, act, residual, w, bias, y):
 # 64-row sub-tile x F32_TILE_T frames; a pipeline stage is one chunk of
 # F32_KC band rows: an x box of F32_BOX_T frames from t0 - BAND_MAX_DT (every
 # tap reads it at its own offset) and each tap's TF32 hi and lo weight
-# boxes. Each (chunk, tap) product is one fresh sum.
+# boxes. Each (chunk, tap) product is one fresh sum. Where T is a multiple
+# of F32_FRAME_ALIGN the epilogue moves the residual and y by TMA.
 F32_TILE_T = 128
 F32_KC = 16
 F32_BOX_T = F32_TILE_T + 3 * BAND_MAX_DT
@@ -468,6 +475,11 @@ class BandTmaPlanF32(NamedTuple):
             frame ``t0 + n + dt`` of it for output frame ``t0 + n``.
     n_w:    weight sub-tiles (2, or one per sub-tile with ``per_block``);
             their hi and lo planes are ``cb.band_tf32_operands()``.
+    tma_epilogue: 1 where T is a multiple of ``F32_FRAME_ALIGN`` (the
+            residual and y then have 16-byte rows): a tile's residual
+            comes into shared memory by TMA during its products, and the
+            result leaves by a TMA store; 0 elsewhere: the epilogue reads
+            the residual and writes y from the registers.
     """
     t_pad: int
     tiles: int
@@ -475,6 +487,7 @@ class BandTmaPlanF32(NamedTuple):
     bands: tuple
     taps: tuple
     n_w: int
+    tma_epilogue: int
 
 
 def band_tma_plan_f32(cb, t):
@@ -485,7 +498,8 @@ def band_tma_plan_f32(cb, t):
         t_pad=-(-t // a) * a, tiles=-(-t // F32_TILE_T), n_sub=cb.n_sub,
         bands=tuple((s, n, -(-n // F32_KC)) for s, n in cb.bands),
         taps=tuple(cb.dts),
-        n_w=2 * cb.n_out_blocks if cb.per_block else 2)
+        n_w=2 * cb.n_out_blocks if cb.per_block else 2,
+        tma_epilogue=int(t % a == 0))
 
 
 def _wgmma_plan_f32(cb, t, width):
@@ -498,17 +512,23 @@ def _wgmma_plan_f32(cb, t, width):
             taps = list(plan.taps) + [0] * (3 - len(plan.taps))
             ints = (t, plan.t_pad, len(plan.taps), *taps, cb.col_adv,
                     cb.margin, width, plan.n_w, int(cb.per_block),
-                    *[v for band in plan.bands for v in band[:2]])
+                    *[v for band in plan.bands for v in band[:2]],
+                    plan.tma_epilogue)
             cb._cache[key] = (plan.t_pad, (ctypes.c_int * len(ints))(*ints))
     return cb._cache[key]
 
 
 def _launch_wgmma_f32(x, cb, act, residual, w, bias, y):
     """One launch of ``csrc/band_wgmma.cu:tt_band_conv_wgmma_f32``; ``w``
-    holds the band weights' TF32 planes."""
+    holds the band weights' TF32 planes. Returns whether the epilogue ran
+    by TMA (its tensor maps want 16-byte aligned bases: ``y`` is a fresh
+    allocation, a residual view that is not aligned is copied)."""
     b, r_in, t = x.shape
     t_pad, plan = _wgmma_plan_f32(cb, t, w.shape[-1])
+    tma_epilogue = bool(plan[-1])
     xp = tma_frames(x, t_pad)
+    if tma_epilogue and residual is not None and residual.data_ptr() % 16:
+        residual = residual.clone()
     res = None if residual is None else residual.data_ptr()
     rc = _call_on(x.device,
                   _build.load("band_wgmma", "tt_band_conv_wgmma_f32"),
@@ -516,6 +536,7 @@ def _launch_wgmma_f32(x, cb, act, residual, w, bias, y):
                   y.data_ptr(), b, r_in, cb.r_out, int(act), plan,
                   _stream(x.device))
     _build.check(rc, "banded_conv (tt_band_conv_wgmma_f32)")
+    return tma_epilogue
 
 
 def _check_taps(cb, what, dtype):

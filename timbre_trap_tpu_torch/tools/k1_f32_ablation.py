@@ -33,44 +33,44 @@ from ..models.modules import init_weights
 from ..ops import _build
 from ..ops import fused_level as fl
 
-_STORE = "    store_tile_f32(a, tl, warp >> 2, warp & 3, lane, run);"
-_ELU = "        if (a.act) x = x > 0.f ? x : expf(fminf(x, 0.f)) - 1.f;\n"
-_Y = "        a.out[out_base + (size_t)orow * a.t_len + f] = x + r[e][i];"
+_REGISTERS = "      store_tile_f32(a, tl, warp >> 2, warp & 3, lane, run);"
+_EPILOGUE = ("    if (a.tma_epi)\n"
+             "      finish_tile_f32_tma(a, tl, epi, k, warp >> 2, warp & 3, "
+             "lane, run);\n"
+             "    else\n" + _REGISTERS)
+_COPIES = ("    if (lane == 0 && a.tma_epi) "
+           "epilogue_copies_f32(a, &rmap, &ymap, epi);")
+_ELU = ("        float x = run[4 * j + 2 * i + e] + bias[j][e];\n"
+        "        if (a.act) x = x > 0.f ? x : expf(fminf(x, 0.f)) - 1.f;\n")
+_TMA_STORE = "        if (pt.t0 + kEpiBoxT * bx < a.t_len)\n"
+_RES_LOAD = "    if (a.res == nullptr) {\n      bulk_wait_read<0>();"
+_PICK = "  a.tma_epi = tma_epi;"
 _FIRST = "          wgmma_tf32_first(p, al[ks], smem_desc(wh + 32 * ks, 512, 2));"
 _LO_HI = "          wgmma_tf32(p, al[ks], smem_desc(wh + 32 * ks, 512, 2));"
 _SMALL = ("        wgmma_tf32(p, ah[ks], smem_desc(wl + 32 * ks, 512, 2));\n"
           "        wgmma_tf32(p, ah[ks], smem_desc(wh + 32 * ks, 512, 2));\n")
 _SPLIT = ('  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(x));\n'
           "  lo = __float_as_uint(x - __uint_as_float(hi));")
-_RING = "constexpr int kStagesF = 3;"
-_BOUNDS = "__global__ void __launch_bounds__(kThreadsF, 2)"
-_PRODUCE = ("  const uint32_t bytes = kXBoxF + a.n_dt * 2 * kWBoxF;\n"
-            "  for (int c = 0; c < tl.kl / kKcF; ++c) {")
-_PREFETCH = """  if (a.res != nullptr && (a.t_len & 3) == 0) {
-    for (int r = 0; r < min(kSub, a.r_out - tl.g * kSub); ++r) {
-      const float* p = a.res + ((size_t)tl.b * a.r_out + tl.g * kSub + r) * a.t_len + tl.t0;
-      asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\\n" ::"l"(p),
-                   "r"(4 * min(kTileF, a.t_len - tl.t0)) : "memory");
-    }
-  }
-"""
 
 # name: [(text of csrc/band_wgmma.cu, its replacement), ...]
 VARIANTS = {
     "base": [],
-    "no_epilogue": [(_STORE, "    if (run[0] == 1.2345e-30f)\n" + _STORE)],
-    "no_elu": [(_ELU, "")],
-    "no_store": [(_Y, "        if (x == 1.2345e-30f)\n" + _Y)],
+    # The mainloop alone: no residual load, no epilogue.
+    "no_epilogue": [
+        (_EPILOGUE, "    if (run[0] == 1.2345e-30f)\n" + _REGISTERS),
+        (_COPIES, "")],
+    "no_elu": [(_ELU, _ELU.split("\n")[0] + "\n")],
+    "no_store": [(_TMA_STORE, _TMA_STORE.replace("< a.t_len", "< 0"))],
+    "no_residual_load": [(_RES_LOAD, _RES_LOAD.replace("a.res == nullptr",
+                                                       "true"))],
+    # The epilogue from the registers in this kernel (ring, tiles and
+    # mainloop as they are): the TMA epilogue's own A/B.
+    "register_epilogue": [(_PICK, "  a.tma_epi = 0;")],
     "fast_exp": [(_ELU, _ELU.replace("expf(", "__expf("))],
     "one_product": [(_FIRST, _FIRST.replace("al[ks]", "ah[ks]")),
                     (_LO_HI, _LO_HI.replace("al[ks]", "ah[ks]")),
                     (_SMALL, "")],
     "no_split": [(_SPLIT, "  hi = __float_as_uint(x);\n  lo = 0u;")],
-    "ring_2": [(_RING, _RING.replace("3", "2"))],
-    "one_cta_ring_6": [(_RING, _RING.replace("3", "6")),
-                       (_BOUNDS, _BOUNDS.replace("2)", "1)"))],
-    "residual_l2_prefetch": [(_PRODUCE, _PRODUCE.replace(
-        "  for (int c", _PREFETCH + "  for (int c"))],
 }
 
 _ENTRY = "tt_band_conv_wgmma_f32"
