@@ -35,9 +35,9 @@ Phases, each of which exits non-zero on failure:
              stage within 3x the plain version's error;
 3. main    — the flagship model (22.05 kHz, 9 x 60 bins, 3-s blocks,
              latent 128, complexity 2, seeded random weights) transcribes a
-             ~100-s chord clip (3 pieces of 16 blocks), then peak_mask; the
-             kernels' launch counts are zeroed just before and read just
-             after and must be > 0; activations must be finite, in [0, 1],
+             ~100-s chord clip (3 pieces of 16 blocks), then peak_mask,
+             counted (60 K1 kernels a forward, one K2); activations must
+             be finite, in [0, 1],
              of shape (1, 540, frames), and within 5e-2 of a float32 run;
              the mask must equal the plain version's on those activations;
              the float32 transcribe of the same clip, counted: every K1
@@ -74,9 +74,9 @@ Phases, each of which exits non-zero on failure:
              the card, bit for bit.
              Then training at the reference recipe: 5 ``"pallas_bf16"``
              steps on one seeded batch of 8 chord-and-noise 9-s crops
-             (int16 compact uploads, uint8 ground truth), K1 and K3 counts
-             zeroed just before and read just after (> 0), every metric
-             finite, the loss falling; one bf16 step against one float32
+             (int16 compact uploads, uint8 ground truth), the first
+             counted (K1 and K3 run), every metric finite, the loss
+             falling; one bf16 step against one float32
              ``"packed"`` (plain twin) step from the same weights on 2 of
              the crops (the twin's batch is cut for its time and memory),
              loss within 2e-2 and the whole gradient within 5e-2 in
@@ -111,14 +111,15 @@ Phases, each of which exits non-zero on failure:
              split (an MPE loader of 4 shuffled 9-s crops and an
              audio-only loader of 4), ``"pallas_bf16"``, a checkpoint and
              a validation sweep through ``evaluate`` every 2 steps, 4
-             steps: K1 and K3 launched by the steps (bf16 only), K2
-             exactly once a validation track a sweep (4), every logged
+             steps: every logged
              metric finite, ``mpe/f1-score``, ``reconstruction/SDR`` and
              ``loss/total`` in ``metrics.json``, the checkpoints and
              ``hparams.json`` written, ``load_model`` of the last
              checkpoint bit for bit; a fresh Trainer restored from the
              first checkpoint runs to the same parameters, Adam moments
-             and trainer state bit for bit; with cuDNN's TF32 default on,
+             and trainer state bit for bit, counted (K1 and K3 bf16 only,
+             K2 exactly once a validation track); with cuDNN's TF32
+             default on,
              ``evaluate`` of a small model on the card against the CPU
              (losses within 1e-4 relative, SDR within 1e-3 dB, ``mpe/*``
              equal, or where masks part, the card's activations within
@@ -131,9 +132,10 @@ Phases, each of which exits non-zero on failure:
              each of Bach10, Su and GuitarSet, TRIOS's 5 multitracks):
              the train CLI with ``--debug`` and its defaults (batch 8 of
              9-s crops, 8 loader threads, ``"pallas_bf16"``) but
-             ``--max-epochs 4 --checkpoint-interval 2``, counted: K1 348,
-             K3 173 dX, 174 dW and 24 seeds a step, all bf16, K2 once a
-             validation track a sweep; ``metrics.json`` finite,
+             ``--max-epochs 2 --checkpoint-interval 2``, counted: K1 348,
+             K3 173 dX, 174 dW (partial sums and reduction) and 24 seeds
+             a step, all bf16, K2 once a validation track; then timed
+             with ``--max-epochs 4``: ``metrics.json`` finite,
              ``load_model`` of its last checkpoint bit for bit; the
              ``"flax"`` recipe step's time and peak memory; the evaluate
              CLI on that checkpoint over the five sets, K2 once a track,
@@ -183,9 +185,8 @@ Phases, each of which exits non-zero on failure:
              K1 and K3's dX and dW are band-tiled tensor-core kernels:
              the K1 stage ``tt_band_conv_wgmma`` (bf16) and
              ``tt_band_conv_wgmma_f32`` (float32) of
-             ``csrc/band_wgmma.cu`` (TMA-fed wgmma, the only route of
-             either dtype), dX and dW in both dtypes those of
-             ``csrc/band_mma.cu``: phase 2 also
+             ``csrc/band_wgmma.cu`` (TMA-fed wgmma), dX and dW in both
+             dtypes those of ``csrc/band_mma.cu``: phase 2 also
              holds them, on one conv of each kind at flagship widths (3x3
              at dilation 1, 2 and 3, 1x1, sconv, tconv, the dense bridge)
              and on the stages the variants add (the standalone convin
@@ -196,29 +197,24 @@ Phases, each of which exits non-zero on failure:
              masked with the same bands) and dBias within 1e-4 * max|ref|
              in float32 (split-TF32 against the IEEE twin) and 1e-2 *
              max|ref| in bf16, dW and dBias the same bits in two runs, the
-             bf16 stage too, which is also counted against
-             ``tt_band_conv`` (mma.sync) output by output, and the
-             float32 stage, whose largest difference from
-             ``tt_band_conv_f32`` (mma.sync) is printed; K3
+             stage too; K3
              also against its twin at (2, R_in, 1024) on every level; the
              main paths must launch the tensor-core kernels;
-4. numbers — the bf16 forward at (4, 1080, 1024) on ``tt_band_conv_wgmma``,
-             on ``tt_band_conv`` and through cuDNN, in turns, beside the
-             bound and the stage-by-stage byte floor, and one stage of
-             each kind alone on both bf16 kernels; the float32 forward the
-             same way on ``tt_band_conv_wgmma_f32``, ``tt_band_conv_f32``
-             and cuDNN (TF32 off), the reconstruction spec on both float32
-             kernels, and one stage of each kind on both; the wrappers'
-             host microseconds a launch on both K1 routes and both
-             yardsticks;
+4. numbers — the bf16 forward at (4, 1080, 1024) on ``tt_band_conv_wgmma``
+             and through cuDNN, in turns, beside the bound and the
+             stage-by-stage byte floor, and one stage of each kind alone;
+             the float32 forward the same way on ``tt_band_conv_wgmma_f32``
+             and cuDNN (TF32 off), the reconstruction spec, and one stage
+             of each kind alone; the wrappers' host microseconds a launch
+             on both K1 routes;
              kernel, plain-version and library times, the least time the
-             card could take (bound), the real-time factor of the counted
-             (first) call and of a second call at the same length (and of
-             a second float32 call), ``reconstruct_rtf`` (first and second
-             call) with the reconstruction chain's forward time and the
-             synthesis time of the clip, the base + skips model's
-             ``transcribe_rtf`` and ``reconstruct_rtf`` (first and second
-             call) and its route's forward time, ``trainer_step_ms``
+             card could take (bound), the real-time factor of a second
+             call at the clip's length (bf16 and float32; the first call
+             is the counted one), ``reconstruct_rtf`` (second call) with
+             the reconstruction chain's forward time and the synthesis
+             time of the clip, the base + skips model's
+             ``transcribe_rtf`` and ``reconstruct_rtf`` (second call) and
+             its route's forward time, ``trainer_step_ms``
              (``run()``'s wall less its checkpoints and sweeps, a step)
              beside the bare step's, ``evaluate_s`` a sweep and the
              validation RTF, K1 alone on each variant
@@ -233,6 +229,15 @@ Phases, each of which exits non-zero on failure:
              tensor-core library's SASS; phase 3g's ``trainer_step_ms``
              (the CLI's threaded loader) beside 3f's, its sweep, evaluate
              and sonify walls.
+
+"Counted" means the kernels the card ran in a call, by name, from the
+profiler's device records (``utils.profiling.kernel_counts``; K1
+``band_wgmma_kernel`` in bf16, ``band_wgmma_f32_kernel`` in float32; K3
+dX ``band_product_kernel`` / ``band_tf32_kernel``, dW
+``band_dw_partial_kernel`` / ``band_dw_tf32_kernel`` and
+``band_dw_reduce_kernel``, the seed ``elu_backward_kernel``; K2
+``peak_mask_kernel``). The profiler slows the call it watches, so no
+counted call is timed.
 
 Prints the kernels' JSON line (with each kernel's launches per rank in
 phase 3h, ``launches_parallel``, and phase 3i's ``launches_cli`` parity
@@ -348,32 +353,41 @@ def rel_err(got, ref):
     return err, scale
 
 
-# The launch counts a kernel wrapper may carry, and their keys' suffixes.
-COUNTS = {"launches": "", "mma_launches": ".mma",
-          "mma_launches_f32": ".mma_f32",
-          "tma_epilogue_launches_f32": ".tma_f32"}
+# The port's kernels by the name the card records them under: K1, K3's dX
+# and dW partial sums in bf16 and in float32; dW's reduction (both
+# dtypes), the ELU' seed and K2.
+K1, K1_F32 = "band_wgmma_kernel", "band_wgmma_f32_kernel"
+DX, DX_F32 = "band_product_kernel", "band_tf32_kernel"
+DW, DW_F32 = "band_dw_partial_kernel", "band_dw_tf32_kernel"
+DW_REDUCE, SEED, K2 = ("band_dw_reduce_kernel", "elu_backward_kernel",
+                       "peak_mask_kernel")
+BF16_BANDS, F32_BANDS = (K1, DX, DW), (K1_F32, DX_F32, DW_F32)
+KERNELS = BF16_BANDS + F32_BANDS + (DW_REDUCE, SEED, K2)
+# The kernels of one recipe step of the base model on "pallas_bf16": K1
+# stages, K3's dX, dW (a partial-sum and a reduction kernel a call) and
+# the ELU' seeds; and on "pallas", the same on the float32 kernels.
+RECIPE_STEP_LAUNCHES = {K1: 348, DX: 173, DW: 174, DW_REDUCE: 174, SEED: 24}
+RECIPE_STEP_LAUNCHES_F32 = {dict(zip(BF16_BANDS, F32_BANDS)).get(k, k): n
+                            for k, n in RECIPE_STEP_LAUNCHES.items()}
 
 
-# The suffixes of the float32 routes' counts.
-F32_COUNTS = (".mma_f32", ".tma_f32")
+@contextlib.contextmanager
+def counting():
+    """Yields a dict that, when the block ends, holds how many times the
+    card ran each of the port's ``KERNELS`` in it (graph replays
+    included)."""
+    from timbre_trap_tpu_torch.utils.profiling import kernel_counts
+
+    out = {}
+    with kernel_counts() as counts:
+        yield out
+    out.update((k, counts[k]) for k in KERNELS)
 
 
-def zero_counts(fns):
-    """Set every launch count of the kernel wrappers ``fns`` to 0."""
-    for fn in fns:
-        for name in COUNTS:
-            if hasattr(fn, name):
-                setattr(fn, name, 0)
-
-
-def read_counts(fns):
-    """{wrapper: launches, wrapper.mma: bf16 tensor-core launches,
-    wrapper.mma_f32: float32 split-TF32 launches, wrapper.tma_f32: those
-    with the TMA epilogue} where a wrapper has them (a K1 stage's bf16
-    launch is one of ``tt_band_conv_wgmma``, its float32 launch one of
-    ``tt_band_conv_wgmma_f32``)."""
-    return {fn.__name__ + sfx: getattr(fn, name) for fn in fns
-            for name, sfx in COUNTS.items() if hasattr(fn, name)}
+def bf16_only(launches):
+    """Whether K1, dX and dW all ran, and only on their bf16 kernels."""
+    return (all(launches[k] > 0 for k in BF16_BANDS)
+            and not any(launches[k] for k in F32_BANDS))
 
 
 def card_line():
@@ -470,18 +484,13 @@ def phase_band_parity(torch, fwd_spec, train_specs, stages=()):
     1e-4 * max|ref| and in bf16 within 1e-2 * max|ref|: the stage (ELU,
     residual; the variant stages also without either), dX (residual, raw,
     ELU') and dW/dBias (band entries), dW and dBias bitwise stable. The
-    bf16 stage (``tt_band_conv_wgmma``) also gives the same bits in two
-    runs, and its outputs are counted against ``tt_band_conv``'s on the
-    same tensors; the float32 stage (``tt_band_conv_wgmma_f32``) gives the
-    same bits in two runs, and its largest difference from
-    ``tt_band_conv_f32``'s outputs (relative to max|ref|) is kept. Returns
-    the largest relative errors (bf16, float32), per variant stage and
-    dtype its largest K3 relative error, the share of bf16 stage outputs
-    bit-equal to ``tt_band_conv``'s and the float32 stage's largest
-    relative difference from ``tt_band_conv_f32``."""
+    stage (``tt_band_conv_wgmma``, float32 ``tt_band_conv_wgmma_f32``)
+    gives the same bits in two runs. Returns the largest relative errors
+    (bf16, float32) and per variant stage and dtype its largest K3
+    relative error."""
     from timbre_trap_tpu_torch.ops.fused_level import (
         banded_conv, banded_conv_dw, banded_conv_dw_reference, banded_conv_dx,
-        banded_conv_dx_reference, banded_conv_mma, banded_conv_reference)
+        banded_conv_dx_reference, banded_conv_reference)
 
     picks = {}
     for spec in train_specs + [fwd_spec]:
@@ -503,7 +512,6 @@ def phase_band_parity(torch, fwd_spec, train_specs, stages=()):
 
     worst = {torch.float32: 0.0, bf16: 0.0}
     k3_stages = {name: {} for name, _ in stages}
-    same, total, diff32 = 0, 0, 0.0
     for t in (3072, 1001):
         for kind, cb in list(picks.items()) + list(stages):
             dense = kind == "dense"
@@ -520,24 +528,10 @@ def phase_band_parity(torch, fwd_spec, train_specs, stages=()):
                 errs = [max(rel(banded_conv(x, cb, act, r),
                                 banded_conv_reference(x, cb, act, r),
                                 f"{what} stage", tol) for act, r in forms)]
-                if dtype == bf16:
-                    for act, r in forms:
-                        got = banded_conv(x, cb, act, r)
-                        check(torch.equal(got, banded_conv(x, cb, act, r)),
-                              f"band kernels: {what} stage differs in two "
-                              "runs")
-                        same += int((got == banded_conv_mma(x, cb, act, r))
-                                    .sum())
-                        total += got.numel()
-                else:
-                    for act, r in forms:
-                        got = banded_conv(x, cb, act, r)
-                        check(torch.equal(got, banded_conv(x, cb, act, r)),
-                              f"band kernels: {what} stage differs in two "
-                              "runs")
-                        old = banded_conv_mma(x, cb, act, r)
-                        diff32 = max(diff32, (got - old).abs().max().item()
-                                     / max(old.abs().max().item(), 1e-30))
+                for act, r in forms:
+                    check(torch.equal(banded_conv(x, cb, act, r),
+                                      banded_conv(x, cb, act, r)),
+                          f"band kernels: {what} stage differs in two runs")
                 if not dense:
                     adj = cb.adjoint
                     c = rand(2, adj.r_in, t)
@@ -566,14 +560,8 @@ def phase_band_parity(torch, fwd_spec, train_specs, stages=()):
                   f"{cb.c_out}, bands {cb.bands}): stage"
                   + ("" if dense else ", dX, raw, dW, dBias")
                   + "; " + "; ".join(line))
-    share = same / max(total, 1)
-    print(f"  band bf16 stage: two runs bit-equal on every kind; "
-          f"{100 * share:.4f} % of {total} outputs bit-equal to "
-          f"tt_band_conv's")
-    print(f"  band float32 stage (tt_band_conv_wgmma_f32): two runs "
-          f"bit-equal on every kind; largest difference from "
-          f"tt_band_conv_f32 {diff32:.3e} of max|ref|")
-    return worst[bf16], worst[torch.float32], k3_stages, share, diff32
+    print("  band stage, bf16 and float32: two runs bit-equal on every kind")
+    return worst[bf16], worst[torch.float32], k3_stages
 
 
 class ByteCount:
@@ -889,9 +877,10 @@ def one_step(torch, model, weights, backend, audio, gt, lr, mpe=None):
     return {k: float(v) for k, v in metrics.items()}, grads
 
 
-def phase_train(torch, counters):
+def phase_train(torch):
     """The reference recipe's training step on the card (phase 3) and its
-    step numbers (phase 4). Returns (numbers, launches, the model)."""
+    step numbers (phase 4). Returns (numbers, the first step's launches,
+    the model)."""
     from timbre_trap_tpu_torch.models import TimbreTrap
     from timbre_trap_tpu_torch.train import (TrainConfig, cosine_warmup,
                                              init_train_state,
@@ -907,17 +896,20 @@ def phase_train(torch, counters):
     step = make_train_step(model, cfg, TRAIN_CROPS, conv_backend="pallas_bf16",
                            compact_audio_grid=True)
     warmup = cosine_warmup(TRAIN_WARMUP)
-    zero_counts(counters)
+
+    def train_step(i):
+        metrics = step(state, audio, gt, cfg.learning_rate * float(warmup(i)))
+        return {k: float(v) for k, v in metrics.items()}
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    walls, history = [], []
-    for i in range(TRAIN_STEPS):
+    with counting() as launches:                # step 1, counted
+        history = [train_step(0)]
+    walls = []
+    for i in range(1, TRAIN_STEPS):             # the others, timed
         t0 = time.perf_counter()
-        metrics = step(state, audio, gt, cfg.learning_rate * float(warmup(i)))
-        metrics = {k: float(v) for k, v in metrics.items()}
+        history.append(train_step(i))
         walls.append(time.perf_counter() - t0)
-        history.append(metrics)
-    launches = read_counts(counters)
     peak = torch.cuda.max_memory_allocated()
     losses = [m["loss/total"] for m in history]
     check(all(np.isfinite(v) for m in history for v in m.values()),
@@ -926,11 +918,10 @@ def phase_train(torch, counters):
     for key in ("avg_norm/encoder", "max_norm/encoder", "avg_norm/decoder",
                 "max_norm/decoder", "loss/consistency/spectral"):
         check(key in history[-1], f"train metrics lack {key}")
-    for name, n in launches.items():
-        if name.endswith(F32_COUNTS):
-            check(n == 0, f"{name}: the bf16 step launched a float32 kernel")
-        else:
-            check(n > 0, f"{name} was not launched by the train step")
+    check(bf16_only(launches) and all(
+        launches[k] == n for k, n in RECIPE_STEP_LAUNCHES.items()),
+          f"the bf16 step launched {launches}, not {RECIPE_STEP_LAUNCHES} "
+          f"and no float32 kernel")
     print(f"main: train {TRAIN_STEPS} steps pallas_bf16, loss/total "
           + " ".join(f"{v:.4f}" for v in losses)
           + f", launches {launches}")
@@ -965,28 +956,26 @@ def phase_train(torch, counters):
         "small", one_step(torch, small, ws, "pallas", a_s, g_s, TRAIN_LR),
         one_step(torch, small, ws, "packed", a_s, g_s, TRAIN_LR))
 
-    # one float32 "pallas" step at the recipe (the second of two), counted:
-    # every K1 stage of its forward and recompute, and every K3 dX and dW
-    # launch of its backward, runs a split-TF32 band kernel.
+    # Two float32 "pallas" steps at the recipe: the first counted (every
+    # K1 stage of its forward and recompute, and every K3 dX and dW of its
+    # backward, runs a split-TF32 band kernel), the second timed.
     model.load_state_dict(w0)
     st32 = init_train_state(model, cfg)
     step32 = make_train_step(model, cfg, TRAIN_CROPS, conv_backend="pallas",
                              compact_audio_grid=True)
-    float(step32(st32, audio, gt, TRAIN_LR)["loss/total"])
-    zero_counts(counters)
+    with counting() as launches32:
+        float(step32(st32, audio, gt, TRAIN_LR)["loss/total"])
+    check(all(launches32[k] == n
+              for k, n in RECIPE_STEP_LAUNCHES_F32.items())
+          and not any(launches32[k] for k in BF16_BANDS),
+          f"the float32 step launched {launches32}, not "
+          f"{RECIPE_STEP_LAUNCHES_F32} and no bf16 kernel")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     float(step32(st32, audio, gt, TRAIN_LR)["loss/total"])
     wall32 = time.perf_counter() - t0
-    launches32 = read_counts(counters)
-    for name in ("banded_conv", "banded_conv_dx", "banded_conv_dw"):
-        check(launches32[f"{name}.mma_f32"] > 0
-              and launches32[f"{name}.mma_f32"] == launches32[name],
-              f"the float32 step's {name} launches did not all run the "
-              f"split-TF32 band kernel: {launches32}")
-    check_tma_epilogue(launches32, "the float32 step")
     print(f"main: float32 pallas step launches {launches32}")
-    step_s = float(np.mean(walls[1:]))
+    step_s = float(np.mean(walls))
     audio_secs = TRAIN_CROPS * TRAIN_SECS
     numbers = {"train_step_ms": step_s * 1e3,
                "train_step_ms_each": [w * 1e3 for w in walls],
@@ -999,7 +988,7 @@ def phase_train(torch, counters):
                                 "worst_leaf": leaf},
                "f32_kernels_vs_twin": gaps}
     print(f"train_step_ms: {step_s * 1e3:.1f} (pallas_bf16, mean of steps "
-          f"2-{TRAIN_STEPS}; step 1 {walls[0] * 1e3:.1f}), "
+          f"2-{TRAIN_STEPS}; step 1 counted), "
           f"{audio_secs / step_s:.1f} audio-s/s, peak "
           f"{peak / 2**30:.2f} GiB; float32 pallas step {wall32 * 1e3:.1f} ms")
     return numbers, launches, model
@@ -1037,7 +1026,7 @@ def float64_grads(model, weights, audio, gt):
     return grads
 
 
-def phase_family_train(torch, counters, card):
+def phase_family_train(torch, card):
     """Every family trains at the flagship width (phase 3e): for base +
     skips, FiLM, Mag + skips and MagDB, 2 counted ``"pallas_bf16"`` steps
     on the recipe's 8 x 9-s crops (K1, K3 dX, dW and the ELU' seed
@@ -1069,19 +1058,13 @@ def phase_family_train(torch, counters, card):
         step = make_train_step(model, cfg, TRAIN_CROPS,
                                conv_backend="pallas_bf16",
                                compact_audio_grid=True)
-        zero_counts(counters)
-        torch.cuda.synchronize()
-        history = [{k: float(v) for k, v in step(state, audio, gt,
-                                                 TRAIN_LR).items()}
-                   for _ in range(2)]
-        torch.cuda.synchronize()
-        counts = read_counts(counters)
-        for name, n in counts.items():
-            if name.endswith(F32_COUNTS):
-                check(n == 0, f"{label}: the bf16 step launched a float32 "
-                      f"kernel ({name} {n})")
-            else:
-                check(n > 0, f"{label}: {name} was not launched")
+        with counting() as counts:
+            history = [{k: float(v) for k, v in step(state, audio, gt,
+                                                     TRAIN_LR).items()}
+                       for _ in range(2)]
+        check(bf16_only(counts) and counts[SEED] > 0, f"{label}: the bf16 "
+              f"steps did not run K1, K3 and the seed on bf16 kernels "
+              f"alone: {counts}")
         check(all(np.isfinite(v) for m in history for v in m.values()),
               f"{label}: a train metric is not finite")
         now = model.net.state_dict()
@@ -1434,29 +1417,21 @@ def phase_transform(torch):
     return out
 
 
-def check_tma_epilogue(launches, what):
-    """A main path's float32 K1 launches (T a multiple of 4: chunks of 1024
-    frames, crops of 3072) all took the TMA epilogue."""
-    check(launches["banded_conv.tma_f32"] == launches["banded_conv.mma_f32"],
-          f"{what}: float32 K1 launches without the TMA epilogue: {launches}")
-
-
 def check_recon(torch, y, n_samples, launches, what):
     """reconstruct()'s output and counts: shape (1, 1, n_samples), finite,
-    max|y| = 1 within 1e-6; every K1 launch split-TF32; no K2."""
+    max|y| = 1 within 1e-6; K1 ran, every stage split-TF32; no K2."""
     check(tuple(y.shape) == (1, 1, n_samples), f"{what}: output "
           f"{tuple(y.shape)}, expected (1, 1, {n_samples})")
     check(bool(torch.isfinite(y).all()), f"{what}: output is not finite")
     peak = y.abs().max().item()
     check(abs(peak - 1.0) <= 1e-6, f"{what}: max|y| = {peak}, not 1")
-    check(launches["banded_conv"] > 0
-          and launches["banded_conv.mma_f32"] == launches["banded_conv"],
+    check(launches[K1_F32] > 0 and launches[K1] == 0,
           f"{what}: K1 stages did not all run the split-TF32 band kernel: "
           f"{launches}")
-    check(launches["peak_mask"] == 0, f"{what}: K2 was launched")
+    check(launches[K2] == 0, f"{what}: K2 was launched")
 
 
-def phase_reconstruct(torch, model, audio, counters, card):
+def phase_reconstruct(torch, model, audio, card):
     """reconstruct() at the flagship, counted: the 100-s clip streams
     through K1's float32 route on the reconstruction spec; its result
     against one pass over the same clip as a card tensor (<= 2e-5); a
@@ -1468,15 +1443,15 @@ def phase_reconstruct(torch, model, audio, counters, card):
 
     L = model.sliCQ.block_length
     n_samples = -(-audio.shape[-1] // L) * L
-    zero_counts(counters)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    y = model.reconstruct(audio)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts(counters)
+    graphs = len(model._graphs)
+    with counting() as launches:
+        y = model.reconstruct(audio)
     check_recon(torch, y, n_samples, launches, "reconstruct")
-    check_tma_epilogue(launches, "reconstruct")
+    # The second call replays every group: the first call's forwards less
+    # the eager warm-ups of the graphs it captured.
+    forwards = (launches[K1_F32] / sum(1 for _ in model._spec(False).convs())
+                - (len(model._graphs) - graphs))
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     model.reconstruct(audio)
     torch.cuda.synchronize()
@@ -1491,10 +1466,8 @@ def phase_reconstruct(torch, model, audio, counters, card):
 
     compat = flagship(TimbreTrap, seed=0, transform_compat="cqt_pytorch")
     clip = chord(9.0, SR, seed=2)
-    zero_counts(counters)
-    y_c = compat.reconstruct(clip)
-    torch.cuda.synchronize()
-    launches_c = read_counts(counters)
+    with counting() as launches_c:
+        y_c = compat.reconstruct(clip)
     check_recon(torch, y_c, clip.shape[-1], launches_c, "compat reconstruct")
     print(f"main: compat-frame reconstruct 9 s clip, launches {launches_c}")
     del compat
@@ -1519,21 +1492,19 @@ def phase_reconstruct(torch, model, audio, counters, card):
     check(d_small <= 1e-4, f"reconstruct: card and CPU disagree by {d_small}")
 
     # Where the time goes: the synthesis of the whole clip's coefficients
-    # alone, beside the wall time of the counted call.
+    # alone, beside the wall time of the second call.
     coeffs = model.sliCQ.encode(model.sliCQ.pad_to_block_length(
         torch.from_numpy(audio).cuda()))
     synth_ms = time_ms(torch, lambda: model.sliCQ.decode_raw(coeffs), 5)
-    numbers = {"reconstruct_rtf": CLIP_SECS / wall,
-               "reconstruct_rtf_second": CLIP_SECS / wall_warm,
-               "wall_s": wall, "wall_s_second": wall_warm,
+    numbers = {"reconstruct_rtf": CLIP_SECS / wall_warm,
+               "wall_s": wall_warm,
                "streamed_vs_one_pass": d_stream, "small_card_vs_cpu": d_small,
-               "flagship_card_vs_cpu": d_flag,
+               "flagship_card_vs_cpu": d_flag, "k1_forwards": forwards,
                "decode_ms": synth_ms, "launches_compat": launches_c}
-    print(f"reconstruct_rtf: {CLIP_SECS / wall:.2f} first call, "
-          f"{CLIP_SECS / wall_warm:.2f} second call ({CLIP_SECS:.0f} s clip, "
-          f"{wall:.3f} s / {wall_warm:.3f} s wall, float32 chain, synthesis "
-          f"included; decode of the clip's coefficients alone {synth_ms:.3f} "
-          f"ms) on {card}")
+    print(f"reconstruct_rtf: {CLIP_SECS / wall_warm:.2f} second call "
+          f"({CLIP_SECS:.0f} s clip, {wall_warm:.3f} s wall, float32 chain, "
+          f"synthesis included; decode of the clip's coefficients alone "
+          f"{synth_ms:.3f} ms) on {card}")
     return numbers, launches
 
 
@@ -1543,7 +1514,7 @@ def route_convs(spec):
     return sum(1 for s in specs for _ in s.convs())
 
 
-def forward_parity(torch, model, chunks, counters):
+def forward_parity(torch, model, chunks):
     """One flagship forward of ``model``'s inference route on the 4-chunk
     group ``chunks`` through the kernels against the same route through the
     plain twins on the card (float32): the transcribe branch in bf16 (within
@@ -1564,15 +1535,14 @@ def forward_parity(torch, model, chunks, counters):
                 f"{str(dtype)[6:]}")
         ref = fused_forward(model.net, feats, transcribe, torch.float32, spec,
                             plain=True)
-        zero_counts(counters)
-        got = fused_forward(model.net, feats, transcribe, dtype, spec)
-        torch.cuda.synchronize()
-        launches = read_counts(counters)
+        with counting() as launches:
+            got = fused_forward(model.net, feats, transcribe, dtype, spec)
         n = route_convs(spec)
-        route = ".mma" if dtype == torch.bfloat16 else ".mma_f32"
-        check(launches["banded_conv"] == n == launches["banded_conv" + route],
+        route, other = ((K1, K1_F32) if dtype == torch.bfloat16
+                        else (K1_F32, K1))
+        check(launches[route] == n and launches[other] == 0,
               f"{model.variant} forward {name}: launches {launches}, "
-              f"expected {n} on the {route[1:]} route")
+              f"expected {n} of {route}")
         err, scale = rel_err(got, ref)
         tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
         check(err <= tol * scale, f"{model.variant} (skips "
@@ -1662,13 +1632,13 @@ def count_forwards(model):
     return counted
 
 
-def phase_variants(torch, audio, chunks, counters, card):
+def phase_variants(torch, audio, chunks, card):
     """The variants and persistence (phase 3d): the flagship base model
     with skip connections, counted: transcribe of the 100-s clip + peak
     mask (58 bf16 K1 launches a forward, K2 launched, within 5e-2 of the
     float32 run, mask equal to the plain version's), reconstruct (58
-    split-TF32 launches a forward, no K2, max|y| = 1), first and second
-    calls timed; one flagship forward of base + skips, FiLM, Mag and MagDB
+    split-TF32 launches a forward, no K2, max|y| = 1), second calls
+    timed; one flagship forward of base + skips, FiLM, Mag and MagDB
     without skips and FiLM with skips against the plain twins; a small model
     of every family x skips on the card against the CPU (<= 1e-4); save ->
     load_model round trips on the card, bit for bit. Returns the numbers
@@ -1682,19 +1652,14 @@ def phase_variants(torch, audio, chunks, counters, card):
     model = flagship(TimbreTrap, skip_connections=True, seed=0)
     per_fwd = route_convs(model._spec(True))
     check(per_fwd == 58, f"the skip route has {per_fwd} conv stages, not 58")
-    parity = {"base+skips": forward_parity(torch, model, chunks, counters)}
+    parity = {"base+skips": forward_parity(torch, model, chunks)}
     L = model.sliCQ.block_length
     n_samples = -(-audio.shape[-1] // L) * L
     forwards = count_forwards(model)
 
-    zero_counts(counters)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    acts = model.transcribe(audio)
-    mask = peak_mask(acts, 0.5)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts(counters)
+    with counting() as launches:
+        acts = model.transcribe(audio)
+        mask = peak_mask(acts, 0.5)
     n_fwd = forwards.n
     check(tuple(acts.shape) == (1, model.sliCQ.n_bins,
                                 -(-audio.shape[-1] // L)
@@ -1705,11 +1670,10 @@ def phase_variants(torch, audio, chunks, counters, card):
           "outside [0, 1]")
     check(torch.equal(mask, peak_mask_reference(acts, 0.5)),
           "skips: the peak mask differs from its plain version")
-    check(launches["banded_conv"] == per_fwd * n_fwd > 0
-          and launches["banded_conv.mma"] == launches["banded_conv"],
+    check(launches[K1] == per_fwd * n_fwd > 0 and launches[K1_F32] == 0,
           f"skips transcribe: K1 launches {launches} for {n_fwd} forwards, "
           f"expected {per_fwd} bf16 launches a forward")
-    check(launches["peak_mask"] > 0, "skips transcribe: K2 not launched")
+    check(launches[K2] > 0, "skips transcribe: K2 not launched")
     t0 = time.perf_counter()
     peak_mask(model.transcribe(audio), 0.5)
     torch.cuda.synchronize()
@@ -1730,18 +1694,13 @@ def phase_variants(torch, audio, chunks, counters, card):
           f"{diff:.3e} (plain bf16 route {diff_plain:.3e})")
 
     forwards.n = 0
-    zero_counts(counters)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    y = model.reconstruct(audio)
-    torch.cuda.synchronize()
-    wall_rec = time.perf_counter() - t0
-    launches_rec = read_counts(counters)
+    with counting() as launches_rec:
+        y = model.reconstruct(audio)
     n_rec = forwards.n
     check_recon(torch, y, n_samples, launches_rec, "skips reconstruct")
-    check_tma_epilogue(launches_rec, "skips reconstruct")
-    check(launches_rec["banded_conv"] == per_fwd * n_rec,
+    check(launches_rec[K1_F32] == per_fwd * n_rec,
           f"skips reconstruct: launches {launches_rec} for {n_rec} forwards")
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     model.reconstruct(audio)
     torch.cuda.synchronize()
@@ -1770,12 +1729,11 @@ def phase_variants(torch, audio, chunks, counters, card):
                       (TimbreTrapMagDB, False), (TimbreTrapFiLM, True)):
         m = flagship(cls, skip_connections=skip, seed=3)
         label = m.variant + ("+skips" if skip else "")
-        parity[label] = forward_parity(torch, m, chunks, counters)
-        zero_counts(counters)
-        a = m.transcribe(clip9)
-        mask = peak_mask(a, 0.5)
-        torch.cuda.synchronize()
-        n_k2 = read_counts(counters)["peak_mask"]
+        parity[label] = forward_parity(torch, m, chunks)
+        with counting() as launches_9s:
+            a = m.transcribe(clip9)
+            mask = peak_mask(a, 0.5)
+        n_k2 = launches_9s[K2]
         check(bool(torch.isfinite(a).all()) and a.min().item() >= 0.0
               and a.max().item() <= 1.0, f"{label}: activations not finite "
               f"or outside [0, 1]")
@@ -1850,10 +1808,8 @@ def phase_variants(torch, audio, chunks, counters, card):
           f"most {small_f64:.2f}x the CPU's (MagDB's dB features card vs CPU "
           f"{db_diff:.3e}); {round_trips} save -> load_model round trips on "
           f"the card, bit for bit")
-    numbers = {"transcribe_rtf": CLIP_SECS / wall,
-               "transcribe_rtf_second": CLIP_SECS / wall_warm,
-               "reconstruct_rtf": CLIP_SECS / wall_rec,
-               "reconstruct_rtf_second": CLIP_SECS / wall_rec_warm,
+    numbers = {"transcribe_rtf": CLIP_SECS / wall_warm,
+               "reconstruct_rtf": CLIP_SECS / wall_rec_warm,
                "bf16_vs_f32": diff, "launches_per_forward": per_fwd,
                "forwards": n_fwd, "forward_vs_plain": parity,
                "route_ms": route_ms, "route_ms_f32": route_ms32,
@@ -1863,10 +1819,9 @@ def phase_variants(torch, audio, chunks, counters, card):
                "small_card_vs_cpu_f64_ratio": small_f64,
                "magdb_features_card_vs_cpu": db_diff,
                "round_trips": round_trips}
-    print(f"variants: transcribe_rtf {CLIP_SECS / wall:.2f} first call, "
-          f"{CLIP_SECS / wall_warm:.2f} second call; reconstruct_rtf "
-          f"{CLIP_SECS / wall_rec:.2f} / {CLIP_SECS / wall_rec_warm:.2f} "
-          f"(base + skips, {CLIP_SECS:.0f} s clip); skip route forward "
+    print(f"variants: transcribe_rtf {CLIP_SECS / wall_warm:.2f}, "
+          f"reconstruct_rtf {CLIP_SECS / wall_rec_warm:.2f} (second calls; "
+          f"base + skips, {CLIP_SECS:.0f} s clip); skip route forward "
           f"{route_ms:.3f} ms bf16, {route_ms32:.3f} ms float32, plain "
           f"{route_plain:.3f} ms, on {card}")
     return numbers, {"transcribe": launches, "reconstruct": launches_rec}
@@ -1913,12 +1868,10 @@ def stage_kind_numbers(torch, spec, batch, frames, dtype=None):
     """The K1 stage alone in ``dtype`` (default bf16), one conv of each
     kind of the forward chain ``spec`` (the first of its kind) at the main
     path's (batch, R, frames): the device time of the route's wgmma kernel
-    (``tt_band_conv_wgmma``, float32 ``tt_band_conv_wgmma_f32``) and of
-    the mma.sync yardstick (``tt_band_conv``, ``tt_band_conv_f32``) (a
-    stage alone can be bound by the host's launch time, a chain of them is
-    not), their bit-equal share, and the bytes the stage must move."""
-    from timbre_trap_tpu_torch.ops.fused_level import (banded_conv,
-                                                       banded_conv_mma)
+    (``tt_band_conv_wgmma``, float32 ``tt_band_conv_wgmma_f32``; a stage
+    alone can be bound by the host's launch time, a chain of them is not)
+    and the bytes the stage must move."""
+    from timbre_trap_tpu_torch.ops.fused_level import banded_conv
 
     dtype = dtype or torch.bfloat16
     size = 2 if dtype == torch.bfloat16 else 4
@@ -1932,19 +1885,14 @@ def stage_kind_numbers(torch, spec, batch, frames, dtype=None):
     for name, cb in picks.items():
         x = torch.randn((batch, cb.r_in, frames), generator=gen,
                         device="cuda").to(dtype)
-        row = {"wgmma_ms": device_ms(torch, lambda: banded_conv(x, cb, True)),
-               "mma_sync_ms": device_ms(torch,
-                                        lambda: banded_conv_mma(x, cb, True)),
-               "bytes_ms": ((cb.r_in + cb.r_out) * batch * frames * size
-                            + cb.blocks.numel() * size) / PEAK_BYTES * 1e3,
-               "bit_equal": (banded_conv(x, cb, True)
-                             == banded_conv_mma(x, cb, True)).float()
-                            .mean().item()}
-        out[name] = row
+        out[name] = {
+            "wgmma_ms": device_ms(torch, lambda: banded_conv(x, cb, True)),
+            "bytes_ms": ((cb.r_in + cb.r_out) * batch * frames * size
+                         + cb.blocks.numel() * size) / PEAK_BYTES * 1e3}
     print(f"K1 stage by kind ({str(dtype)[6:]}, ({batch}, R, {frames})), "
-          "device ms wgmma / mma.sync / bytes: " + "; ".join(
-              f"{k} {v['wgmma_ms']:.4f} / {v['mma_sync_ms']:.4f} / "
-              f"{v['bytes_ms']:.4f}" for k, v in out.items()))
+          "device ms wgmma / bytes: " + "; ".join(
+              f"{k} {v['wgmma_ms']:.4f} / {v['bytes_ms']:.4f}"
+              for k, v in out.items()))
     return out
 
 
@@ -2279,13 +2227,13 @@ def hold_card_to_cpu(torch, card, cpu, ds, got, want, label):
     return out
 
 
-def phase_trainer(torch, counters, card, train_step_ms):
+def phase_trainer(torch, card, train_step_ms):
     """The Trainer on the card (phase 3f), fed by the data package and
-    validated by ``evaluate``: a counted ``run()`` of 4 steps and 2 sweeps
-    at the flagship geometry, exact resume, ``load_model`` of a Trainer
-    checkpoint; ``evaluate`` and the ``"flax"`` step card against CPU.
-    ``counters`` are (K1, K3 dX, K3 dW, the ELU' seed, K2). Returns
-    (numbers, launches)."""
+    validated by ``evaluate``: a timed ``run()`` of 4 steps and 2 sweeps
+    at the flagship geometry, ``load_model`` of a Trainer checkpoint,
+    exact resume from the first checkpoint (its 2 steps and sweep
+    counted); ``evaluate`` and the ``"flax"`` step card against CPU.
+    Returns (numbers, the resumed run's launches)."""
     import tempfile
 
     from timbre_trap_tpu_torch.data.io import load_audio
@@ -2307,27 +2255,14 @@ def phase_trainer(torch, counters, card, train_step_ms):
         trainer, datasets = make_trainer(f"{tmp}/run_a", train_dir,
                                          val_dir, seed=9)
         walls, rng_states = timed_sweeps(torch, trainer, datasets)
-        zero_counts(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         best, best_results = trainer.run()
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        launches = read_counts(counters)
 
         check(trainer.batch_count == TRAINER_STEPS,
               f"trainer ran {trainer.batch_count} steps")
-        for name in ("banded_conv", "banded_conv_dx", "banded_conv_dw",
-                     "elu_backward"):
-            check(launches[name] > 0, f"trainer: {name} was not launched "
-                  "by the steps")
-        for name in ("banded_conv", "banded_conv_dx", "banded_conv_dw"):
-            check(launches[f"{name}.mma"] == launches[name],
-                  f"trainer: not every {name} launch ran the bf16 "
-                  f"tensor-core kernel: {launches}")
-        check(launches["peak_mask"] == VAL_TRACKS * TRAINER_SWEEPS,
-              f"trainer: K2 launched {launches['peak_mask']} times in "
-              f"{TRAINER_SWEEPS} sweeps of {VAL_TRACKS} tracks")
         logged = trainer.writer.scalars
         check(all(np.isfinite(v) for _, v, _ in logged),
               f"trainer: a logged metric is not finite: "
@@ -2374,8 +2309,7 @@ def phase_trainer(torch, counters, card, train_step_ms):
               f"checkpoints + sweeps in {run_s:.3f} s; loss/total "
               + " ".join(f"{v:.4f}" for v in losses)
               + f"; best checkpoint {best}, f1 "
-              f"{best_results['SmokeMPE']['mpe/f1-score']}; launches "
-              f"{launches}")
+              f"{best_results['SmokeMPE']['mpe/f1-score']}")
         print(f"trainer_step_ms: {trainer_step_ms:.1f} (run() wall less its "
               f"checkpoints and sweeps, over {TRAINER_STEPS} steps; bare "
               f"train_step_ms {train_step_ms:.1f}); evaluate_s per sweep "
@@ -2387,12 +2321,19 @@ def phase_trainer(torch, counters, card, train_step_ms):
 
         # Exact resume: a fresh Trainer (another seed's weights) restored
         # from model-2, its datasets' crop draws where run A's stood at
-        # that checkpoint, runs to the end as run A did.
+        # that checkpoint, runs to the end as run A did; counted: its 2
+        # steps on the bf16 kernels alone, K2 once a track of its sweep.
         resumed, _ = make_trainer(f"{tmp}/run_b", train_dir, val_dir,
                                   seed=10, rng_states=rng_states[2])
         check(resumed.restore(f"{models_dir}/model-2") == 2,
               "trainer: restore did not return batch 2")
-        resumed.run()
+        with counting() as launches:
+            resumed.run()
+        check(bf16_only(launches) and launches[SEED] > 0,
+              f"trainer: the steps did not run K1, K3 and the seed on bf16 "
+              f"kernels alone: {launches}")
+        check(launches[K2] == VAL_TRACKS, f"trainer: K2 launched "
+              f"{launches[K2]} times in a sweep of {VAL_TRACKS} tracks")
         pa, pb = trainer.plateau, resumed.plateau
         state_a = (trainer.batch_count, trainer.best_checkpoint,
                    trainer.n_ckpt_elapsed, pa.scale, pa.best, pa.num_bad,
@@ -2411,7 +2352,7 @@ def phase_trainer(torch, counters, card, train_step_ms):
               f" state {state_b} vs {state_a})")
         print(f"trainer: restored from model-2 into a fresh model, run to "
               f"the end: parameters and Adam moments equal bit for bit, "
-              f"state {state_b}")
+              f"state {state_b}; launches {launches}")
         del trainer, resumed
         torch.cuda.empty_cache()
 
@@ -2467,12 +2408,6 @@ CLI_TRACK_SECS, TRIOS_SECS = 12.0, 5.0
 CLI_EPOCHS, CLI_INTERVAL = 4, 2
 # The sets of the evaluate CLI's card-against-CPU check.
 CPU_DATASETS = ["Bach10", "Su"]
-# Launches of one recipe step of the base model on "pallas_bf16": K1
-# stages, K3's dX and dW, and the ELU' seeds.
-RECIPE_STEP_LAUNCHES = {"banded_conv": 348, "banded_conv_dx": 173,
-                        "banded_conv_dw": 174, "elu_backward": 24}
-
-
 def write_midi(path, notes):
     """A one-track MIDI file of ``notes`` (pitch, onset s, offset s) at 480
     ticks a beat and 120 beats a minute."""
@@ -2575,10 +2510,9 @@ def write_cli_corpora(root, seed):
     return dirs
 
 
-def cli_train(torch, argv, counters):
+def cli_train(torch, argv):
     """The train CLI's ``main(argv)``, its Trainer timed as phase 3f times
-    its own and its launches counted. Returns (trainer, numbers,
-    launches)."""
+    its own. Returns (trainer, numbers)."""
     from timbre_trap_tpu_torch.experiments import train as cli
     from timbre_trap_tpu_torch.train import Trainer
 
@@ -2600,13 +2534,11 @@ def cli_train(torch, argv, counters):
 
     cli.Trainer = TimedTrainer
     try:
-        zero_counts(counters)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         best, best_results = cli.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = read_counts(counters)
     finally:
         cli.Trainer = Trainer
     walls = held["walls"]
@@ -2619,7 +2551,7 @@ def cli_train(torch, argv, counters):
                "compose_s": walls["compose"], "steps": steps,
                "best_checkpoint": best, "best_results": best_results,
                "peak_bytes": torch.cuda.max_memory_allocated()}
-    return held["trainer"], numbers, launches
+    return held["trainer"], numbers
 
 
 def printed_results(text):
@@ -2661,21 +2593,21 @@ def cli_evaluate(argv):
     return printed_results(buf.getvalue()), returned, held["model"], wall
 
 
-def phase_cli(torch, counters, card, trainer_numbers):
+def phase_cli(torch, card, trainer_numbers):
     """The port's CLIs on the card (phase 3g), through their ``main(argv)``
     at the flagship defaults on the corpora of ``write_cli_corpora``: the
-    train CLI's counted run (4 steps, 2 sweeps), the evaluate CLI on its
-    checkpoint over the five sets (its printed results equal to
-    ``evaluate`` on the same loaded model; a small model's results on the
-    card against the CPU), and the sonify CLI on the Bach10 mixtures.
-    ``counters`` are (K1, K3 dX, K3 dW, the ELU' seed, K2). Returns
-    (numbers, launches)."""
+    train CLI's counted run (2 steps, a sweep), then its timed run (4
+    steps, 2 sweeps), the evaluate CLI on its checkpoint over the five
+    sets (its printed results equal to ``evaluate`` on the same loaded
+    model; a small model's results on the card against the CPU), and the
+    sonify CLI on the Bach10 mixtures. Returns (numbers, launches)."""
     import tempfile
 
     from timbre_trap_tpu_torch.data.datasets.MixedMultiPitch import Bach10
     from timbre_trap_tpu_torch.data.io import load_audio
     from timbre_trap_tpu_torch.eval import evaluate
     from timbre_trap_tpu_torch.experiments import sonify
+    from timbre_trap_tpu_torch.experiments import train as train_cli
     from timbre_trap_tpu_torch.experiments.evaluate import (DATASETS,
                                                             evaluation_set)
     from timbre_trap_tpu_torch.models import TimbreTrap, load_model
@@ -2688,27 +2620,32 @@ def phase_cli(torch, counters, card, trainer_numbers):
                     "TRIOS": len(TRIOS_MULTITRACKS), "GuitarSet": 2}
 
         # The train CLI: --debug, every other flag at its default but the
-        # steps and sweeps (cut as phase 3f cuts them).
+        # steps and sweeps (cut as phase 3f cuts them). First a counted
+        # run of one checkpoint interval: its steps and its sweep.
+        def train_argv(root, epochs):
+            return ["--debug", "--urmp-dir", dirs["URMP"], "--root-dir",
+                    root, "--max-epochs", str(epochs),
+                    "--checkpoint-interval", str(CLI_INTERVAL)]
+
+        with counting() as launches:
+            train_cli.main(train_argv(f"{tmp}/run_counted", CLI_INTERVAL))
+        check(bf16_only(launches) and all(
+            launches[k] == CLI_INTERVAL * n
+            for k, n in RECIPE_STEP_LAUNCHES.items()),
+              f"cli train: {CLI_INTERVAL} steps launched {launches}, not "
+              f"{CLI_INTERVAL} x {RECIPE_STEP_LAUNCHES} on bf16 kernels")
+        check(launches[K2] == n_tracks["URMP"], f"cli train: K2 launched "
+              f"{launches[K2]} times in a sweep of {n_tracks['URMP']} tracks")
+        print(f"cli: train --max-epochs {CLI_INTERVAL} counted, launches "
+              f"{launches}")
         root = f"{tmp}/run"
-        cuts = ["--max-epochs", str(CLI_EPOCHS), "--checkpoint-interval",
-                str(CLI_INTERVAL)]
-        print(f"cli: train {' '.join(cuts)} (cut: {CLI_EPOCHS} steps of "
-              f"the defaults' 5000 epochs x 1 step, a checkpoint and sweep "
-              f"every {CLI_INTERVAL} steps of the defaults' 250)")
-        trainer, train, launches = cli_train(
-            torch, ["--debug", "--urmp-dir", dirs["URMP"], "--root-dir", root]
-            + cuts, counters)
-        steps, sweeps = CLI_EPOCHS, CLI_EPOCHS // CLI_INTERVAL
+        print(f"cli: train --max-epochs {CLI_EPOCHS} --checkpoint-interval "
+              f"{CLI_INTERVAL} (cut: {CLI_EPOCHS} steps of the defaults' "
+              f"5000 epochs x 1 step, a checkpoint and sweep every "
+              f"{CLI_INTERVAL} steps of the defaults' 250), timed")
+        trainer, train = cli_train(torch, train_argv(root, CLI_EPOCHS))
+        steps = CLI_EPOCHS
         check(train["steps"] == steps, f"cli train: {train['steps']} steps")
-        for fn, n in RECIPE_STEP_LAUNCHES.items():
-            check(launches[fn] == steps * n, f"cli train: {fn} launched "
-                  f"{launches[fn]} times in {steps} steps, not {steps * n}")
-        for fn in ("banded_conv", "banded_conv_dx", "banded_conv_dw"):
-            check(launches[f"{fn}.mma"] == launches[fn], f"cli train: not "
-                  f"every {fn} launch ran the bf16 kernel: {launches}")
-        check(launches["peak_mask"] == sweeps * n_tracks["URMP"],
-              f"cli train: K2 launched {launches['peak_mask']} times in "
-              f"{sweeps} sweeps of {n_tracks['URMP']} tracks")
         with open(f"{root}/metrics.json") as fh:
             metrics = json.load(fh)
         for key in ("mpe/f1-score", "reconstruction/SDR", "loss/total"):
@@ -2733,8 +2670,7 @@ def phase_cli(torch, counters, card, trainer_numbers):
                   f"{w:.3f}" for w in train["compose_s"]) + "; sweeps (s) "
               + " ".join(f"{w:.3f}" for w in train["evaluate_s"])
               + f" ({n_tracks['URMP']} x {CLI_TRACK_SECS:.0f}-s tracks); "
-              f"peak {train['peak_bytes'] / 2**30:.2f} GiB; launches "
-              f"{launches}")
+              f"peak {train['peak_bytes'] / 2**30:.2f} GiB")
         print(f"cli: trainer_step_ms {train['trainer_step_ms']:.1f} (the "
               f"CLI's --n-workers 8, batch 8 MPE crops) beside phase 3f's "
               f"{trainer_numbers['trainer_step_ms']:.1f} (serial loader, 4 "
@@ -2756,13 +2692,12 @@ def phase_cli(torch, counters, card, trainer_numbers):
         base_dirs = [dirs[name] for name in DATASETS]
         argv = (["--checkpoint", ckpt, "--datasets"] + DATASETS
                 + ["--base-dirs"] + base_dirs)
-        zero_counts(counters)
-        printed, returned, model, eval_wall = cli_evaluate(argv)
-        eval_launches = read_counts(counters)
+        with counting() as eval_launches:
+            printed, returned, model, _ = cli_evaluate(argv)
         check(printed == returned and set(printed) == set(DATASETS),
               f"cli evaluate: printed {printed} returned {returned}")
-        check(eval_launches["peak_mask"] == sum(n_tracks.values()),
-              f"cli evaluate: K2 launched {eval_launches['peak_mask']} times "
+        check(eval_launches[K2] == sum(n_tracks.values()),
+              f"cli evaluate: K2 launched {eval_launches[K2]} times "
               f"over {sum(n_tracks.values())} tracks")
         check(all(np.isfinite(v) for r in printed.values()
                   for v in r.values()), "cli evaluate: a result is not finite")
@@ -2774,8 +2709,8 @@ def phase_cli(torch, counters, card, trainer_numbers):
               f"from evaluate() on the same model: {printed} vs {direct}")
         del model
         print(f"cli: evaluate over {sum(n_tracks.values())} tracks "
-              f"({', '.join(f'{k} {v}' for k, v in n_tracks.items())}) in "
-              f"{eval_wall:.3f} s, launches {eval_launches}; the printed "
+              f"({', '.join(f'{k} {v}' for k, v in n_tracks.items())}), "
+              f"launches {eval_launches}; the printed "
               f"results equal evaluate() on the loaded model")
 
         # Card against CPU through the CLI: a small model (8 kHz) on the
@@ -2800,24 +2735,13 @@ def phase_cli(torch, counters, card, trainer_numbers):
 
         # The sonify CLI on the Bach10 mixtures, counted.
         out_dir = f"{tmp}/sonify"
-        zero_counts(counters)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sonify.main(["--checkpoint", ckpt, "--bach10-dir", dirs["Bach10"],
-                     "--output-dir", out_dir])
-        torch.cuda.synchronize()
-        sonify_s = time.perf_counter() - t0
-        son_launches = read_counts(counters)
-        check(son_launches["banded_conv"] > 0
-              and son_launches["banded_conv.mma"] > 0
-              and son_launches["banded_conv.mma_f32"] > 0
-              and son_launches["banded_conv.mma"]
-              + son_launches["banded_conv.mma_f32"]
-              == son_launches["banded_conv"]
-              and son_launches["peak_mask"] == 0,
+        with counting() as son_launches:
+            sonify.main(["--checkpoint", ckpt, "--bach10-dir", dirs["Bach10"],
+                         "--output-dir", out_dir])
+        check(son_launches[K1] > 0 and son_launches[K1_F32] > 0
+              and son_launches[K2] == 0,
               f"cli sonify: K1 did not run both routes (bf16 for _scr, "
               f"split-TF32 for _rec), or K2 ran: {son_launches}")
-        check_tma_epilogue(son_launches, "cli sonify")
         bach10 = Bach10(base_dir=dirs["Bach10"], splits=None, sample_rate=SR,
                         cqt=None)
         snrs = {}
@@ -2837,7 +2761,7 @@ def phase_cli(torch, counters, card, trainer_numbers):
         check(min(snrs.values()) > 60.0, f"cli sonify: _ref round trip "
               f"against the padded input {snrs} dB (bar 60)")
         print(f"cli: sonify {len(bach10)} x {CLI_TRACK_SECS:.0f}-s Bach10 "
-              f"mixtures in {sonify_s:.3f} s; _ref against the padded input "
+              f"mixtures; _ref against the padded input "
               + ", ".join(f"{k} {v:.2f} dB" for k, v in snrs.items())
               + f" (> 60); launches {son_launches} (K1 bf16 for _scr, "
               "split-TF32 for _rec)")
@@ -2848,10 +2772,10 @@ def phase_cli(torch, counters, card, trainer_numbers):
                "train_launches": launches,
                "trainer_step_ms_phase_3f": trainer_numbers["trainer_step_ms"],
                "flax_step_ms": flax_s * 1e3, "flax_peak_bytes": flax_peak,
-               "evaluate_s": eval_wall, "evaluate_tracks": n_tracks,
+               "evaluate_tracks": n_tracks,
                "evaluate_launches": eval_launches,
                "evaluate_results": printed, "evaluate_card_vs_cpu": gaps,
-               "evaluate_cpu_s": cpu_wall, "sonify_s": sonify_s,
+               "evaluate_cpu_s": cpu_wall,
                "sonify_launches": son_launches, "sonify_ref_snr_db": snrs,
                "phase_s": phase_s}
     return numbers, {"train": launches, "evaluate": eval_launches,
@@ -2880,8 +2804,7 @@ def local_rows(plan, audio, gt):
             gt[plan.mpe_rows])
 
 
-def sharded_step_run(torch, model, weights, backend, mesh, audio, gt, mpe,
-                     counters):
+def sharded_step_run(torch, model, weights, backend, mesh, audio, gt, mpe):
     """One counted step of ``shard_train_step`` from ``weights`` on
     ``mesh``, then a second one timed part by part. Returns (metrics as
     floats, gradients, launches of the first step, step ms, all-reduce
@@ -2898,11 +2821,9 @@ def sharded_step_run(torch, model, weights, backend, mesh, audio, gt, mpe,
     step = shard_train_step(make_train_step(
         model, cfg, mpe, conv_backend=backend, compact_audio_grid=True), mesh)
     state = init_train_state(model, cfg)
-    zero_counts(counters)
-    torch.cuda.synchronize()
-    metrics = {k: float(v) for k, v in step(state, audio, gt,
-                                             TRAIN_LR).items()}
-    launches = read_counts(counters)
+    with counting() as launches:
+        metrics = {k: float(v) for k, v in step(state, audio, gt,
+                                                 TRAIN_LR).items()}
     grads = {n: p.grad.clone() for n, p in model.net.named_parameters()}
     upload, loss_fn, reduce, update = step.parts
     dist.barrier(group=mesh.get_group())
@@ -2922,18 +2843,15 @@ def sharded_step_run(torch, model, weights, backend, mesh, audio, gt, mpe,
     return metrics, grads, launches, (t3 - t0) * 1e3, (t2 - t1) * 1e3
 
 
-def counted_trainer_run(torch, root, corpus, counters, n_devices=None):
+def counted_trainer_run(root, corpus, n_devices=None):
     """One epoch of :func:`make_trainer` (2 steps, a checkpoint and a sweep
     of the validation set), counted. Returns (trainer, best results,
-    launches, wall s)."""
+    launches)."""
     trainer, _ = make_trainer(root, *corpus, seed=9, max_epochs=1,
                               n_devices=n_devices)
-    zero_counts(counters)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, results = trainer.run()
-    torch.cuda.synchronize()
-    return trainer, results, read_counts(counters), time.perf_counter() - t0
+    with counting() as launches:
+        _, results = trainer.run()
+    return trainer, results, launches
 
 
 def check_trainers_equal(torch, dp, dp_results, one, one_results, what):
@@ -2960,20 +2878,20 @@ def check_trainers_equal(torch, dp, dp_results, one, one_results, what):
           f"{len(dp.writer.scalars)} and {len(one.writer.scalars)})")
 
 
-def counted_sharded_inference(torch, model, mesh, audio, counters):
-    """``make_sharded_chunked_inference`` of ``audio`` (transcribe),
-    counted, after a first run that captures the chunk groups' graphs.
-    Returns (coefficients, launches, wall s)."""
+def counted_sharded_inference(torch, model, mesh, audio):
+    """``make_sharded_chunked_inference`` of ``audio`` (transcribe), a
+    first run that captures the chunk groups' graphs, a second counted and
+    a third timed. Returns (coefficients, launches, wall s)."""
     from timbre_trap_tpu_torch.parallel import make_sharded_chunked_inference
 
     run = make_sharded_chunked_inference(model, mesh, transcribe=True)
     run(audio)
-    zero_counts(counters)
-    torch.cuda.synchronize()
+    with counting() as launches:
+        out = run(audio)
     t0 = time.perf_counter()
-    out = run(audio)
+    run(audio)
     torch.cuda.synchronize()
-    return out, read_counts(counters), time.perf_counter() - t0
+    return out, launches, time.perf_counter() - t0
 
 
 def rank_main(rank, world, port, workdir):
@@ -2990,14 +2908,9 @@ def rank_main(rank, world, port, workdir):
 
     from timbre_trap_tpu_torch import parallel
     from timbre_trap_tpu_torch.models import TimbreTrap
-    from timbre_trap_tpu_torch.ops.fused_level import (banded_conv,
-                                                       banded_conv_dw,
-                                                       banded_conv_dx,
-                                                       elu_backward)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    counters = (banded_conv, banded_conv_dx, banded_conv_dw, elu_backward)
     check(parallel.initialize(f"127.0.0.1:{port}", world, rank,
                               timeout=datetime.timedelta(seconds=PAR_JOIN_S),
                               backend="gloo"),
@@ -3014,14 +2927,14 @@ def rank_main(rank, world, port, workdir):
     for backend in ("pallas", "pallas_bf16"):
         metrics, g, launches, step_ms, reduce_ms = sharded_step_run(
             torch, model, weights, backend, mesh, audio, gt,
-            len(plan.gt_pos), counters)
+            len(plan.gt_pos))
         grads[backend] = {n: v.cpu() for n, v in g.items()}
         out[backend] = {"metrics": metrics, "launches": launches,
                         "step_ms": step_ms, "allreduce_ms": reduce_ms}
     model.load_state_dict(weights)
     clip = chord(CLIP_SECS, SR)
     coeffs, launches, wall = counted_sharded_inference(
-        torch, model, mesh, clip, counters[:1])
+        torch, model, mesh, clip)
     first = coeffs.clone()
     dist.broadcast(first, src=0, group=mesh.get_group())
     check(torch.equal(coeffs, first),
@@ -3037,15 +2950,14 @@ def rank_main(rank, world, port, workdir):
     dist.destroy_process_group()
 
 
-def phase_parallel(torch, counters, card, cli):
+def phase_parallel(torch, card, cli):
     """Phase 3h: ``remat`` on the ``"flax"`` recipe step beside 3g's
     unrematted one; an NCCL group of one rank on the card (the sharded
     ``"pallas_bf16"`` step and the sharded transcription of the 100-s clip
     equal to the plain ones, bit for bit); two gloo ranks sharing the card
     (the sharded step in float32 and bf16 against one rank's, the sharded
     transcription against ``chunked_inference``, the ranks' launches
-    against one rank's). ``counters`` are (K1, K3 dX, K3 dW, the ELU'
-    seed, K2). Returns (numbers, launches)."""
+    against one rank's). Returns (numbers, launches)."""
     import datetime
     import tempfile
 
@@ -3059,7 +2971,6 @@ def phase_parallel(torch, counters, card, cli):
                                              synthetic_batch)
 
     t_phase = time.perf_counter()
-    k1 = counters[:1]
     numbers, launches = {}, {}
 
     # (1) remat: the "flax" recipe step with its cells recomputed, against
@@ -3103,8 +3014,8 @@ def phase_parallel(torch, counters, card, cli):
                            TRAINER_TRACK_SECS, SR, seed=11),
               write_corpus(f"{corpus_dir.name}/val", 1, VAL_SECS, SR,
                            seed=12))
-    one, one_results, one_launches, one_s = counted_trainer_run(
-        torch, f"{corpus_dir.name}/one", corpus, counters)
+    one, one_results, one_launches = counted_trainer_run(
+        f"{corpus_dir.name}/one", corpus)
 
     # (2) An NCCL group of one rank on cuda:0: the all-reduce and the
     # division by 1 are exact, so the sharded step, the sharded
@@ -3118,7 +3029,7 @@ def phase_parallel(torch, counters, card, cli):
           f"{dist.get_backend()}, not NCCL")
     mesh = parallel.make_mesh(1)
     m1, g1, l1, step1_ms, reduce1_ms = sharded_step_run(
-        torch, model, w0, "pallas_bf16", mesh, audio, gt, PAR_MPE, counters)
+        torch, model, w0, "pallas_bf16", mesh, audio, gt, PAR_MPE)
     m0, g0 = one_step(torch, model, w0, "pallas_bf16", audio, gt, TRAIN_LR,
                       mpe=PAR_MPE)
     check(m1 == m0 and all(torch.equal(g1[n], g) for n, g in g0.items()),
@@ -3129,26 +3040,25 @@ def phase_parallel(torch, counters, card, cli):
     del g0, g1
     model.load_state_dict(w0)
     coeffs, l_inf1, inf1_s = counted_sharded_inference(torch, model, mesh,
-                                                       clip, k1)
-    zero_counts(k1)
-    ref = model.chunked_inference(clip, True)
-    l_chunked = read_counts(k1)
+                                                       clip)
+    with counting() as l_chunked:
+        ref = model.chunked_inference(clip, True)
     check(torch.equal(coeffs, ref), f"NCCL, one rank: the sharded "
           f"transcription differs from chunked_inference by "
           f"{rel_err(coeffs, ref)[0]}")
-    check(l_inf1["banded_conv"] == l_chunked["banded_conv"] > 0,
+    check(l_inf1[K1] == l_chunked[K1] > 0,
           f"NCCL, one rank: K1 {l_inf1} against chunked_inference's "
           f"{l_chunked}")
     del coeffs
     # The Trainer with n_devices=1 in the group: the sharded step, rank
     # 0's sweep broadcast over NCCL to the group, the chief's writes.
-    dp, dp_results, dp_launches, dp_s = counted_trainer_run(
-        torch, f"{corpus_dir.name}/dp", corpus, counters, n_devices=1)
+    dp, dp_results, dp_launches = counted_trainer_run(
+        f"{corpus_dir.name}/dp", corpus, n_devices=1)
     check(dp.mesh is not None and dp._steps
           and all(len(st.parts) == 4 for st in dp._steps.values()),
           "NCCL, one rank: the Trainer did not run the sharded step")
-    check(dp_launches == one_launches and dp_launches["peak_mask"] == 1
-          and all(dp_launches[fn] > 0 for fn in RECIPE_STEP_LAUNCHES),
+    check(dp_launches == one_launches and dp_launches[K2] == 1
+          and all(dp_launches[k] > 0 for k in RECIPE_STEP_LAUNCHES),
           f"NCCL, one rank: the Trainer launched {dp_launches}, the "
           f"single-device one {one_launches}")
     check_trainers_equal(torch, dp, dp_results, one, one_results,
@@ -3164,15 +3074,13 @@ def phase_parallel(torch, counters, card, cli):
     launches["nccl_1rank"] = {"step": l1, "inference": l_inf1,
                               "trainer": dp_launches}
     numbers["nccl_1rank"] = {"step_ms": step1_ms, "allreduce_ms": reduce1_ms,
-                             "inference_s": inf1_s, "trainer_run_s": dp_s,
-                             "single_device_trainer_run_s": one_s}
+                             "inference_s": inf1_s}
     print(f"parallel: NCCL, one rank: the sharded pallas_bf16 step equals "
           f"the plain step bit for bit ({step1_ms:.1f} ms, all-reduce "
           f"{reduce1_ms:.3f} ms), launches {l1}; the sharded transcription "
           f"of the {CLIP_SECS:.0f}-s clip equals chunked_inference bit for "
-          f"bit, K1 {l_inf1['banded_conv']}; the Trainer (n_devices=1, 2 "
-          f"steps and a sweep) equals the single-device Trainer bit for "
-          f"bit, run() {dp_s:.3f} s against {one_s:.3f} s, launches "
+          f"bit, K1 {l_inf1[K1]}; the Trainer (n_devices=1, 2 steps and a "
+          f"sweep) equals the single-device Trainer bit for bit, launches "
           f"{dp_launches}; on {card}")
 
     # (3) Two gloo ranks on the one card (NCCL takes one rank a card). The
@@ -3225,9 +3133,11 @@ def phase_parallel(torch, counters, card, cli):
               == ranks[1][backend]["metrics"],
               f"gloo: the two ranks' {backend} steps differ")
         got = (ranks[0][backend]["metrics"], g_r[0])
+        want = (RECIPE_STEP_LAUNCHES if backend == "pallas_bf16"
+                else RECIPE_STEP_LAUNCHES_F32)
         for r in ranks:
-            check(all(r[backend]["launches"][fn] == n
-                      for fn, n in RECIPE_STEP_LAUNCHES.items()),
+            check(all(r[backend]["launches"][k] == n
+                      for k, n in want.items()),
                   f"gloo rank {r['rank']}: the {backend} step launched "
                   f"{r[backend]['launches']}")
         if backend == "pallas":
@@ -3246,8 +3156,8 @@ def phase_parallel(torch, counters, card, cli):
                   f"{d:.2e}, gradient L2 rel {l2:.2e}")
     del g_r, got
     inf = [r["inference"] for r in ranks]
-    total = sum(i["launches"]["banded_conv"] for i in inf)
-    check(l_chunked["banded_conv"] <= total <= l_chunked["banded_conv"]
+    total = sum(i["launches"][K1] for i in inf)
+    check(l_chunked[K1] <= total <= l_chunked[K1]
           + (PAR_RANKS - 1) * per_forward,
           f"gloo: the ranks' K1 launches {[i['launches'] for i in inf]} "
           f"against one rank's {l_chunked}")
@@ -3267,14 +3177,14 @@ def phase_parallel(torch, counters, card, cli):
                               for r in ranks],
         "inference_s": [i["wall_s"] for i in inf],
         "inference_max_abs_err": err, "inference_max_abs_ref": scale,
-        "k1_single_rank": l_chunked["banded_conv"]}
+        "k1_single_rank": l_chunked[K1]}
     print(f"parallel: 2 gloo ranks sharing the card (no scaling numbers): "
           f"step ms f32 {numbers['gloo_ranks']['step_ms_f32']}, bf16 "
           f"{numbers['gloo_ranks']['step_ms_bf16']}; gradient all-reduce "
           f"ms f32 {numbers['gloo_ranks']['allreduce_ms_f32']}, bf16 "
           f"{numbers['gloo_ranks']['allreduce_ms_bf16']}; transcription K1 "
-          f"{[i['launches']['banded_conv'] for i in inf]} against one "
-          f"rank's {l_chunked['banded_conv']}, max abs err {err:.3e} "
+          f"{[i['launches'][K1] for i in inf]} against one "
+          f"rank's {l_chunked[K1]}, max abs err {err:.3e} "
           f"(max|ref| {scale:.3e}); ranks' wall {ranks_s:.1f} s; on {card}")
     phase_s = time.perf_counter() - t_phase
     numbers["phase_s"] = phase_s
@@ -3289,15 +3199,14 @@ def phase_parallel(torch, counters, card, cli):
 # seed-0 flagship weights (``models.flax_init``), so its F1 compares with
 # the JAX package's at the same start; F1 >= QUALITY_F1_BAR each.
 QUALITY_F1_BAR = 0.9
-# Launches of one probe step: the consistency-on step runs the recipe
+# Kernels of one probe step: the consistency-on step runs the recipe
 # step's objectives (2 encodes, 4 decodes); the consistency-off step runs
 # one encode and two decodes, half the level applications: K1 and dW
 # 348 / 2 and 174 / 2, the ELU' seeds 24 / 2, dX one less than dW (the
 # features take no gradient).
 PROBE_STEP_LAUNCHES = {
     "consistency_on": RECIPE_STEP_LAUNCHES,
-    "consistency_off": {"banded_conv": 174, "banded_conv_dx": 86,
-                        "banded_conv_dw": 87, "elu_backward": 12}}
+    "consistency_off": {K1: 174, DX: 86, DW: 87, DW_REDUCE: 87, SEED: 12}}
 
 
 def write_bach10_stems(bach10_dir, seed):
@@ -3352,12 +3261,11 @@ def quiet_call(fn, *args):
     return out, buf.getvalue(), wall
 
 
-def phase_last_modules(torch, model, counters, card):
+def phase_last_modules(torch, model, card):
     """The last modules on the card (phase 3i), on the flagship ``model``
     (seeded weights): interop round trips, the parity CLI, the comparison
     CLI, the two quality probes of ``bench.py``, the latents of the Bach10
-    stems and a profiled ``transcribe``. ``counters`` are (K1, K3 dX, K3
-    dW, the ELU' seed, K2). Returns (numbers, launches)."""
+    stems and a profiled ``transcribe``. Returns (numbers, launches)."""
     import tempfile
 
     from timbre_trap_tpu_torch.data import download
@@ -3379,7 +3287,6 @@ def phase_last_modules(torch, model, counters, card):
     from timbre_trap_tpu_torch.utils.profiling import Timer, annotate, trace
 
     t_phase = time.perf_counter()
-    k1, peak_mask = counters[0], counters[-1]
     numbers, launches = {}, {}
     per_forward = sum(1 for _ in model._spec(True).convs())
     clip = chord(9.0, SR, seed=5)
@@ -3433,15 +3340,12 @@ def phase_last_modules(torch, model, counters, card):
         out_json = f"{tmp}/parity.json"
         argv = ["--checkpoint", ckpt, "--datasets", "Bach10", "--base-dirs",
                 dirs["Bach10"], "--out", out_json]
-        zero_counts(counters)
-        table, _, parity_s = quiet_call(parity.main, argv)
-        torch.cuda.synchronize()
-        launches["parity"] = read_counts(counters)
-        check(launches["parity"]["peak_mask"] == n_bach10
-              and launches["parity"]["banded_conv"] == 0,
-              f"parity: K2 launched {launches['parity']['peak_mask']} times "
-              f"over {n_bach10} tracks, K1 {launches['parity']['banded_conv']}"
-              f" (evaluate runs the NCHW net: 0)")
+        with counting() as launches["parity"]:
+            table, _, _ = quiet_call(parity.main, argv)
+        n = launches["parity"]
+        check(n[K2] == n_bach10 and n[K1] == n[K1_F32] == 0,
+              f"parity: K2 launched {n[K2]} times over {n_bach10} tracks, K1 "
+              f"{n[K1] + n[K1_F32]} (evaluate runs the NCHW net: 0)")
         with open(out_json) as fh:
             written = json.load(fh)
         check(written["compat"] == "cqt_pytorch"
@@ -3473,26 +3377,23 @@ def phase_last_modules(torch, model, counters, card):
             torch, card_model, cpu_model, ds, got["Bach10"], want["Bach10"],
             "parity: small model card vs CPU (compat frame)")
         del card_model, cpu_model, built
-        numbers.update(parity_s=parity_s, parity_results=table["Bach10"])
+        numbers.update(parity_results=table["Bach10"])
         print(f"parity: flagship weights (exported without .0 names) on the "
               f"compat frame over {n_bach10} x {CLI_TRACK_SECS:.0f}-s Bach10 "
-              f"mixtures in {parity_s:.3f} s; launches {launches['parity']}")
+              f"mixtures; launches {launches['parity']}")
 
         # (3) The comparison CLI on the saved flagship model, counted: the
         # lin-CQT, log-CQT and Timbre-Trap rows; then the external flags,
         # which skip (the download patched to refuse, so no network).
         saved = model.save(f"{tmp}/flagship")
         argv = ["--checkpoint", saved, "--bach10-dir", dirs["Bach10"]]
-        zero_counts(counters)
-        with capturing(comparison, "load_model", count_forwards) as counted:
-            table, text, comparison_s = quiet_call(comparison.main, argv)
-        torch.cuda.synchronize()
-        launches["comparison"] = read_counts(counters)
+        with counting() as launches["comparison"], capturing(
+                comparison, "load_model", count_forwards) as counted:
+            table, text, _ = quiet_call(comparison.main, argv)
         forwards = counted[0].n
         n = launches["comparison"]
-        check(forwards > 0 and n["banded_conv"] == per_forward * forwards
-              and n["banded_conv.mma"] == n["banded_conv"]
-              and n["peak_mask"] == 0,
+        check(forwards > 0 and n[K1] == per_forward * forwards
+              and n[K1_F32] == 0 and n[K2] == 0,
               f"comparison: {forwards} forwards of the Timbre-Trap estimator"
               f" launched {n} (bf16 K1 {per_forward} a forward, no K2)")
         rows = ("lin-CQT", "log-CQT", "timbre-trap")
@@ -3501,8 +3402,7 @@ def phase_last_modules(torch, model, counters, card):
               f"comparison: rows {table}")
         check(all(np.isfinite(v) for r in table["Bach10"].values()
                   for v in r.values()), f"comparison: results {table}")
-        numbers.update(comparison_s=comparison_s,
-                       comparison_results=table["Bach10"])
+        numbers.update(comparison_results=table["Bach10"])
         real_download = download.stream_url_resource
 
         def refuse(url, *args, **kwargs):
@@ -3520,7 +3420,7 @@ def phase_last_modules(torch, model, counters, card):
               and list(skipped["Bach10"]) == ["lin-CQT", "log-CQT"],
               f"comparison: the external flags did not skip cleanly: {text}")
         print(f"comparison: {', '.join(rows)} on {n_bach10} Bach10 "
-              f"mixtures in {comparison_s:.3f} s, {forwards} forwards, "
+              f"mixtures, {forwards} forwards, "
               f"launches {launches['comparison']}; the external flags "
               f"print SKIP")
 
@@ -3535,36 +3435,24 @@ def phase_last_modules(torch, model, counters, card):
             hwio_params(bench_model.net), seed=0))
         for name, kw in BENCH_PROBES.items():
             forwards = count_forwards(bench_model)
-            zero_counts(counters)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            f1 = quality_f1(bench_model, **kw)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            with counting() as n:
+                f1 = quality_f1(bench_model, **kw)
             forwards.restore()
-            n = read_counts(counters)
             launches["quality"][name] = n
             steps = kw["steps"]
             per_step = PROBE_STEP_LAUNCHES[name]
-            check(n["banded_conv"] == steps * per_step["banded_conv"]
-                  + per_forward * forwards.n,
-                  f"quality {name}: K1 launched {n['banded_conv']} times, "
-                  f"not {steps} x {per_step['banded_conv']} + "
-                  f"{per_forward} x {forwards.n} forwards")
-            for fn in ("banded_conv_dx", "banded_conv_dw", "elu_backward"):
-                check(n[fn] == steps * per_step[fn], f"quality {name}: {fn} "
-                      f"launched {n[fn]} times, not {steps} x {per_step[fn]}")
-            for fn in ("banded_conv", "banded_conv_dx", "banded_conv_dw"):
-                check(n[f"{fn}.mma"] == n[fn], f"quality {name}: not every "
-                      f"{fn} launch ran the bf16 kernel: {n}")
-            check(n["peak_mask"] == 1, f"quality {name}: K2 launched "
-                  f"{n['peak_mask']} times")
-            print(f"quality: {name} {kw}: mpe/f1-score {f1:.5f} in "
-                  f"{wall:.3f} s ({wall / steps * 1e3:.1f} ms a step with "
-                  f"the scoring); launches {n}")
+            want = {k: steps * v for k, v in per_step.items()}
+            want[K1] += per_forward * forwards.n
+            check(bf16_only(n) and all(n[k] == v for k, v in want.items()),
+                  f"quality {name}: launched {n}, not {want} ({steps} steps "
+                  f"of {per_step} and {forwards.n} forwards of "
+                  f"{per_forward} K1 stages) on bf16 kernels")
+            check(n[K2] == 1, f"quality {name}: K2 launched {n[K2]} times")
+            print(f"quality: {name} {kw}: mpe/f1-score {f1:.5f}; launches "
+                  f"{n}")
             check(np.isfinite(f1) and f1 >= QUALITY_F1_BAR,
                   f"quality {name}: F1 {f1} below {QUALITY_F1_BAR}")
-            numbers["quality"][name] = {"f1": f1, "wall_s": wall,
+            numbers["quality"][name] = {"f1": f1,
                                         "launches_per_step": per_step}
         del bench_model
         torch.cuda.empty_cache()
@@ -3652,8 +3540,7 @@ def main():
         from timbre_trap_tpu_torch.interop import hwio_params
         from timbre_trap_tpu_torch.models.fused import level_specs
         from timbre_trap_tpu_torch.ops.fused_level import (
-            _apply_chain, band_flops, banded_conv, banded_conv_dw,
-            banded_conv_dx, banded_conv_mma, chain_flops, elu_backward,
+            _apply_chain, band_flops, band_tma_plan_f32, chain_flops,
             fused_level_apply, packed_level_apply)
         from timbre_trap_tpu_torch.ops.packed_conv import pack_nhwc
         from timbre_trap_tpu_torch.ops.peaks import (peak_mask,
@@ -3702,9 +3589,8 @@ def main():
         train_specs = sum(level_specs(hwio_params(model.net), model.net,
                                       True), [])
     stages = variant_stages(torch)
-    (band_err, band_err32, k3_stage_err, band_share,
-     band_diff32) = phase_band_parity(torch, model._spec(True), train_specs,
-                                      stages)
+    band_err, band_err32, k3_stage_err = phase_band_parity(
+        torch, model._spec(True), train_specs, stages)
     print(f"parity: {time.perf_counter() - t_par:.1f} s")
 
     lap('f32_accuracy')
@@ -3712,15 +3598,14 @@ def main():
     f32_acc = phase_f32_accuracy()
 
     lap('transcribe')
-    # 3. the main path: transcribe + peak_mask, counted
-    zero_counts((banded_conv, peak_mask))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    acts = model.transcribe(audio)
-    mask = peak_mask(acts, 0.5)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts((banded_conv, peak_mask))
+    # 3. the main path: transcribe + peak_mask, counted; a second call timed
+    spec = model._spec(True)
+    per_forward = sum(1 for _ in spec.convs())
+    forwards = count_forwards(model)
+    with counting() as launches:
+        acts = model.transcribe(audio)
+        mask = peak_mask(acts, 0.5)
+    forwards.restore()
     check(tuple(acts.shape) == (1, F, n_frames),
           f"activations {tuple(acts.shape)}, expected (1, {F}, {n_frames})")
     check(bool(torch.isfinite(acts).all()), "activations are not finite")
@@ -3729,16 +3614,16 @@ def main():
     check(mask.dtype == torch.uint8 and mask.shape == acts.shape, "mask shape")
     check(torch.equal(mask, peak_mask_reference(acts, 0.5)),
           "the main path's peak mask differs from its plain version")
-    check(launches["banded_conv"] > 0, "K1 was not launched on the main path")
-    check(launches["banded_conv.mma"] == launches["banded_conv"],
-          "K1's bf16 tensor-core kernel was not launched for every stage "
-          "of the main path")
-    check(launches["peak_mask"] > 0, "K2 was not launched on the main path")
-    rtf = CLIP_SECS / wall
-    print(f"main: {CLIP_SECS:.0f} s clip in {wall:.3f} s (RTF {rtf:.1f}), "
-          f"launches {launches}, peaks {int(mask.sum())}")
+    check(launches[K1] == per_forward * forwards.n > 0
+          and launches[K1_F32] == 0,
+          f"K1's bf16 kernel did not run every stage of the main path's "
+          f"{forwards.n} forwards: {launches}")
+    check(launches[K2] == 1, f"K2 ran {launches[K2]} times on the main path")
+    print(f"main: {CLIP_SECS:.0f} s clip, {forwards.n} forwards, launches "
+          f"{launches}, peaks {int(mask.sum())}")
     # The first call at this clip length also pays one-time costs (pinned
-    # host buffers, cuFFT plans, allocator growth); a second call does not.
+    # host buffers, cuFFT plans, allocator growth, graph captures); a
+    # second call does not.
     t0 = time.perf_counter()
     peak_mask(model.transcribe(audio), 0.5)
     torch.cuda.synchronize()
@@ -3746,18 +3631,19 @@ def main():
     rtf_warm = CLIP_SECS / wall_warm
 
     # 3a. the float32 transcribe, counted: every K1 stage runs the
-    # split-TF32 band kernel.
+    # split-TF32 band kernel; a second call timed. Every main path's
+    # float32 K1 stage takes the TMA epilogue: the plan picks it where
+    # T % 4 == 0, as at the chunks' and the crops' T.
     model.fused = "f32"
-    zero_counts((banded_conv,))
-    torch.cuda.synchronize()
-    acts32 = model.transcribe(audio)
-    torch.cuda.synchronize()
-    launches32 = read_counts((banded_conv,))
-    check(launches32["banded_conv.mma_f32"] > 0
-          and launches32["banded_conv.mma_f32"] == launches32["banded_conv"],
+    with counting() as launches32:
+        acts32 = model.transcribe(audio)
+    check(launches32[K1_F32] > 0 and launches32[K1] == 0,
           f"the float32 transcribe's K1 stages did not all run the "
           f"split-TF32 band kernel: {launches32}")
-    check_tma_epilogue(launches32, "the float32 transcribe")
+    check(all(band_tma_plan_f32(cb, t).tma_epilogue
+              for cb in model._spec(False).convs() for t in (M, train_frames)),
+          f"a float32 K1 stage at T = {M} or {train_frames} takes the "
+          f"register epilogue")
     print(f"main: float32 transcribe launches {launches32}")
     t0 = time.perf_counter()
     peak_mask(model.transcribe(audio), 0.5)
@@ -3783,65 +3669,41 @@ def main():
     lap('reconstruct')
     # 3b. reconstruct, counted, and the transform on the card
     transform = phase_transform(torch)
-    recon, launches_rec = phase_reconstruct(torch, model, audio,
-                                            (banded_conv, peak_mask), card)
+    recon, launches_rec = phase_reconstruct(torch, model, audio, card)
 
     lap('variants')
     # 3d. the model families, skip connections and persistence, counted
     variants, launches_var = phase_variants(
-        torch, audio, torch.from_numpy(chunks).cuda(),
-        (banded_conv, peak_mask), card)
+        torch, audio, torch.from_numpy(chunks).cuda(), card)
 
     lap('train')
     # 3c. the training main path, counted
-    k3_wrappers = (banded_conv_dx, banded_conv_dw, elu_backward)
-    train, train_launches, train_model = phase_train(
-        torch, (banded_conv,) + k3_wrappers)
-    k3_launches = sum(train_launches[fn.__name__] for fn in k3_wrappers)
-    for name in ("banded_conv", "banded_conv_dx", "banded_conv_dw"):
-        check(train_launches[f"{name}.mma"] > 0, f"{name}'s tensor-core "
-              "kernel was not launched by the train step")
+    train, train_launches, train_model = phase_train(torch)
 
     lap('family_train')
     # 3e. every family trains, counted; accumulation and exact resume
-    families, family_launches = phase_family_train(
-        torch, (banded_conv,) + k3_wrappers, card)
+    families, family_launches = phase_family_train(torch, card)
 
     lap('trainer')
     # 3f. the Trainer, fed by the data package, validated by evaluate
-    trainer, trainer_launches = phase_trainer(
-        torch, (banded_conv,) + k3_wrappers + (peak_mask,), card,
-        train["train_step_ms"])
+    trainer, trainer_launches = phase_trainer(torch, card,
+                                              train["train_step_ms"])
 
     lap('cli')
     # 3g. the train, evaluate and sonify CLIs over the corpus wrappers
-    cli, cli_launches = phase_cli(
-        torch, (banded_conv,) + k3_wrappers + (peak_mask,), card, trainer)
+    cli, cli_launches = phase_cli(torch, card, trainer)
 
     lap('parallel')
     # 3h. remat, an NCCL group of one rank, two gloo ranks on the card
-    par, par_launches = phase_parallel(
-        torch, (banded_conv,) + k3_wrappers + (peak_mask,), card, cli)
-
-    def per_rank(fns):
-        """Phase 3h's launches of the wrappers ``fns`` (summed), per rank
-        and path."""
-        def n(counts):
-            return sum(counts.get(fn.__name__, 0) for fn in fns)
-        return {"nccl_1rank": {k: n(v) for k, v in
-                               par_launches["nccl_1rank"].items()},
-                "gloo_ranks": [{k: n(v) for k, v in r.items()}
-                               for r in par_launches["gloo_ranks"]]}
+    par, par_launches = phase_parallel(torch, card, cli)
 
     lap('last_modules')
     # 3i. interop, the parity, comparison and latents entry points, the
     # quality probe and the profiler
-    last, last_launches = phase_last_modules(
-        torch, model, (banded_conv,) + k3_wrappers + (peak_mask,), card)
+    last, last_launches = phase_last_modules(torch, model, card)
 
     lap('numbers')
     # 4. numbers at the main path's shapes
-    spec = model._spec(True)
     xb = x.to(torch.bfloat16)
     k1_plain = time_ms(torch, lambda: packed_level_apply(xb, spec,
                                                          torch.bfloat16), 3)
@@ -3850,18 +3712,15 @@ def main():
     rspec = model._spec(False)
     k1_rec_ms = time_ms(torch, lambda: fused_level_apply(x, rspec,
                                                          torch.float32))
-    k1_rec_ms_mma = time_ms(torch, lambda: _apply_chain(x, rspec,
-                                                        torch.float32,
-                                                        banded_conv_mma))
-    rec_forwards = launches_rec["banded_conv"] / sum(1 for _ in rspec.convs())
-    recon.update({"k1_forward_ms": k1_rec_ms, "k1_forwards": rec_forwards,
+    rec_forwards = recon["k1_forwards"]
+    recon.update({"k1_forward_ms": k1_rec_ms,
                   "k1_share": rec_forwards * k1_rec_ms / (recon["wall_s"]
                                                           * 1e3),
                   "decode_share": recon["decode_ms"] / (recon["wall_s"]
                                                         * 1e3)})
     print(f"reconstruct: {rec_forwards:.0f} float32 forwards of the "
           f"reconstruction chain at {k1_rec_ms:.3f} ms = "
-          f"{100 * recon['k1_share']:.1f} % of the first call's wall; "
+          f"{100 * recon['k1_share']:.1f} % of the second call's wall; "
           f"synthesis {100 * recon['decode_share']:.1f} %")
     net16 = TimbreTrapNet(F, LATENT, COMPLEXITY).cuda()
     net16.load_state_dict(model.net.state_dict())
@@ -3872,11 +3731,9 @@ def main():
     net32 = net32.eval()
     nchw32 = feats.movedim(-1, 1).float().contiguous()
     # The bf16 forward in turns, in one call: tt_band_conv_wgmma (the
-    # route), tt_band_conv (mma.sync, called directly) and cuDNN; the
-    # median of five turns each, and the device time of each chain.
+    # route) and cuDNN; the median of five turns each, and the device time
+    # of each chain.
     chains = {"wgmma": lambda: fused_level_apply(xb, spec, torch.bfloat16),
-              "mma_sync": lambda: _apply_chain(xb, spec, torch.bfloat16,
-                                               banded_conv_mma),
               "cudnn": lambda: net16(nchw, True)}
     turns = {k: [] for k in chains}
     with torch.no_grad():
@@ -3886,12 +3743,9 @@ def main():
         chain_device_ms = {k: device_ms(torch, fn, 5)
                            for k, fn in chains.items()}
         # The float32 forward the same way: tt_band_conv_wgmma_f32 (the
-        # route), tt_band_conv_f32 (mma.sync, called directly) and cuDNN
-        # with TF32 off.
+        # route) and cuDNN with TF32 off.
         chains32 = {"wgmma_f32": lambda: fused_level_apply(x, spec,
                                                            torch.float32),
-                    "mma_sync_f32": lambda: _apply_chain(
-                        x, spec, torch.float32, banded_conv_mma),
                     "cudnn_f32": lambda: net32(nchw32, True)}
         turns32 = {k: [] for k in chains32}
         for _ in range(5):
@@ -3899,27 +3753,19 @@ def main():
                 turns32[k].append(time_ms(torch, fn))
         chain_device_ms32 = {k: device_ms(torch, fn, 5)
                              for k, fn in chains32.items()}
-        # The wrappers' host time a launch, both K1 routes and their
-        # mma.sync yardsticks, on the chain at the main path's shapes.
-        n_launch = sum(1 for _ in spec.convs())
+        # The wrappers' host time a launch, both K1 routes, on the chain at
+        # the main path's shapes.
         host_us = {
             "wgmma_bf16": host_us_per_launch(torch, chains["wgmma"],
-                                             n_launch),
+                                             per_forward),
             "wgmma_f32": host_us_per_launch(torch, chains32["wgmma_f32"],
-                                            n_launch),
-            "mma_sync_bf16": host_us_per_launch(torch, chains["mma_sync"],
-                                                n_launch),
-            "mma_sync_f32": host_us_per_launch(
-                torch, chains32["mma_sync_f32"], n_launch)}
+                                            per_forward)}
     del net16, net32
-    k1_ms, k1_mma_ms, k1_lib = (sorted(v)[len(v) // 2]
-                                for v in turns.values())
-    k1_ms32, k1_mma_ms32, k1_lib32 = (sorted(v)[len(v) // 2]
-                                      for v in turns32.values())
+    k1_ms, k1_lib = (sorted(v)[len(v) // 2] for v in turns.values())
+    k1_ms32, k1_lib32 = (sorted(v)[len(v) // 2] for v in turns32.values())
     kind_ms = stage_kind_numbers(torch, spec, x.shape[0], x.shape[-1])
     kind_ms32 = stage_kind_numbers(torch, spec, x.shape[0], x.shape[-1],
                                    torch.float32)
-    launches_per_forward = sum(1 for _ in spec.convs())
     n_cols = x.shape[0] * x.shape[-1]
     flops = chain_flops(spec, n_cols)
     computed = band_flops(spec.convs(), n_cols)
@@ -3946,11 +3792,10 @@ def main():
     t_ops = conv_flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = (w_bytes + io_bytes) / PEAK_BYTES * 1e3
     print(f"K1 forward bf16 (median of the turns): tt_band_conv_wgmma "
-          f"{k1_ms:.3f} ms, tt_band_conv {k1_mma_ms:.3f} ms, cuDNN "
-          f"{k1_lib:.3f} ms; bound "
+          f"{k1_ms:.3f} ms, cuDNN {k1_lib:.3f} ms; bound "
           f"{max(t_ops, t_bytes):.4f} ms, stage-by-stage byte floor "
           f"{count.n / PEAK_BYTES * 1e3:.4f} ms; "
-          f"{launches_per_forward} launches; {card}")
+          f"{per_forward} launches; {card}")
 
     count32 = ByteCount(torch)
     with torch.no_grad():
@@ -3962,13 +3807,11 @@ def main():
           + "; device ms a forward: " + ", ".join(
               f"{k} {v:.3f}" for k, v in chain_device_ms32.items()))
     print(f"K1 forward float32 (median of the turns): tt_band_conv_wgmma_f32 "
-          f"{k1_ms32:.3f} ms, tt_band_conv_f32 {k1_mma_ms32:.3f} ms, cuDNN "
-          f"{k1_lib32:.3f} ms (cudnn.allow_tf32="
+          f"{k1_ms32:.3f} ms, cuDNN {k1_lib32:.3f} ms (cudnn.allow_tf32="
           f"{torch.backends.cudnn.allow_tf32}); bound {bound32:.4f} ms, "
           f"stage-by-stage byte floor {count32.n / PEAK_BYTES * 1e3:.4f} ms "
           f"({count32.n / 1e9:.3f} GB); the reconstruction spec "
-          f"{k1_rec_ms:.3f} ms on tt_band_conv_wgmma_f32, {k1_rec_ms_mma:.3f} "
-          f"on tt_band_conv_f32; {card}")
+          f"{k1_rec_ms:.3f} ms; {card}")
     print("K1 wrappers' host us a launch (60-stage chain at "
           f"{tuple(x.shape)}, enqueued): " + ", ".join(
               f"{k} {v:.2f}" for k, v in host_us.items()))
@@ -3979,86 +3822,25 @@ def main():
     k2_plain = time_ms(torch, lambda: peak_mask_reference(acts, 0.5), 50)
     k2_bound = acts.numel() * (4 + 1) / PEAK_BYTES * 1e3
 
-    k3 = k3_numbers(torch, train_model, k3_launches / TRAIN_STEPS)
+    k3 = k3_numbers(torch, train_model, {k: train_launches[k] for k in
+                                         (DX, DW, DW_REDUCE, SEED)})
     k3_stages = k3_stage_numbers(torch, stages, TRAIN_CROPS, train_frames)
-
-    def k3_only(counts):
-        return {k: v for k, v in counts.items()
-                if k.split(".")[0] != "banded_conv"}
 
     kernels = [
         {"name": "banded_conv", "route": "cuda",
          "source": "timbre_trap_tpu_torch/csrc/band_wgmma.cu",
-         "source_f32": "timbre_trap_tpu_torch/csrc/band_wgmma.cu",
          "entry": "tt_band_conv_wgmma",
          "entry_f32": "tt_band_conv_wgmma_f32",
-         "launches_wgmma_f32": {
-             "transcribe_f32": launches32["banded_conv.mma_f32"],
-             "reconstruct": launches_rec["banded_conv.mma_f32"],
-             "skip_route_reconstruct":
-                 launches_var["reconstruct"]["banded_conv.mma_f32"],
-             "train_f32_step":
-                 train["f32_step_launches"]["banded_conv.mma_f32"],
-             "cli_sonify": cli_launches["sonify"]["banded_conv.mma_f32"]},
-         "launches_tma_epilogue_f32": {
-             "transcribe_f32": launches32["banded_conv.tma_f32"],
-             "reconstruct": launches_rec["banded_conv.tma_f32"],
-             "skip_route_reconstruct":
-                 launches_var["reconstruct"]["banded_conv.tma_f32"],
-             "train_f32_step":
-                 train["f32_step_launches"]["banded_conv.tma_f32"],
-             "cli_sonify": cli_launches["sonify"]["banded_conv.tma_f32"]},
-         "ms_f32_mma_sync": k1_mma_ms32, "forward_turns_ms_f32": turns32,
+         "replaces": "timbre_trap_tpu/ops/fused_level.py:463",
+         "forward_turns_ms": turns, "forward_device_ms": chain_device_ms,
+         "forward_turns_ms_f32": turns32,
          "forward_device_ms_f32": chain_device_ms32,
-         "stage_kinds_f32": kind_ms32,
+         "stage_kinds": kind_ms, "stage_kinds_f32": kind_ms32,
          "reconstruct_spec_ms_f32": k1_rec_ms,
-         "reconstruct_spec_ms_f32_mma_sync": k1_rec_ms_mma,
          "stage_bytes_f32": count32.n,
          "stage_bytes_ms_f32": count32.n / PEAK_BYTES * 1e3,
-         "host_us_per_launch": host_us,
-         "band_max_rel_diff_f32_mma_sync": band_diff32,
-         "f32_accuracy": f32_acc,
-         "launches_wgmma": {
-             "transcribe": launches["banded_conv.mma"],
-             "train_per_step": train_launches["banded_conv.mma"]
-             / TRAIN_STEPS,
-             "trainer": trainer_launches["banded_conv.mma"],
-             "cli_train": cli_launches["train"]["banded_conv.mma"],
-             "cli_sonify": cli_launches["sonify"]["banded_conv.mma"],
-             "skip_route_transcribe":
-                 launches_var["transcribe"]["banded_conv.mma"],
-             "quality": {probe: n["banded_conv.mma"] for probe, n in
-                         last_launches["quality"].items()},
-             "comparison": last_launches["comparison"]["banded_conv.mma"]},
-         "ms_mma_sync": k1_mma_ms, "forward_turns_ms": turns,
-         "forward_device_ms": chain_device_ms,
-         "stage_kinds": kind_ms, "bit_equal_share_mma_sync": band_share,
-         "launches_f32": launches32["banded_conv"],
-         "launches_train_f32": train["f32_step_launches"]["banded_conv"],
-         "replaces": "timbre_trap_tpu/ops/fused_level.py:463",
-         "launches": launches["banded_conv"],
-         "launches_mma": launches["banded_conv.mma"],
-         "launches_reconstruct": launches_rec["banded_conv"],
-         "launches_train": train_launches["banded_conv"],
-         "launches_trainer": trainer_launches["banded_conv"],
-         "launches_cli": {
-             "train": cli_launches["train"]["banded_conv"],
-             "evaluate": cli_launches["evaluate"]["banded_conv"],
-             "sonify": cli_launches["sonify"]["banded_conv"],
-             "sonify_mma": cli_launches["sonify"]["banded_conv.mma"],
-             "sonify_mma_f32": cli_launches["sonify"]["banded_conv.mma_f32"],
-             "comparison": last_launches["comparison"]["banded_conv"]},
-         "launches_quality": {
-             probe: n["banded_conv"]
-             for probe, n in last_launches["quality"].items()},
-         "launches_family_train_per_step": {
-             label: n["banded_conv"] for label, n in family_launches.items()},
-         "launches_parallel": per_rank((banded_conv,)),
-         "launches_variants": {
-             "transcribe": launches_var["transcribe"]["banded_conv"],
-             "reconstruct": launches_var["reconstruct"]["banded_conv"],
-             "per_forward": variants["launches_per_forward"],
-             "forwards": variants["forwards"]},
+         "host_us_per_launch": host_us, "f32_accuracy": f32_acc,
+         "launches_per_forward": per_forward,
          "variant_stages": stage_ms,
          "skip_route_ms": variants["route_ms"],
          "skip_route_ms_f32": variants["route_ms_f32"],
@@ -4068,7 +3850,7 @@ def main():
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": max(t_ops, t_bytes),
          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
          "library_ms": k1_lib,
-         "shape": f"one {launches_per_forward}-launch forward chain, "
+         "shape": f"one {per_forward}-launch forward chain, "
                   f"{tuple(x.shape)} bf16",
          "ms_f32": k1_ms32, "plain_ms_f32": k1_plain32,
          "library_ms_f32": k1_lib32,
@@ -4083,46 +3865,30 @@ def main():
         {"name": "peak_mask", "route": "cuda",
          "source": "timbre_trap_tpu_torch/csrc/peak_mask.cu",
          "replaces": "timbre_trap_tpu/ops/pallas_kernels.py:26",
-         "launches": launches["peak_mask"], "max_abs_err": k2_err,
-         "launches_variants": launches_var["transcribe"]["peak_mask"],
-         "launches_trainer_evaluate": trainer_launches["peak_mask"],
-         "launches_cli": {phase: n["peak_mask"] for phase, n in
-                          dict(cli_launches,
-                               parity=last_launches["parity"]).items()},
-         "launches_quality": {
-             probe: n["peak_mask"]
-             for probe, n in last_launches["quality"].items()},
-         "launches_parallel": per_rank((peak_mask,)),
+         "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": "bytes", "library_ms": None,
          "shape": f"{tuple(acts.shape)} float32 -> uint8"},
         {"name": "banded_conv_bwd", "route": "cuda",
          "source": "timbre_trap_tpu_torch/csrc/band_mma.cu",
-         "source_f32": "timbre_trap_tpu_torch/csrc/band_mma.cu",
          "source_seed": "timbre_trap_tpu_torch/csrc/banded_conv_bwd.cu",
          "replaces": "timbre_trap_tpu/ops/fused_level.py:647",
-         "launches": k3_launches,
-         "launches_by_wrapper": k3_only(train_launches),
-         "launches_trainer": sum(trainer_launches[fn.__name__]
-                                 for fn in k3_wrappers),
-         "launches_cli": {"train": k3_only(cli_launches["train"])},
-         "launches_quality": {
-             probe: k3_only(n)
-             for probe, n in last_launches["quality"].items()},
-         "launches_train_f32": sum(train["f32_step_launches"][fn.__name__]
-                                   for fn in k3_wrappers),
-         "launches_by_wrapper_f32": k3_only(train["f32_step_launches"]),
-         "launches_family_train_per_step": {
-             label: k3_only(n) for label, n in family_launches.items()},
-         "launches_parallel": per_rank(k3_wrappers),
          "variant_stages": {name: dict(row, max_rel_err=k3_stage_err[name])
                             for name, row in k3_stages.items()},
          "max_abs_err": k3_err, **k3},
     ]
-    print(f"transcribe_rtf: {rtf:.2f} first call, {rtf_warm:.2f} second call "
-          f"({CLIP_SECS:.0f} s clip, {wall:.3f} s / {wall_warm:.3f} s wall, "
-          f"bf16 chain, peak mask included); float32 chain "
-          f"{rtf32:.2f} second call ({wall32:.3f} s wall)")
+    # Every counted call's kernels by name (a family's and a probe's a
+    # step; phase 3h's per rank and path).
+    counted = {"transcribe": launches, "transcribe_f32": launches32,
+               "reconstruct": launches_rec, "variants": launches_var,
+               "train_step": train_launches,
+               "train_f32_step": train["f32_step_launches"],
+               "family_train_per_step": family_launches,
+               "trainer_resumed": trainer_launches, "cli": cli_launches,
+               "parallel": par_launches, "last_modules": last_launches}
+    print(f"transcribe_rtf: {rtf_warm:.2f} second call ({CLIP_SECS:.0f} s "
+          f"clip, {wall_warm:.3f} s wall, bf16 chain, peak mask included); "
+          f"float32 chain {rtf32:.2f} second call ({wall32:.3f} s wall)")
     lap(None)
     print(f"phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in
                                        phase_s.items())
@@ -4136,6 +3902,7 @@ def main():
     print(json.dumps({"parallel": par, "card": card}))
     print(json.dumps({"last_modules": last, "card": card}))
     print(card)
+    print(json.dumps({"launches": counted}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -182,12 +182,13 @@ def _split_tf32(v):
 
 
 def _split_tf32_conv(x, cb):
-    """The float32 stage of ``csrc/band_mma.cu`` (``tt_band_conv_f32``;
-    dX, ``tt_band_conv_dx_f32``, on adjoint blocks) emulated on the plain
-    band function: x and the blocks split into hi + lo; the three products
+    """The float32 products of the split-TF32 routes (the K1 stage,
+    ``tt_band_conv_wgmma_f32``; dX, ``csrc/band_mma.cu``
+    ``tt_band_conv_dx_f32``, on adjoint blocks) emulated on the plain band
+    function: x and the blocks split into hi + lo; the three products
     hi*hi, hi*lo and lo*hi summed in float32 with round-to-nearest adds
-    (the kernel adds each 16-column chunk's products into its running sum
-    so, not in the truncating MMA accumulators), then the bias."""
+    (the kernels add each chunk's products into the running sum so, not
+    in the truncating MMA accumulators), then the bias."""
     (xh, xl), (wh, wl) = _split_tf32(x), _split_tf32(cb.blocks)
     cb0 = _like(cb, cb.blocks, torch.zeros_like(cb.bias))
     small = (pc.band_conv_reference(xl, cb0, wh)

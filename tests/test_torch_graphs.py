@@ -13,7 +13,8 @@ input):
 * ``invalidate_specs`` and ``load_state_dict`` drop the graphs with the
   specs; a change of ``fused`` keeps both, and the float32 transcribe
   captures graphs of its own beside the bf16 ones;
-* each replay adds the K1 launches its graph recorded to K1's counts;
+* every chunk group of a 33-chunk piece is one replay of its graph, 9 a
+  call, in both branches;
 * the spans: ``tt.graph.capture`` once a key and ``tt.graph.replay`` once a
   group inside ``tt.forward``, and the benchmark's readers of them;
 * the CPU route's outputs are those of the overlap-add as it was written
@@ -23,9 +24,10 @@ On the card (``cuda`` marker, skipped without one), at the flagship
 geometry: a replay is bit-equal to the eager group for the base model's
 bf16 ``transcribe``, the float32 ``reconstruct``, the skip route and a
 partial last group; after ``load_state_dict`` the output is the new
-weights'; repeated calls of equal shape capture nothing new; K1's counts
-follow the card: a warm call counts the eager groups' launches, a first
-call those and one eager warm-up a graph, the capture none.
+weights'; repeated calls of equal shape capture nothing new; the K1
+kernels the profiler records: a warm call runs as many as the eager
+groups, a first call those and one eager warm-up a graph, the capture
+none.
 """
 
 import numpy as np
@@ -36,8 +38,8 @@ from portbench import spec as bench_spec
 from portbench import spans as bench_spans
 from timbre_trap_tpu_torch.models import TimbreTrap
 from timbre_trap_tpu_torch.models import timbre_trap
-from timbre_trap_tpu_torch.ops.fused_level import banded_conv
-from timbre_trap_tpu_torch.utils.profiling import record, reset_record
+from timbre_trap_tpu_torch.utils.profiling import (kernel_counts, record,
+                                                   reset_record)
 
 torch.set_num_threads(2)
 
@@ -66,15 +68,6 @@ class _StubGraph:
         self.run()
 
 
-# K1's launch counts: all, bf16, float32, float32 with the TMA epilogue.
-K1_COUNTS = ("launches", "mma_launches", "mma_launches_f32",
-             "tma_epilogue_launches_f32")
-
-# The K1 launch counts the stub's graphs record for a
-# replay, as the card's would for a forward of 60 conv stages.
-STUB_LAUNCHES = {True: (60, 60, 0, 0), False: (60, 0, 60, 60)}
-
-
 @pytest.fixture
 def stubbed(monkeypatch):
     """Graph replays on the CPU: the route taken as on the card, the
@@ -88,8 +81,7 @@ def stubbed(monkeypatch):
         static_out = self._infer(static_in, transcribe).clone()
         graph = _StubGraph(lambda: static_out.copy_(
             self._infer(static_in, transcribe)))
-        return timbre_trap._GroupGraph(graph, static_in, static_out, spec,
-                                       STUB_LAUNCHES[transcribe])
+        return timbre_trap._GroupGraph(graph, static_in, static_out, spec)
 
     monkeypatch.setattr(timbre_trap, "_replays_graphs", lambda device: True)
     monkeypatch.setattr(TimbreTrap, "_capture", capture)
@@ -223,18 +215,17 @@ def test_graphs_are_dropped_with_the_specs(stubbed, drop):
 
 
 @pytest.mark.parametrize("transcribe", [True, False])
-def test_each_replay_adds_its_recorded_launches(stubbed, monkeypatch,
-                                                transcribe):
-    """K1's counts grow by the graph's recorded launches at every replay:
-    nine groups of a 33-chunk piece, on the route of the branch's dtype."""
+def test_each_replay_adds_its_recorded_launches(stubbed, transcribe):
+    """Every chunk group of a 33-chunk piece is one replay of its graph:
+    two calls replay the 4-chunk graph 16 times and the 1-chunk graph
+    twice, 9 replays a call, and capture nothing the second time."""
     m = TimbreTrap(**HP, seed=9, device="cpu")
     audio = _piece_audio(m)
-    for name in K1_COUNTS:
-        monkeypatch.setattr(banded_conv, name, 0)
     m._chunked(audio, transcribe)
     m._chunked(audio, transcribe)
-    got = [getattr(banded_conv, name) for name in K1_COUNTS]
-    assert got == [2 * 9 * k for k in STUB_LAUNCHES[transcribe]]
+    assert len(stubbed) == 2
+    assert sorted((k[2], g.graph.replays) for k, g in m._graphs.items()) == [
+        (1, 2), (4, 16)]
 
 
 def test_graph_spans_and_their_readers(stubbed):
@@ -377,21 +368,19 @@ def test_calls_of_equal_shape_capture_nothing_new(cuda_device, monkeypatch):
 
 
 def _k1_counts(fn):
-    """K1's launch counts (``K1_COUNTS``) over ``fn()``."""
-    before = [getattr(banded_conv, name) for name in K1_COUNTS]
-    fn()
-    torch.cuda.synchronize()
-    return [getattr(banded_conv, name) - b
-            for name, b in zip(K1_COUNTS, before)]
+    """The K1 kernels the card ran over ``fn()``: (bf16, float32)."""
+    with kernel_counts() as counts:
+        fn()
+    return counts["band_wgmma_kernel"], counts["band_wgmma_f32_kernel"]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("transcribe", [True, False])
 def test_k1_counts_follow_the_card(cuda_device, monkeypatch, transcribe):
-    """A warm call counts the launches of its replays, as many as the eager
-    groups launch; a first call those and one eager warm-up a graph; the
-    capture none. Every launch on the branch's dtype route, every float32
-    one with the TMA epilogue (chunks of 1024 frames)."""
+    """The K1 kernels the profiler records: a warm call's replays run as
+    many as the eager groups launch; a first call those and one eager
+    warm-up a graph, the capture none. Every one the branch's dtype
+    kernel."""
     m = TimbreTrap(**FLAGSHIP, seed=41, device=cuda_device)
     run = m.transcribe if transcribe else m.reconstruct
     clip = _flagship_clip(40, 42)
@@ -399,10 +388,9 @@ def test_k1_counts_follow_the_card(cuda_device, monkeypatch, transcribe):
     first = _k1_counts(lambda: run(clip))
     warm = _k1_counts(lambda: run(clip))
     eager = _k1_counts(lambda: _eager(monkeypatch, lambda: run(clip)))
-    assert warm == eager and eager[0] > 0
-    assert eager[0] % per_forward == 0
+    route = 0 if transcribe else 1
+    assert warm == eager and eager[route] > 0 and eager[1 - route] == 0
+    assert eager[route] % per_forward == 0
     assert len(m._graphs) == 2
-    assert first[0] == eager[0] + per_forward * len(m._graphs)
-    route = 1 if transcribe else 2
-    assert first[route] == first[0] and first[3 - route] == 0
-    assert first[3] == first[2] and warm[3] == warm[2]
+    assert first[route] == eager[route] + per_forward * len(m._graphs)
+    assert first[1 - route] == 0

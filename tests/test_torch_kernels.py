@@ -31,17 +31,18 @@ from timbre_trap_tpu_torch.models.fused import level_specs
 from timbre_trap_tpu_torch.models.modules import init_weights
 from timbre_trap_tpu_torch.ops import packed_conv as pc
 from timbre_trap_tpu_torch.ops.fused_level import (
-    HALO, banded_conv, banded_conv_dw, banded_conv_dw_reference,
-    banded_conv_dx, banded_conv_dx_reference, banded_conv_mma,
-    banded_conv_reference,
-    chain_flops, elu_backward, fused_level_apply, level_backward,
-    level_backward_reference, packed_level_apply, spec_time_reach)
+    HALO, band_tma_plan_f32, banded_conv, banded_conv_dw,
+    banded_conv_dw_reference, banded_conv_dx, banded_conv_dx_reference,
+    banded_conv_reference, chain_flops, elu_backward, fused_level_apply,
+    level_backward, level_backward_reference, packed_level_apply,
+    spec_time_reach)
 from timbre_trap_tpu_torch.ops.peaks import peak_mask, peak_mask_reference
 from timbre_trap_tpu_torch.train import (TrainConfig, Trainer, TrainerConfig,
                                          init_train_state, make_train_step,
                                          step_gradients_reference,
                                          synthetic_batch)
 from timbre_trap_tpu_torch.train.synthetic import chord_tracks
+from timbre_trap_tpu_torch.utils.profiling import kernel_counts
 
 torch.set_num_threads(2)
 
@@ -121,20 +122,21 @@ def _train_specs(device="cpu"):
     return especs + dspecs
 
 
-def _k3_counts():
-    return (banded_conv_dx.launches, banded_conv_dw.launches,
-            elu_backward.launches)
+# Each band wrapper's (bfloat16, float32) kernel by the name the profiler
+# records it under (``kernel_counts``): K1, K3 dX, and dW's partial sums
+# (its reduction, ``band_dw_reduce_kernel``, serves both); the ELU' seed
+# and K2 have one kernel each.
+K1 = ("band_wgmma_kernel", "band_wgmma_f32_kernel")
+DX = ("band_product_kernel", "band_tf32_kernel")
+DW = ("band_dw_partial_kernel", "band_dw_tf32_kernel")
+SEED, K2 = "elu_backward_kernel", "peak_mask_kernel"
 
 
-def _routes(fn):
-    """A band wrapper's (bfloat16, float32) tensor-core launch counts."""
-    return fn.mma_launches, fn.mma_launches_f32
-
-
-def _bumped(before, dtype, n=1):
-    """``before`` after ``n`` launches of the ``dtype`` route."""
+def _on_route(counts, kernels, dtype, n):
+    """Whether ``counts`` hold ``n`` launches of the ``dtype`` kernel of
+    ``kernels`` (bfloat16, float32) and none of the other."""
     bf16 = dtype == torch.bfloat16
-    return before[0] + n * bf16, before[1] + n * (not bf16)
+    return (counts[kernels[not bf16]], counts[kernels[bf16]]) == (n, 0)
 
 
 @pytest.fixture
@@ -150,20 +152,11 @@ def cuda_device():
 # Contracts that hold on any device                                      #
 # --------------------------------------------------------------------- #
 
-def _all_counts():
-    return ((banded_conv.launches, peak_mask.launches) + _k3_counts()
-            + _routes(banded_conv) + _routes(banded_conv_dx)
-            + _routes(banded_conv_dw) + (
-                banded_conv_mma.launches,
-                banded_conv.tma_epilogue_launches_f32))
-
-
 def test_wrappers_take_the_twin_on_cpu_and_count_nothing(monkeypatch):
     """On the CPU every wrapper hands its arguments to its plain twin and
-    returns the twin's result, and no launch count moves; the level
-    backward on the CPU reaches every K3 twin the same way. Spies stand in
-    for the twins, so the claim is the routing itself, not the bits of two
-    separate evaluations."""
+    returns the twin's result; the level backward on the CPU reaches every
+    K3 twin the same way. Spies stand in for the twins, so the claim is
+    the routing itself, not the bits of two separate evaluations."""
     from timbre_trap_tpu_torch.ops import fused_level, peaks
 
     rng = np.random.default_rng(0)
@@ -181,7 +174,6 @@ def test_wrappers_take_the_twin_on_cpu_and_count_nothing(monkeypatch):
         (fused_level, banded_conv_dw, (_rand(rng, 2, cb.r_out, 9), x, cb)),
         (fused_level, elu_backward, (res, (res, None), True)),
     ]
-    before = _all_counts()
     for module, wrapper, args in cases:
         name = wrapper.__name__ + "_reference"
         calls, sentinel = [], object()
@@ -196,7 +188,6 @@ def test_wrappers_take_the_twin_on_cpu_and_count_nothing(monkeypatch):
         assert len(calls) == 1, name
         assert len(calls[0]) == len(args), name
         assert all(got is want for got, want in zip(calls[0], args)), name
-    assert _all_counts() == before
 
     reached = set()
 
@@ -215,7 +206,6 @@ def test_wrappers_take_the_twin_on_cpu_and_count_nothing(monkeypatch):
     assert reached == {"banded_conv_reference", "banded_conv_dx_reference",
                        "banded_conv_dw_reference", "elu_backward_reference"}
     assert dx.shape == xs.shape and len(grads) == len(list(spec.convs()))
-    assert _all_counts() == before
 
 
 def test_peak_mask_reads_frame_slices_in_place():
@@ -260,7 +250,7 @@ def test_f32_accuracy_tool_stages_on_cpu():
                        seed=0, device="cpu")
     spec = model._spec(True)
     x = _rand(np.random.default_rng(18), 2, spec.r_in, 37, scale=0.3)
-    stages = f32_accuracy._stages(spec, x, f32_accuracy._ROUTES)
+    stages = f32_accuracy._stages(spec, x)
     assert [e["stage"] for e in stages] == list(range(len(list(
         spec.convs()))))
     for e in stages:
@@ -383,23 +373,25 @@ def test_skip_route_geometry():
 def test_banded_conv_kernel_matches_plain(cuda_device, dtype):
     """Every conv kind, with bias, ELU and residual add; f32 within
     1e-4 * max|ref|, bf16 within 1e-2 * max|ref| of the bf16 twin (sum
-    order and the rounding of one output)."""
+    order and the rounding of one output); each call one launch of the
+    dtype's K1 kernel."""
     dtype = getattr(torch, dtype)
     tol = 1e-4 if dtype == torch.float32 else 1e-2
     rng = np.random.default_rng(5)
-    for name, cb in _conv_cases(cuda_device).items():
-        for t in (1, 70, 300):
-            x = _rand(rng, 2, cb.r_in, t).to(cuda_device, dtype)
-            res = _rand(rng, 2, cb.r_out, t).to(cuda_device, dtype)
-            for act, r in ((False, None), (True, res)):
-                before = banded_conv.launches
-                got = banded_conv(x, cb, act, r)
-                assert banded_conv.launches == before + 1
-                want = banded_conv_reference(x, cb, act, r)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                scale = want.float().abs().max().item()
-                assert err <= tol * scale, (name, t, act, err, scale)
+    cases = _conv_cases(cuda_device)
+    with kernel_counts() as counts:
+        for name, cb in cases.items():
+            for t in (1, 70, 300):
+                x = _rand(rng, 2, cb.r_in, t).to(cuda_device, dtype)
+                res = _rand(rng, 2, cb.r_out, t).to(cuda_device, dtype)
+                for act, r in ((False, None), (True, res)):
+                    got = banded_conv(x, cb, act, r)
+                    want = banded_conv_reference(x, cb, act, r)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    scale = want.float().abs().max().item()
+                    assert err <= tol * scale, (name, t, act, err, scale)
+    assert _on_route(counts, K1, dtype, len(cases) * 3 * 2), counts
 
 
 @pytest.mark.cuda
@@ -449,13 +441,14 @@ def test_peak_mask_kernel_matches_plain(cuda_device, f, t_len, batch):
     longer = torch.rand((batch, f, t_len + 4), generator=g, device=cuda_device)
     wide = torch.rand((batch, f, 2 * t_len + 1), generator=g,
                       device=cuda_device)
-    for x in (a, longer[..., :t_len], longer[..., 1:t_len + 1],
-              wide[..., 1::2]):
-        for t in (0.5, 0.0, -0.25):
-            before = peak_mask.launches
-            got = peak_mask(x, t)
-            assert peak_mask.launches == before + 1
-            assert torch.equal(got, peak_mask_reference(x, t)), (t, x.stride())
+    with kernel_counts() as counts:
+        for x in (a, longer[..., :t_len], longer[..., 1:t_len + 1],
+                  wide[..., 1::2]):
+            for t in (0.5, 0.0, -0.25):
+                got = peak_mask(x, t)
+                assert torch.equal(got, peak_mask_reference(x, t)), (
+                    t, x.stride())
+    assert counts[K2] == 4 * 3
 
 
 @pytest.mark.cuda
@@ -480,26 +473,25 @@ def test_level_backward_kernels_match_plain(cuda_device, dtype):
     recompute) against the plain twin on the same card tensors, for every
     training level kind: dX and each conv's dW and dBias within
     1e-4 * max|ref| in float32 and 1e-2 * max|ref| in bfloat16 (sum order,
-    and bf16 outputs of the recompute that round the other way)."""
+    and bf16 outputs of the recompute that round the other way). A level
+    runs one ELU' seed, and a dX and a dW (partial sums and reduction) a
+    conv, on its dtype's kernels."""
     dtype = getattr(torch, dtype)
     tol = 1e-4 if dtype == torch.float32 else 1e-2
     rng = np.random.default_rng(8)
     for idx, spec in enumerate(_train_specs(cuda_device)):
         x = _rand(rng, 2, spec.r_in, 70).to(cuda_device, dtype)
         dy = _rand(rng, 2, spec.r_out, 70).to(cuda_device, dtype)
-        before = _k3_counts()
-        dx_routes, dw_routes = _routes(banded_conv_dx), _routes(banded_conv_dw)
         with torch.no_grad():
-            dx, grads = level_backward(x, spec, dy, dtype)
+            with kernel_counts() as counts:
+                dx, grads = level_backward(x, spec, dy, dtype)
             dx_ref, grads_ref = level_backward_reference(x, spec, dy, dtype)
         torch.cuda.synchronize()
         n_conv = len(grads)
-        n_dx = _k3_counts()[0] - before[0]
-        assert _k3_counts()[1] == before[1] + n_conv
-        assert _k3_counts()[2] == before[2] + 1
-        # Every dX and dW launch ran its dtype's band-tiled route.
-        assert _routes(banded_conv_dx) == _bumped(dx_routes, dtype, n_dx)
-        assert _routes(banded_conv_dw) == _bumped(dw_routes, dtype, n_conv)
+        assert counts[SEED] == 1, counts
+        assert _on_route(counts, DX, dtype, n_conv), counts
+        assert _on_route(counts, DW, dtype, n_conv), counts
+        assert counts["band_dw_reduce_kernel"] == n_conv, counts
         assert dx.dtype == dtype
         pairs = [(dx, dx_ref)] + [p for g, r in zip(grads, grads_ref)
                                   for p in zip(g, r)]
@@ -536,8 +528,8 @@ def test_band_kernels_match_plain_at_long_and_ragged_t(cuda_device, dtype, t):
     float32 (split-TF32 products) within 1e-4 * max|ref| of the IEEE twin.
     The stage (bias, ELU, residual); on every map but the dense ones also
     dX (float32 cotangent, residual, raw, ELU' from stored tensors at the
-    storage dtype) and dW/dBias (band entries, zeros elsewhere). Each
-    launch counts as its dtype's route."""
+    storage dtype) and dW/dBias (band entries, zeros elsewhere). Each call
+    runs its dtype's kernel."""
     rng = np.random.default_rng(12)
     bf16 = torch.bfloat16
     dtype = getattr(torch, dtype)
@@ -551,16 +543,16 @@ def test_band_kernels_match_plain_at_long_and_ragged_t(cuda_device, dtype, t):
     for name, cb in _conv_cases(cuda_device).items():
         x = _rand(rng, 2, cb.r_in, t).to(cuda_device, dtype)
         res = _rand(rng, 2, cb.r_out, t).to(cuda_device, dtype)
-        before = _routes(banded_conv)
-        got = banded_conv(x, cb, True, res)
-        assert _routes(banded_conv) == _bumped(before, dtype)
+        with kernel_counts() as counts:
+            got = banded_conv(x, cb, True, res)
+        assert _on_route(counts, K1, dtype, 1), (name, counts)
         close(got, banded_conv_reference(x, cb, True, res), name)
         if cb.per_block:
             continue
         dz = _rand(rng, 2, cb.r_out, t).to(cuda_device)
-        before = _routes(banded_conv_dw)
-        dw, db = banded_conv_dw(dz, x, cb)
-        assert _routes(banded_conv_dw) == _bumped(before, dtype)
+        with kernel_counts() as counts:
+            dw, db = banded_conv_dw(dz, x, cb)
+        assert _on_route(counts, DW, dtype, 1), (name, counts)
         dw_ref, db_ref = banded_conv_dw_reference(dz, x, cb)
         assert not dw[~cb.band_mask()].any(), name
         close(dw, dw_ref, f"{name} dW")
@@ -570,9 +562,9 @@ def test_band_kernels_match_plain_at_long_and_ragged_t(cuda_device, dtype, t):
         r32 = _rand(rng, 2, cb.r_out, t).to(cuda_device)
         s2 = _rand(rng, 2, cb.r_out, t).to(cuda_device, dtype)
         kw = dict(residual=r32, elu=(res, s2), keep_raw=True)
-        before = _routes(banded_conv_dx)
-        out, raw = banded_conv_dx(c, cb, dtype, **kw)
-        assert _routes(banded_conv_dx) == _bumped(before, dtype)
+        with kernel_counts() as counts:
+            out, raw = banded_conv_dx(c, cb, dtype, **kw)
+        assert _on_route(counts, DX, dtype, 1), (name, counts)
         out_ref, raw_ref = banded_conv_dx_reference(c, cb, dtype, **kw)
         close(out, out_ref, f"{name} dX")
         close(raw, raw_ref, f"{name} dX raw")
@@ -580,14 +572,13 @@ def test_band_kernels_match_plain_at_long_and_ragged_t(cuda_device, dtype, t):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t", [3072, 1001, 37])
-def test_wgmma_stage_matches_twin_and_mma_sync(cuda_device, t):
+def test_wgmma_stage_matches_twin(cuda_device, t):
     """The bf16 stage's TMA-fed wgmma kernel (``tt_band_conv_wgmma``, the
     route of every CUDA bfloat16 ``banded_conv``) on every conv kind and
     the variants' stages, at the recipe's T and ragged T (x padded to a
-    multiple of 8 frames): within 1e-2 * max|ref| of the twin and of the
-    mma.sync kernel (``tt_band_conv``, through ``banded_conv_mma``) on the
-    same tensors (sum order and the output rounding), the same bits in two
-    runs; each launch counts once, as a launch and as a bf16 launch."""
+    multiple of 8 frames): within 1e-2 * max|ref| of the twin on the same
+    tensors (sum order and the output rounding), the same bits in two
+    runs; each call one launch of ``band_wgmma_kernel``."""
     rng = np.random.default_rng(31)
     bf16 = torch.bfloat16
     convs = dict(_conv_cases(cuda_device))
@@ -596,24 +587,20 @@ def test_wgmma_stage_matches_twin_and_mma_sync(cuda_device, t):
         x = _rand(rng, 2, cb.r_in, t).to(cuda_device, bf16)
         res = None if cb.per_block else _rand(rng, 2, cb.r_out, t).to(
             cuda_device, bf16)
-        before = (banded_conv.launches, banded_conv.mma_launches)
-        got = banded_conv(x, cb, True, res)
-        again = banded_conv(x, cb, True, res)
-        assert (banded_conv.launches, banded_conv.mma_launches) == (
-            before[0] + 2, before[1] + 2)
-        old = banded_conv_mma(x, cb, True, res)
+        with kernel_counts() as counts:
+            got = banded_conv(x, cb, True, res)
+            again = banded_conv(x, cb, True, res)
+        assert _on_route(counts, K1, bf16, 2), (name, counts)
         ref = banded_conv_reference(x, cb, True, res)
         torch.cuda.synchronize()
         assert torch.equal(got, again), name
-        for want, what in ((ref, "twin"), (old, "mma.sync")):
-            err = (got.float() - want.float()).abs().max().item()
-            assert err <= 1e-2 * want.float().abs().max().item(), (name, what,
-                                                                   err)
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 1e-2 * ref.float().abs().max().item(), (name, err)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t", [3072, 1024, 1001, 37])
-def test_wgmma_f32_stage_matches_twin_and_mma_sync(cuda_device, t):
+def test_wgmma_f32_stage_matches_twin(cuda_device, t):
     """The float32 stage's TMA-fed TF32 wgmma kernel
     (``tt_band_conv_wgmma_f32``, the route of every CUDA float32
     ``banded_conv``) on every conv kind and the variants' stages (3x3 at
@@ -621,46 +608,34 @@ def test_wgmma_f32_stage_matches_twin_and_mma_sync(cuda_device, t):
     64), with and without ELU and residual, at the recipe's T and the
     chunks' T (the TMA epilogue) and at ragged T (x padded to a multiple
     of 4 frames, the epilogue from the registers): within 1e-4 * max|ref|
-    of the IEEE twin and of the mma.sync kernel (``tt_band_conv_f32``,
-    through ``banded_conv_mma``) on the same tensors, the same bits in two
-    runs; each launch counts once, as a launch and as a float32 launch,
-    and as a TMA-epilogue launch where T % 4 == 0."""
+    of the IEEE twin on the same tensors, the same bits in two runs; each
+    call one launch of ``band_wgmma_f32_kernel``."""
     rng = np.random.default_rng(37)
     convs = dict(_conv_cases(cuda_device))
     convs.update(_variant_stages(cuda_device))
-    tma = int(t % 4 == 0)
     for name, cb in convs.items():
         x = _rand(rng, 2, cb.r_in, t).to(cuda_device)
         res = None if cb.per_block else _rand(rng, 2, cb.r_out, t).to(
             cuda_device)
         for act, r in ((False, None), (True, res)):
-            before = (banded_conv.mma_launches_f32, banded_conv.launches,
-                      banded_conv_mma.launches,
-                      banded_conv.tma_epilogue_launches_f32)
-            got = banded_conv(x, cb, act, r)
-            again = banded_conv(x, cb, act, r)
-            old = banded_conv_mma(x, cb, act, r)
-            assert (banded_conv.mma_launches_f32, banded_conv.launches,
-                    banded_conv_mma.launches,
-                    banded_conv.tma_epilogue_launches_f32) == (
-                        before[0] + 2, before[1] + 2, before[2] + 1,
-                        before[3] + 2 * tma)
+            with kernel_counts() as counts:
+                got = banded_conv(x, cb, act, r)
+                again = banded_conv(x, cb, act, r)
+            assert _on_route(counts, K1, torch.float32, 2), (name, counts)
             ref = banded_conv_reference(x, cb, act, r)
             torch.cuda.synchronize()
             assert got.dtype == torch.float32
             assert torch.equal(got, again), (name, act)
-            for want, what in ((ref, "twin"), (old, "mma.sync")):
-                err = (got - want).abs().max().item()
-                assert err <= 1e-4 * want.abs().max().item(), (name, act, what,
-                                                                err)
+            err = (got - ref).abs().max().item()
+            assert err <= 1e-4 * ref.abs().max().item(), (name, act, err)
 
 
 @pytest.mark.cuda
 def test_wgmma_f32_stage_refuses_what_it_does_not_take(cuda_device):
     """The float32 route raises before any launch on what it does not
     take: a dilation-9 tap (more than 8 frames), the wrong number of input
-    rows, a residual of another shape or dtype, weights on another device;
-    and the yardstick wrapper takes CUDA tensors only. No count moves."""
+    rows, a residual of another shape or dtype, weights on another device.
+    No K1 kernel runs."""
     rng = np.random.default_rng(15)
     wide = pc.build_conv2d_blocks(_rand(rng, 3, 3, 4, 4), _rand(rng, 4), 64,
                                   9)
@@ -668,22 +643,22 @@ def test_wgmma_f32_stage_refuses_what_it_does_not_take(cuda_device):
     cb = _conv_cases(cuda_device)["3x3-d1"]
     cpu_cb = _conv_cases()["3x3-d1"]
     x = torch.zeros((1, cb.r_in, 16), device=cuda_device)
-    before = (banded_conv.launches, banded_conv.mma_launches_f32)
-    with pytest.raises(ValueError, match="at most 8 frames"):
-        banded_conv(torch.zeros((1, wide.r_in, 16), device=cuda_device), wide)
-    with pytest.raises(ValueError, match="rows"):
-        banded_conv(x[:, :-1], cb)
-    with pytest.raises(ValueError, match="residual"):
-        banded_conv(x, cb, residual=torch.zeros((1, cb.r_out, 15),
-                                                device=cuda_device))
-    with pytest.raises(ValueError, match="residual"):
-        banded_conv(x, cb, residual=torch.zeros(
-            (1, cb.r_out, 16), dtype=torch.bfloat16, device=cuda_device))
-    with pytest.raises(ValueError, match="different devices"):
-        banded_conv(x, cpu_cb)
-    with pytest.raises(ValueError, match="CUDA"):
-        banded_conv_mma(x.cpu(), cpu_cb)
-    assert (banded_conv.launches, banded_conv.mma_launches_f32) == before
+    wide_x = torch.zeros((1, wide.r_in, 16), device=cuda_device)
+    short = torch.zeros((1, cb.r_out, 15), device=cuda_device)
+    half = torch.zeros((1, cb.r_out, 16), dtype=torch.bfloat16,
+                       device=cuda_device)
+    with kernel_counts() as counts:
+        with pytest.raises(ValueError, match="at most 8 frames"):
+            banded_conv(wide_x, wide)
+        with pytest.raises(ValueError, match="rows"):
+            banded_conv(x[:, :-1], cb)
+        with pytest.raises(ValueError, match="residual"):
+            banded_conv(x, cb, residual=short)
+        with pytest.raises(ValueError, match="residual"):
+            banded_conv(x, cb, residual=half)
+        with pytest.raises(ValueError, match="different devices"):
+            banded_conv(x, cpu_cb)
+    assert counts[K1[0]] == counts[K1[1]] == 0, counts
 
 
 @pytest.mark.cuda
@@ -691,7 +666,8 @@ def test_wgmma_f32_tma_epilogue_takes_unaligned_residual_views(cuda_device):
     """Where T % 4 == 0 the float32 stage reads the residual by a tensor
     map, whose base must be 16-byte aligned: a residual view that starts
     off that alignment is copied first, and the stage gives the same bits
-    as on an aligned residual, with the TMA epilogue both times."""
+    as on an aligned residual, with the TMA epilogue both times (the
+    plan's choice at T = 1024)."""
     rng = np.random.default_rng(41)
     cb = _conv_cases(cuda_device)["3x3-d2"]
     x = _rand(rng, 2, cb.r_in, 1024).to(cuda_device)
@@ -700,12 +676,11 @@ def test_wgmma_f32_tma_epilogue_takes_unaligned_residual_views(cuda_device):
         res.shape)
     view.copy_(res)
     assert view.data_ptr() % 16 != 0
-    before = banded_conv.tma_epilogue_launches_f32
+    assert band_tma_plan_f32(cb, 1024).tma_epilogue == 1
     got = banded_conv(x, cb, True, view)
     want = banded_conv(x, cb, True, res)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    assert banded_conv.tma_epilogue_launches_f32 == before + 2
 
 
 @pytest.mark.cuda
@@ -773,9 +748,9 @@ def test_banded_conv_kernel_on_variant_geometries(cuda_device, dtype):
             x = _rand(rng, 2, cb.r_in, t).to(cuda_device, dtype)
             res = _rand(rng, 2, cb.r_out, t).to(cuda_device, dtype)
             for act, r in ((False, None), (True, res)):
-                before = _routes(banded_conv)
-                got = banded_conv(x, cb, act, r)
-                assert _routes(banded_conv) == _bumped(before, dtype)
+                with kernel_counts() as counts:
+                    got = banded_conv(x, cb, act, r)
+                assert _on_route(counts, K1, dtype, 1), (name, t, counts)
                 want = banded_conv_reference(x, cb, act, r)
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
@@ -809,9 +784,9 @@ def test_k3_on_variant_geometries(cuda_device, dtype):
                       elu=(_rand(rng, 2, adj.r_out, t).to(cuda_device, dtype),
                            _rand(rng, 2, adj.r_out, t).to(cuda_device, dtype)),
                       keep_raw=True)
-            before = _routes(banded_conv_dx)
-            got = banded_conv_dx(c, adj, dtype, **kw)
-            assert _routes(banded_conv_dx) == _bumped(before, dtype)
+            with kernel_counts() as counts:
+                got = banded_conv_dx(c, adj, dtype, **kw)
+            assert _on_route(counts, DX, dtype, 1), (name, t, counts)
             want = banded_conv_dx_reference(c, adj, dtype, **kw)
             torch.cuda.synchronize()
             for g, w, what in zip(got, want, ("dX", "raw")):
@@ -850,15 +825,12 @@ def test_family_step_kernels_match_twin(cuda_device, cls, skips):
         model.load_state_dict(w0)
         step = make_train_step(model, cfg, 2, conv_backend=backend,
                                compact_audio_grid=True)
-        before = [_routes(f) for f in (banded_conv, banded_conv_dx,
-                                       banded_conv_dw)]
-        seeds = elu_backward.launches
-        metrics = step(init_train_state(model, cfg), audio, gt, 1e-3)
-        torch.cuda.synchronize()
+        with kernel_counts() as counts:
+            metrics = step(init_train_state(model, cfg), audio, gt, 1e-3)
         runs[backend] = ({k: float(v) for k, v in metrics.items()},
                          {n: p.grad.clone()
-                          for n, p in model.net.named_parameters()})
-    (m32, g32), (mref, gref) = runs["pallas"], runs["packed"]
+                          for n, p in model.net.named_parameters()}, counts)
+    (m32, g32, _), (mref, gref, _) = runs["pallas"], runs["packed"]
     for key, want in mref.items():
         if key.startswith("loss/"):
             assert abs(m32[key] - want) <= 1e-5 * abs(want), key
@@ -876,10 +848,10 @@ def test_family_step_kernels_match_twin(cuda_device, cls, skips):
             return max((g[n].double() - g64[n]).abs().max().item()
                        / g64[n].abs().max().item() for n in over)
         assert dist(g32) <= 3 * dist(gref), (over, dist(g32), dist(gref))
-    after = [_routes(f) for f in (banded_conv, banded_conv_dx,
-                                  banded_conv_dw)]
-    assert all(a[0] > b[0] and a[1] == b[1] for a, b in zip(after, before))
-    assert elu_backward.launches > seeds
+    counts = runs["pallas_bf16"][2]
+    assert all(counts[bf16] > 0 and counts[f32] == 0
+               for bf16, f32 in (K1, DX, DW)), counts
+    assert counts[SEED] > 0, counts
     assert all(np.isfinite(v) for v in runs["pallas_bf16"][0].values())
     moved = [n for n in w0 if n == "skip_weights" or n.startswith("film")]
     assert len(moved) == int(skips) + 4 * (cls is TimbreTrapFiLM)
@@ -904,10 +876,9 @@ def test_variant_forward_kernels_match_plain(cuda_device, variant, skips):
         ref = fused_forward(net, x, transcribe, spec=spec, plain=True)
         scale = ref.abs().max().item()
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
-            before = banded_conv.launches
-            got = fused_forward(net, x, transcribe, dtype, spec)
-            assert banded_conv.launches == before + _route_convs(spec)
-            torch.cuda.synchronize()
+            with kernel_counts() as counts:
+                got = fused_forward(net, x, transcribe, dtype, spec)
+            assert _on_route(counts, K1, dtype, _route_convs(spec)), counts
             err = (got - ref).abs().max().item()
             assert err <= tol * scale, (transcribe, dtype, err, scale)
 
@@ -1010,18 +981,12 @@ def test_trainer_on_card_counts_its_kernels(cuda_device, tmp_path):
     trainer = Trainer(model, loader, None,
                       [_ChordMPE(base_dir=val, n_secs=None, **kw)], config,
                       writer=Recorder())
-    before = ([_routes(f) for f in (banded_conv, banded_conv_dx,
-                                    banded_conv_dw)]
-              + [elu_backward.launches, peak_mask.launches])
-    trainer.run()
-    after = ([_routes(f) for f in (banded_conv, banded_conv_dx,
-                                   banded_conv_dw)]
-             + [elu_backward.launches, peak_mask.launches])
+    with kernel_counts() as counts:
+        trainer.run()
     assert trainer.batch_count == 2
-    for (bf16, f32), (bf16_0, f32_0) in zip(after[:3], before[:3]):
-        assert bf16 > bf16_0 and f32 == f32_0
-    assert after[3] > before[3]
-    assert after[4] == before[4] + 3
+    assert all(counts[bf16] > 0 and counts[f32] == 0
+               for bf16, f32 in (K1, DX, DW)), counts
+    assert counts[SEED] > 0 and counts[K2] == 3, counts
     assert all(np.isfinite(v) for _, v in trainer.writer.scalars)
     loaded = load_model(str(tmp_path / "run" / "models" / "model-2"))
     for name, p in model.net.state_dict().items():

@@ -9,6 +9,9 @@ bins, 0.5-s blocks, latent 16, complexity 1):
 * the record's count, items, total and self times on a toy nesting, self
   time per thread (a span on another thread is no child), and no update
   lost when more threads than cores add to it at once;
+* ``kernel_counts``' names: the base function name of each kind of
+  demangled kernel signature the profiler records; on the CPU its block
+  runs and counts nothing;
 * a streamed transcribe and reconstruct record the ``_chunked``
   arithmetic (33 chunks a 16-block piece, 9 forwards) and one ``tt.k1``
   span a conv stage of each forward, base and skip route, and build the
@@ -181,6 +184,40 @@ def test_many_threads_lose_no_update():
     assert rec["tt.outer"]["self_s"] == pytest.approx(
         rec["tt.outer"]["total_s"] - rec["tt.inner"]["total_s"], abs=1e-6)
     reset_record()
+
+
+@pytest.mark.parametrize("recorded,name", [
+    ("(anonymous namespace)::band_wgmma_kernel(CUtensorMap_st, "
+     "CUtensorMap_st, int, int)", "band_wgmma_kernel"),
+    ("void (anonymous namespace)::elu_backward_kernel<__nv_bfloat16>("
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "float*, float*, long long)", "elu_backward_kernel"),
+    ("void (anonymous namespace)::band_product_kernel<__nv_bfloat16, true>("
+     "(anonymous namespace)::BandArgs)", "band_product_kernel"),
+    ("void (anonymous namespace)::band_tf32_kernel<true>("
+     "(anonymous namespace)::BandArgs)", "band_tf32_kernel"),
+    ("(anonymous namespace)::band_dw_reduce_kernel(float const*, float "
+     "const*, float*, float*, int, int, int, int, int, int, int)",
+     "band_dw_reduce_kernel"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::"
+     "FillFunctor<float>, std::array<char*, 1ul> >(int, at::native::"
+     "FillFunctor<float>, std::array<char*, 1ul>)",
+     "vectorized_elementwise_kernel"),
+    ("peak_mask_kernel", "peak_mask_kernel"),
+])
+def test_kernel_name_is_the_base_function_name(recorded, name):
+    assert profiling.kernel_name(recorded) == name
+
+
+def test_kernel_counts_on_the_cpu_count_nothing():
+    """The block runs under the profiler (the spans record), and a machine
+    without a card runs no device kernel: the counter stays empty."""
+    reset_record()
+    with profiling.kernel_counts() as counts:
+        with span("tt.a"):
+            torch.ones(8, 8).sum()
+        assert counts == {}
+    assert counts == {} and record()["tt.a"]["count"] == 1
 
 
 @pytest.mark.parametrize("skips", [False, True])

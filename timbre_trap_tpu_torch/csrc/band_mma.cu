@@ -1,16 +1,13 @@
-// Band-tiled tensor-core products of the conv chain (K1) and of the level
-// backward (K3 dX and dW), bf16 and float32, for Hopper (sm_90a).
+// Band-tiled tensor-core products of the level backward (kernel K3: dX and
+// dW), bf16 and float32, for Hopper (sm_90a).
 //
-// Replaces the products of the Pallas TPU kernels
-// timbre_trap_tpu/ops/fused_level.py `_level_kernel` (K1, launched by
-// `_pallas_fwd_call`; float32 storage) and `_level_bwd_kernel` (K3,
-// launched by `_pallas_bwd_call`; both storage dtypes); the wrappers in
-// ops/fused_level.py pick the entry point by dtype. The K1 stage of every
-// path, in both dtypes, is band_wgmma.cu's; tt_band_conv and
-// tt_band_conv_f32 stay here as the yardsticks those are held and timed
-// against (ops/fused_level.py `banded_conv_mma`), and their kernel
-// templates serve tt_band_conv_dx and tt_band_conv_dx_f32. K3's ELU' seed,
-// an elementwise pass, is in banded_conv_bwd.cu.
+// Replaces the products of the Pallas TPU kernel
+// timbre_trap_tpu/ops/fused_level.py `_level_bwd_kernel` (launched by
+// `_pallas_bwd_call`; both storage dtypes); the wrappers in
+// ops/fused_level.py (`banded_conv_dx`, `banded_conv_dw`) pick the entry
+// point by dtype. The forward stage (K1), which the backward recomputes, is
+// band_wgmma.cu's; K3's ELU' seed, an elementwise pass, is in
+// banded_conv_bwd.cu.
 //
 // The banded blocks are mostly structural zeros: an output row of a conv
 // reads n_df * c_in of a block's K input rows. Each 64-row half of a
@@ -21,40 +18,33 @@
 // on bf16 operands fed by ldmatrix, m16n8k8 on tf32 operands fed by 32-bit
 // shared-memory loads.
 //
-//   tt_band_conv     K1 stage: y[64g + r, t] = epi(sum_dt sum_k
-//                      W_g,dt[r, k] * x[s_g + k, t + dt]), s_g the input row
-//                      of band column 0 of sub-tile g; epilogue: bias,
-//                      ELU as exp(min(v, 0)) - 1 (as the JAX package
-//                      writes it), residual add.
-//   tt_band_conv_f32 the K1 stage in float32 storage: the same grid, bands
-//                      and epilogue, products as 3xTF32 (m16n8k8; each
-//                      operand split into TF32 hi + lo, hi*hi + hi*lo +
-//                      lo*hi in float32), the f32-accurate product that the
-//                      JAX package's precision="highest" asks for.
-//   tt_band_conv_dx  K3 dX: the same product of the float32 cotangent,
-//                      rounded to bf16 while it is staged, with the adjoint
-//                      bands; epilogue: + residual cotangent, keep that
+//   tt_band_conv_dx  dX: y[64g + r, t] = epi(sum_dt sum_k W_g,dt[r, k] *
+//                      c[s_g + k, t + dt]) over the adjoint's bands, s_g
+//                      the input row of band column 0 of sub-tile g, the
+//                      float32 cotangent c rounded to bf16 while it is
+//                      staged; epilogue: + residual cotangent, keep that
 //                      value (raw), * ELU' from stored outputs (1 where
 //                      y > 0, else y + 1, y = s1 - s2).
-//   tt_band_conv_dw  K3 dW: dW_dt[r, k] = sum_{b,j,t} dZ[b, 128j + r, t] *
+//   tt_band_conv_dw  dW: dW_dt[r, k] = sum_{b,j,t} dZ[b, 128j + r, t] *
 //                      x[b, j*col_adv - margin + k, t + dt] on band entries
 //                      only (zeros elsewhere), dBias[r] from the float32
 //                      dZ. Fixed slices of the (b, j, 64 frames) chunks,
 //                      per-slice partials, a second pass that sums them
 //                      as a fixed pairwise tree: the same bits every run.
-//   tt_band_conv_dx_f32, tt_band_conv_dw_f32  K3 dX and dW in float32
-//                      storage: the same products as 3xTF32, dX on
-//                      tt_band_conv_f32's mainloop with the dX epilogue,
-//                      dW on the band tiles and the two passes of
-//                      tt_band_conv_dw.
+//   tt_band_conv_dx_f32, tt_band_conv_dw_f32  dX and dW in float32
+//                      storage: the same grids, bands and epilogues, the
+//                      products as 3xTF32 (m16n8k8; each operand split
+//                      into TF32 hi + lo, hi*hi + hi*lo + lo*hi in
+//                      float32), the f32-accurate product that the JAX
+//                      package's precision="highest" asks for.
 //
 // Design. A time tap shifts the frames by dt (|dt| <= 8), which breaks the
 // 16-byte row alignment ldmatrix needs if the shifted operand is stored with
 // frames contiguous. So the operand that carries the shift is staged
 // TRANSPOSED: frames are its shared-memory rows, and a tap is a row offset.
-// The forward/dX operand x is read from global memory 8 frames x 2 rows at
-// a time (16-byte loads where the rows are 16-byte aligned, element loads
-// at ragged edges), packed into bf16 pairs and stored as xs[frame][k]; all
+// dX's cotangent is read from global memory 8 frames x 2 rows at a time
+// (16-byte loads where the rows are 16-byte aligned, element loads at
+// ragged edges), packed into bf16 pairs and stored as cs[frame][k]; all
 // taps of a k chunk read that one tile. dW stages dZ the same way (as
 // zs[frame][r], ldmatrix.trans gives the A fragments) and x untransposed.
 // Loads for the next k chunk are in flight while the current one is
@@ -62,31 +52,25 @@
 // float32 routes need no transposition: their fragments are 32-bit loads,
 // which take any address, so every operand is staged as it lies in memory
 // (a tap is a column offset) and every tile moves by cp.async with zero
-// fill at the edges: the stage and dX with four chunks in flight, dW with
-// two.
+// fill at the edges: dX with four chunks in flight, dW with two.
 //
-// What bounds it: with the zeros skipped, a stage needs ~2 * n_dt * 64 * L
-// flops per sub-tile and frame (L the band, 48-256) against ~2 bytes per
-// row and frame in and out, so one stage is near the card's bytes-per-flop
-// line and a forward chain is bound by its bytes (each stage reads and
-// writes its activations); in float32 the three TF32 passes at half the
-// bf16 rate put the stage, dX and dW well above that line, bound by the
-// tensor cores. The tensor cores round their float32 sums toward zero,
-// so no float32 route keeps a long running sum in the MMA accumulators:
-// each short product goes into fresh accumulators and reaches the running
-// sum by an IEEE add. These kernels use mma.sync, whose fragments come
-// straight from the transposed tiles with per-row addresses. wgmma wants
-// whole swizzled tiles at aligned offsets, and a tap's shift breaks that
-// alignment; band_wgmma.cu gets its tiles another way (bf16: a TMA box per
-// tap at the shift rounded down to 8 frames, the rest as a shift of the
-// tap's sums across lanes; float32: the transposed product, x from
-// registers), and that is the K1 stage of every path.
+// What bounds it: with the zeros skipped, a product needs ~2 * n_dt * 64 * L
+// flops per sub-tile and frame (L the band, 48-256) against a few bytes per
+// row and frame in and out, near the card's bytes-per-flop line in bf16; in
+// float32 the three TF32 passes at half the bf16 rate put dX and dW well
+// above that line, bound by the tensor cores. The tensor cores round their
+// float32 sums toward zero, so no float32 route keeps a long running sum in
+// the MMA accumulators: each short product goes into fresh accumulators and
+// reaches the running sum by an IEEE add.
+//
+// The dX kernels' bool template argument is always true and selects
+// nothing: it keeps their names as the benchmark's K3 kernel patterns read
+// them (portbench/kernels/k3: band_product_kernel<..., true, ...> and
+// band_tf32_kernel<true>).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -95,15 +79,15 @@ typedef __nv_bfloat16 bf16;
 constexpr int kSub = 64;                     // rows of a sub-tile
 constexpr int kHalo = 8;                     // frames staged per side: |dt| <= 8
 constexpr int kThreads = 256;                // 8 warps
-// K1 / dX: a CTA computes one sub-tile x kTileT frames, kKc band columns
-// per pipeline stage; warp (wm, wn) owns rows 32wm.. and frames 32wn...
+// dX: a CTA computes one sub-tile x kTileT frames, kKc band columns per
+// pipeline stage; warp (wm, wn) owns rows 32wm.. and frames 32wn...
 constexpr int kTileT = 128;
 constexpr int kKc = 32;
 constexpr int kXRows = kTileT + 2 * kHalo;   // 144 staged frames
 constexpr int kPitch = kKc + 8;              // 80-byte rows: conflict-free ldmatrix
 constexpr int kXItems = (kKc / 2) * (kXRows / 8);   // (row pair, 8 frames) items
 constexpr int kXSlots = (kXItems + kThreads - 1) / kThreads;
-constexpr int kFwdSmem = (2 * kXRows * kPitch + 2 * 3 * kSub * kPitch) * 2;
+constexpr int kDxSmem = (2 * kXRows * kPitch + 2 * 3 * kSub * kPitch) * 2;
 // dW: a CTA sums a 64-row x kDwN-column band tile of every tap over the
 // kDwT-frame chunks of its slice; warp (wm, wn) owns rows 16wm.., columns
 // 32wn...
@@ -211,33 +195,10 @@ __device__ __forceinline__ void load8(const float* row, int t, int t_len, bool a
   hi = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-// Eight frames of two adjacent rows (a: row k, b: row k + 1) as loaded;
-// words() gives, per frame, the bf16 pair (x[k], x[k + 1]) as one 32-bit
-// word, the layout of a row of a transposed tile.
-template <typename TS>
-struct RowPair;
-
-template <>
-struct RowPair<bf16> {
-  uint4 a, b;
-  __device__ __forceinline__ void load(const bf16* ra, const bf16* rb, int t, int t_len,
-                                       bool aligned) {
-    a = load8(ra, t, t_len, aligned);
-    b = load8(rb, t, t_len, aligned);
-  }
-  __device__ __forceinline__ void words(uint32_t (&w)[8]) const {
-    const uint32_t av[4] = {a.x, a.y, a.z, a.w};
-    const uint32_t bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      w[2 * i] = __byte_perm(av[i], bv[i], 0x5410);
-      w[2 * i + 1] = __byte_perm(av[i], bv[i], 0x7632);
-    }
-  }
-};
-
-template <>
-struct RowPair<float> {
+// Eight frames of two adjacent float32 rows (a: row k, b: row k + 1) as
+// loaded; words() gives, per frame, the pair (x[k], x[k + 1]) rounded to
+// bf16 as one 32-bit word, the layout of a row of a transposed tile.
+struct RowPair {
   float4 a0, a1, b0, b1;
   __device__ __forceinline__ void load(const float* ra, const float* rb, int t, int t_len,
                                        bool aligned) {
@@ -267,17 +228,22 @@ __device__ __forceinline__ int tap_shift(int di, int dt0, int dt1, int dt2) {
 }
 
 // ------------------------------------------------------------------ //
-// K1 stage and K3 dX: one sub-tile x 128 frames per CTA                //
+// K3 dX: one sub-tile x 128 frames per CTA                                 //
 // ------------------------------------------------------------------ //
 
+// bias, per_block and act are the forward stage's fields, which dX leaves
+// at null, 0 and 0 (and wsub below at s): the struct keeps the layout the
+// two shared because, without them, ptxas allocates the dX mainloop
+// otherwise and dX measured 5 % slower on the card (bf16 3.49 -> 3.66 ms,
+// float32 4.65 -> 4.88 ms a recipe encoder level 1 backward).
 struct BandArgs {
-  const void* src;     // (B, r_in, T): bf16 (K1) or float32 (dX cotangent)
-  const void* w;       // (n_wsub, n_dt, 64, width) band weights, bf16 or float32
-  const float* bias;   // K1: (128,) pattern, or (n_blocks * 128,) per block
-  const void* res;     // K1: residual at the storage type; dX: float32 residual cotangent
-  const void* s1;      // dX: stored output for ELU', at the storage type
-  const void* s2;      // dX: stored item input subtracted from s1
-  float* raw;          // dX: the value before ELU'
+  const void* src;     // (B, r_in, T) float32 cotangent
+  const void* w;       // (2, n_dt, 64, width) adjoint band weights, bf16 or float32
+  const float* bias;
+  const void* res;     // (B, r_out, T) float32 residual cotangent, or null
+  const void* s1;      // stored output for ELU', at the storage type
+  const void* s2;      // stored item input subtracted from s1
+  float* raw;          // the value before ELU'
   void* out;           // (B, r_out, T)
   int r_in, r_out, t_len, n_dt, dt0, dt1, dt2;
   int col_adv, margin, width, per_block, act, aligned;
@@ -312,16 +278,13 @@ __device__ __forceinline__ void store_pair<bf16>(bf16* out, size_t o, int col, i
 __device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float ldg_f32(const bf16* p) { return to_f32(__ldg(p)); }
 
-// The epilogue of a warp's 32-row x 32-frame accumulator tile (rows
+// The dX epilogue of a warp's 32-row x 32-frame accumulator tile (rows
 // 32wm.., frames 32wn.. of sub-tile g; the accumulator layout of both
-// m16n8k16 and m16n8k8). kDx = false, K1: + bias, ELU, + the residual at
-// the output's type; true, dX: + the float32 residual cotangent, raw, x ELU'
+// m16n8k16 and m16n8k8): + the float32 residual cotangent, raw, x ELU'
 // from the stored tensors s1, s2 of type TSt.
-template <bool kDx, typename TO, typename TSt>
-__device__ __forceinline__ void band_epilogue(const BandArgs& a, const float (&acc)[2][4][4],
-                                              int g, int s, int t0, int b, int wm, int wn,
-                                              int lane) {
-  typedef typename std::conditional<kDx, float, TO>::type TR;
+template <typename TO, typename TSt>
+__device__ __forceinline__ void dx_epilogue(const BandArgs& a, const float (&acc)[2][4][4],
+                                            int g, int t0, int b, int wm, int wn, int lane) {
   const size_t out_base = (size_t)b * a.r_out * a.t_len;
   TO* out = static_cast<TO*>(a.out);
 #pragma unroll
@@ -344,15 +307,14 @@ __device__ __forceinline__ void band_epilogue(const BandArgs& a, const float (&a
           const bool ok = col < a.t_len;
           add[ni][e] = 0.f;
           yarg[ni][e] = 1.f;
-          if (ok && a.res != nullptr) add[ni][e] = ldg_f32(static_cast<const TR*>(a.res) + row_o + col);
-          if (kDx && ok && a.s1 != nullptr) {
+          if (ok && a.res != nullptr) add[ni][e] = ldg_f32(static_cast<const float*>(a.res) + row_o + col);
+          if (ok && a.s1 != nullptr) {
             float y = ldg_f32(static_cast<const TSt*>(a.s1) + row_o + col);
             if (a.s2 != nullptr) y -= ldg_f32(static_cast<const TSt*>(a.s2) + row_o + col);
             yarg[ni][e] = y;
           }
         }
       }
-      const float bias = kDx ? 0.f : __ldg(a.bias + (a.per_block ? orow : s * kSub + row_l));
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
         const int col = t0 + 32 * wn + 8 * ni + 2 * (lane & 3);
@@ -361,15 +323,9 @@ __device__ __forceinline__ void band_epilogue(const BandArgs& a, const float (&a
         float v[2] = {acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]};
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          if (!kDx) {
-            v[e] += bias;
-            if (a.act) v[e] = v[e] > 0.f ? v[e] : expf(fminf(v[e], 0.f)) - 1.f;
-            v[e] += add[ni][e];
-          } else {
-            v[e] += add[ni][e];
-            if (a.raw != nullptr && col + e < a.t_len) a.raw[o + e] = v[e];
-            if (a.s1 != nullptr) v[e] *= yarg[ni][e] > 0.f ? 1.f : yarg[ni][e] + 1.f;
-          }
+          v[e] += add[ni][e];
+          if (a.raw != nullptr && col + e < a.t_len) a.raw[o + e] = v[e];
+          if (a.s1 != nullptr) v[e] *= yarg[ni][e] > 0.f ? 1.f : yarg[ni][e] + 1.f;
         }
         store_pair<TO>(out, o, col, a.t_len, v[0], v[1]);
       }
@@ -377,12 +333,10 @@ __device__ __forceinline__ void band_epilogue(const BandArgs& a, const float (&a
   }
 }
 
-// kDx = false: K1 epilogue (bias, ELU, bf16 residual); true: dX epilogue.
-// Three CTAs an SM for a bf16 source (<= 85 registers), two for float32,
-// whose staged chunk takes twice the registers.
-template <typename TS, bool kDx, typename TO>
-__global__ void __launch_bounds__(kThreads, sizeof(TS) == 2 ? 3 : 2)
-    band_product_kernel(const BandArgs a) {
+// bf16 dX, the output at TO (float32, or bf16 for the level's input
+// gradient): two CTAs an SM, as the float32 staged chunk's registers allow.
+template <typename TO, bool kNameTag = true>
+__global__ void __launch_bounds__(kThreads, 2) band_product_kernel(const BandArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* xs = reinterpret_cast<bf16*>(smem_raw);       // [2][kXRows][kPitch]
   bf16* ws = xs + 2 * kXRows * kPitch;                 // [2][3][kSub][kPitch]
@@ -393,7 +347,6 @@ __global__ void __launch_bounds__(kThreads, sizeof(TS) == 2 ? 3 : 2)
   const int s = g & 1;
   const int kb = s ? a.kb1 : a.kb0;
   const int kl = s ? a.kl1 : a.kl0;
-  const int wsub = a.per_block ? g : s;
   const int row0 = (g >> 1) * a.col_adv - a.margin + kb;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -402,11 +355,12 @@ __global__ void __launch_bounds__(kThreads, sizeof(TS) == 2 ? 3 : 2)
   const int wn = warp >> 1;
   const bool aligned = a.aligned != 0;
 
-  const TS* src = static_cast<const TS*>(a.src) + (size_t)b * a.r_in * a.t_len;
+  const float* src = static_cast<const float*>(a.src) + (size_t)b * a.r_in * a.t_len;
+  const int wsub = a.per_block ? g : s;
   const bf16* wsrc = static_cast<const bf16*>(a.w) + (size_t)wsub * a.n_dt * kSub * a.width;
   const int n_chunks = (kl + kKc - 1) / kKc;
 
-  RowPair<TS> st[kXSlots];
+  RowPair st[kXSlots];
   auto load_x = [&](int c) {
 #pragma unroll
     for (int i = 0; i < kXSlots; ++i) {
@@ -415,8 +369,8 @@ __global__ void __launch_bounds__(kThreads, sizeof(TS) == 2 ? 3 : 2)
         const int kp = item % (kKc / 2);
         const int tc = item / (kKc / 2);
         const int r = row0 + c * kKc + 2 * kp;
-        const TS* ra = (r >= 0 && r < a.r_in) ? src + (size_t)r * a.t_len : nullptr;
-        const TS* rb = (r + 1 >= 0 && r + 1 < a.r_in) ? src + (size_t)(r + 1) * a.t_len : nullptr;
+        const float* ra = (r >= 0 && r < a.r_in) ? src + (size_t)r * a.t_len : nullptr;
+        const float* rb = (r + 1 >= 0 && r + 1 < a.r_in) ? src + (size_t)(r + 1) * a.t_len : nullptr;
         st[i].load(ra, rb, t0 - kHalo + 8 * tc, a.t_len, aligned);
       }
     }
@@ -504,22 +458,22 @@ __global__ void __launch_bounds__(kThreads, sizeof(TS) == 2 ? 3 : 2)
     cp_async_wait_all();
     __syncthreads();
   }
-  band_epilogue<kDx, TO, bf16>(a, acc, g, s, t0, b, wm, wn, lane);
+  dx_epilogue<TO, bf16>(a, acc, g, t0, b, wm, wn, lane);
 }
 
-template <typename TS, bool kDx, typename TO>
+template <typename TO>
 int launch_band_product(const BandArgs& a, int batch, cudaStream_t st) {
-  const auto kernel = band_product_kernel<TS, kDx, TO>;
+  const auto kernel = band_product_kernel<TO>;
   static bool configured[kMaxDevices] = {};
-  const int rc = smem_opt_in(kernel, kFwdSmem, configured);
+  const int rc = smem_opt_in(kernel, kDxSmem, configured);
   if (rc != 0) return rc;
   const dim3 grid((a.t_len + kTileT - 1) / kTileT, (a.r_out + kSub - 1) / kSub, batch);
-  kernel<<<grid, kThreads, kFwdSmem, st>>>(a);
+  kernel<<<grid, kThreads, kDxSmem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------------------------------------------ //
-// K1 stage in float32: split-TF32 (3xTF32) products                    //
+// K3 dX in float32: split-TF32 (3xTF32) products                           //
 // ------------------------------------------------------------------ //
 
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
@@ -575,8 +529,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The float32 stage's tiles: kKcF band columns a pipeline stage, kStagesF
-// stages in flight. x is staged as it lies in memory, xs[k][frame] (frames
+// The float32 dX tiles: kKcF band columns a pipeline stage, kStagesF
+// stages in flight. c is staged as it lies in memory, xs[k][frame] (frames
 // t0 - 8 .. t0 + 136): a 32-bit fragment load needs no alignment, so a tap
 // is a column offset and every load is a cp.async straight into shared
 // memory, with no register staging. Rows of kXPitchF = 152 floats (24 mod
@@ -590,9 +544,9 @@ constexpr int kXStageF = kKcF * kXPitchF;
 constexpr int kWStageF = 3 * kSub * kWPitchF;
 constexpr int kTf32Smem = kStagesF * (kXStageF + kWStageF) * 4;
 
-// The K1 stage (kDx = false) and K3 dX (kDx = true) of band_product_kernel
-// for float32 storage: the same grid, bands and epilogues; dX reads the
-// float32 cotangent as it lies and the ELU' operands s1, s2 in float32.
+// band_product_kernel for float32 storage: the same grid, bands and
+// epilogue; it reads the cotangent as it lies and the ELU' operands s1, s2
+// in float32.
 // The products run on the tensor cores as 3xTF32: each
 // float32 fragment element splits into hi + lo after its shared-memory
 // load and every m16n8k8 step computes lo*hi + hi*lo + hi*hi in float32
@@ -605,7 +559,7 @@ constexpr int kTf32Smem = kStagesF * (kXStageF + kWStageF) * 4;
 // float32 level (one add per 8 columns was slower for no gain there).
 // Fragments are 32-bit shared-memory loads (ldmatrix moves 16-bit
 // elements).
-template <bool kDx>
+template <bool kNameTag = true>
 __global__ void __launch_bounds__(kThreads, 2) band_tf32_kernel(const BandArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* xs = reinterpret_cast<float*>(smem_raw);      // [kStagesF][kKcF][kXPitchF]
@@ -617,7 +571,6 @@ __global__ void __launch_bounds__(kThreads, 2) band_tf32_kernel(const BandArgs a
   const int s = g & 1;
   const int kb = s ? a.kb1 : a.kb0;
   const int kl = s ? a.kl1 : a.kl0;
-  const int wsub = a.per_block ? g : s;
   const int row0 = (g >> 1) * a.col_adv - a.margin + kb;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -628,6 +581,7 @@ __global__ void __launch_bounds__(kThreads, 2) band_tf32_kernel(const BandArgs a
   const int tq = lane & 3;
 
   const float* src = static_cast<const float*>(a.src) + (size_t)b * a.r_in * a.t_len;
+  const int wsub = a.per_block ? g : s;
   const float* wsrc = static_cast<const float*>(a.w) + (size_t)wsub * a.n_dt * kSub * a.width;
   const int n_chunks = kl / kKcF;  // bands are multiples of 16 columns
 
@@ -736,12 +690,11 @@ __global__ void __launch_bounds__(kThreads, 2) band_tf32_kernel(const BandArgs a
     }
   }
   cp_async_wait<0>();
-  band_epilogue<kDx, float, float>(a, acc, g, s, t0, b, wm, wn, lane);
+  dx_epilogue<float, float>(a, acc, g, t0, b, wm, wn, lane);
 }
 
-template <bool kDx>
 int launch_band_tf32(const BandArgs& a, int batch, cudaStream_t st) {
-  const auto kernel = band_tf32_kernel<kDx>;
+  const auto kernel = band_tf32_kernel<>;
   static bool configured[kMaxDevices] = {};
   const int rc = smem_opt_in(kernel, kTf32Smem, configured);
   if (rc != 0) return rc;
@@ -791,7 +744,7 @@ __global__ void __launch_bounds__(kThreads, 2) band_dw_partial_kernel(const DwAr
   const long long q_begin = n_chunks * sl / a.n_slices;
   const long long q_end = n_chunks * (sl + 1) / a.n_slices;
 
-  RowPair<float> zst[kZSlots];
+  RowPair zst[kZSlots];
   uint4 xst[kXdSlots];
   float bsum[kZSlots][2];
 #pragma unroll
@@ -1190,16 +1143,18 @@ __global__ void band_dw_reduce_kernel(const float* part, const float* part_bias,
   }
 }
 
-BandArgs stage_args(const void* x, const void* w, const void* bias, const void* res, void* y,
-                    int r_in, int r_out, int t_len, int n_dt, int dt0, int dt1, int dt2,
-                    int col_adv, int margin, int width, int per_block, int act, int kb0,
-                    int kl0, int kb1, int kl1, int aligned) {
+BandArgs dx_args(const void* c, const void* w, const void* res, const void* s1, const void* s2,
+                 void* raw, void* out, int r_in, int r_out, int t_len, int n_dt, int dt0,
+                 int dt1, int dt2, int col_adv, int margin, int width, int kb0, int kl0,
+                 int kb1, int kl1, int aligned) {
   BandArgs a = {};
-  a.src = x;
+  a.src = c;
   a.w = w;
-  a.bias = static_cast<const float*>(bias);
   a.res = res;
-  a.out = y;
+  a.s1 = s1;
+  a.s2 = s2;
+  a.raw = static_cast<float*>(raw);
+  a.out = out;
   a.r_in = r_in;
   a.r_out = r_out;
   a.t_len = t_len;
@@ -1210,25 +1165,11 @@ BandArgs stage_args(const void* x, const void* w, const void* bias, const void* 
   a.col_adv = col_adv;
   a.margin = margin;
   a.width = width;
-  a.per_block = per_block;
-  a.act = act;
   a.aligned = aligned;
   a.kb0 = kb0;
   a.kl0 = kl0;
   a.kb1 = kb1;
   a.kl1 = kl1;
-  return a;
-}
-
-BandArgs dx_args(const void* c, const void* w, const void* res, const void* s1, const void* s2,
-                 void* raw, void* out, int r_in, int r_out, int t_len, int n_dt, int dt0,
-                 int dt1, int dt2, int col_adv, int margin, int width, int kb0, int kl0,
-                 int kb1, int kl1, int aligned) {
-  BandArgs a = stage_args(c, w, nullptr, res, out, r_in, r_out, t_len, n_dt, dt0, dt1, dt2,
-                          col_adv, margin, width, 0, 0, kb0, kl0, kb1, kl1, aligned);
-  a.s1 = s1;
-  a.s2 = s2;
-  a.raw = static_cast<float*>(raw);
   return a;
 }
 
@@ -1279,35 +1220,6 @@ dim3 dw_grid(const DwArgs& a) {
 
 }  // namespace
 
-// K1 stage, bf16 storage. x, res, y: (B, r_in|r_out, T) bf16; w: band
-// weights (n_wsub, n_dt, 64, width) bf16; bias float32. aligned: the rows
-// of x are 16-byte aligned (T % 8 == 0 and an aligned base). Returns
-// cudaGetLastError() of the launch.
-extern "C" int tt_band_conv(const void* x, const void* w, const void* bias, const void* res,
-                            void* y, int batch, int r_in, int r_out, int t_len, int n_dt, int dt0,
-                            int dt1, int dt2, int col_adv, int margin, int width, int per_block,
-                            int act, int kb0, int kl0, int kb1, int kl1, int aligned,
-                            void* stream) {
-  const BandArgs a = stage_args(x, w, bias, res, y, r_in, r_out, t_len, n_dt, dt0, dt1, dt2,
-                                col_adv, margin, width, per_block, act, kb0, kl0, kb1, kl1,
-                                aligned);
-  return launch_band_product<bf16, false, bf16>(a, batch, static_cast<cudaStream_t>(stream));
-}
-
-// K1 stage, float32 storage, split-TF32 products: x, res, y float32, w the
-// band weights in float32; otherwise as tt_band_conv (aligned: T % 4 == 0
-// and an aligned base).
-extern "C" int tt_band_conv_f32(const void* x, const void* w, const void* bias,
-                                const void* res, void* y, int batch, int r_in, int r_out,
-                                int t_len, int n_dt, int dt0, int dt1, int dt2, int col_adv,
-                                int margin, int width, int per_block, int act, int kb0, int kl0,
-                                int kb1, int kl1, int aligned, void* stream) {
-  const BandArgs a = stage_args(x, w, bias, res, y, r_in, r_out, t_len, n_dt, dt0, dt1, dt2,
-                                col_adv, margin, width, per_block, act, kb0, kl0, kb1, kl1,
-                                aligned);
-  return launch_band_tf32<false>(a, batch, static_cast<cudaStream_t>(stream));
-}
-
 // K3 dX, bf16 storage: c (B, r_in, T) float32 cotangent; w the adjoint's
 // band weights; res (float32), s1, s2 (bf16), raw (float32) (B, r_out, T)
 // or null; out float32 when out_f32, else bf16.
@@ -1319,8 +1231,8 @@ extern "C" int tt_band_conv_dx(const void* c, const void* w, const void* res, co
   const BandArgs a = dx_args(c, w, res, s1, s2, raw, out, r_in, r_out, t_len, n_dt, dt0, dt1,
                              dt2, col_adv, margin, width, kb0, kl0, kb1, kl1, aligned);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (out_f32) return launch_band_product<float, true, float>(a, batch, st);
-  return launch_band_product<float, true, bf16>(a, batch, st);
+  if (out_f32) return launch_band_product<float>(a, batch, st);
+  return launch_band_product<bf16>(a, batch, st);
 }
 
 // K3 dX, float32 storage, split-TF32 products: w the adjoint's band
@@ -1333,7 +1245,7 @@ extern "C" int tt_band_conv_dx_f32(const void* c, const void* w, const void* res
                                    int kl0, int kb1, int kl1, int aligned, void* stream) {
   const BandArgs a = dx_args(c, w, res, s1, s2, raw, out, r_in, r_out, t_len, n_dt, dt0, dt1,
                              dt2, col_adv, margin, width, kb0, kl0, kb1, kl1, aligned);
-  return launch_band_tf32<true>(a, batch, static_cast<cudaStream_t>(stream));
+  return launch_band_tf32(a, batch, static_cast<cudaStream_t>(stream));
 }
 
 // K3 dW and dBias, bf16 storage: dz (B, r_out, T) float32, x (B, r_in, T)

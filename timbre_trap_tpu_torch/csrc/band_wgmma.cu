@@ -11,17 +11,13 @@
 //                       x[s_g + k, t + dt]), bf16 operands, float32
 //                       accumulators; epilogue: float32 bias, ELU as
 //                       exp(min(v, 0)) - 1 (exp by the hardware's ex2),
-//                       residual add, bf16 store. The function of
-//                       band_mma.cu's tt_band_conv.
+//                       residual add, bf16 store.
 //   tt_band_conv_wgmma_f32  the same function in float32 storage, products
 //                       float32-accurate as 3xTF32 (lo*hi + hi*lo + hi*hi
 //                       of operands split into a TF32 hi, rounded to
 //                       nearest with ties away, and the float32 remainder
 //                       lo); epilogue: float32 bias, ELU with IEEE expf,
-//                       residual add, float32 store. The function of
-//                       band_mma.cu's tt_band_conv_f32 (mma.sync m16n8k8),
-//                       which stays as the yardstick this one is held and
-//                       timed against.
+//                       residual add, float32 store.
 //
 // The float32 stage's design. TF32 wgmma reads a shared-memory operand
 // K-major only (the transpose bits are for 16-bit types), and x has its
@@ -47,8 +43,8 @@
 // a CTA takes; 96 registers a thread). The tensor cores round their float32
 // sums toward zero, so each (chunk, tap) product, 16 band rows (6 wgmmas),
 // goes into fresh accumulators (scale-d 0 on its first) and reaches the
-// running sum by an IEEE add, chunk by chunk and tap by tap: the order of
-// tt_band_conv_f32, with no atomics, so a run is deterministic.
+// running sum by an IEEE add, chunk by chunk and tap by tap, with no
+// atomics, so a run is deterministic.
 //
 // The float32 epilogue (bias, the ELU's IEEE expf, the residual, the store)
 // took half of a chain's time when the consumers read the residual from
@@ -101,9 +97,7 @@
 // thread that runs ahead into the next tile, drained by the consumer
 // warpgroup with m64n64k16 wgmmas (and an m64n8k16 for the 8 extra frames
 // where r > 0). The sums run in a fixed order, tap, then chunk, then k16
-// step, from zero, with no atomics: a run is deterministic. (tt_band_conv
-// sums chunk, then tap, in one set of accumulators; the order here differs
-// by the alignment rule.) The epilogue stages the tile's float32 sums in
+// step, from zero, with no atomics: a run is deterministic. The epilogue stages the tile's float32 sums in
 // shared memory, and each thread then reads the residual and writes y 16
 // bytes (8 frames of a row) at a time.
 //

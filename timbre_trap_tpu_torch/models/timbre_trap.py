@@ -25,9 +25,7 @@ On the card every chunk group of the overlap-add stream (``_chunked``: the
 sliCQ analysis and the whole forward of up to ``chunk_group`` chunks) is the
 replay of one CUDA graph, captured once per key (branch, compute dtype,
 chunks in the group, batch) into one memory pool a model, and dropped with
-the inference chains (``invalidate_specs``, ``load_state_dict``). K1's
-launch counts follow the card: a capture adds nothing to them, each replay
-the launches it recorded.
+the inference chains (``invalidate_specs``, ``load_state_dict``).
 """
 
 import json
@@ -39,7 +37,6 @@ import torch
 
 from ..device import resolve_device
 from ..interop import state_dict_from_jax
-from ..ops.fused_level import banded_conv
 from ..transform import CQT
 from ..utils.profiling import span
 from .fused import forward_spec, fused_forward
@@ -61,32 +58,15 @@ def _replays_graphs(device):
     return device.type == "cuda"
 
 
-# The launch counts of K1's wrapper (``banded_conv``), the counted kernel
-# of a chunk group's forward.
-_COUNTS = ("launches", "mma_launches", "mma_launches_f32",
-           "tma_epilogue_launches_f32")
-
-
-def _launch_counts():
-    return tuple(getattr(banded_conv, name) for name in _COUNTS)
-
-
-def _add_launch_counts(counts):
-    for name, k in zip(_COUNTS, counts):
-        setattr(banded_conv, name, getattr(banded_conv, name) + k)
-
-
 class _GroupGraph(NamedTuple):
     """One chunk group's forward captured as a CUDA graph: the static input
     (n·B, 1, L) that each replay reads, the static output (n·B, C, F, M)
-    that it writes, the spec it was captured on, kept alive with it (the
-    graph reads its operands in place), and the K1 launch counts
-    (``_COUNTS``) of one replay."""
+    that it writes, and the spec it was captured on, kept alive with it
+    (the graph reads its operands in place)."""
     graph: object
     input: torch.Tensor
     output: torch.Tensor
     spec: object
-    launches: tuple
 
 
 def _host_array(audio):
@@ -334,7 +314,6 @@ class TimbreTrap:
             audio.unfold(-1, L, hop).narrow(-2, g0, n).movedim(-2, 0))
         with span("tt.graph.replay", n):
             group.graph.replay()
-        _add_launch_counts(group.launches)
         return group.output
 
     def _graph(self, transcribe, n, B):
@@ -353,9 +332,7 @@ class TimbreTrap:
         """``_infer`` of a static (rows, 1, L) input captured as one CUDA
         graph, as PyTorch's recipe has it: the spec built first, one eager
         run on a side stream (plans, operands, FFT plans), then the capture
-        into the model's graph pool. A failed capture raises. The capture
-        launches nothing, so K1's counts are set back to what they were
-        before it, and the graph keeps what it recorded for its replays."""
+        into the model's graph pool. A failed capture raises."""
         spec = self._spec(transcribe)
         static_in = torch.zeros((rows, 1, self.sliCQ.block_length),
                                 dtype=torch.float32, device=self.device)
@@ -369,15 +346,12 @@ class TimbreTrap:
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
-            counts = _launch_counts()
             # Thread-local: another thread (the Trainer's batch prefetch)
             # may issue CUDA work while this one captures.
             with torch.cuda.graph(graph, pool=self._graph_pool,
                                   capture_error_mode="thread_local"):
                 static_out = self._infer(static_in, transcribe)
-            launched = tuple(b - a for a, b in zip(counts, _launch_counts()))
-            _add_launch_counts(tuple(-k for k in launched))
-        return _GroupGraph(graph, static_in, static_out, spec, launched)
+        return _GroupGraph(graph, static_in, static_out, spec)
 
     def _pad_for_chunks(self, audio):
         """Block-multiple + half-block centering pads."""

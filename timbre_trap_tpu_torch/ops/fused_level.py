@@ -40,7 +40,7 @@ from .packed_conv import (BLOCK_ROWS, SUB_ROWS, ConvBlocks,
 __all__ = ["HALO", "LevelSpec", "conv2d_level_spec", "encoder_level_spec",
            "decoder_level_spec",
            "fuse_level_specs", "spec_time_reach", "banded_conv",
-           "banded_conv_reference", "banded_conv_mma", "BandTmaPlan",
+           "banded_conv_reference", "BandTmaPlan",
            "band_tma_plan", "BandTmaPlanF32", "band_tma_plan_f32",
            "tma_frames", "packed_level_apply",
            "fused_level_apply",
@@ -238,103 +238,46 @@ def banded_conv(x, cb, act=False, residual=None):
     ``tt_band_conv_wgmma_f32`` (TF32 wgmma on the transposed tile, walking
     ``band_tma_plan_f32``; 3xTF32 products: each operand split into TF32
     hi + lo, hi*hi + hi*lo + lo*hi accumulated in float32, as close to the
-    exact product as the IEEE float32 one within a small factor).
-    ``banded_conv.launches`` counts every launch,
-    ``banded_conv.mma_launches`` the bfloat16 ones (each on
-    ``tt_band_conv_wgmma``), ``banded_conv.mma_launches_f32`` the
-    float32 ones (each on ``tt_band_conv_wgmma_f32``) and
-    ``banded_conv.tma_epilogue_launches_f32`` those of the float32 ones
-    whose epilogue runs by TMA (the plan's ``tma_epilogue``: T a multiple
-    of 4, as on every main path). A CPU tensor takes
-    the plain twin. Either way the stage is one ``tt.k1`` span. ``x`` is
-    (B, r_in, T) float32 or bfloat16; ``residual`` (B, r_out, T).
+    exact product as the IEEE float32 one within a small factor). A CPU
+    tensor takes the plain twin. Either way the stage is one ``tt.k1``
+    span. ``x`` is (B, r_in, T) float32 or bfloat16; ``residual``
+    (B, r_out, T).
     """
     with span("tt.k1"):
         if x.device.type == "cpu":
             return banded_conv_reference(x, cb, act, residual)
-        bf16 = x.dtype == torch.bfloat16
-        x, residual, w, bias, y = _stage_operands(x, cb, residual,
-                                                  "banded_conv", tf32=not bf16)
-        if y.numel() == 0:
-            return y
-        tma_epilogue = False
-        if bf16:
-            _launch_wgmma(x, cb, act, residual, w, bias, y)
-        else:
-            tma_epilogue = _launch_wgmma_f32(x, cb, act, residual, w, bias, y)
-        banded_conv.launches += 1
-        banded_conv.mma_launches += int(bf16)
-        banded_conv.mma_launches_f32 += int(not bf16)
-        banded_conv.tma_epilogue_launches_f32 += int(tma_epilogue)
+        x, residual, w, bias, y = _stage_operands(x, cb, residual)
+        if y.numel():
+            launch = (_launch_wgmma if x.dtype == torch.bfloat16
+                      else _launch_wgmma_f32)
+            launch(x, cb, act, residual, w, bias, y)
         return y
 
 
-banded_conv.launches = 0
-banded_conv.mma_launches = 0
-banded_conv.mma_launches_f32 = 0
-banded_conv.tma_epilogue_launches_f32 = 0
-
-
-def banded_conv_mma(x, cb, act=False, residual=None):
-    """The stage on the previous generation's instructions, in either
-    dtype: bfloat16 ``tt_band_conv`` of ``csrc/band_mma.cu`` (mma.sync fed
-    by ldmatrix, x staged through registers), float32 ``tt_band_conv_f32``
-    (mma.sync m16n8k8 3xTF32, cp.async). No path of the package calls it;
-    it is the yardstick that ``tt_band_conv_wgmma`` and
-    ``tt_band_conv_wgmma_f32`` are held and timed against on the card.
-    CUDA tensors only; ``banded_conv_mma.launches`` counts its launches."""
-    if x.device.type != "cuda" or x.dtype not in _DTYPES:
-        raise ValueError("banded_conv_mma takes CUDA bfloat16 or float32 "
-                         "tensors only")
-    x, residual, w, bias, y = _stage_operands(x, cb, residual,
-                                              "banded_conv_mma")
-    if y.numel():
-        entry = ("tt_band_conv" if x.dtype == torch.bfloat16
-                 else "tt_band_conv_f32")
-        _launch_band(entry, x, cb, act, residual, w, bias, y)
-        banded_conv_mma.launches += 1
-    return y
-
-
-banded_conv_mma.launches = 0
-
-
-def _stage_operands(x, cb, residual, what, tf32=False):
+def _stage_operands(x, cb, residual):
     """Check a CUDA stage's inputs; returns (x, residual) contiguous, the
-    band weights (at x's dtype, or with ``tf32`` their TF32 hi and lo
-    planes) and bias, and the empty output."""
+    band weights (bfloat16, or for float32 their TF32 hi and lo planes)
+    and bias, and the empty output."""
     if x.device.type != "cuda":
-        raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
+        raise ValueError(f"banded_conv runs on cuda or cpu, not {x.device}")
     if x.dtype not in _DTYPES:
-        raise ValueError(f"{what} takes float32 or bfloat16, not {x.dtype}")
+        raise ValueError(f"banded_conv takes float32 or bfloat16, not "
+                         f"{x.dtype}")
     b, r_in, t = x.shape
     if r_in != cb.r_in:
         raise ValueError(f"input has {r_in} rows, conv expects {cb.r_in}")
-    _check_taps(cb, what, x.dtype)
+    _check_taps(cb, "banded_conv", x.dtype)
     x = x.contiguous()
     if residual is not None:
         if residual.shape != (b, cb.r_out, t) or residual.dtype != x.dtype:
             raise ValueError("residual must match the stage output")
         residual = residual.contiguous()
-    w, bias = cb.band_tf32_operands() if tf32 else cb.band_operands(x.dtype)
+    w, bias = (cb.band_operands(x.dtype) if x.dtype == torch.bfloat16
+               else cb.band_tf32_operands())
     if w.device != x.device:
         raise ValueError("conv weights and input lie on different devices")
     y = torch.empty((b, cb.r_out, t), dtype=x.dtype, device=x.device)
     return x, residual, w, bias, y
-
-
-def _launch_band(entry, x, cb, act, residual, w, bias, y):
-    """One launch of a ``csrc/band_mma.cu`` stage entry point."""
-    b, r_in, t = x.shape
-    dts = list(cb.dts) + [0] * (3 - len(cb.dts))
-    stream = _stream(x.device)
-    res = None if residual is None else residual.data_ptr()
-    rc = _call_on(x.device, _build.load("band_mma", entry),
-                  x.data_ptr(), w.data_ptr(), bias.data_ptr(), res,
-                  y.data_ptr(), b, r_in, cb.r_out, t, len(cb.dts), *dts,
-                  cb.col_adv, cb.margin, w.shape[-1], int(cb.per_block),
-                  int(act), *_band_ints(cb), _aligned(t, x), stream)
-    _build.check(rc, entry)
 
 
 def _call_on(device, fn, *args):
@@ -520,14 +463,14 @@ def _wgmma_plan_f32(cb, t, width):
 
 def _launch_wgmma_f32(x, cb, act, residual, w, bias, y):
     """One launch of ``csrc/band_wgmma.cu:tt_band_conv_wgmma_f32``; ``w``
-    holds the band weights' TF32 planes. Returns whether the epilogue ran
-    by TMA (its tensor maps want 16-byte aligned bases: ``y`` is a fresh
-    allocation, a residual view that is not aligned is copied)."""
+    holds the band weights' TF32 planes. Where the epilogue runs by TMA
+    (the plan's last integer) its tensor maps want 16-byte aligned bases:
+    ``y`` is a fresh allocation, a residual view that is not aligned is
+    copied."""
     b, r_in, t = x.shape
     t_pad, plan = _wgmma_plan_f32(cb, t, w.shape[-1])
-    tma_epilogue = bool(plan[-1])
     xp = tma_frames(x, t_pad)
-    if tma_epilogue and residual is not None and residual.data_ptr() % 16:
+    if plan[-1] and residual is not None and residual.data_ptr() % 16:
         residual = residual.clone()
     res = None if residual is None else residual.data_ptr()
     rc = _call_on(x.device,
@@ -536,11 +479,10 @@ def _launch_wgmma_f32(x, cb, act, residual, w, bias, y):
                   y.data_ptr(), b, r_in, cb.r_out, int(act), plan,
                   _stream(x.device))
     _build.check(rc, "banded_conv (tt_band_conv_wgmma_f32)")
-    return tma_epilogue
 
 
 def _check_taps(cb, what, dtype):
-    """The band-tiled tensor-core kernels (every route, in either
+    """The band-tiled tensor-core kernels (K1, dX and dW, in either
     ``dtype``) take at most 3 time taps of at most ``BAND_MAX_DT`` frames
     each."""
     if len(cb.dts) > 3:
@@ -637,8 +579,8 @@ def elu_backward(dy, elu=None, keep_raw=False):
     Returns ``(out, raw)``, raw being ``f32(dy)`` when ``keep_raw``.
 
     Launches ``csrc/banded_conv_bwd.cu:tt_elu_backward`` for a CUDA tensor
-    (``elu_backward.launches`` counts the launches) and takes the plain twin
-    for a CPU tensor; either way one ``tt.k3.seed`` span.
+    and takes the plain twin for a CPU tensor; either way one
+    ``tt.k3.seed`` span.
     """
     with span("tt.k3.seed"):
         if dy.device.type == "cpu":
@@ -655,11 +597,7 @@ def elu_backward(dy, elu=None, keep_raw=False):
                         out.data_ptr(), _DTYPES[dy.dtype], out.numel(),
                         torch.cuda.current_stream(dy.device).cuda_stream)
             _build.check(rc, "elu_backward")
-            elu_backward.launches += 1
         return out, raw
-
-
-elu_backward.launches = 0
 
 
 def _ptr(t):
@@ -715,10 +653,8 @@ def banded_conv_dx(c, adj, dtype, residual=None, elu=None, keep_raw=False,
     ``csrc/band_mma.cu`` over the adjoint's bands: bfloat16
     ``tt_band_conv_dx`` (bf16 products; ``c`` rounded to bfloat16 while it
     is staged), float32 ``tt_band_conv_dx_f32`` (split-TF32 products, as
-    ``banded_conv``'s float32 stage). ``banded_conv_dx.launches`` counts
-    every launch, ``banded_conv_dx.mma_launches`` the bfloat16 ones and
-    ``banded_conv_dx.mma_launches_f32`` the float32 ones. A CPU tensor
-    takes the plain twin; either way the call is one ``tt.k3.dx`` span.
+    ``banded_conv``'s float32 stage). A CPU tensor takes the plain twin;
+    either way the call is one ``tt.k3.dx`` span.
     """
     with span("tt.k3.dx"):
         if c.device.type == "cpu":
@@ -767,15 +703,7 @@ def banded_conv_dx(c, adj, dtype, residual=None, elu=None, keep_raw=False,
             with torch.cuda.device(c.device):
                 rc = fn(*args, *geometry)
             _build.check(rc, "banded_conv_dx")
-            banded_conv_dx.launches += 1
-            banded_conv_dx.mma_launches += int(bf16)
-            banded_conv_dx.mma_launches_f32 += int(not bf16)
         return out, raw
-
-
-banded_conv_dx.launches = 0
-banded_conv_dx.mma_launches = 0
-banded_conv_dx.mma_launches_f32 = 0
 
 
 def banded_conv_dw_reference(dz, x, cb, out=None, offset=0):
@@ -830,11 +758,9 @@ def banded_conv_dw(dz, x, cb, out=None, offset=0):
     band, so every parameter gradient is the same): per-slice partial sums
     of the (batch, block, 64 frames) chunks, bfloat16 ``tt_band_conv_dw``
     (bf16 products) or float32 ``tt_band_conv_dw_f32`` (split-TF32
-    products), then a fixed-order reduction; the same bits every run.
-    ``banded_conv_dw.launches`` counts the calls,
-    ``banded_conv_dw.mma_launches`` the bfloat16 ones and
-    ``banded_conv_dw.mma_launches_f32`` the float32 ones. A CPU tensor
-    takes the plain twin; either way the call is one ``tt.k3.dw`` span.
+    products), then a fixed-order reduction; the same bits every run. A
+    CPU tensor takes the plain twin; either way the call is one
+    ``tt.k3.dw`` span.
 
     With ``out`` (a contiguous float32 vector), dW's n_dt·128·K entries and
     then dBias's 128 are written into it from ``offset`` on, and
@@ -896,15 +822,7 @@ def banded_conv_dw(dz, x, cb, out=None, offset=0):
                     *_band_ints(cb), n_slices, _aligned(t, dz, x),
                     torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(rc, "banded_conv_dw")
-        banded_conv_dw.launches += 1
-        banded_conv_dw.mma_launches += int(bf16)
-        banded_conv_dw.mma_launches_f32 += int(not bf16)
         return dw, db
-
-
-banded_conv_dw.launches = 0
-banded_conv_dw.mma_launches = 0
-banded_conv_dw.mma_launches_f32 = 0
 
 
 def _level_backward(x, spec, dy, dtype, input_grad, dx_dtype, ops):

@@ -40,9 +40,8 @@ def peak_mask_reference(activations, t=0.5):
 def peak_mask(activations, t=0.5):
     """(..., F, T) float32 activations -> uint8 peaks-then-threshold mask.
 
-    Launches the CUDA kernel for a CUDA tensor (``peak_mask.launches`` counts
-    the launches) and takes the plain twin for a CPU tensor; either way one
-    ``tt.k2`` span.
+    Launches the CUDA kernel for a CUDA tensor and takes the plain twin for
+    a CPU tensor; either way one ``tt.k2`` span.
     """
     with span("tt.k2"):
         a = torch.as_tensor(activations)
@@ -77,11 +76,7 @@ def peak_mask(activations, t=0.5):
                     float(t), aligned,
                     torch.cuda.current_stream(a.device).cuda_stream)
         _build.check(rc, "peak_mask")
-        peak_mask.launches += 1
         return out
-
-
-peak_mask.launches = 0
 
 
 def _planes_of_rows(a):

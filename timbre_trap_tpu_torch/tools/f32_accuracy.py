@@ -11,8 +11,7 @@ float64:
 
 1. every item alone, at (2, 1080, T) for T = 1001 and 1024, on the input
    the plain float32 chain gives it, and every conv stage of the chain
-   alone on the same inputs (there also the mma.sync split-TF32 kernel,
-   ``banded_conv_mma``, the stage's yardstick);
+   alone on the same inputs;
 2. the whole chain at (4, 1080, 1024) and (2, 1080, T) for T = 1001, 70, 1;
 3. the level backward's products, conv by conv over the 8 training levels
    of the same net (with adjoints), at (2, ., 1001): dX (``banded_conv_dx``
@@ -42,7 +41,7 @@ from ..models.fused import level_specs
 from ..ops.fused_level import (_apply_chain, _elu, banded_conv,
                                banded_conv_dw, banded_conv_dw_reference,
                                banded_conv_dx, banded_conv_dx_reference,
-                               banded_conv_mma, banded_conv_reference)
+                               banded_conv_reference)
 from ..ops.packed_conv import packed_conv_reference
 
 
@@ -80,10 +79,10 @@ def _items(spec, x):
     return out
 
 
-def _stages(spec, x, routes):
+def _stages(spec, x):
     """Each conv stage of the chain alone against float64, on the input
-    the plain chain gives it (with its ELU and residual), through every
-    route of ``routes``."""
+    the plain chain gives it (with its ELU and residual), through the
+    kernel and the IEEE plain version."""
     out = []
     cur = x
     for it in spec.items:
@@ -94,8 +93,8 @@ def _stages(spec, x, routes):
             calls = [(cur, it[1], True), (h, it[2], True, cur)]
         for args in calls:
             ref = _stage64(*args)
-            out.append({"stage": len(out),
-                        **{k: _rel(f(*args), ref) for k, f in routes.items()}})
+            out.append({"stage": len(out), **{
+                k: _rel(f(*args), ref) for k, f in _ROUTES.items()}})
         cur = banded_conv_reference(*calls[-1])
     return out
 
@@ -167,8 +166,7 @@ def main():
     with torch.no_grad():
         inputs = {t: rand(2, t) for t in (1001, 1024)}
         items = {t: _items(spec, x) for t, x in inputs.items()}
-        stage_routes = dict(_ROUTES, mma_sync=banded_conv_mma)
-        stages_fwd = {t: _stages(spec, x, stage_routes)
+        stages_fwd = {t: _stages(spec, x)
                       for t, x in inputs.items()}
         chains = {}
         for b, t in ((4, 1024), (2, 1001), (2, 70), (2, 1)):
@@ -185,15 +183,12 @@ def main():
     ratio = max(e["kernel"] / e["ieee"] for v in items.values() for e in v)
     stage_ratio = max(e["kernel"] / e["ieee"] for v in stages_fwd.values()
                       for e in v)
-    mma_ratio = max(e["mma_sync"] / e["ieee"] for v in stages_fwd.values()
-                    for e in v)
     for shape, e in chains.items():
         print(f"chain {shape} vs float64: kernel {e['kernel']:.3e}, IEEE "
               f"{e['ieee']:.3e} of max|ref|")
     print(f"items: kernel at most {ratio:.2f}x the IEEE error; stages "
           f"({len(stages_fwd[1024])} a chain): kernel at most "
-          f"{stage_ratio:.2f}x, the mma.sync yardstick at most "
-          f"{mma_ratio:.2f}x")
+          f"{stage_ratio:.2f}x")
     worst = {w: _worst_ratio(convs, w) for w in ("dx", "dw", "dbias")}
     print(f"backward, {len(convs)} convs: kernel at most "
           + ", ".join(f"{v:.2f}x" + f" ({w})" for w, v in worst.items())
@@ -211,7 +206,6 @@ def main():
     print(json.dumps({"card": card, "chains": chains,
                       "worst_item_ratio": ratio, "items": items,
                       "worst_stage_ratio": stage_ratio,
-                      "worst_stage_ratio_mma_sync": mma_ratio,
                       "stages": stages_fwd,
                       "backward_worst_ratio": worst,
                       "backward_convs": convs,

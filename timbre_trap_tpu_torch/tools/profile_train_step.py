@@ -57,11 +57,10 @@ _OURS = "(anonymous namespace)::"
 GROUPS = (("K3 dW partial, mma", _OURS + "band_dw_partial_kernel"),
           ("K3 dW partial f32, 3xTF32", _OURS + "band_dw_tf32_kernel"),
           ("K3 dW reduce", _OURS + "band_dw_reduce_kernel"),
-          ("K3 dX, mma", _OURS + "band_product_kernel<float, true"),
+          ("K3 dX, mma", _OURS + "band_product_kernel<"),
           ("K1 stage, wgmma", _OURS + "band_wgmma_kernel"),
           ("K1 stage f32, wgmma 3xTF32", _OURS + "band_wgmma_f32_kernel"),
-          ("K3 dX f32, 3xTF32", _OURS + "band_tf32_kernel<true"),
-          ("K1 stage f32, mma.sync 3xTF32", _OURS + "band_tf32_kernel<false"),
+          ("K3 dX f32, 3xTF32", _OURS + "band_tf32_kernel<"),
           ("K3 ELU seed", _OURS + "elu_backward_kernel<"),
           ("cuFFT", "fft"), ("matmul", "gemm"), ("matmul", "cutlass"),
           ("index", "index"), ("reduce", "reduce"))

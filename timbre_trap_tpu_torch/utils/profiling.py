@@ -16,19 +16,23 @@ profiled window holds exactly that window's spans.
 ``trace(log_dir)`` records the host and, where a card is present, the
 device (CUPTI) timeline and writes it as a Chrome trace
 ``log_dir/trace_<pid>_<ns>.json`` (Perfetto or ``chrome://tracing``), the
-port's spans in it; ``annotate`` is ``span``; ``Timer`` accumulates
-wall-clock time per section.
+port's spans in it; ``kernel_counts()`` counts the device kernels a block
+ran, by name, from the same device records; ``annotate`` is ``span``;
+``Timer`` accumulates wall-clock time per section.
 """
 
+import collections
 import contextlib
 import os
+import re
 import threading
 import time
 
 import torch
 from torch._C._profiler import _RecordFunctionFast
 
-__all__ = ["trace", "span", "annotate", "record", "reset_record", "Timer"]
+__all__ = ["trace", "kernel_counts", "kernel_name", "span", "annotate",
+           "record", "reset_record", "Timer"]
 
 _enabled = torch.autograd._profiler_enabled
 
@@ -45,6 +49,52 @@ def trace(log_dir):
         yield prof
     prof.export_chrome_trace(os.path.join(
         log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+# The first name in a demangled signature that a template argument list or
+# a parameter list follows (or that ends it): the function's own.
+_BASE_NAME = re.compile(r"([A-Za-z_]\w*)\s*(?:[<(]|$)")
+# Seconds ``kernel_counts`` keeps the profiler running before its block and
+# after the block's last kernel: the profiler keeps only the device records
+# that fall inside its window on the host's clock, and a short block's
+# kernels at the window's edges are otherwise lost now and then.
+_MARGIN_S = 0.02
+
+
+def kernel_name(name):
+    """The base function name of a device kernel as the profiler records it
+    (a demangled signature): return type, namespaces, template arguments
+    and parameters dropped, e.g. ``band_product_kernel`` of ``void
+    (anonymous namespace)::band_product_kernel<float, true>(BandArgs)``."""
+    found = _BASE_NAME.search(name.replace("(anonymous namespace)::", ""))
+    return found.group(1) if found else name
+
+
+@contextlib.contextmanager
+def kernel_counts():
+    """Count the device kernels that the block runs, by ``kernel_name``:
+    yields a ``collections.Counter``, empty until the block ends. The
+    counts come from the profiler's device (CUPTI) records, so a kernel of
+    a CUDA graph replay counts as one of its own and a capture, which runs
+    nothing, counts nothing. The profiler slows the block down: count
+    outside timed calls. Copies and memsets are not counted; without a
+    CUDA device the block runs and counts nothing."""
+    counts = collections.Counter()
+    cuda = torch.cuda.is_available()
+    activity = (torch.profiler.ProfilerActivity.CUDA if cuda
+                else torch.profiler.ProfilerActivity.CPU)
+    with torch.profiler.profile(activities=[activity]) as prof:
+        if cuda:
+            time.sleep(_MARGIN_S)
+        yield counts
+        if cuda:
+            torch.cuda.synchronize()
+            time.sleep(_MARGIN_S)
+    device = torch.autograd.DeviceType.CUDA
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == device and not e.is_user_annotation()
+                and not e.name().startswith(("Memcpy", "Memset"))):
+            counts[kernel_name(e.name())] += 1
 
 
 class Timer:
