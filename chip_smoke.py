@@ -201,6 +201,7 @@ Phases, each of which exits non-zero on failure:
              also against its twin at (2, R_in, 1024) on every level; the
              main paths must launch the tensor-core kernels;
 4. numbers — the bf16 forward at (4, 1080, 1024) on ``tt_band_conv_wgmma``
+             (the TMA epilogue), on the same kernel's staged epilogue
              and through cuDNN, in turns, beside the bound and the
              stage-by-stage byte floor, and one stage of each kind alone;
              the float32 forward the same way on ``tt_band_conv_wgmma_f32``
@@ -232,7 +233,9 @@ Phases, each of which exits non-zero on failure:
 
 "Counted" means the kernels the card ran in a call, by name, from the
 profiler's device records (``utils.profiling.kernel_counts``; K1
-``band_wgmma_kernel`` in bf16, ``band_wgmma_f32_kernel`` in float32; K3
+``band_wgmma_kernel`` in bf16, on the TMA epilogue
+``band_wgmma_kernel<true>`` or the staged one ``band_wgmma_kernel<false>``
+by ``kernel_instance``, ``band_wgmma_f32_kernel`` in float32; K3
 dX ``band_product_kernel`` / ``band_tf32_kernel``, dW
 ``band_dw_partial_kernel`` / ``band_dw_tf32_kernel`` and
 ``band_dw_reduce_kernel``, the seed ``elu_backward_kernel``; K2
@@ -247,6 +250,7 @@ card's name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``.
 """
 
+import collections
 import contextlib
 import copy
 import json
@@ -357,6 +361,9 @@ def rel_err(got, ref):
 # and dW partial sums in bf16 and in float32; dW's reduction (both
 # dtypes), the ELU' seed and K2.
 K1, K1_F32 = "band_wgmma_kernel", "band_wgmma_f32_kernel"
+# The bf16 K1 kernel's instances by epilogue (``kernel_instance``): the
+# TMA epilogue, where T % 8 == 0, and the staged one.
+K1_TMA, K1_STAGED = "band_wgmma_kernel<true>", "band_wgmma_kernel<false>"
 DX, DX_F32 = "band_product_kernel", "band_tf32_kernel"
 DW, DW_F32 = "band_dw_partial_kernel", "band_dw_tf32_kernel"
 DW_REDUCE, SEED, K2 = ("band_dw_reduce_kernel", "elu_backward_kernel",
@@ -375,13 +382,45 @@ RECIPE_STEP_LAUNCHES_F32 = {dict(zip(BF16_BANDS, F32_BANDS)).get(k, k): n
 def counting():
     """Yields a dict that, when the block ends, holds how many times the
     card ran each of the port's ``KERNELS`` in it (graph replays
-    included)."""
-    from timbre_trap_tpu_torch.utils.profiling import kernel_counts
+    included), and the bf16 K1 launches on each epilogue."""
+    from timbre_trap_tpu_torch.utils.profiling import (kernel_counts,
+                                                       kernel_instance,
+                                                       kernel_name)
 
     out = {}
-    with kernel_counts() as counts:
+    with kernel_counts(kernel_instance) as counts:
         yield out
-    out.update((k, counts[k]) for k in KERNELS)
+    names = collections.Counter()
+    for k, n in counts.items():
+        names[kernel_name(k)] += n
+    out.update((k, names[k]) for k in KERNELS)
+    out.update((k, counts[k]) for k in (K1_TMA, K1_STAGED))
+
+
+@contextlib.contextmanager
+def staged_epilogue():
+    """Every bf16 K1 stage in the block on the staged epilogue: the plan's
+    last integer, the kernel's pick, set to 0 whatever T is."""
+    import ctypes
+
+    from timbre_trap_tpu_torch.ops import fused_level
+
+    real = fused_level._wgmma_plan
+
+    def staged_plan(cb, t, width):
+        t_pad, ints = real(cb, t, width)
+        return t_pad, (ctypes.c_int * len(ints))(*ints[:-1], 0)
+
+    fused_level._wgmma_plan = staged_plan
+    try:
+        yield
+    finally:
+        fused_level._wgmma_plan = real
+
+
+def on_tma_epilogue(launches):
+    """Whether every bf16 K1 launch counted took the TMA epilogue."""
+    return launches[K1_TMA] == launches[K1] and launches[K1_STAGED] == 0
 
 
 def bf16_only(launches):
@@ -919,9 +958,10 @@ def phase_train(torch):
                 "max_norm/decoder", "loss/consistency/spectral"):
         check(key in history[-1], f"train metrics lack {key}")
     check(bf16_only(launches) and all(
-        launches[k] == n for k, n in RECIPE_STEP_LAUNCHES.items()),
+        launches[k] == n for k, n in RECIPE_STEP_LAUNCHES.items())
+          and on_tma_epilogue(launches),
           f"the bf16 step launched {launches}, not {RECIPE_STEP_LAUNCHES} "
-          f"and no float32 kernel")
+          f"and no float32 kernel, K1 on the TMA epilogue")
     print(f"main: train {TRAIN_STEPS} steps pallas_bf16, loss/total "
           + " ".join(f"{v:.4f}" for v in losses)
           + f", launches {launches}")
@@ -1670,9 +1710,11 @@ def phase_variants(torch, audio, chunks, card):
           "outside [0, 1]")
     check(torch.equal(mask, peak_mask_reference(acts, 0.5)),
           "skips: the peak mask differs from its plain version")
-    check(launches[K1] == per_fwd * n_fwd > 0 and launches[K1_F32] == 0,
+    check(launches[K1] == per_fwd * n_fwd > 0 and launches[K1_F32] == 0
+          and on_tma_epilogue(launches),
           f"skips transcribe: K1 launches {launches} for {n_fwd} forwards, "
-          f"expected {per_fwd} bf16 launches a forward")
+          f"expected {per_fwd} bf16 launches a forward, on the TMA "
+          f"epilogue")
     check(launches[K2] > 0, "skips transcribe: K2 not launched")
     t0 = time.perf_counter()
     peak_mask(model.transcribe(audio), 0.5)
@@ -3618,6 +3660,9 @@ def main():
           and launches[K1_F32] == 0,
           f"K1's bf16 kernel did not run every stage of the main path's "
           f"{forwards.n} forwards: {launches}")
+    check(on_tma_epilogue(launches),
+          f"a bf16 K1 stage of the main path took the staged epilogue: "
+          f"{launches}")
     check(launches[K2] == 1, f"K2 ran {launches[K2]} times on the main path")
     print(f"main: {CLIP_SECS:.0f} s clip, {forwards.n} forwards, launches "
           f"{launches}, peaks {int(mask.sum())}")
@@ -3731,9 +3776,15 @@ def main():
     net32 = net32.eval()
     nchw32 = feats.movedim(-1, 1).float().contiguous()
     # The bf16 forward in turns, in one call: tt_band_conv_wgmma (the
-    # route) and cuDNN; the median of five turns each, and the device time
-    # of each chain.
+    # route: the TMA epilogue at T = 1024), the same kernel on the staged
+    # epilogue (the one it had before the TMA epilogue) and cuDNN; the
+    # median of five turns each, and the device time of each chain.
+    def staged_chain():
+        with staged_epilogue():
+            return fused_level_apply(xb, spec, torch.bfloat16)
+
     chains = {"wgmma": lambda: fused_level_apply(xb, spec, torch.bfloat16),
+              "wgmma_staged": staged_chain,
               "cudnn": lambda: net16(nchw, True)}
     turns = {k: [] for k in chains}
     with torch.no_grad():
@@ -3761,7 +3812,8 @@ def main():
             "wgmma_f32": host_us_per_launch(torch, chains32["wgmma_f32"],
                                             per_forward)}
     del net16, net32
-    k1_ms, k1_lib = (sorted(v)[len(v) // 2] for v in turns.values())
+    k1_ms, k1_staged, k1_lib = (sorted(v)[len(v) // 2]
+                                for v in turns.values())
     k1_ms32, k1_lib32 = (sorted(v)[len(v) // 2] for v in turns32.values())
     kind_ms = stage_kind_numbers(torch, spec, x.shape[0], x.shape[-1])
     kind_ms32 = stage_kind_numbers(torch, spec, x.shape[0], x.shape[-1],
@@ -3792,7 +3844,8 @@ def main():
     t_ops = conv_flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = (w_bytes + io_bytes) / PEAK_BYTES * 1e3
     print(f"K1 forward bf16 (median of the turns): tt_band_conv_wgmma "
-          f"{k1_ms:.3f} ms, cuDNN {k1_lib:.3f} ms; bound "
+          f"{k1_ms:.3f} ms (the staged epilogue {k1_staged:.3f} ms), cuDNN "
+          f"{k1_lib:.3f} ms; bound "
           f"{max(t_ops, t_bytes):.4f} ms, stage-by-stage byte floor "
           f"{count.n / PEAK_BYTES * 1e3:.4f} ms; "
           f"{per_forward} launches; {card}")
@@ -3847,7 +3900,13 @@ def main():
          "skip_route_plain_ms": variants["route_plain_ms"],
          "max_abs_err": k1_err, "band_max_rel_err": band_err,
          "band_max_rel_err_f32": band_err32, "sass": sass,
-         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": max(t_ops, t_bytes),
+         "ms": k1_ms, "staged_epilogue_ms": k1_staged,
+         "epilogue_launches": {
+             path: {"tma": n[K1_TMA], "staged": n[K1_STAGED]}
+             for path, n in (("transcribe", launches),
+                             ("skip_route", launches_var["transcribe"]),
+                             ("recipe_step", train_launches))},
+         "plain_ms": k1_plain, "bound_ms": max(t_ops, t_bytes),
          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
          "library_ms": k1_lib,
          "shape": f"one {per_forward}-launch forward chain, "

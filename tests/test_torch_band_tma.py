@@ -237,6 +237,21 @@ def test_plan_covers_every_tap_and_band(small_net):
                     assert length <= chunks * fl.WGMMA_KC
 
 
+@pytest.mark.parametrize("t,tma", [(1024, 1), (3072, 1), (1001, 0),
+                                   (37, 0)])
+def test_plan_picks_the_epilogue_by_t(small_net, t, tma):
+    """The plan's last integer picks the epilogue from T alone: the TMA
+    epilogue (residual and y by tensor maps, whose rows must be a whole 16
+    bytes) where T is a multiple of 8, as the chunks of 1024 frames and
+    the recipe's 3072-frame crops are, for every stage alike; the staged
+    one at a ragged T. It is the last integer the kernel reads."""
+    for net in (small_net, TimbreTrapNet(540, 128, 2)):
+        for cb in forward_spec(net, True).convs():
+            assert fl.band_tma_plan(cb, t).tma_epilogue == tma
+            t_pad, ints = fl._wgmma_plan(cb, t, cb.band_width)
+            assert len(ints) == 21 and ints[20] == tma
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_banded_conv_takes_the_twin_on_cpu(monkeypatch, dtype):
     """On the CPU ``banded_conv`` hands its arguments to the twin and

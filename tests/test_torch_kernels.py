@@ -14,6 +14,7 @@ without one; on the card run them with
 (``--noconftest`` because ``tests/conftest.py`` imports JAX).
 """
 
+import ctypes
 import os
 
 import numpy as np
@@ -29,9 +30,10 @@ from timbre_trap_tpu_torch.models import (TimbreTrap, TimbreTrapFiLM,
                                           fused_forward, load_model)
 from timbre_trap_tpu_torch.models.fused import level_specs
 from timbre_trap_tpu_torch.models.modules import init_weights
+from timbre_trap_tpu_torch.ops import fused_level as fl
 from timbre_trap_tpu_torch.ops import packed_conv as pc
 from timbre_trap_tpu_torch.ops.fused_level import (
-    HALO, band_tma_plan_f32, banded_conv, banded_conv_dw,
+    HALO, band_tma_plan, band_tma_plan_f32, banded_conv, banded_conv_dw,
     banded_conv_dw_reference, banded_conv_dx, banded_conv_dx_reference,
     banded_conv_reference, chain_flops, elu_backward, fused_level_apply,
     level_backward, level_backward_reference, packed_level_apply,
@@ -42,7 +44,8 @@ from timbre_trap_tpu_torch.train import (TrainConfig, Trainer, TrainerConfig,
                                          step_gradients_reference,
                                          synthetic_batch)
 from timbre_trap_tpu_torch.train.synthetic import chord_tracks
-from timbre_trap_tpu_torch.utils.profiling import kernel_counts
+from timbre_trap_tpu_torch.utils.profiling import (kernel_counts,
+                                                   kernel_instance)
 
 torch.set_num_threads(2)
 
@@ -264,7 +267,6 @@ def test_c_signatures_match_the_sources():
     a long long as ``c_longlong``, a float as ``c_float`` (ctypes would
     pass a missing argument's value as a C int, cutting a stream
     pointer)."""
-    import ctypes
     import re
 
     from timbre_trap_tpu_torch.ops import _build
@@ -281,16 +283,21 @@ def test_c_signatures_match_the_sources():
             assert argtypes == want, name
 
 
-def test_k1_f32_ablation_variants_match_the_source():
-    """Every variant of ``tools/k1_f32_ablation.py`` changes text that
-    ``csrc/band_wgmma.cu`` holds exactly once, so each builds the kernel
-    it names; the base variant changes nothing."""
-    from timbre_trap_tpu_torch.ops import _build
-    from timbre_trap_tpu_torch.tools import k1_f32_ablation
+@pytest.mark.parametrize("tool", ["k1_f32_ablation", "k1_bf16_ablation"])
+def test_k1_f32_ablation_variants_match_the_source(tool):
+    """Every variant of ``tools/k1_f32_ablation.py`` and of its bf16 twin
+    ``tools/k1_bf16_ablation.py`` changes text that ``csrc/band_wgmma.cu``
+    holds exactly once, so each builds the kernel it names; the base
+    variant changes nothing."""
+    import importlib
 
+    from timbre_trap_tpu_torch.ops import _build
+
+    variants = importlib.import_module(
+        f"timbre_trap_tpu_torch.tools.{tool}").VARIANTS
     src = (_build._CSRC / "band_wgmma.cu").read_text()
-    assert k1_f32_ablation.VARIANTS["base"] == []
-    for name, subs in k1_f32_ablation.VARIANTS.items():
+    assert variants["base"] == []
+    for name, subs in variants.items():
         for old, new in subs:
             assert src.count(old) == 1 and old != new, (name, old)
 
@@ -570,32 +577,115 @@ def test_band_kernels_match_plain_at_long_and_ragged_t(cuda_device, dtype, t):
         close(raw, raw_ref, f"{name} dX raw")
 
 
+# The bf16 K1 kernel's two instances (``kernel_instance``): the TMA
+# epilogue, where T % 8 == 0, and the staged one.
+K1_TMA, K1_STAGED = "band_wgmma_kernel<true>", "band_wgmma_kernel<false>"
+
+
+def _staged(monkeypatch, fn):
+    """``fn()`` with every bf16 K1 stage on the staged epilogue: the plan's
+    last integer, the kernel's pick, set to 0 whatever T is."""
+    real = fl._wgmma_plan
+
+    def staged_plan(cb, t, width):
+        t_pad, ints = real(cb, t, width)
+        return t_pad, (ctypes.c_int * len(ints))(*ints[:-1], 0)
+
+    with monkeypatch.context() as m:
+        m.setattr(fl, "_wgmma_plan", staged_plan)
+        return fn()
+
+
+def _flagship_stages(device):
+    """Two stages of the flagship chain: a residual item's 3x3 at dilation
+    3 with 32 channels, and a 1x1 with 4 (r_out 2160, not a multiple of
+    64)."""
+    picks = {}
+    for cb in forward_spec(_flagship_net(device=device), True).convs():
+        if not cb.per_block and cb.f_out == cb.f_in:
+            kind = "1x1" if len(cb.dts) == 1 else f"3x3-d{max(cb.dts)}"
+            picks.setdefault(f"{kind}-c{cb.c_out}", cb)
+    return {k: picks[k] for k in ("3x3-d3-c32", "1x1-c4")}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [3072, 1001, 37])
-def test_wgmma_stage_matches_twin(cuda_device, t):
+@pytest.mark.parametrize("t", [3072, 1024, 1001, 37])
+def test_wgmma_stage_matches_twin(cuda_device, monkeypatch, t):
     """The bf16 stage's TMA-fed wgmma kernel (``tt_band_conv_wgmma``, the
-    route of every CUDA bfloat16 ``banded_conv``) on every conv kind and
-    the variants' stages, at the recipe's T and ragged T (x padded to a
-    multiple of 8 frames): within 1e-2 * max|ref| of the twin on the same
-    tensors (sum order and the output rounding), the same bits in two
-    runs; each call one launch of ``band_wgmma_kernel``."""
+    route of every CUDA bfloat16 ``banded_conv``) on every conv kind (the
+    1984 -> 128 bridge, r_out not a multiple of 64), the variants' stages
+    and two flagship stages (3x3 at dilation 3 with 32 channels, 1x1 with
+    4), with ELU and residual and without either, at the recipe's T and
+    the chunks' T (the TMA epilogue, ``band_wgmma_kernel<true>``) and at
+    ragged T (x padded to a multiple of 8 frames, the staged epilogue,
+    ``band_wgmma_kernel<false>``): within 1e-2 * max|ref| of the twin on
+    the same tensors (sum order and the output rounding), the same bits
+    in two runs; each call one launch of the plan's instance. Where the
+    plan takes the TMA epilogue, the staged one gives the same bits, and
+    so does a residual view off 16-byte alignment (copied first)."""
     rng = np.random.default_rng(31)
     bf16 = torch.bfloat16
+    tma = t % 8 == 0
     convs = dict(_conv_cases(cuda_device))
     convs.update(_variant_stages(cuda_device))
+    convs.update(_flagship_stages(cuda_device))
     for name, cb in convs.items():
+        assert band_tma_plan(cb, t).tma_epilogue == tma
         x = _rand(rng, 2, cb.r_in, t).to(cuda_device, bf16)
         res = None if cb.per_block else _rand(rng, 2, cb.r_out, t).to(
             cuda_device, bf16)
-        with kernel_counts() as counts:
-            got = banded_conv(x, cb, True, res)
-            again = banded_conv(x, cb, True, res)
-        assert _on_route(counts, K1, bf16, 2), (name, counts)
-        ref = banded_conv_reference(x, cb, True, res)
-        torch.cuda.synchronize()
-        assert torch.equal(got, again), name
-        err = (got.float() - ref.float()).abs().max().item()
-        assert err <= 1e-2 * ref.float().abs().max().item(), (name, err)
+        for act, r in ((True, res), (False, None)):
+            with kernel_counts(kernel_instance) as counts:
+                got = banded_conv(x, cb, act, r)
+                again = banded_conv(x, cb, act, r)
+            assert (counts[K1_TMA], counts[K1_STAGED]) == (
+                (2, 0) if tma else (0, 2)), (name, counts)
+            ref = banded_conv_reference(x, cb, act, r)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), (name, act)
+            err = (got.float() - ref.float()).abs().max().item()
+            assert err <= 1e-2 * ref.float().abs().max().item(), (name, act,
+                                                                  err)
+            if not tma:
+                continue
+            with kernel_counts(kernel_instance) as counts:
+                staged = _staged(monkeypatch,
+                                 lambda: banded_conv(x, cb, act, r))
+            assert (counts[K1_TMA], counts[K1_STAGED]) == (0, 1), (name,
+                                                                counts)
+            torch.cuda.synchronize()
+            assert torch.equal(got, staged), (name, act)
+            if r is None:
+                continue
+            view = torch.empty(r.numel() + 1, dtype=bf16,
+                               device=cuda_device)[1:].view(r.shape)
+            view.copy_(r)
+            assert view.data_ptr() % 16 != 0
+            got_view = banded_conv(x, cb, act, view)
+            torch.cuda.synchronize()
+            assert torch.equal(got, got_view), name
+
+
+@pytest.mark.cuda
+def test_wgmma_flagship_chain_is_bitwise_stable(cuda_device, monkeypatch):
+    """The flagship 60-stage bf16 chain at the chunks' (4, 1080, 1024):
+    every stage on the TMA epilogue, the same bits in two runs and on the
+    staged epilogue."""
+    spec = forward_spec(_flagship_net(device=cuda_device), True)
+    rng = np.random.default_rng(43)
+    x = _rand(rng, 4, spec.r_in, 1024, scale=0.3).to(cuda_device,
+                                                     torch.bfloat16)
+    n = sum(1 for _ in spec.convs())
+    with torch.no_grad():
+        with kernel_counts(kernel_instance) as counts:
+            runs = [fused_level_apply(x, spec, torch.bfloat16)
+                    for _ in range(2)]
+        staged = _staged(monkeypatch, lambda: fused_level_apply(
+            x, spec, torch.bfloat16))
+    torch.cuda.synchronize()
+    assert (counts[K1_TMA], counts[K1_STAGED]) == (2 * n, 0), counts
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[0], staged)
 
 
 @pytest.mark.cuda

@@ -209,6 +209,33 @@ def test_kernel_name_is_the_base_function_name(recorded, name):
     assert profiling.kernel_name(recorded) == name
 
 
+@pytest.mark.parametrize("recorded,name", [
+    ("(anonymous namespace)::band_wgmma_kernel<true>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "(anonymous namespace)::WgmmaArgs)", "band_wgmma_kernel<true>"),
+    ("(anonymous namespace)::band_wgmma_kernel<false>(CUtensorMap_st, "
+     "(anonymous namespace)::WgmmaArgs)", "band_wgmma_kernel<false>"),
+    ("(anonymous namespace)::band_wgmma_f32_kernel(CUtensorMap_st, "
+     "(anonymous namespace)::WgmmaF32Args)", "band_wgmma_f32_kernel"),
+    ("void (anonymous namespace)::band_product_kernel<__nv_bfloat16, true>("
+     "(anonymous namespace)::BandArgs)",
+     "band_product_kernel<__nv_bfloat16, true>"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::"
+     "FillFunctor<float>, std::array<char*, 1ul> >(int, at::native::"
+     "FillFunctor<float>, std::array<char*, 1ul>)",
+     "vectorized_elementwise_kernel<4, at::native::FillFunctor<float>, "
+     "std::array<char*, 1ul> >"),
+    ("peak_mask_kernel", "peak_mask_kernel"),
+])
+def test_kernel_instance_keeps_the_template_arguments(recorded, name):
+    """A kernel template's instance is its base name and its template
+    argument list (nested lists included), so ``kernel_counts`` can tell
+    the instances apart; its ``kernel_name`` is the base name."""
+    assert profiling.kernel_instance(recorded) == name
+    assert (profiling.kernel_name(name)
+            == profiling.kernel_name(recorded))
+
+
 def test_kernel_counts_on_the_cpu_count_nothing():
     """The block runs under the profiler (the spans record), and a machine
     without a card runs no device kernel: the counter stays empty."""

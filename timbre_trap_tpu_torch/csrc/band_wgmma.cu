@@ -97,16 +97,33 @@
 // thread that runs ahead into the next tile, drained by the consumer
 // warpgroup with m64n64k16 wgmmas (and an m64n8k16 for the 8 extra frames
 // where r > 0). The sums run in a fixed order, tap, then chunk, then k16
-// step, from zero, with no atomics: a run is deterministic. The epilogue stages the tile's float32 sums in
-// shared memory, and each thread then reads the residual and writes y 16
-// bytes (8 frames of a row) at a time.
+// step, from zero, with no atomics: a run is deterministic.
+//
+// The bf16 epilogue (bias, the ELU's exp, the residual, the rounding and
+// the store) took 43 % of a chain's time when the consumers staged the
+// sums in shared memory and then read the residual and stored y from their
+// threads, while the tensor cores idled (tools/k1_bf16_ablation.py). So
+// where T % 8 == 0 (TMA's 16-byte global strides) the kernel runs it by
+// TMA, band_wgmma_kernel<true>, with an epilogue warp and two tile buffers
+// (64 rows x 128 frames bf16, two 128-byte swizzled boxes of 64 frames,
+// 16 KB each) in place of the 33-KB staging tile: one thread of that warp
+// loads tile k's residual boxes into buffer k % 2 while tile k - 1's
+// products run; the consumers, after tile k's last tap, add the bias,
+// apply the ELU and add the residual from the buffer, in store_tile's
+// operations and order (the same bits), write the bf16 pairs back in place
+// and go straight on to tile k + 1's products; the same thread then stores
+// the tile by TMA (the hardware clips the rows past r_out and the frames
+// past T). Every main-path T (chunks of 1024 frames, 9-s crops of 3072)
+// takes it. Elsewhere band_wgmma_kernel<false> stages the tile's float32
+// sums in shared memory, and each thread then reads the residual and
+// writes y 8 frames of a row at a time (16 bytes where T % 8 == 0 and res
+// and y are 16-byte aligned).
 //
 // TMA wants 16-byte global strides: x's rows are T bf16 long, so the wrapper
 // hands a copy padded with zero frames to a multiple of 8 where T % 8 != 0
-// (zeros are what the edge fill gives); the residual and y keep T and are
-// read and written with masks (8 frames at a time where T % 8 == 0). A
-// tensor map depends on its base and dims only, so the encoded maps are kept
-// in a small cache.
+// (zeros are what the edge fill gives); the residual and y keep T. A tensor
+// map depends on its base and dims only, so the encoded maps are kept in a
+// small cache.
 //
 // What bounds it: with the zeros skipped a stage needs 2 * n_dt * 64 * L
 // flops per sub-tile and frame against ~2 bytes per row and frame in and
@@ -115,9 +132,12 @@
 // and the weights once per tile. On the card neither bandwidth sets the pace
 // yet: leaving the weight boxes out or changing the ring's depth left the
 // mainloop's time unchanged, while halving the number of stages (64-row
-// chunks) shortened it, so a stage's fixed latency does; the epilogue (the
-// ELU's exp above all) takes the rest of a tile's time. TMA moves every
-// operand without registers or address arithmetic in the consumer.
+// chunks) shortened it, so a stage's fixed latency does (the mainloop alone
+// is two thirds of a chain with the TMA epilogue); the residual's load and
+// the store now run under the products, and what is left of the epilogue,
+// the ELU's exp above all, still runs while the tensor cores wait. TMA
+// moves every operand without registers or address arithmetic in the
+// consumer.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -146,10 +166,18 @@ constexpr int kWOff = 2 * kXBox;                 // stage layout: x, x, W, edge
 constexpr int kEdgeOff = kWOff + kWBox;
 constexpr int kStageBytes = kEdgeOff + kEdgeBox; // 25600 bytes, 1024-aligned stages
 constexpr int kConsumers = 128;                  // one warpgroup
-constexpr int kThreads = kConsumers + 32;        // + one producer warp
 constexpr int kOutPitch = kTileT + 4;            // float32 output staging rows
 constexpr int kOutBytes = kSub * kOutPitch * 4;  // 33792 bytes
-constexpr int kSmem = kStages * kStageBytes + kOutBytes + 1024;   // + alignment slack
+constexpr int kEpiBox = kSub * kBoxT * 2;        // an epilogue box: 8192 bytes
+constexpr int kEpiTile = 2 * kEpiBox;            // a tile's epilogue buffer
+// Threads and shared memory of each epilogue: the staged one, the consumers
+// and a producer warp, the ring and the float32 staging tile; the TMA one
+// (kTma), an epilogue warp and two tile buffers more, no staging tile.
+template <bool kTma>
+constexpr int kThreads = kConsumers + (kTma ? 64 : 32);
+template <bool kTma>
+constexpr int kSmem = kStages * kStageBytes + (kTma ? 2 * kEpiTile : kOutBytes) +
+                      1024;   // + alignment slack
 constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -197,6 +225,33 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// One TMA store of a shared-memory box into a 3-D tensor map (the hardware
+// clips what lies outside the tensor), in this thread's bulk group.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups have not yet read
+// their shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until this thread's bulk stores have completed.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // A wgmma shared-memory matrix descriptor: start address, leading and
@@ -549,20 +604,145 @@ __device__ __forceinline__ void store_tile(const WgmmaArgs& a, const Tile& tl, f
   }
 }
 
+// The TMA epilogue's two buffers and their barriers: tile k of a CTA is
+// finished in buffer k % 2; its `full` completes when the tile's
+// residual boxes have landed (or, without a residual, when the epilogue
+// warp has handed the buffer over), its `done` when every consumer warp has
+// written the tile's results into it.
+struct Epi {
+  uint32_t base;        // 1024-byte aligned shared address of buffer 0
+  unsigned char* ptr;   // the same, generic
+  uint64_t* full;       // [2]
+  uint64_t* done;       // [2]
+};
+
+// The epilogue warp's thread (TMA epilogue), tile after tile of the CTA:
+// tile k's residual boxes into buffer k % 2 once the store of tile k - 2,
+// the buffer's last, has read it (without a residual a bare arrival), so
+// the load runs under tile k - 1's products; then, once the consumers have
+// written tile k - 1 into its buffer, that tile's store by TMA, one bulk
+// group a tile (the hardware clips the rows past r_out and the frames past
+// T; a box wholly past T is not stored). It runs beside the producer, so
+// neither waits on the other's copies.
+__device__ __forceinline__ void epilogue_copies(const WgmmaArgs& a, const CUtensorMap* rmap,
+                                                const CUtensorMap* ymap, const Epi& epi) {
+  for (int tile = blockIdx.x, k = 0;; tile += gridDim.x, ++k) {
+    if (tile < a.n_tiles) {
+      const Tile tl(a, tile);
+      const uint32_t bar = smem_u32(&epi.full[k & 1]);
+      const uint32_t buf = epi.base + (k & 1) * kEpiTile;
+      bulk_wait_read<0>();
+      if (a.res == nullptr) {
+        mbar_arrive(bar);
+      } else {
+        mbar_expect_tx(bar, kEpiTile);
+        for (int h = 0; h < 2; ++h)
+          tma_load_3d(buf + h * kEpiBox, rmap, bar, tl.t0 + kBoxT * h, tl.g * kSub, tl.b);
+      }
+    }
+    if (k > 0) {
+      const Tile pt(a, tile - static_cast<int>(gridDim.x));
+      const int kp = k - 1;
+      mbar_wait(smem_u32(&epi.done[kp & 1]), (kp >> 1) & 1);
+      for (int h = 0; h < 2; ++h)
+        if (pt.t0 + kBoxT * h < a.t_len)
+          tma_store_3d(ymap, epi.base + (kp & 1) * kEpiTile + h * kEpiBox, pt.t0 + kBoxT * h,
+                       pt.g * kSub, pt.b);
+      bulk_commit();
+    }
+    if (tile >= a.n_tiles) break;
+  }
+  bulk_wait();
+}
+
+// Consumers, TMA epilogue: bias, ELU and residual of one tile (the CTA's
+// k-th) from the registers into its epilogue buffer, in store_tile's
+// operations and order, so the bits are the same. Box h holds the tile's
+// frames 64h..; row n of a box is 128 bytes, its 16-byte chunk c at c ^ (n
+// % 8) (the 128-byte swizzle). Each thread's accumulator pair, 2 frames of
+// one row, is one 32-bit word: it reads the residual's pair there and
+// writes the result's in its place; a warp's 8 rows x 4 words meet 32
+// banks. Every residual word is read before any result is written (the
+// compiler cannot tell the swizzled addresses apart, so interleaved it
+// would keep each read behind the last write), then the arithmetic and the
+// writes. Once its warp's results are in, the warp goes on to the next
+// tile's products.
+__device__ __forceinline__ void finish_tile_tma(const WgmmaArgs& a, const Tile& tl,
+                                                const Epi& epi, int k, int warp, int lane,
+                                                const float (&o0)[32], const float (&o1)[32]) {
+  float bias[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = 16 * warp + (lane >> 2) + 8 * i;
+    const int orow = tl.g * kSub + row;
+    bias[i] = orow < a.r_out ? __ldg(a.bias + (a.per_block ? orow : (tl.g & 1) * kSub + row))
+                             : 0.f;
+  }
+  // Word (h, j, i) of this thread: row 16 warp + lane / 4 + 8 i of box h,
+  // chunk j ^ (lane / 4), bytes 4 (lane % 4)..
+  unsigned char* mine = epi.ptr + (k & 1) * kEpiTile + (16 * warp + (lane >> 2)) * 128 +
+                        4 * (lane & 3);
+  const int sw = lane >> 2;
+  mbar_wait(smem_u32(&epi.full[k & 1]), (k >> 1) & 1);
+  uint32_t rw[2][8][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        rw[h][j][i] = a.res != nullptr ? *reinterpret_cast<const uint32_t*>(
+                                             mine + h * kEpiBox + i * 1024 + ((j ^ sw) << 4))
+                                       : 0u;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float x2[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = (h ? o1[4 * j + 2 * i + e] : o0[4 * j + 2 * i + e]) + bias[i];
+          if (a.act) x = x > 0.f ? x : __expf(fminf(x, 0.f)) - 1.f;
+          // The residual's bf16 bits as float32 (0 without one).
+          x += __uint_as_float(e ? (rw[h][j][i] & 0xFFFF0000u) : (rw[h][j][i] << 16));
+          x2[e] = x;
+        }
+        const __nv_bfloat162 pr = __floats2bfloat162_rn(x2[0], x2[1]);
+        *reinterpret_cast<uint32_t*>(mine + h * kEpiBox + i * 1024 + ((j ^ sw) << 4)) =
+            *reinterpret_cast<const uint32_t*>(&pr);
+      }
+  // The results, written by this warp's threads, for the TMA's reads.
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncwarp();
+  if (lane == 0) mbar_arrive(smem_u32(&epi.done[k & 1]));
+}
+
 // Persistent: CTA k walks tiles k, k + gridDim.x, ...; the producer runs
-// ahead into the next tile while the consumers finish the last one.
-__global__ void __launch_bounds__(kThreads, 2)
+// ahead into the next tile while the consumers finish the last one. With
+// the TMA epilogue (kTma) the residual comes in by rmap and y goes out by
+// ymap, both moved by one thread of an epilogue warp, through two tile
+// buffers; else the consumers stage the sums in shared memory and read the
+// residual and write y themselves (store_tile), and the two maps are not
+// read.
+template <bool kTma>
+__global__ void __launch_bounds__(kThreads<kTma>, 2)
     band_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                       const __grid_constant__ CUtensorMap emap,
-                      const __grid_constant__ CUtensorMap wmap, const WgmmaArgs a) {
+                      const __grid_constant__ CUtensorMap wmap,
+                      const __grid_constant__ CUtensorMap rmap,
+                      const __grid_constant__ CUtensorMap ymap, const WgmmaArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ __align__(8) uint64_t empty[kStages];
-  // The swizzled boxes want 1024-byte aligned stages; the output staging
-  // tile follows the ring.
+  __shared__ __align__(8) uint64_t epi_bars[4];   // full, done
+  // The swizzled boxes want 1024-byte aligned stages and epilogue boxes;
+  // the epilogue buffers (or the output staging tile) follow the ring.
   const uint32_t pad = ((smem_u32(smem_raw) + 1023u) & ~1023u) - smem_u32(smem_raw);
   Ring ring{smem_u32(smem_raw) + pad, full, empty};
-  float* stg = reinterpret_cast<float*>(smem_raw + pad + kStages * kStageBytes);
+  const Epi epi{smem_u32(smem_raw) + pad + kStages * kStageBytes,
+                smem_raw + pad + kStages * kStageBytes, &epi_bars[0], &epi_bars[2]};
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
@@ -571,6 +751,11 @@ __global__ void __launch_bounds__(kThreads, 2)
       mbar_init(smem_u32(&full[i]), 1);
       mbar_init(smem_u32(&empty[i]), kConsumers / 32);
     }
+    if (kTma)
+      for (int i = 0; i < 2; ++i) {
+        mbar_init(smem_u32(&epi.full[i]), 1);
+        mbar_init(smem_u32(&epi.done[i]), kConsumers / 32);
+      }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -581,11 +766,18 @@ __global__ void __launch_bounds__(kThreads, 2)
         produce_tile(a, Tile(a, tile), &xmap, &emap, &wmap, ring);
     return;
   }
-  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+  if (kTma && warp == kConsumers / 32 + 1) {
+    if (lane == 0) epilogue_copies(a, &rmap, &ymap, epi);
+    return;
+  }
+  for (int tile = blockIdx.x, k = 0; tile < a.n_tiles; tile += gridDim.x, ++k) {
     const Tile tl(a, tile);
     float o0[32], o1[32];
     consume_tile(a, tl, ring, lane, o0, o1);
-    store_tile(a, tl, stg, warp, lane, o0, o1);
+    if constexpr (kTma)
+      finish_tile_tma(a, tl, epi, k, warp, lane, o0, o1);
+    else
+      store_tile(a, tl, reinterpret_cast<float*>(epi.ptr), warp, lane, o0, o1);
   }
 }
 
@@ -693,33 +885,6 @@ struct EpiF {
   uint64_t* full;
   uint64_t* done;
 };
-
-// One TMA store of a shared-memory box into a 3-D tensor map (the hardware
-// clips what lies outside the tensor), in this thread's bulk group.
-__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
-                                             int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most N of this thread's bulk groups have not yet read
-// their shared memory.
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-
-// Waits until this thread's bulk stores have completed.
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
 
 // One output tile: sub-tile g (the fastest index) x kTileF frames t0.. of
 // item b, its band length and the input row of its band column 0.
@@ -1084,47 +1249,59 @@ int cached_map(EncodeTiled enc, CUtensorMap* map, const MapKey& k) {
   return 0;
 }
 
+// One launch of band_wgmma_kernel<kTma> on a persistent grid: as many CTAs
+// as device dev holds at once (found, with the shared-memory opt-in, on its
+// first launch there), or as many as there are tiles.
+template <bool kTma>
+int launch_wgmma(int dev, const CUtensorMap& xmap, const CUtensorMap& emap,
+                 const CUtensorMap& wmap, const CUtensorMap& rmap, const CUtensorMap& ymap,
+                 const WgmmaArgs& a, cudaStream_t stream) {
+  constexpr int threads = kThreads<kTma>, smem = kSmem<kTma>;
+  static int resident[kMaxDevices] = {};
+  if (resident[dev] == 0) {
+    cudaError_t e = cudaFuncSetAttribute(band_wgmma_kernel<kTma>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    int sms = 0, per_sm = 0;
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, band_wgmma_kernel<kTma>, threads,
+                                                        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (sms * per_sm == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    resident[dev] = sms * per_sm;
+  }
+  const int grid = a.n_tiles < resident[dev] ? a.n_tiles : resident[dev];
+  band_wgmma_kernel<kTma><<<grid, threads, smem, stream>>>(xmap, emap, wmap, rmap, ymap, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // K1 stage, bf16 storage, TMA-fed wgmma. x: (B, r_in, t_pad) bf16, t_pad
 // a multiple of 8 and >= T, zeros past T, 16-byte aligned; w: band
 // weights (n_w, n_dt, 64, width) bf16, width a multiple of 32; bias
-// float32; res (or null) and y: (B, r_out, T) bf16; vec: T % 8 == 0 and
-// res, y 16-byte aligned. plan: the integers ops/fused_level.py
-// `band_tma_plan` fixes for a stage and T, in this order: T, t_pad, n_dt,
-// per tap (box offset, shift) x 3 (dt = box offset + shift, the offset a
-// multiple of 8 frames, 0 <= shift < 8), col_adv, margin, width, n_w,
-// per_block, then (start, length, chunks of 64) of the band of even and
-// of odd sub-tiles. Returns cudaGetLastError() of the launch, or a
-// negative code when the tensor maps cannot be made (-1: no encode entry
-// point; -100 - CUresult).
+// float32; res (or null) and y: (B, r_out, T) bf16, 16-byte aligned for
+// the TMA epilogue. plan: the integers ops/fused_level.py `band_tma_plan`
+// fixes for a stage and T, in this order: T, t_pad, n_dt, per tap (box
+// offset, shift) x 3 (dt = box offset + shift, the offset a multiple of 8
+// frames, 0 <= shift < 8), col_adv, margin, width, n_w, per_block, (start,
+// length, chunks of 64) of the band of even and of odd sub-tiles, then the
+// epilogue: 1 (T % 8 == 0) for the TMA epilogue, 0 for the staged one.
+// Returns cudaGetLastError() of the launch, or a negative code when the
+// tensor maps cannot be made (-1: no encode entry point; -100 - CUresult).
 extern "C" int tt_band_conv_wgmma(const void* x, const void* w, const void* bias,
                                   const void* res, void* y, int batch, int r_in, int r_out,
-                                  int act, int vec, const int* plan, void* stream) {
+                                  int act, const int* plan, void* stream) {
   const int t_len = plan[0], t_pad = plan[1], n_dt = plan[2];
   const int width = plan[11], n_w = plan[12];
-  // Per device: the shared-memory opt-in, and how many CTAs the card
-  // holds at once (the persistent grid).
-  static int resident[kMaxDevices] = {};
+  const int tma_epi = plan[20];
   int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  const cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (resident[dev] == 0) {
-    e = cudaFuncSetAttribute(band_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmem);
-    int sms = 0, per_sm = 0;
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, band_wgmma_kernel, kThreads,
-                                                        kSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (sms * per_sm == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-    resident[dev] = sms * per_sm;
-  }
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return -1;
-  CUtensorMap xmap, emap, wmap;
+  CUtensorMap xmap, emap, wmap, rmap = {}, ymap = {};
   const uint64_t rows = r_in, items = batch, wsubs = (uint64_t)n_w * n_dt;
   int rc = cached_map(enc, &xmap, {x, (uint64_t)t_pad, rows, items, kBoxT, kKc,
                                    CU_TENSOR_MAP_SWIZZLE_128B});
@@ -1133,6 +1310,13 @@ extern "C" int tt_band_conv_wgmma(const void* x, const void* w, const void* bias
                                  CU_TENSOR_MAP_SWIZZLE_NONE});
   if (rc == 0)
     rc = cached_map(enc, &wmap, {w, (uint64_t)width, kSub, wsubs, kKc, kSub,
+                                 CU_TENSOR_MAP_SWIZZLE_128B});
+  // The TMA epilogue's maps: the output tile's boxes in y and in the residual.
+  if (rc == 0 && tma_epi)
+    rc = cached_map(enc, &ymap, {y, (uint64_t)t_len, (uint64_t)r_out, items, kBoxT, kSub,
+                                 CU_TENSOR_MAP_SWIZZLE_128B});
+  if (rc == 0 && tma_epi && res != nullptr)
+    rc = cached_map(enc, &rmap, {res, (uint64_t)t_len, (uint64_t)r_out, items, kBoxT, kSub,
                                  CU_TENSOR_MAP_SWIZZLE_128B});
   if (rc != 0) return rc;
 
@@ -1154,17 +1338,18 @@ extern "C" int tt_band_conv_wgmma(const void* x, const void* w, const void* bias
   a.margin = plan[10];
   a.per_block = plan[13];
   a.act = act;
-  a.vec = vec;
+  // The staged epilogue's 16-byte residual loads and stores.
+  a.vec = t_len % 8 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(res) % 16 == 0;
   a.kb0 = plan[14];
   a.kl0 = plan[15];
   a.nc0 = plan[16];
   a.kb1 = plan[17];
   a.kl1 = plan[18];
   a.nc1 = plan[19];
-  const int grid = a.n_tiles < resident[dev] ? a.n_tiles : resident[dev];
-  band_wgmma_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(xmap, emap,
-                                                                                  wmap, a);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return tma_epi ? launch_wgmma<true>(dev, xmap, emap, wmap, rmap, ymap, a, s)
+                 : launch_wgmma<false>(dev, xmap, emap, wmap, rmap, ymap, a, s);
 }
 
 // K1 stage, float32 storage, TMA-fed TF32 wgmma with split-TF32 products.

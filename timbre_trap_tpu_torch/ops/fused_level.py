@@ -319,6 +319,13 @@ class BandTmaPlan(NamedTuple):
             ``WGMMA_EDGE_T`` where shift > 0; the tap's sums at column n
             belong to output frame ``t0 + n - shift``.
     n_w:    weight sub-tiles (2, or one per sub-tile with ``per_block``).
+    tma_epilogue: 1 where T is a multiple of ``TMA_FRAME_ALIGN`` (the
+            residual and y then have 16-byte rows): a tile's residual
+            comes into shared memory by TMA during the products before
+            its own, and the result leaves by a TMA store
+            (``band_wgmma_kernel<true>``); 0 elsewhere: the sums are
+            staged in shared memory and the consumers read the residual
+            and write y (``band_wgmma_kernel<false>``).
     """
     t_pad: int
     tiles: int
@@ -326,6 +333,7 @@ class BandTmaPlan(NamedTuple):
     bands: tuple
     taps: tuple
     n_w: int
+    tma_epilogue: int
 
 
 def band_tma_plan(cb, t):
@@ -336,7 +344,8 @@ def band_tma_plan(cb, t):
         t_pad=-(-t // a) * a, tiles=-(-t // WGMMA_TILE_T), n_sub=cb.n_sub,
         bands=tuple((s, n, -(-n // WGMMA_KC)) for s, n in cb.bands),
         taps=tuple((dt // a * a, dt % a) for dt in cb.dts),
-        n_w=2 * cb.n_out_blocks if cb.per_block else 2)
+        n_w=2 * cb.n_out_blocks if cb.per_block else 2,
+        tma_epilogue=int(t % a == 0))
 
 
 def tma_frames(x, t_pad):
@@ -361,7 +370,8 @@ def _wgmma_plan(cb, t, width):
             ints = (t, plan.t_pad, len(plan.taps),
                     *[v for tap in taps for v in tap], cb.col_adv, cb.margin,
                     width, plan.n_w, int(cb.per_block),
-                    *[v for band in plan.bands for v in band])
+                    *[v for band in plan.bands for v in band],
+                    plan.tma_epilogue)
             cb._cache[key] = (plan.t_pad, (ctypes.c_int * len(ints))(*ints))
     return cb._cache[key]
 
@@ -374,16 +384,19 @@ def _stream(device):
 
 
 def _launch_wgmma(x, cb, act, residual, w, bias, y):
-    """One launch of ``csrc/band_wgmma.cu:tt_band_conv_wgmma``."""
+    """One launch of ``csrc/band_wgmma.cu:tt_band_conv_wgmma``. Where the
+    epilogue runs by TMA (the plan's last integer) its tensor maps want
+    16-byte aligned bases: ``y`` is a fresh allocation, a residual view
+    that is not aligned is copied."""
     b, r_in, t = x.shape
     t_pad, plan = _wgmma_plan(cb, t, w.shape[-1])
     xp = tma_frames(x, t_pad)
-    vec = int(t % TMA_FRAME_ALIGN == 0 and y.data_ptr() % 16 == 0
-              and (residual is None or residual.data_ptr() % 16 == 0))
+    if plan[-1] and residual is not None and residual.data_ptr() % 16:
+        residual = residual.clone()
     res = None if residual is None else residual.data_ptr()
     rc = _call_on(x.device, _build.load("band_wgmma", "tt_band_conv_wgmma"),
                   xp.data_ptr(), w.data_ptr(), bias.data_ptr(), res,
-                  y.data_ptr(), b, r_in, cb.r_out, int(act), vec, plan,
+                  y.data_ptr(), b, r_in, cb.r_out, int(act), plan,
                   _stream(x.device))
     _build.check(rc, "banded_conv (tt_band_conv_wgmma)")
 

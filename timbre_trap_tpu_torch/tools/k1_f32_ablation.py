@@ -76,33 +76,36 @@ VARIANTS = {
 _ENTRY = "tt_band_conv_wgmma_f32"
 
 
-def _build_variants(names):
-    """Compile each variant in parallel; returns {name: ctypes entry}."""
+def _build_variants(variants, entry):
+    """Compile each of ``variants`` (name: substitutions in
+    ``csrc/band_wgmma.cu``) in parallel; returns {name: the ctypes entry
+    point ``entry`` of its library}."""
     src = (_build._CSRC / "band_wgmma.cu").read_text()
     out_dir = _build.BUILD_DIR / "ablation"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
     procs = {}
-    for name in names:
+    for name, subs in variants.items():
         text = src
-        for old, new in VARIANTS[name]:
+        for old, new in subs:
             if old not in text:
                 raise RuntimeError(f"variant {name}: csrc/band_wgmma.cu no "
                                    f"longer holds {old!r}")
             text = text.replace(old, new)
-        cu = out_dir / f"{name}.cu"
+        cu = out_dir / f"{entry}-{name}.cu"
         cu.write_text(text)
+        lib = out_dir / f"lib{entry}-{name}.so"
         procs[name] = subprocess.Popen(
-            [nvcc, *_build._FLAGS, "-o", str(out_dir / f"lib{name}.so"),
-             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
+            [nvcc, *_build._FLAGS, "-o", str(lib), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     fns = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
-        fn = getattr(ctypes.CDLL(str(out_dir / f"lib{name}.so")), _ENTRY)
-        fn.argtypes = _build._SIGNATURES["band_wgmma"][_ENTRY]
+        fn = getattr(ctypes.CDLL(str(out_dir / f"lib{entry}-{name}.so")),
+                     entry)
+        fn.argtypes = _build._SIGNATURES["band_wgmma"][entry]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
@@ -138,21 +141,29 @@ def _event_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+def turns_arg(doc, argv):
+    """The ``--turns`` of a tool's command line (``doc``: its docstring)."""
+    ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     ap.add_argument("--turns", type=int, default=2)
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv).turns
+
+
+def ablate(variants, entry, dtype, turns):
+    """Build ``variants`` of the K1 entry point ``entry`` and time each,
+    ``turns`` times in turns, on the flagship chain and three stages alone
+    at ``dtype``; prints a line per variant and turn and the JSON line."""
     if not torch.cuda.is_available():
-        print("k1_f32_ablation: needs a CUDA device", file=sys.stderr)
+        print(f"{entry} ablation: needs a CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    fns = _build_variants(list(VARIANTS))
+    fns = _build_variants(variants, entry)
     net = init_weights(TimbreTrapNet(540, 128, 2),
                        torch.Generator().manual_seed(0)).cuda().eval()
     spec = forward_spec(net, True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x = 0.3 * torch.randn((4, 1080, 1024), generator=gen, device="cuda")
+    x = (0.3 * torch.randn((4, 1080, 1024), generator=gen, device="cuda")
+         ).to(dtype)
     picks = {}
     for cb in spec.convs():
         if not cb.per_block and cb.f_out == cb.f_in:
@@ -162,24 +173,25 @@ def main(argv=None):
     for name in ("3x3 d=3 c32", "1x1 c4", "1x1 c32"):
         cb = picks[name]
         stages[name] = (cb, torch.randn((4, cb.r_in, 1024), generator=gen,
-                                        device="cuda"),
+                                        device="cuda").to(dtype),
                         torch.randn((4, cb.r_out, 1024), generator=gen,
-                                    device="cuda"))
+                                    device="cuda").to(dtype))
     real = _build.load
     times = {name: {"chain_ms": [], **{s: [] for s in stages}}
              for name in fns}
     errs = {}
     try:
         with torch.no_grad():
-            ref = fl.packed_level_apply(x, spec, torch.float32)
+            ref = fl.packed_level_apply(x, spec, dtype).float()
             scale = ref.abs().max().item()
-            for turn in range(args.turns):
+            for turn in range(turns):
                 for name, fn in fns.items():
-                    _build.load = (lambda lib, entry, fn=fn: fn
-                                   if entry == _ENTRY else real(lib, entry))
+                    _build.load = (lambda lib, e, fn=fn: fn
+                                   if e == entry else real(lib, e))
                     chain = lambda: fl.fused_level_apply(x, spec,  # noqa: E731
-                                                         torch.float32)
-                    errs[name] = (chain() - ref).abs().max().item() / scale
+                                                         dtype)
+                    errs[name] = ((chain().float() - ref).abs().max().item()
+                                  / scale)
                     row = times[name]
                     row["chain_ms"].append(_device_ms(chain))
                     for s, (cb, xs, rs) in stages.items():
@@ -197,10 +209,14 @@ def main(argv=None):
                           text=True, timeout=60).stdout.strip()
     median = {name: {k: sorted(v)[len(v) // 2] for k, v in row.items()}
               for name, row in times.items()}
-    print(json.dumps({"card": card, "shape": list(x.shape),
+    print(json.dumps({"card": card, "entry": entry, "shape": list(x.shape),
                       "median_ms": median, "turns": times,
                       "max_rel_err": errs}))
     return 0
+
+
+def main(argv=None):
+    return ablate(VARIANTS, _ENTRY, torch.float32, turns_arg(__doc__, argv))
 
 
 if __name__ == "__main__":

@@ -17,7 +17,9 @@ profiled window holds exactly that window's spans.
 device (CUPTI) timeline and writes it as a Chrome trace
 ``log_dir/trace_<pid>_<ns>.json`` (Perfetto or ``chrome://tracing``), the
 port's spans in it; ``kernel_counts()`` counts the device kernels a block
-ran, by name, from the same device records; ``annotate`` is ``span``;
+ran, by name (``kernel_name``, or with the template arguments that tell a
+kernel's instances apart, ``kernel_instance``), from the same device
+records; ``annotate`` is ``span``;
 ``Timer`` accumulates wall-clock time per section.
 """
 
@@ -31,8 +33,8 @@ import time
 import torch
 from torch._C._profiler import _RecordFunctionFast
 
-__all__ = ["trace", "kernel_counts", "kernel_name", "span", "annotate",
-           "record", "reset_record", "Timer"]
+__all__ = ["trace", "kernel_counts", "kernel_name", "kernel_instance",
+           "span", "annotate", "record", "reset_record", "Timer"]
 
 _enabled = torch.autograd._profiler_enabled
 
@@ -70,10 +72,31 @@ def kernel_name(name):
     return found.group(1) if found else name
 
 
+def kernel_instance(name):
+    """``kernel_name`` with the template argument list that follows it in
+    the demangled signature, if any: the instance of a kernel template,
+    e.g. ``band_wgmma_kernel<true>`` of ``(anonymous
+    namespace)::band_wgmma_kernel<true>(CUtensorMap_st, ...)``."""
+    name = name.replace("(anonymous namespace)::", "")
+    found = _BASE_NAME.search(name)
+    if not found:
+        return name
+    rest = name[found.end(1):].lstrip()
+    if not rest.startswith("<"):
+        return found.group(1)
+    depth = 0
+    for i, c in enumerate(rest):
+        depth += (c == "<") - (c == ">")
+        if depth == 0:
+            return found.group(1) + rest[:i + 1]
+    return found.group(1)
+
+
 @contextlib.contextmanager
-def kernel_counts():
-    """Count the device kernels that the block runs, by ``kernel_name``:
-    yields a ``collections.Counter``, empty until the block ends. The
+def kernel_counts(key=kernel_name):
+    """Count the device kernels that the block runs, by ``key`` of the
+    recorded name (``kernel_name``, or ``kernel_instance``): yields a
+    ``collections.Counter``, empty until the block ends. The
     counts come from the profiler's device (CUPTI) records, so a kernel of
     a CUDA graph replay counts as one of its own and a capture, which runs
     nothing, counts nothing. The profiler slows the block down: count
@@ -94,7 +117,7 @@ def kernel_counts():
     for e in prof.profiler.kineto_results.events():
         if (e.device_type() == device and not e.is_user_annotation()
                 and not e.name().startswith(("Memcpy", "Memset"))):
-            counts[kernel_name(e.name())] += 1
+            counts[key(e.name())] += 1
 
 
 class Timer:
