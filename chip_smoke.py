@@ -33,6 +33,18 @@ Phases, each of which exits non-zero on failure:
              and every stage of the float32 chain, and the whole chain,
              against float64 beside the IEEE plain version; each item and
              stage within 3x the plain version's error;
+2c. c4     — model complexity 4 (widths 16 -> 256): K1 in both dtypes
+             and K3's dX and dW on its two period-2 stages (the strided
+             conv 65 -> 31 frequencies, 128 -> 256 channels, and the
+             transposed conv 31 -> 65, 256 -> 128; a 256-channel
+             frequency spans two 128-row blocks) and their adjoints at
+             (4, R, 1024) and a ragged T against their twins, with phase
+             2's tolerances and two-run checks; each stage's device time
+             in both dtypes beside its byte floor and its share of the
+             chain; the flagship c4 model transcribes the clip, counted:
+             60 bf16 K1 launches a forward, all on the TMA epilogue, no
+             cuDNN kernel, within 5e-2 of its float32 run, whose K1
+             stages all run the split-TF32 kernel;
 3. main    — the flagship model (22.05 kHz, 9 x 60 bins, 3-s blocks,
              latent 128, complexity 2, seeded random weights) transcribes a
              ~100-s chord clip (3 pieces of 16 blocks), then peak_mask,
@@ -242,7 +254,9 @@ dX ``band_product_kernel`` / ``band_tf32_kernel``, dW
 ``peak_mask_kernel``). The profiler slows the call it watches, so no
 counted call is timed.
 
-Prints the kernels' JSON line (with each kernel's launches per rank in
+Prints the kernels' JSON line (with phase 2c's ``c4``: its bf16 K1
+launches a forward, its period-2 stages' errors and device times; with
+each kernel's launches per rank in
 phase 3h, ``launches_parallel``, and phase 3i's ``launches_cli`` parity
 and comparison and ``launches_quality``), the ``parallel`` and
 ``last_modules`` JSON lines and the
@@ -449,17 +463,16 @@ def needed_flops(spec, batch, frames):
     total = 0
     for cb in spec.convs():
         nz = (cb.blocks != 0).cpu()
-        if cb.per_block:
-            total += int(nz[0, :cb.r_out, :cb.r_in].sum()) * frames
-            continue
         ks = np.arange(cb.k)
         for j in range(cb.n_out_blocks):
+            # Block j = J*P + p: the pattern's block p, input window J.
+            p0 = j % cb.period * BLOCK_ROWS
             rows = min(BLOCK_ROWS, cb.r_out - j * BLOCK_ROWS)
-            src = j * cb.col_adv - cb.margin + ks
+            src = j // cb.period * cb.col_adv - cb.margin + ks
             ok = np.flatnonzero((src >= 0) & (src < cb.r_in))
             for di, dt in enumerate(cb.dts):
                 cols = max(frames - abs(dt), 0)
-                total += int(nz[di, :rows][:, ok].sum()) * cols
+                total += int(nz[di, p0:p0 + rows][:, ok].sum()) * cols
     return 2 * batch * total
 
 
@@ -505,20 +518,22 @@ def sass_counts(_build, name, function=None):
 
 
 def conv_kind(cb):
-    if cb.per_block:
+    if cb.col_adv == 0:
         return "dense"
     if cb.f_out != cb.f_in:
         return "sconv" if cb.f_out < cb.f_in else "tconv"
     return "1x1" if len(cb.dts) == 1 else f"3x3 d={max(cb.dts)}"
 
 
-def phase_band_parity(torch, fwd_spec, train_specs, stages=()):
+def phase_band_parity(torch, fwd_spec, train_specs, stages=(),
+                      ts=(3072, 1001), batch=2):
     """The tensor-core kernels on the first conv of each kind in the
     flagship specs (training levels with adjoints; the dense bridge from
-    the inference chain) and on the variants' ``stages`` ((name, conv)
-    pairs built with adjoints: the standalone convin and convout of the
-    skip route, the one-channel convin and convout of Mag and MagDB), at
-    T = 3072 and 1001, batch 2, against their twins on the same tensors,
+    the inference chain; ``fwd_spec`` may be None) and on the variants'
+    ``stages`` ((name, conv) pairs built with adjoints: the standalone
+    convin and convout of the skip route, the one-channel convin and
+    convout of Mag and MagDB; complexity 4's period-2 stages), at each T
+    of ``ts``, ``batch`` rows, against their twins on the same tensors,
     in float32 (split-TF32 products against the IEEE twin) within
     1e-4 * max|ref| and in bf16 within 1e-2 * max|ref|: the stage (ELU,
     residual; the variant stages also without either), dX (residual, raw,
@@ -532,11 +547,11 @@ def phase_band_parity(torch, fwd_spec, train_specs, stages=()):
         banded_conv_dx_reference, banded_conv_reference)
 
     picks = {}
-    for spec in train_specs + [fwd_spec]:
+    for spec in train_specs + [fwd_spec] * (fwd_spec is not None):
         for cb in spec.convs():
             picks.setdefault(conv_kind(cb), cb)
     bf16 = torch.bfloat16
-    dev = fwd_spec.items[0][1].blocks.device
+    dev = (list(picks.values()) + [cb for _, cb in stages])[0].blocks.device
     gen = torch.Generator(device=dev).manual_seed(5)
 
     def rand(*shape, dtype=torch.float32):
@@ -551,11 +566,11 @@ def phase_band_parity(torch, fwd_spec, train_specs, stages=()):
 
     worst = {torch.float32: 0.0, bf16: 0.0}
     k3_stages = {name: {} for name, _ in stages}
-    for t in (3072, 1001):
+    for t in ts:
         for kind, cb in list(picks.items()) + list(stages):
             dense = kind == "dense"
-            x32 = rand(2, cb.r_in, t)
-            res32 = None if dense else rand(2, cb.r_out, t)
+            x32 = rand(batch, cb.r_in, t)
+            res32 = None if dense else rand(batch, cb.r_out, t)
             line = []
             for dtype, tol in ((torch.float32, 1e-4), (bf16, 1e-2)):
                 what = f"{kind} T={t} {str(dtype)[6:]}"
@@ -573,15 +588,15 @@ def phase_band_parity(torch, fwd_spec, train_specs, stages=()):
                           f"band kernels: {what} stage differs in two runs")
                 if not dense:
                     adj = cb.adjoint
-                    c = rand(2, adj.r_in, t)
-                    kw = dict(residual=rand(2, adj.r_out, t), keep_raw=True,
-                              elu=(rand(2, adj.r_out, t, dtype=dtype),
-                                   rand(2, adj.r_out, t, dtype=dtype)))
+                    c = rand(batch, adj.r_in, t)
+                    kw = dict(residual=rand(batch, adj.r_out, t), keep_raw=True,
+                              elu=(rand(batch, adj.r_out, t, dtype=dtype),
+                                   rand(batch, adj.r_out, t, dtype=dtype)))
                     got = banded_conv_dx(c, adj, dtype, **kw)
                     want = banded_conv_dx_reference(c, adj, dtype, **kw)
                     errs += [rel(g, w, f"{what} dX", tol)
                              for g, w in zip(got, want)]
-                    dz = rand(2, cb.r_out, t)
+                    dz = rand(batch, cb.r_out, t)
                     runs = [banded_conv_dw(dz, x, cb) for _ in range(2)]
                     want = banded_conv_dw_reference(dz, x, cb)
                     check(all(torch.equal(a, b) for a, b in zip(*runs)),
@@ -601,6 +616,122 @@ def phase_band_parity(torch, fwd_spec, train_specs, stages=()):
                   + "; " + "; ".join(line))
     print("  band stage, bf16 and float32: two runs bit-equal on every kind")
     return worst[bf16], worst[torch.float32], k3_stages
+
+
+# The model complexity of phase 2c, whose widths (16 -> 256) take two
+# stages past 128 channels: their band pattern spans P = 2 blocks.
+WIDE_COMPLEXITY = 4
+
+
+def phase_c4(torch, audio, card):
+    """Model complexity 4 on the card (phase 2c). Its two period-2 stages,
+    encoder level 4's strided conv (65 -> 31 frequencies, 128 -> 256
+    channels) and decoder level 1's transposed conv (31 -> 65, 256 ->
+    128), built with their adjoints from the seeded flagship c4 net: K1
+    in both dtypes, K3's dX and dW at (4, R, 1024) and at a ragged T
+    against their twins, with phase 2's tolerances and two-run checks
+    (``phase_band_parity``); each stage's device time in both dtypes
+    beside its byte floor and the whole chain's. Then the flagship c4
+    model transcribes ``audio``, counted: 60 bf16 K1 launches a forward,
+    all on the TMA epilogue, and no float32 K1 and no cuDNN kernel;
+    activations finite, in [0, 1], within 5e-2 of the float32 transcribe,
+    whose K1 launches all run the split-TF32 kernel. Returns the numbers
+    for the kernels' JSON line and the bf16 transcribe's launches."""
+    from timbre_trap_tpu_torch.interop import hwio_params
+    from timbre_trap_tpu_torch.models import TimbreTrap
+    from timbre_trap_tpu_torch.models.fused import level_specs
+    from timbre_trap_tpu_torch.ops.fused_level import (banded_conv,
+                                                       fused_level_apply)
+    from timbre_trap_tpu_torch.utils.profiling import (kernel_counts,
+                                                       kernel_instance,
+                                                       kernel_name)
+
+    model = TimbreTrap(SR, N_OCT, BPO, SECS, latent_size=LATENT,
+                       model_complexity=WIDE_COMPLEXITY, seed=0)
+    with torch.no_grad():
+        train_specs = sum(level_specs(hwio_params(model.net), model.net,
+                                      True), [])
+    stages = [(f"c4 {conv_kind(cb)}", cb) for spec in train_specs
+              for cb in spec.convs() if cb.col_adv and cb.period > 1]
+    check([(name, cb.period, cb.adjoint.period) for name, cb in stages]
+          == [("c4 sconv", 2, 2), ("c4 tconv", 2, 2)],
+          f"c4 period-2 stages {[(n, cb.period) for n, cb in stages]}")
+    worst16, worst32, k3_err = phase_band_parity(torch, None, [], stages,
+                                                 ts=(1024, 1001), batch=4)
+
+    spec = model._spec(True)
+    convs = list(spec.convs())
+    periods = sorted(cb.period for cb in convs if cb.col_adv)
+    check(periods == [1] * 56 + [2] * 2, f"c4 forward periods {periods}")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    chain_in = torch.randn(4, spec.r_in, 1024, generator=gen, device="cuda")
+    stage_ms = {}
+    with torch.no_grad():
+        chain_ms = {str(dt)[6:]: device_ms(torch, lambda x=chain_in.to(dt),
+                                           dt=dt: fused_level_apply(x, spec,
+                                                                    dt), 5)
+                    for dt in (torch.bfloat16, torch.float32)}
+        for cb in convs:
+            if cb.col_adv == 0 or cb.period == 1:
+                continue
+            x = torch.randn(4, cb.r_in, 1024, generator=gen, device="cuda")
+            for dt in (torch.bfloat16, torch.float32):
+                xd = x.to(dt)
+                size = xd.element_size()
+                nbytes = ((cb.r_in + cb.r_out) * 4 * 1024
+                          + int((cb.blocks != 0).sum())) * size
+                key = f"{conv_kind(cb)} {str(dt)[6:]}"
+                stage_ms[key] = {
+                    "ms": device_ms(torch, lambda: banded_conv(xd, cb, True),
+                                    20),
+                    "bytes_ms": nbytes / PEAK_BYTES * 1e3}
+                stage_ms[key]["chain_share"] = (stage_ms[key]["ms"]
+                                                / chain_ms[str(dt)[6:]])
+    for key, row in stage_ms.items():
+        print(f"  c4 {key:14s} (4, R, 1024): {row['ms']:.4f} ms device, "
+              f"byte floor {row['bytes_ms']:.4f} ms, "
+              f"{100 * row['chain_share']:.2f} % of the chain")
+    print(f"  c4 chain (4, {spec.r_in}, 1024) device ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in chain_ms.items()) + f"; {card}")
+
+    n_frames = -(-audio.shape[-1] // model.sliCQ.block_length) * \
+        model.sliCQ.max_window_length
+    forwards = count_forwards(model)
+    with kernel_counts(kernel_instance) as counts:
+        acts = model.transcribe(audio)
+    n = forwards.n
+    names = collections.Counter()
+    for k, v in counts.items():
+        names[kernel_name(k)] += v
+    model.fused = "f32"
+    with counting() as launches32:
+        acts32 = model.transcribe(audio)
+    forwards.restore()
+    library = sorted(k for k in names if any(
+        w in k.lower() for w in ("cudnn", "xmma", "implicit", "convolve")))
+    check(names[K1] == 60 * n > 0 and names[K1_F32] == 0 and not library,
+          f"the c4 transcribe ran {names[K1]} bf16 K1 launches in {n} "
+          f"forwards, {names[K1_F32]} float32, library kernels {library}")
+    check(counts[K1_TMA] == names[K1],
+          f"a c4 bf16 K1 stage took the staged epilogue: {dict(counts)}")
+    check(launches32[K1_F32] > 0 and launches32[K1] == 0,
+          f"the c4 float32 transcribe's K1 stages: {launches32}")
+    check(tuple(acts.shape) == (1, N_OCT * BPO, n_frames)
+          and bool(torch.isfinite(acts).all())
+          and 0.0 <= acts.min().item() and acts.max().item() <= 1.0,
+          f"c4 activations {tuple(acts.shape)} leave [0, 1] or are not "
+          f"finite")
+    diff = (acts - acts32).abs().max().item()
+    check(diff <= 5e-2, f"c4 bf16 activations differ from f32 by {diff}")
+    launches = {k: names[k] for k in KERNELS}
+    print(f"c4: transcribe {audio.shape[-1] / SR:.0f} s, {n} forwards, "
+          f"{names[K1] / n:.0f} bf16 K1 launches a forward ({counts[K1_TMA]} "
+          f"on the TMA epilogue), library kernels none; bf16 vs f32 "
+          f"activations max abs diff {diff:.3e}")
+    return {"launches_per_forward": names[K1] / n, "forwards": n,
+            "band_max_rel_err": worst16, "band_max_rel_err_f32": worst32,
+            "k3_max_rel_err": k3_err, "stage_ms": stage_ms,
+            "chain_device_ms": chain_ms, "bf16_vs_f32": diff}, launches
 
 
 class ByteCount:
@@ -666,7 +797,7 @@ def phase_parity(torch, model, x, acts_for_mask, n_frames):
         cb = it[1]
         if it[0] == "rb":
             kind = f"residual 3x3 d={max(cb.dts)} + 1x1"
-        elif cb.per_block:
+        elif cb.col_adv == 0:
             kind = f"dense {cb.r_in}->{cb.r_out}"
         elif cb.f_out < cb.f_in:
             kind = "sconv"
@@ -1919,7 +2050,7 @@ def stage_kind_numbers(torch, spec, batch, frames, dtype=None):
     size = 2 if dtype == torch.bfloat16 else 4
     picks = {}
     for cb in spec.convs():
-        tag = conv_kind(cb) + ("" if cb.c_in == cb.c_out or cb.per_block
+        tag = conv_kind(cb) + ("" if cb.c_in == cb.c_out or cb.col_adv == 0
                                else f" {cb.c_in}->{cb.c_out}")
         picks.setdefault(f"{tag} c{cb.c_out}", cb)
     out = {}
@@ -3639,6 +3770,10 @@ def main():
     # 2b. the float32 route against float64, next to the IEEE plain version
     f32_acc = phase_f32_accuracy()
 
+    lap('c4')
+    # 2c. model complexity 4: its period-2 stages and a counted transcribe
+    c4, launches_c4 = phase_c4(torch, audio, card)
+
     lap('transcribe')
     # 3. the main path: transcribe + peak_mask, counted; a second call timed
     spec = model._spec(True)
@@ -3894,6 +4029,7 @@ def main():
          "stage_bytes_ms_f32": count32.n / PEAK_BYTES * 1e3,
          "host_us_per_launch": host_us, "f32_accuracy": f32_acc,
          "launches_per_forward": per_forward,
+         "c4": c4,
          "variant_stages": stage_ms,
          "skip_route_ms": variants["route_ms"],
          "skip_route_ms_f32": variants["route_ms_f32"],
@@ -3938,7 +4074,8 @@ def main():
     ]
     # Every counted call's kernels by name (a family's and a probe's a
     # step; phase 3h's per rank and path).
-    counted = {"transcribe": launches, "transcribe_f32": launches32,
+    counted = {"c4_transcribe": launches_c4,
+               "transcribe": launches, "transcribe_f32": launches32,
                "reconstruct": launches_rec, "variants": launches_var,
                "train_step": train_launches,
                "train_f32_step": train["f32_step_launches"],

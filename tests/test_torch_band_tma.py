@@ -85,8 +85,7 @@ def emulate_wgmma(x, cb, act=False, residual=None):
             b, pc.SUB_ROWS, -1)
     y = y[:, :cb.r_out, :t]
     rows = torch.arange(cb.r_out)
-    y = y + bias[rows if cb.per_block else rows % pc.BLOCK_ROWS][None, :,
-                                                               None]
+    y = y + bias[rows % bias.numel()][None, :, None]
     if act:
         y = torch.where(y > 0, y, torch.exp(torch.clamp(y, max=0.0)) - 1.0)
     if residual is not None:
@@ -139,7 +138,7 @@ def test_emulation_matches_twin_on_small_geometry(small_net, t):
     assert len(convs) > 20
     for i, cb in enumerate(convs):
         x = _rand(rng, 2, cb.r_in, t)
-        res = None if cb.per_block else _rand(rng, 2, cb.r_out, t)
+        res = None if cb.col_adv == 0 else _rand(rng, 2, cb.r_out, t)
         for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
             r = None if res is None else res.to(dtype)
             _close(emulate_wgmma(x.to(dtype), cb, True, r),
@@ -154,7 +153,7 @@ def test_emulation_matches_twin_on_flagship_stages(kind, t):
     cb = _flagship_stages()[kind]
     rng = np.random.default_rng(len(kind) + t)
     x = _rand(rng, 1, cb.r_in, t)
-    res = None if cb.per_block else _rand(rng, 1, cb.r_out, t)
+    res = None if cb.col_adv == 0 else _rand(rng, 1, cb.r_out, t)
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
         r = None if res is None else res.to(dtype)
         _close(emulate_wgmma(x.to(dtype), cb, True, r),
@@ -249,7 +248,7 @@ def test_plan_picks_the_epilogue_by_t(small_net, t, tma):
         for cb in forward_spec(net, True).convs():
             assert fl.band_tma_plan(cb, t).tma_epilogue == tma
             t_pad, ints = fl._wgmma_plan(cb, t, cb.band_width)
-            assert len(ints) == 21 and ints[20] == tma
+            assert len(ints) == 20 and ints[19] == tma
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

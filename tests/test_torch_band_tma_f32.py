@@ -91,8 +91,7 @@ def emulate_wgmma_f32(x, cb, act=False, residual=None):
             b, pc.SUB_ROWS, n_f)
     y = y[:, :cb.r_out, :t]
     rows = torch.arange(cb.r_out)
-    y = y + bias[rows if cb.per_block else rows % pc.BLOCK_ROWS][None, :,
-                                                               None]
+    y = y + bias[rows % bias.numel()][None, :, None]
     if act:
         y = torch.where(y > 0, y, torch.exp(torch.clamp(y, max=0.0)) - 1.0)
     if residual is not None:
@@ -186,7 +185,7 @@ def test_emulation_matches_twin_on_every_kind(kind, t):
     cb = _KINDS[kind]
     rng = np.random.default_rng(t + len(kind))
     x = _rand(rng, 2, cb.r_in, t)
-    res = None if cb.per_block else _rand(rng, 2, cb.r_out, t)
+    res = None if cb.col_adv == 0 else _rand(rng, 2, cb.r_out, t)
     for act, r in ((False, None), (True, res)):
         _close(emulate_wgmma_f32(x, cb, act, r),
                fl.banded_conv_reference(x, cb, act, r), 1e-5, (kind, act))
@@ -202,7 +201,7 @@ def test_emulation_matches_twin_on_small_geometry(small_net, t):
     assert len(convs) > 20
     for i, cb in enumerate(convs):
         x = _rand(rng, 2, cb.r_in, t)
-        res = None if cb.per_block else _rand(rng, 2, cb.r_out, t)
+        res = None if cb.col_adv == 0 else _rand(rng, 2, cb.r_out, t)
         _close(emulate_wgmma_f32(x, cb, True, res),
                fl.banded_conv_reference(x, cb, True, res), 1e-5,
                (i, cb.dts, cb.bands))
@@ -308,7 +307,7 @@ def test_plan_covers_every_tap_and_band(small_net):
                 assert t_pad == plan.t_pad
                 assert list(ints) == [t, plan.t_pad, len(cb.dts), *taps,
                                       cb.col_adv, cb.margin, cb.band_width,
-                                      plan.n_w, int(cb.per_block),
+                                      plan.n_w,
                                       *[v for band in cb.bands for v in band],
                                       plan.tma_epilogue]
 
@@ -326,7 +325,7 @@ def test_plan_picks_the_epilogue_by_t(small_net, t, tma):
         for cb in forward_spec(net, True).convs():
             assert fl.band_tma_plan_f32(cb, t).tma_epilogue == tma
             t_pad, ints = fl._wgmma_plan_f32(cb, t, cb.band_width)
-            assert len(ints) == 16 and ints[15] == tma
+            assert len(ints) == 15 and ints[14] == tma
 
 
 @pytest.mark.parametrize("kind", ["3x3-d3", "bridge"])
@@ -338,7 +337,7 @@ def test_float32_banded_conv_takes_the_twin_on_cpu(monkeypatch, kind):
     cb = _flagship_stage(kind)
     rng = np.random.default_rng(1)
     x = _rand(rng, 1, cb.r_in, 9)
-    res = None if cb.per_block else _rand(rng, 1, cb.r_out, 9)
+    res = None if cb.col_adv == 0 else _rand(rng, 1, cb.r_out, 9)
     calls, sentinel = [], object()
 
     def spy(*a):

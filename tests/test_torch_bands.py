@@ -199,8 +199,7 @@ def _split_tf32_conv(x, cb):
 def _like(cb, blocks, bias):
     """A ConvBlocks of ``cb``'s geometry with other blocks and bias."""
     return pc.ConvBlocks(blocks, cb.dts, bias, cb.col_adv, cb.margin,
-                         cb.f_in, cb.f_out, cb.c_in, cb.c_out, cb.per_block,
-                         cb.bands)
+                         cb.f_in, cb.f_out, cb.c_in, cb.c_out, cb.bands)
 
 
 def test_tf32_rna_rounds_to_nearest_away():

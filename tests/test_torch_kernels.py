@@ -56,7 +56,12 @@ def _rand(rng, *shape, scale=1.0):
 
 
 def _conv_cases(device="cpu"):
-    """One ConvBlocks of every kind the flagship chain holds."""
+    """One ConvBlocks of every kind the flagship chain holds, and the two
+    period-2 stages of complexity 4 (a 256-channel output frequency spans
+    two 128-row blocks, so the band pattern repeats every two): encoder
+    level 4's strided conv (65 -> 31 frequencies, 128 -> 256 channels) and
+    decoder level 1's transposed conv (31 -> 65, 256 -> 128), each the
+    other's adjoint geometry."""
     rng = np.random.default_rng(11)
     out = {}
     for d in (1, 2, 3):
@@ -74,6 +79,12 @@ def _conv_cases(device="cpu"):
                                              _rand(rng, 128))
     out["dense-exp"] = pc.build_dense_blocks(_rand(rng, 1984, 128, scale=0.1),
                                              _rand(rng, 1984))
+    out["sconv-P2"] = pc.build_sconv_blocks(
+        _rand(rng, 4, 1, 128, 256, scale=(4 * 128) ** -0.5),
+        _rand(rng, 256, scale=0.1), 65)
+    out["tconv-P2"] = pc.build_tconv_blocks(
+        _rand(rng, 4, 1, 256, 128, scale=(4 * 256) ** -0.5),
+        _rand(rng, 128, scale=0.1), 31, output_padding=1)
     for cb in out.values():
         cb.blocks, cb.bias = cb.blocks.to(device), cb.bias.to(device)
     return out
@@ -529,7 +540,8 @@ def test_level_backward_dw_is_bitwise_stable(cuda_device):
                                      ("float32", 70), ("float32", 1)])
 def test_band_kernels_match_plain_at_long_and_ragged_t(cuda_device, dtype, t):
     """The tensor-core kernels (csrc/band_mma.cu) on every conv kind (the
-    residual items' 3x3 and 1x1, the per-block dense bridge maps), at the
+    residual items' 3x3 and 1x1, the per-block dense bridge maps, the
+    period-2 strided and transposed convs of complexity 4), at the
     recipe's T and at ragged T, against their twins on the same tensors:
     in bf16 within 1e-2 * max|ref| (sum order and output rounding), in
     float32 (split-TF32 products) within 1e-4 * max|ref| of the IEEE twin.
@@ -554,7 +566,7 @@ def test_band_kernels_match_plain_at_long_and_ragged_t(cuda_device, dtype, t):
             got = banded_conv(x, cb, True, res)
         assert _on_route(counts, K1, dtype, 1), (name, counts)
         close(got, banded_conv_reference(x, cb, True, res), name)
-        if cb.per_block:
+        if cb.col_adv == 0:
             continue
         dz = _rand(rng, 2, cb.r_out, t).to(cuda_device)
         with kernel_counts() as counts:
@@ -602,7 +614,7 @@ def _flagship_stages(device):
     64)."""
     picks = {}
     for cb in forward_spec(_flagship_net(device=device), True).convs():
-        if not cb.per_block and cb.f_out == cb.f_in:
+        if cb.col_adv and cb.f_out == cb.f_in:
             kind = "1x1" if len(cb.dts) == 1 else f"3x3-d{max(cb.dts)}"
             picks.setdefault(f"{kind}-c{cb.c_out}", cb)
     return {k: picks[k] for k in ("3x3-d3-c32", "1x1-c4")}
@@ -613,7 +625,9 @@ def _flagship_stages(device):
 def test_wgmma_stage_matches_twin(cuda_device, monkeypatch, t):
     """The bf16 stage's TMA-fed wgmma kernel (``tt_band_conv_wgmma``, the
     route of every CUDA bfloat16 ``banded_conv``) on every conv kind (the
-    1984 -> 128 bridge, r_out not a multiple of 64), the variants' stages
+    1984 -> 128 bridge, r_out not a multiple of 64; the period-2 convs of
+    complexity 4, whose sub-tile g takes weight sub-tile g % 4 and input
+    rows from (g // 4) * col_adv), the variants' stages
     and two flagship stages (3x3 at dilation 3 with 32 channels, 1x1 with
     4), with ELU and residual and without either, at the recipe's T and
     the chunks' T (the TMA epilogue, ``band_wgmma_kernel<true>``) and at
@@ -632,7 +646,7 @@ def test_wgmma_stage_matches_twin(cuda_device, monkeypatch, t):
     for name, cb in convs.items():
         assert band_tma_plan(cb, t).tma_epilogue == tma
         x = _rand(rng, 2, cb.r_in, t).to(cuda_device, bf16)
-        res = None if cb.per_block else _rand(rng, 2, cb.r_out, t).to(
+        res = None if cb.col_adv == 0 else _rand(rng, 2, cb.r_out, t).to(
             cuda_device, bf16)
         for act, r in ((True, res), (False, None)):
             with kernel_counts(kernel_instance) as counts:
@@ -695,7 +709,8 @@ def test_wgmma_f32_stage_matches_twin(cuda_device, t):
     (``tt_band_conv_wgmma_f32``, the route of every CUDA float32
     ``banded_conv``) on every conv kind and the variants' stages (3x3 at
     each dilation, 1x1, the per-block bridge maps, r_out not a multiple of
-    64), with and without ELU and residual, at the recipe's T and the
+    64, the period-2 convs of complexity 4), with and without ELU and
+    residual, at the recipe's T and the
     chunks' T (the TMA epilogue) and at ragged T (x padded to a multiple
     of 4 frames, the epilogue from the registers): within 1e-4 * max|ref|
     of the IEEE twin on the same tensors, the same bits in two runs; each
@@ -705,7 +720,7 @@ def test_wgmma_f32_stage_matches_twin(cuda_device, t):
     convs.update(_variant_stages(cuda_device))
     for name, cb in convs.items():
         x = _rand(rng, 2, cb.r_in, t).to(cuda_device)
-        res = None if cb.per_block else _rand(rng, 2, cb.r_out, t).to(
+        res = None if cb.col_adv == 0 else _rand(rng, 2, cb.r_out, t).to(
             cuda_device)
         for act, r in ((False, None), (True, res)):
             with kernel_counts() as counts:
@@ -778,13 +793,15 @@ def test_wgmma_f32_tma_epilogue_takes_unaligned_residual_views(cuda_device):
 def test_band_dw_matches_masked_twin_and_is_bitwise_stable(cuda_device,
                                                            dtype):
     """dW on the bands (zeros elsewhere) and dBias against the twin masked
-    with the same bands, within 1e-4 * max|ref| in float32 (split-TF32
-    products) and 1e-2 * max|ref| in bf16; two runs give the same bits."""
+    with the same bands, on every kind but the dense maps (the period-2
+    convs of complexity 4 among them: a (n_dt, 256, K) pattern), within
+    1e-4 * max|ref| in float32 (split-TF32 products) and 1e-2 * max|ref|
+    in bf16; two runs give the same bits."""
     dtype = getattr(torch, dtype)
     tol = 1e-4 if dtype == torch.float32 else 1e-2
     rng = np.random.default_rng(13)
     for name, cb in _conv_cases(cuda_device).items():
-        if cb.per_block:
+        if cb.col_adv == 0:
             continue
         x = _rand(rng, 2, cb.r_in, 1001).to(cuda_device, dtype)
         dz = _rand(rng, 2, cb.r_out, 1001).to(cuda_device)

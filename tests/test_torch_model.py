@@ -1,7 +1,8 @@
 """The port's TimbreTrap (timbre_trap_tpu_torch.models) against the JAX
 package at the small geometry (8 kHz, 5 octaves x 12 bins, 0.5-s blocks,
 latent 16, complexity 1): transcribe, and reconstruct on the native and the
-``cqt_pytorch`` compat frame; plus its device and import contracts."""
+``cqt_pytorch`` compat frame; transcribe and reconstruct at complexity 3
+and 4; plus its device and import contracts."""
 
 import os
 import subprocess
@@ -147,6 +148,45 @@ def test_reconstruct_matches_jax(models, compat_models, frame):
     assert tuple(got.shape) == want.shape == (
         1, 1, 15 * port.sliCQ.block_length)
     assert float(got.abs().max()) == pytest.approx(1.0, abs=1e-6)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+
+
+@pytest.fixture(scope="module", params=[3, 4])
+def wide_models(request):
+    """``models`` at model complexity 3 and 4 (widths up to 128 and 256):
+    the JAX package runs them through its flax route, the port through
+    ``forward_spec`` and K1's twin, with two period-2 stages at
+    complexity 4 (a 256-channel output frequency spans two 128-row
+    blocks)."""
+    hp = dict(HP, model_complexity=request.param)
+    ref = JaxTimbreTrap(**hp)
+    port = TimbreTrap(**hp, fused="f32", device="cpu")
+    port.load_jax_params(jax.tree.map(np.asarray, ref.params))
+    periods = sorted({cb.period for cb in port._spec(True).convs()
+                      if cb.col_adv})
+    assert periods == ([1, 2] if request.param == 4 else [1])
+    return ref, port
+
+
+def test_wide_transcribe_matches_jax(wide_models):
+    """A 2.3-s clip (5 blocks), within the complexity-1 test's 1e-4 (both
+    float32; the port measures about 3e-5 away)."""
+    ref, port = wide_models
+    audio = _clip(7, 2.3)
+    want = np.asarray(ref._transcribe_jit(ref.params, jnp.asarray(audio)))
+    got = port.transcribe(audio)
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+
+
+def test_wide_reconstruct_matches_jax(wide_models):
+    """The normalised resynthesis of the same clip, within 1e-4 (the port
+    measures about 3e-6 away)."""
+    ref, port = wide_models
+    audio = _clip(7, 2.3)
+    want = np.asarray(ref.reconstruct(audio))
+    got = port.reconstruct(audio)
+    assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
 
 

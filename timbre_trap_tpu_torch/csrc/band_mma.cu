@@ -25,12 +25,14 @@
 //                      staged; epilogue: + residual cotangent, keep that
 //                      value (raw), * ELU' from stored outputs (1 where
 //                      y > 0, else y + 1, y = s1 - s2).
-//   tt_band_conv_dw  dW: dW_dt[r, k] = sum_{b,j,t} dZ[b, 128j + r, t] *
+//   tt_band_conv_dw  dW: dW_dt[r, k] = sum_{b,j,t} dZ[b, R j + r, t] *
 //                      x[b, j*col_adv - margin + k, t + dt] on band entries
-//                      only (zeros elsewhere), dBias[r] from the float32
-//                      dZ. Fixed slices of the (b, j, 64 frames) chunks,
-//                      per-slice partials, a second pass that sums them
-//                      as a fixed pairwise tree: the same bits every run.
+//                      only (zeros elsewhere), R = 128 P the rows of the
+//                      conv's band pattern (P blocks, its period), dBias[r]
+//                      from the float32 dZ. Fixed slices of the (b, j, 64
+//                      frames) chunks, per-slice partials, a second pass
+//                      that sums them as a fixed pairwise tree: the same
+//                      bits every run.
 //   tt_band_conv_dx_f32, tt_band_conv_dw_f32  dX and dW in float32
 //                      storage: the same grids, bands and epilogues, the
 //                      products as 3xTF32 (m16n8k8; each operand split
@@ -231,14 +233,16 @@ __device__ __forceinline__ int tap_shift(int di, int dt0, int dt1, int dt2) {
 // K3 dX: one sub-tile x 128 frames per CTA                                 //
 // ------------------------------------------------------------------ //
 
-// bias, per_block and act are the forward stage's fields, which dX leaves
-// at null, 0 and 0 (and wsub below at s): the struct keeps the layout the
-// two shared because, without them, ptxas allocates the dX mainloop
-// otherwise and dX measured 5 % slower on the card (bf16 3.49 -> 3.66 ms,
-// float32 4.65 -> 4.88 ms a recipe encoder level 1 backward).
+// bias and act are the forward stage's fields, which dX leaves at null and
+// 0: the struct keeps the layout the two shared because, without them,
+// ptxas allocates the dX mainloop otherwise and dX measured 5 % slower on
+// the card (bf16 3.49 -> 3.66 ms, float32 4.65 -> 4.88 ms a recipe encoder
+// level 1 backward). n_w is the adjoint's band pattern in sub-tiles (2 a
+// 128-row block of its period): sub-tile g takes weight sub-tile g % n_w
+// and reads from input row (g / n_w) * col_adv - margin + its band start.
 struct BandArgs {
   const void* src;     // (B, r_in, T) float32 cotangent
-  const void* w;       // (2, n_dt, 64, width) adjoint band weights, bf16 or float32
+  const void* w;       // (n_w, n_dt, 64, width) adjoint band weights, bf16 or float32
   const float* bias;
   const void* res;     // (B, r_out, T) float32 residual cotangent, or null
   const void* s1;      // stored output for ELU', at the storage type
@@ -246,7 +250,7 @@ struct BandArgs {
   float* raw;          // the value before ELU'
   void* out;           // (B, r_out, T)
   int r_in, r_out, t_len, n_dt, dt0, dt1, dt2;
-  int col_adv, margin, width, per_block, act, aligned;
+  int col_adv, margin, width, n_w, act, aligned;
   int kb0, kl0, kb1, kl1;
 };
 
@@ -347,7 +351,7 @@ __global__ void __launch_bounds__(kThreads, 2) band_product_kernel(const BandArg
   const int s = g & 1;
   const int kb = s ? a.kb1 : a.kb0;
   const int kl = s ? a.kl1 : a.kl0;
-  const int row0 = (g >> 1) * a.col_adv - a.margin + kb;
+  const int row0 = (g / a.n_w) * a.col_adv - a.margin + kb;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -356,7 +360,7 @@ __global__ void __launch_bounds__(kThreads, 2) band_product_kernel(const BandArg
   const bool aligned = a.aligned != 0;
 
   const float* src = static_cast<const float*>(a.src) + (size_t)b * a.r_in * a.t_len;
-  const int wsub = a.per_block ? g : s;
+  const int wsub = g % a.n_w;
   const bf16* wsrc = static_cast<const bf16*>(a.w) + (size_t)wsub * a.n_dt * kSub * a.width;
   const int n_chunks = (kl + kKc - 1) / kKc;
 
@@ -571,7 +575,7 @@ __global__ void __launch_bounds__(kThreads, 2) band_tf32_kernel(const BandArgs a
   const int s = g & 1;
   const int kb = s ? a.kb1 : a.kb0;
   const int kl = s ? a.kl1 : a.kl0;
-  const int row0 = (g >> 1) * a.col_adv - a.margin + kb;
+  const int row0 = (g / a.n_w) * a.col_adv - a.margin + kb;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -581,7 +585,7 @@ __global__ void __launch_bounds__(kThreads, 2) band_tf32_kernel(const BandArgs a
   const int tq = lane & 3;
 
   const float* src = static_cast<const float*>(a.src) + (size_t)b * a.r_in * a.t_len;
-  const int wsub = a.per_block ? g : s;
+  const int wsub = g % a.n_w;
   const float* wsrc = static_cast<const float*>(a.w) + (size_t)wsub * a.n_dt * kSub * a.width;
   const int n_chunks = kl / kKcF;  // bands are multiples of 16 columns
 
@@ -710,16 +714,18 @@ int launch_band_tf32(const BandArgs& a, int batch, cudaStream_t st) {
 struct DwArgs {
   const float* dz;     // (B, r_out, T) float32 cotangent of the conv's output
   const void* x;       // (B, r_in, T) the conv's input, bf16 or float32
-  float* part;         // (n_slices, n_dt, 128, k) partial dW (band entries)
-  float* part_bias;    // (n_slices, 128) partial dBias
+  float* part;         // (n_slices, n_dt, rows, k) partial dW (band entries)
+  float* part_bias;    // (n_slices, rows) partial dBias
   int batch, r_in, r_out, t_len, n_dt, dt0, dt1, dt2;
   int k, col_adv, margin, n_blocks, n_slices, aligned;
   int kb0, kl0, kb1, kl1;
+  int rows;            // rows of the band pattern: 128 a block of the period
 };
 
-// Grid (n column tiles, 2 sub-tiles, n_slices). Slice sl sums the chunks
-// [Q*sl/S, Q*(sl+1)/S) of the Q = B * n_blocks * ceil(T / 64) chunks of
-// (batch, block, 64 frames), in order.
+// Grid (n column tiles, rows / 64 sub-tiles of the pattern, n_slices).
+// Slice sl sums the chunks [Q*sl/S, Q*(sl+1)/S) of the Q = B * n_blocks *
+// ceil(T / 64) chunks of (batch, pattern, 64 frames), in order
+// (n_blocks counts patterns of `rows` output rows).
 __global__ void __launch_bounds__(kThreads, 2) band_dw_partial_kernel(const DwArgs a) {
   // bf16 tiles, declared as their 16-bit words.
   __shared__ __align__(16) uint16_t zs[2][kZRows][kZPitch];
@@ -728,8 +734,8 @@ __global__ void __launch_bounds__(kThreads, 2) band_dw_partial_kernel(const DwAr
 
   const int s = blockIdx.y;
   const int sl = blockIdx.z;
-  const int kb = s ? a.kb1 : a.kb0;
-  const int kl = s ? a.kl1 : a.kl0;
+  const int kb = (s & 1) ? a.kb1 : a.kb0;
+  const int kl = (s & 1) ? a.kl1 : a.kl0;
   const int n0 = blockIdx.x * kDwN;
   if (n0 >= kl) return;
   const int tid = threadIdx.x;
@@ -763,7 +769,7 @@ __global__ void __launch_bounds__(kThreads, 2) band_dw_partial_kernel(const DwAr
       if (item < kZItems) {
         const int rp = item % (kSub / 2);
         const int tz = item / (kSub / 2);
-        const int r = j * 128 + s * kSub + 2 * rp;
+        const int r = j * a.rows + s * kSub + 2 * rp;
         const float* ra = r < a.r_out ? dz + (size_t)r * a.t_len : nullptr;
         const float* rb = r + 1 < a.r_out ? dz + (size_t)(r + 1) * a.t_len : nullptr;
         zst[i].load(ra, rb, tc0 - kHalo + 8 * tz, a.t_len, aligned);
@@ -848,7 +854,7 @@ __global__ void __launch_bounds__(kThreads, 2) band_dw_partial_kernel(const DwAr
     __syncthreads();
   }
 
-  float* part = a.part + (size_t)sl * a.n_dt * 128 * a.k;
+  float* part = a.part + (size_t)sl * a.n_dt * a.rows * a.k;
 #pragma unroll
   for (int tap = 0; tap < 3; ++tap) {
     if (tap >= a.n_dt) continue;
@@ -862,7 +868,7 @@ __global__ void __launch_bounds__(kThreads, 2) band_dw_partial_kernel(const DwAr
           const int cl = n0 + 32 * wn + 8 * ni + 2 * (lane & 3) + e;
           const int col = kb + cl;
           if (cl < kl && col < a.k)
-            part[((size_t)tap * 128 + r) * a.k + col] = acc[tap][ni][2 * h + e];
+            part[((size_t)tap * a.rows + r) * a.k + col] = acc[tap][ni][2 * h + e];
         }
       }
     }
@@ -882,7 +888,7 @@ __global__ void __launch_bounds__(kThreads, 2) band_dw_partial_kernel(const DwAr
     if (tid < kSub) {
       float v = 0.f;
       for (int tz = 1; tz <= kDwT / 8; ++tz) v += bred[tz][tid];
-      a.part_bias[(size_t)sl * 128 + s * kSub + tid] = v;
+      a.part_bias[(size_t)sl * a.rows + s * kSub + tid] = v;
     }
   }
 }
@@ -917,8 +923,8 @@ __global__ void __launch_bounds__(kThreads, 2) band_dw_tf32_kernel(const DwArgs 
 
   const int s = blockIdx.y;
   const int sl = blockIdx.z;
-  const int kb = s ? a.kb1 : a.kb0;
-  const int kl = s ? a.kl1 : a.kl0;
+  const int kb = (s & 1) ? a.kb1 : a.kb0;
+  const int kl = (s & 1) ? a.kl1 : a.kl0;
   const int n0 = blockIdx.x * kDwN;
   if (n0 >= kl) return;
   const int tid = threadIdx.x;
@@ -945,7 +951,7 @@ __global__ void __launch_bounds__(kThreads, 2) band_dw_tf32_kernel(const DwArgs 
     const int b = (int)(bj / a.n_blocks);
     const float* dz = a.dz + (size_t)b * a.r_out * a.t_len;
     const float* x = static_cast<const float*>(a.x) + (size_t)b * a.r_in * a.t_len;
-    const int zrow0 = j * 128 + s * kSub;
+    const int zrow0 = j * a.rows + s * kSub;
     const int xrow0 = j * a.col_adv - a.margin + kb + n0;
     float* zd = zs + st * kZStageF;
     float* xd = xs + st * kXdStageF;
@@ -1062,7 +1068,7 @@ __global__ void __launch_bounds__(kThreads, 2) band_dw_tf32_kernel(const DwArgs 
   }
   cp_async_wait<0>();
 
-  float* part = a.part + (size_t)sl * a.n_dt * 128 * a.k;
+  float* part = a.part + (size_t)sl * a.n_dt * a.rows * a.k;
 #pragma unroll
   for (int tap = 0; tap < 3; ++tap) {
     if (tap >= a.n_dt) continue;
@@ -1076,7 +1082,7 @@ __global__ void __launch_bounds__(kThreads, 2) band_dw_tf32_kernel(const DwArgs 
           const int cl = n0 + 32 * wn + 8 * ni + 2 * tq + e;
           const int col = kb + cl;
           if (cl < kl && col < a.k)
-            part[((size_t)tap * 128 + r) * a.k + col] = acc[tap][ni][2 * h + e];
+            part[((size_t)tap * a.rows + r) * a.k + col] = acc[tap][ni][2 * h + e];
         }
       }
     }
@@ -1088,7 +1094,7 @@ __global__ void __launch_bounds__(kThreads, 2) band_dw_tf32_kernel(const DwArgs 
                       __shfl_sync(0xffffffffu, bsum, base + 1)) +
                      __shfl_sync(0xffffffffu, bsum, base + 2)) +
                     __shfl_sync(0xffffffffu, bsum, base + 3);
-    if (tq == 0) a.part_bias[(size_t)sl * 128 + s * kSub + (tid >> 2)] = v;
+    if (tq == 0) a.part_bias[(size_t)sl * a.rows + s * kSub + (tid >> 2)] = v;
   }
 }
 
@@ -1126,27 +1132,27 @@ __device__ __forceinline__ float pairwise_sum(const float* p, size_t stride, int
 }
 
 // dw[i] = the pairwise sum over slices of part[s][i] on band entries, 0
-// elsewhere; then dBias the same way.
+// elsewhere; then dBias the same way (rows: the band pattern's).
 __global__ void band_dw_reduce_kernel(const float* part, const float* part_bias, float* dw,
-                                      float* db, int n_slices, int n_w, int k, int kb0, int kl0,
-                                      int kb1, int kl1) {
+                                      float* db, int n_slices, int n_w, int k, int rows,
+                                      int kb0, int kl0, int kb1, int kl1) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n_w) {
     const int col = i % k;
-    const int r = (i / k) % 128;
-    const int kb = r < kSub ? kb0 : kb1;
-    const int kl = r < kSub ? kl0 : kl1;
+    const bool odd = ((i / k) % rows / kSub) & 1;
+    const int kb = odd ? kb1 : kb0;
+    const int kl = odd ? kl1 : kl0;
     dw[i] = col >= kb && col < kb + kl ? pairwise_sum(part + i, n_w, n_slices) : 0.f;
-  } else if (i < n_w + 128) {
+  } else if (i < n_w + rows) {
     const int r = i - n_w;
-    db[r] = pairwise_sum(part_bias + r, 128, n_slices);
+    db[r] = pairwise_sum(part_bias + r, rows, n_slices);
   }
 }
 
 BandArgs dx_args(const void* c, const void* w, const void* res, const void* s1, const void* s2,
                  void* raw, void* out, int r_in, int r_out, int t_len, int n_dt, int dt0,
-                 int dt1, int dt2, int col_adv, int margin, int width, int kb0, int kl0,
-                 int kb1, int kl1, int aligned) {
+                 int dt1, int dt2, int col_adv, int margin, int width, int n_w, int kb0,
+                 int kl0, int kb1, int kl1, int aligned) {
   BandArgs a = {};
   a.src = c;
   a.w = w;
@@ -1165,6 +1171,7 @@ BandArgs dx_args(const void* c, const void* w, const void* res, const void* s1, 
   a.col_adv = col_adv;
   a.margin = margin;
   a.width = width;
+  a.n_w = n_w;
   a.aligned = aligned;
   a.kb0 = kb0;
   a.kl0 = kl0;
@@ -1175,7 +1182,8 @@ BandArgs dx_args(const void* c, const void* w, const void* res, const void* s1, 
 
 DwArgs dw_args(const void* dz, const void* x, void* part, void* part_bias, int batch, int r_in,
                int r_out, int t_len, int n_dt, int dt0, int dt1, int dt2, int k, int col_adv,
-               int margin, int kb0, int kl0, int kb1, int kl1, int n_slices, int aligned) {
+               int margin, int period, int kb0, int kl0, int kb1, int kl1, int n_slices,
+               int aligned) {
   DwArgs a = {};
   a.dz = static_cast<const float*>(dz);
   a.x = x;
@@ -1192,7 +1200,8 @@ DwArgs dw_args(const void* dz, const void* x, void* part, void* part_bias, int b
   a.k = k;
   a.col_adv = col_adv;
   a.margin = margin;
-  a.n_blocks = (r_out + 127) / 128;
+  a.rows = 128 * period;
+  a.n_blocks = (r_out + a.rows - 1) / a.rows;
   a.n_slices = n_slices;
   a.aligned = aligned;
   a.kb0 = kb0;
@@ -1204,18 +1213,18 @@ DwArgs dw_args(const void* dz, const void* x, void* part, void* part_bias, int b
 
 // The fixed-order second pass of both dW routes, after the partials.
 int launch_dw_reduce(const DwArgs& a, void* dw, void* db, cudaStream_t st) {
-  const int n_w = a.n_dt * 128 * a.k;
-  band_dw_reduce_kernel<<<(n_w + 128 + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+  const int n_w = a.n_dt * a.rows * a.k;
+  band_dw_reduce_kernel<<<(n_w + a.rows + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       a.part, a.part_bias, static_cast<float*>(dw), static_cast<float*>(db), a.n_slices, n_w,
-      a.k, a.kb0, a.kl0, a.kb1, a.kl1);
+      a.k, a.rows, a.kb0, a.kl0, a.kb1, a.kl1);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Grid of the dW partial kernels: (column tiles of the longer band, 2
-// sub-tiles, n_slices).
+// Grid of the dW partial kernels: (column tiles of the longer band, the
+// pattern's sub-tiles, n_slices).
 dim3 dw_grid(const DwArgs& a) {
   const int kl_max = a.kl0 > a.kl1 ? a.kl0 : a.kl1;
-  return dim3((kl_max + kDwN - 1) / kDwN, 2, a.n_slices);
+  return dim3((kl_max + kDwN - 1) / kDwN, a.rows / kSub, a.n_slices);
 }
 
 }  // namespace
@@ -1226,10 +1235,10 @@ dim3 dw_grid(const DwArgs& a) {
 extern "C" int tt_band_conv_dx(const void* c, const void* w, const void* res, const void* s1,
                                const void* s2, void* raw, void* out, int out_f32, int batch,
                                int r_in, int r_out, int t_len, int n_dt, int dt0, int dt1,
-                               int dt2, int col_adv, int margin, int width, int kb0, int kl0,
-                               int kb1, int kl1, int aligned, void* stream) {
+                               int dt2, int col_adv, int margin, int width, int n_w, int kb0,
+                               int kl0, int kb1, int kl1, int aligned, void* stream) {
   const BandArgs a = dx_args(c, w, res, s1, s2, raw, out, r_in, r_out, t_len, n_dt, dt0, dt1,
-                             dt2, col_adv, margin, width, kb0, kl0, kb1, kl1, aligned);
+                             dt2, col_adv, margin, width, n_w, kb0, kl0, kb1, kl1, aligned);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_f32) return launch_band_product<float>(a, batch, st);
   return launch_band_product<bf16>(a, batch, st);
@@ -1241,23 +1250,26 @@ extern "C" int tt_band_conv_dx(const void* c, const void* w, const void* res, co
 extern "C" int tt_band_conv_dx_f32(const void* c, const void* w, const void* res,
                                    const void* s1, const void* s2, void* raw, void* out,
                                    int batch, int r_in, int r_out, int t_len, int n_dt, int dt0,
-                                   int dt1, int dt2, int col_adv, int margin, int width, int kb0,
-                                   int kl0, int kb1, int kl1, int aligned, void* stream) {
+                                   int dt1, int dt2, int col_adv, int margin, int width,
+                                   int n_w, int kb0, int kl0, int kb1, int kl1, int aligned,
+                                   void* stream) {
   const BandArgs a = dx_args(c, w, res, s1, s2, raw, out, r_in, r_out, t_len, n_dt, dt0, dt1,
-                             dt2, col_adv, margin, width, kb0, kl0, kb1, kl1, aligned);
+                             dt2, col_adv, margin, width, n_w, kb0, kl0, kb1, kl1, aligned);
   return launch_band_tf32(a, batch, static_cast<cudaStream_t>(stream));
 }
 
 // K3 dW and dBias, bf16 storage: dz (B, r_out, T) float32, x (B, r_in, T)
-// bf16; part (n_slices, n_dt, 128, k) and part_bias (n_slices, 128)
-// float32 scratch; dw (n_dt, 128, k) and db (128,) float32.
+// bf16; the conv's band pattern spans `period` 128-row blocks, rows = 128 *
+// period; part (n_slices, n_dt, rows, k) and part_bias (n_slices, rows)
+// float32 scratch; dw (n_dt, rows, k) and db (rows,) float32.
 extern "C" int tt_band_conv_dw(const void* dz, const void* x, void* part, void* part_bias,
                                void* dw, void* db, int batch, int r_in, int r_out, int t_len,
                                int n_dt, int dt0, int dt1, int dt2, int k, int col_adv,
-                               int margin, int kb0, int kl0, int kb1, int kl1, int n_slices,
-                               int aligned, void* stream) {
+                               int margin, int period, int kb0, int kl0, int kb1, int kl1,
+                               int n_slices, int aligned, void* stream) {
   const DwArgs a = dw_args(dz, x, part, part_bias, batch, r_in, r_out, t_len, n_dt, dt0, dt1,
-                           dt2, k, col_adv, margin, kb0, kl0, kb1, kl1, n_slices, aligned);
+                           dt2, k, col_adv, margin, period, kb0, kl0, kb1, kl1, n_slices,
+                           aligned);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   band_dw_partial_kernel<<<dw_grid(a), kThreads, 0, st>>>(a);
   const int err = static_cast<int>(cudaGetLastError());
@@ -1270,13 +1282,14 @@ extern "C" int tt_band_conv_dw(const void* dz, const void* x, void* part, void* 
 extern "C" int tt_band_conv_dw_f32(const void* dz, const void* x, void* part, void* part_bias,
                                    void* dw, void* db, int batch, int r_in, int r_out,
                                    int t_len, int n_dt, int dt0, int dt1, int dt2, int k,
-                                   int col_adv, int margin, int kb0, int kl0, int kb1, int kl1,
-                                   int n_slices, int aligned, void* stream) {
+                                   int col_adv, int margin, int period, int kb0, int kl0,
+                                   int kb1, int kl1, int n_slices, int aligned, void* stream) {
   static bool configured[kMaxDevices] = {};
   const int rc = smem_opt_in(band_dw_tf32_kernel, kDwTf32Smem, configured);
   if (rc != 0) return rc;
   const DwArgs a = dw_args(dz, x, part, part_bias, batch, r_in, r_out, t_len, n_dt, dt0, dt1,
-                           dt2, k, col_adv, margin, kb0, kl0, kb1, kl1, n_slices, aligned);
+                           dt2, k, col_adv, margin, period, kb0, kl0, kb1, kl1, n_slices,
+                           aligned);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   band_dw_tf32_kernel<<<dw_grid(a), kThreads, kDwTf32Smem, st>>>(a);
   const int err = static_cast<int>(cudaGetLastError());

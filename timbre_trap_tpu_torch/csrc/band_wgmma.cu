@@ -19,6 +19,15 @@
 //                       lo); epilogue: float32 bias, ELU with IEEE expf,
 //                       residual add, float32 store.
 //
+// Both walk a conv's band pattern of P 128-row blocks (ops/packed_conv.py
+// `ConvBlocks.period`): sub-tile g takes weight sub-tile g % n_w (n_w = 2P)
+// and its bias, and reads x from row (g / n_w) * col_adv - margin + its
+// band's start. P is 1 for every stage whose output frequencies fit a
+// block and repeat block by block; 2 at model complexity 4, where a
+// frequency's 256 channels span two blocks or a stride-2 transposed conv
+// to 128 channels repeats every two; a dense map is one pattern of all
+// its blocks, col_adv 0.
+//
 // The float32 stage's design. TF32 wgmma reads a shared-memory operand
 // K-major only (the transpose bits are for 16-bit types), and x has its
 // frames contiguous, so the kernel computes the transposed tile, y^T (frames
@@ -324,17 +333,19 @@ __device__ __forceinline__ int tap_of(const int (&v)[3], int tap) {
 }
 
 struct WgmmaArgs {
-  const float* bias;   // (128,) pattern, or (n_blocks * 128,) per block
+  const float* bias;   // (n_w * 64,): the band pattern's
   const bf16* res;     // (B, r_out, T) or null
   bf16* out;           // (B, r_out, T)
   int r_out, t_len, n_dt, n_sub, n_tiles_t, n_tiles;
   int off[3], shift[3];   // per tap: box frame offset (a multiple of 8), shift
-  int col_adv, margin, per_block, act, vec;
+  int col_adv, margin, n_w, act, vec;
   int kb0, kl0, nc0, kb1, kl1, nc1;
 };
 
 // One output tile: sub-tile g (the fastest index) x kTileT frames t0.. of
-// item b, its band and the input row of its band column 0.
+// item b, its band, its weight sub-tile g % n_w (the band pattern spans n_w
+// sub-tiles, 2 a 128-row block of the period) and the input row of its
+// band column 0.
 struct Tile {
   int t0, g, b, kl, nc, wsub, row0;
   __device__ __forceinline__ Tile(const WgmmaArgs& a, int tile) {
@@ -345,8 +356,18 @@ struct Tile {
     const int s = g & 1;
     kl = s ? a.kl1 : a.kl0;
     nc = s ? a.nc1 : a.nc0;
-    wsub = a.per_block ? g : s;
-    row0 = (g >> 1) * a.col_adv - a.margin + (s ? a.kb1 : a.kb0);
+    // A pattern of one block (every stage but a period-P conv's and a
+    // dense map's of several blocks) takes a shift and a mask: a division
+    // here, in the consumers' path between tiles, cost the chain 2 %.
+    int q;
+    if (a.n_w == 2) {
+      wsub = s;
+      q = g >> 1;
+    } else {
+      wsub = g % a.n_w;
+      q = g / a.n_w;
+    }
+    row0 = q * a.col_adv - a.margin + (s ? a.kb1 : a.kb0);
   }
 };
 
@@ -546,7 +567,7 @@ __device__ __forceinline__ void store_tile(const WgmmaArgs& a, const Tile& tl, f
     const int orow = tl.g * kSub + row;
     const bool ok = orow < a.r_out && t < a.t_len;
     const size_t o = out_base + (size_t)orow * a.t_len + t;
-    bias[m] = ok ? __ldg(a.bias + (a.per_block ? orow : (tl.g & 1) * kSub + row)) : 0.f;
+    bias[m] = ok ? __ldg(a.bias + tl.wsub * kSub + row) : 0.f;
 #pragma unroll
     for (int w = 0; w < 4; ++w) rw[m][w] = 0u;
     if (ok && rs != nullptr) {
@@ -675,8 +696,7 @@ __device__ __forceinline__ void finish_tile_tma(const WgmmaArgs& a, const Tile& 
   for (int i = 0; i < 2; ++i) {
     const int row = 16 * warp + (lane >> 2) + 8 * i;
     const int orow = tl.g * kSub + row;
-    bias[i] = orow < a.r_out ? __ldg(a.bias + (a.per_block ? orow : (tl.g & 1) * kSub + row))
-                             : 0.f;
+    bias[i] = orow < a.r_out ? __ldg(a.bias + tl.wsub * kSub + row) : 0.f;
   }
   // Word (h, j, i) of this thread: row 16 warp + lane / 4 + 8 i of box h,
   // chunk j ^ (lane / 4), bytes 4 (lane % 4)..
@@ -865,12 +885,12 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4
 }
 
 struct WgmmaF32Args {
-  const float* bias;   // (128,) pattern, or (n_blocks * 128,) per block
+  const float* bias;   // (n_w * 64,): the band pattern's
   const float* res;    // (B, r_out, T) or null
   float* out;          // (B, r_out, T)
   int r_out, t_len, n_dt, n_sub, n_tiles_t, n_tiles;
   int dt[3];
-  int col_adv, margin, per_block, act;
+  int col_adv, margin, n_w, act;
   int kb0, kl0, kb1, kl1;
   int tma_epi;         // 1: the residual and y move by TMA (T % 4 == 0)
 };
@@ -887,7 +907,8 @@ struct EpiF {
 };
 
 // One output tile: sub-tile g (the fastest index) x kTileF frames t0.. of
-// item b, its band length and the input row of its band column 0.
+// item b, its band length, its weight sub-tile g % n_w (as Tile's) and the
+// input row of its band column 0.
 struct TileF {
   int t0, g, b, kl, wsub, row0;
   __device__ __forceinline__ TileF(const WgmmaF32Args& a, int tile) {
@@ -897,8 +918,8 @@ struct TileF {
     b = rest / a.n_tiles_t;
     const int s = g & 1;
     kl = s ? a.kl1 : a.kl0;
-    wsub = a.per_block ? g : s;
-    row0 = (g >> 1) * a.col_adv - a.margin + (s ? a.kb1 : a.kb0);
+    wsub = g % a.n_w;
+    row0 = (g / a.n_w) * a.col_adv - a.margin + (s ? a.kb1 : a.kb0);
   }
 };
 
@@ -1036,9 +1057,7 @@ __device__ __forceinline__ void store_tile_f32(const WgmmaF32Args& a, const Tile
     for (int e = 0; e < 2; ++e) {
       const int n = 8 * j + 2 * (lane & 3) + e;
       const int orow = tl.g * kSub + n;
-      const float bias = orow < a.r_out
-                             ? __ldg(a.bias + (a.per_block ? orow : (tl.g & 1) * kSub + n))
-                             : 0.f;
+      const float bias = orow < a.r_out ? __ldg(a.bias + tl.wsub * kSub + n) : 0.f;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int f = f0 + 8 * i;
@@ -1080,9 +1099,7 @@ __device__ __forceinline__ void finish_tile_f32_tma(const WgmmaF32Args& a, const
     for (int e = 0; e < 2; ++e) {
       const int n = 8 * j + 2 * (lane & 3) + e;
       const int orow = tl.g * kSub + n;
-      bias[j][e] = orow < a.r_out
-                       ? __ldg(a.bias + (a.per_block ? orow : (tl.g & 1) * kSub + n))
-                       : 0.f;
+      bias[j][e] = orow < a.r_out ? __ldg(a.bias + tl.wsub * kSub + n) : 0.f;
     }
   mbar_wait(smem_u32(epi.full), k & 1);
   float* box = epi.ptr + (2 * q + (w >> 1)) * (kEpiBoxBytes / 4);
@@ -1284,7 +1301,8 @@ int launch_wgmma(int dev, const CUtensorMap& xmap, const CUtensorMap& emap,
 // the TMA epilogue. plan: the integers ops/fused_level.py `band_tma_plan`
 // fixes for a stage and T, in this order: T, t_pad, n_dt, per tap (box
 // offset, shift) x 3 (dt = box offset + shift, the offset a multiple of 8
-// frames, 0 <= shift < 8), col_adv, margin, width, n_w, per_block, (start,
+// frames, 0 <= shift < 8), col_adv, margin, width, n_w (the band
+// pattern's weight sub-tiles), (start,
 // length, chunks of 64) of the band of even and of odd sub-tiles, then the
 // epilogue: 1 (T % 8 == 0) for the TMA epilogue, 0 for the staged one.
 // Returns cudaGetLastError() of the launch, or a negative code when the
@@ -1294,7 +1312,7 @@ extern "C" int tt_band_conv_wgmma(const void* x, const void* w, const void* bias
                                   int act, const int* plan, void* stream) {
   const int t_len = plan[0], t_pad = plan[1], n_dt = plan[2];
   const int width = plan[11], n_w = plan[12];
-  const int tma_epi = plan[20];
+  const int tma_epi = plan[19];
   int dev = 0;
   const cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1336,17 +1354,17 @@ extern "C" int tt_band_conv_wgmma(const void* x, const void* w, const void* bias
   }
   a.col_adv = plan[9];
   a.margin = plan[10];
-  a.per_block = plan[13];
+  a.n_w = n_w;
   a.act = act;
   // The staged epilogue's 16-byte residual loads and stores.
   a.vec = t_len % 8 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(res) % 16 == 0;
-  a.kb0 = plan[14];
-  a.kl0 = plan[15];
-  a.nc0 = plan[16];
-  a.kb1 = plan[17];
-  a.kl1 = plan[18];
-  a.nc1 = plan[19];
+  a.kb0 = plan[13];
+  a.kl0 = plan[14];
+  a.nc0 = plan[15];
+  a.kb1 = plan[16];
+  a.kl1 = plan[17];
+  a.nc1 = plan[18];
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return tma_epi ? launch_wgmma<true>(dev, xmap, emap, wmap, rmap, ymap, a, s)
                  : launch_wgmma<false>(dev, xmap, emap, wmap, rmap, ymap, a, s);
@@ -1360,8 +1378,9 @@ extern "C" int tt_band_conv_wgmma(const void* x, const void* w, const void* bias
 // and y: (B, r_out, T) float32, 16-byte aligned for the TMA epilogue.
 // plan: the integers ops/fused_level.py `band_tma_plan_f32` fixes for a
 // stage and T, in this order: T, t_pad, n_dt, dt x 3, col_adv, margin,
-// width, n_w, per_block, (start, length) of the band of even and of odd
-// sub-tiles (lengths multiples of 16), then the epilogue: 1 (T % 4 == 0)
+// width, n_w (as tt_band_conv_wgmma's), (start, length) of the band of
+// even and of odd sub-tiles (lengths multiples of 16), then the epilogue:
+// 1 (T % 4 == 0)
 // for the TMA epilogue, 0 for the one from the registers. Returns
 // cudaGetLastError() of the launch, or a negative code when the tensor maps
 // cannot be made (-1: no encode entry point; -100 - CUresult).
@@ -1391,7 +1410,7 @@ extern "C" int tt_band_conv_wgmma_f32(const void* x, const void* w, const void* 
   }
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return -1;
-  const int tma_epi = plan[15];
+  const int tma_epi = plan[14];
   CUtensorMap xmap, wmap, rmap = {}, ymap = {};
   int rc = cached_map(enc, &xmap, {x, (uint64_t)t_pad, (uint64_t)r_in, (uint64_t)batch, kBoxF,
                                    kKcF, CU_TENSOR_MAP_SWIZZLE_NONE, true});
@@ -1420,12 +1439,12 @@ extern "C" int tt_band_conv_wgmma_f32(const void* x, const void* w, const void* 
   for (int i = 0; i < 3; ++i) a.dt[i] = plan[3 + i];
   a.col_adv = plan[6];
   a.margin = plan[7];
-  a.per_block = plan[10];
+  a.n_w = n_w;
   a.act = act;
-  a.kb0 = plan[11];
-  a.kl0 = plan[12];
-  a.kb1 = plan[13];
-  a.kl1 = plan[14];
+  a.kb0 = plan[10];
+  a.kl0 = plan[11];
+  a.kb1 = plan[12];
+  a.kl1 = plan[13];
   a.tma_epi = tma_epi;
   const int grid = a.n_tiles < resident[dev] ? a.n_tiles : resident[dev];
   band_wgmma_f32_kernel<<<grid, kThreadsF, kSmemF, static_cast<cudaStream_t>(stream)>>>(

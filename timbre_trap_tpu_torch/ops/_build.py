@@ -35,10 +35,10 @@ _SIGNATURES = {
         "tt_elu_backward": [_P] * 5 + [_I, _L, _P],
     },
     "band_mma": {
-        "tt_band_conv_dx": [_P] * 7 + [_I] * 17 + [_P],
-        "tt_band_conv_dx_f32": [_P] * 7 + [_I] * 16 + [_P],
-        "tt_band_conv_dw": [_P] * 6 + [_I] * 17 + [_P],
-        "tt_band_conv_dw_f32": [_P] * 6 + [_I] * 17 + [_P],
+        "tt_band_conv_dx": [_P] * 7 + [_I] * 18 + [_P],
+        "tt_band_conv_dx_f32": [_P] * 7 + [_I] * 17 + [_P],
+        "tt_band_conv_dw": [_P] * 6 + [_I] * 18 + [_P],
+        "tt_band_conv_dw_f32": [_P] * 6 + [_I] * 18 + [_P],
     },
     "band_wgmma": {"tt_band_conv_wgmma": [_P] * 5 + [_I] * 4 + [_P] * 2,
                    "tt_band_conv_wgmma_f32": [_P] * 5 + [_I] * 4 + [_P] * 2},

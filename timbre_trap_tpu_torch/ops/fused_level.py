@@ -312,13 +312,16 @@ class BandTmaPlan(NamedTuple):
     n_sub:  64-row output sub-tiles.
     bands:  (start, length, chunks) of the band of even and of odd
             sub-tiles: sub-tile g's x boxes start at input row
-            ``cb.sub_start(g)``, chunk c at ``+ WGMMA_KC * c``.
+            ``cb.sub_start(g)`` (``(g // n_w) * col_adv - margin +
+            start``), chunk c at ``+ WGMMA_KC * c``.
     taps:   (box offset, shift) of each tap, dt = box offset + shift: the
             boxes of tile t0 start at frame ``t0 + box offset`` (a multiple
             of ``TMA_FRAME_ALIGN``) and span ``WGMMA_TILE_T`` frames, plus
             ``WGMMA_EDGE_T`` where shift > 0; the tap's sums at column n
             belong to output frame ``t0 + n - shift``.
-    n_w:    weight sub-tiles (2, or one per sub-tile with ``per_block``).
+    n_w:    weight sub-tiles: the band pattern's 2·P (sub-tile g takes
+            weight sub-tile ``g % n_w`` and its bias; a dense map's pattern
+            is all its blocks).
     tma_epilogue: 1 where T is a multiple of ``TMA_FRAME_ALIGN`` (the
             residual and y then have 16-byte rows): a tile's residual
             comes into shared memory by TMA during the products before
@@ -344,7 +347,7 @@ def band_tma_plan(cb, t):
         t_pad=-(-t // a) * a, tiles=-(-t // WGMMA_TILE_T), n_sub=cb.n_sub,
         bands=tuple((s, n, -(-n // WGMMA_KC)) for s, n in cb.bands),
         taps=tuple((dt // a * a, dt % a) for dt in cb.dts),
-        n_w=2 * cb.n_out_blocks if cb.per_block else 2,
+        n_w=cb.n_w,
         tma_epilogue=int(t % a == 0))
 
 
@@ -369,7 +372,7 @@ def _wgmma_plan(cb, t, width):
             taps = list(plan.taps) + [(0, 0)] * (3 - len(plan.taps))
             ints = (t, plan.t_pad, len(plan.taps),
                     *[v for tap in taps for v in tap], cb.col_adv, cb.margin,
-                    width, plan.n_w, int(cb.per_block),
+                    width, plan.n_w,
                     *[v for band in plan.bands for v in band],
                     plan.tma_epilogue)
             cb._cache[key] = (plan.t_pad, (ctypes.c_int * len(ints))(*ints))
@@ -429,8 +432,8 @@ class BandTmaPlanF32(NamedTuple):
     taps:   each tap's dt: the box of tile t0 spans frames
             ``t0 - BAND_MAX_DT`` .. ``+ F32_BOX_T``, and the tap reads
             frame ``t0 + n + dt`` of it for output frame ``t0 + n``.
-    n_w:    weight sub-tiles (2, or one per sub-tile with ``per_block``);
-            their hi and lo planes are ``cb.band_tf32_operands()``.
+    n_w:    weight sub-tiles, as ``BandTmaPlan``'s; their hi and lo
+            planes are ``cb.band_tf32_operands()``.
     tma_epilogue: 1 where T is a multiple of ``F32_FRAME_ALIGN`` (the
             residual and y then have 16-byte rows): a tile's residual
             comes into shared memory by TMA during its products, and the
@@ -454,7 +457,7 @@ def band_tma_plan_f32(cb, t):
         t_pad=-(-t // a) * a, tiles=-(-t // F32_TILE_T), n_sub=cb.n_sub,
         bands=tuple((s, n, -(-n // F32_KC)) for s, n in cb.bands),
         taps=tuple(cb.dts),
-        n_w=2 * cb.n_out_blocks if cb.per_block else 2,
+        n_w=cb.n_w,
         tma_epilogue=int(t % a == 0))
 
 
@@ -467,7 +470,7 @@ def _wgmma_plan_f32(cb, t, width):
             plan = band_tma_plan_f32(cb, t)
             taps = list(plan.taps) + [0] * (3 - len(plan.taps))
             ints = (t, plan.t_pad, len(plan.taps), *taps, cb.col_adv,
-                    cb.margin, width, plan.n_w, int(cb.per_block),
+                    cb.margin, width, plan.n_w,
                     *[v for band in plan.bands for v in band[:2]],
                     plan.tma_epilogue)
             cb._cache[key] = (plan.t_pad, (ctypes.c_int * len(ints))(*ints))
@@ -680,7 +683,7 @@ def banded_conv_dx(c, adj, dtype, residual=None, elu=None, keep_raw=False,
         if out_dtype not in (torch.float32, dtype):
             raise ValueError(f"banded_conv_dx writes float32 or {dtype}")
         b, r_in, t = c.shape
-        if r_in != adj.r_in or adj.per_block:
+        if r_in != adj.r_in or adj.col_adv == 0:
             raise ValueError("cotangent rows or adjoint geometry not "
                              "supported")
         _check_taps(adj, "banded_conv_dx", dtype)
@@ -705,7 +708,7 @@ def banded_conv_dx(c, adj, dtype, residual=None, elu=None, keep_raw=False,
             args = (c.data_ptr(), w.data_ptr(), _ptr(residual), _ptr(s1),
                     _ptr(s2), _ptr(raw), out.data_ptr())
             geometry = (b, r_in, adj.r_out, t, len(adj.dts), *dts,
-                        adj.col_adv, adj.margin, w.shape[-1],
+                        adj.col_adv, adj.margin, w.shape[-1], adj.n_w,
                         *_band_ints(adj), _aligned(t, c),
                         torch.cuda.current_stream(c.device).cuda_stream)
             if bf16:
@@ -729,10 +732,10 @@ def banded_conv_dw_reference(dz, x, cb, out=None, offset=0):
     builder's backward reads no entry outside a band)."""
     acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     b, r_in, t = x.shape
-    nb = cb.n_out_blocks
-    dzp = torch.nn.functional.pad(dz.to(acc),
-                                  (0, 0, 0, nb * BLOCK_ROWS - cb.r_out))
-    dzp = dzp.reshape(b, nb, BLOCK_ROWS, t)
+    rows = cb.pattern_rows
+    nb = -(-cb.r_out // rows)
+    dzp = torch.nn.functional.pad(dz.to(acc), (0, 0, 0, nb * rows - cb.r_out))
+    dzp = dzp.reshape(b, nb, rows, t)
     db = dzp.sum(dim=(0, 1, 3))
     ops = dzp.to(x.dtype).to(acc)
     A = cb.col_adv
@@ -747,19 +750,20 @@ def banded_conv_dw_reference(dz, x, cb, out=None, offset=0):
         xs = xch[..., max_dt + dt:max_dt + dt + t]
         xw = torch.stack([xs[:, o:o + nb] for o in range(nw)], dim=1)
         dw = torch.einsum("bjrt,bojkt->rok", ops, xw)
-        dws.append(dw.reshape(BLOCK_ROWS, nw * A)[:, :cb.k])
+        dws.append(dw.reshape(rows, nw * A)[:, :cb.k])
     dw = torch.stack(dws) * cb.band_mask().to(x.device)
     if out is None:
         return dw, db
     n_w = dw.numel()
     out[offset:offset + n_w].copy_(dw.flatten())
-    out[offset + n_w:offset + n_w + BLOCK_ROWS].copy_(db)
+    out[offset + n_w:offset + n_w + rows].copy_(db)
     return None, None
 
 
 def banded_conv_dw(dz, x, cb, out=None, offset=0):
-    """Weight and bias gradients of one conv stage: ``dW`` (n_dt, 128, K)
-    and ``dBias`` (128,), float32, from the float32 cotangent ``dz``
+    """Weight and bias gradients of one conv stage: ``dW`` (n_dt, 128·P,
+    K) and ``dBias`` (128·P,), float32 (P the conv's period), from the
+    float32 cotangent ``dz``
     (B, r_out, T) of the stage's pre-activation and its input ``x``
     (B, r_in, T) at the storage dtype (``dz`` rounded to it for dW, dBias
     from the float32 ``dz``). Rows past ``r_out`` of the last block, and
@@ -769,21 +773,22 @@ def banded_conv_dw(dz, x, cb, out=None, offset=0):
     ``csrc/band_mma.cu``, which compute dW on the bands only and write
     zeros elsewhere (the block builder's backward reads no entry outside a
     band, so every parameter gradient is the same): per-slice partial sums
-    of the (batch, block, 64 frames) chunks, bfloat16 ``tt_band_conv_dw``
+    of the (batch, pattern, 64 frames) chunks, bfloat16 ``tt_band_conv_dw``
     (bf16 products) or float32 ``tt_band_conv_dw_f32`` (split-TF32
     products), then a fixed-order reduction; the same bits every run. A
     CPU tensor takes the plain twin; either way the call is one
     ``tt.k3.dw`` span.
 
-    With ``out`` (a contiguous float32 vector), dW's n_dt·128·K entries and
-    then dBias's 128 are written into it from ``offset`` on, and
+    With ``out`` (a contiguous float32 vector), dW's n_dt·128·P·K entries
+    and then dBias's 128·P are written into it from ``offset`` on, and
     ``(None, None)`` is returned.
     """
     with span("tt.k3.dw"):
-        n_w = len(cb.dts) * BLOCK_ROWS * cb.k
+        rows = cb.pattern_rows
+        n_w = len(cb.dts) * rows * cb.k
         if out is not None and (out.dtype != torch.float32
                                 or not out.is_contiguous()
-                                or offset + n_w + BLOCK_ROWS > out.numel()):
+                                or offset + n_w + rows > out.numel()):
             raise ValueError("banded_conv_dw: out must be a contiguous "
                              "float32 vector with room at offset")
         if dz.device.type == "cpu":
@@ -793,36 +798,36 @@ def banded_conv_dw(dz, x, cb, out=None, offset=0):
         _check_cuda(x, "banded_conv_dw")
         b, r_in, t = x.shape
         if (dz.dtype != torch.float32 or tuple(dz.shape) != (b, cb.r_out, t)
-                or r_in != cb.r_in or cb.per_block):
+                or r_in != cb.r_in or cb.col_adv == 0):
             raise ValueError("banded_conv_dw: cotangent, input or geometry "
                              "not supported")
         _check_taps(cb, "banded_conv_dw", x.dtype)
         dz, x = dz.contiguous(), x.contiguous()
         n_dt = len(cb.dts)
         if out is None:
-            dw = torch.empty((n_dt, BLOCK_ROWS, cb.k), dtype=torch.float32,
+            dw = torch.empty((n_dt, rows, cb.k), dtype=torch.float32,
                              device=x.device)
-            db = torch.empty((BLOCK_ROWS,), dtype=torch.float32,
-                             device=x.device)
+            db = torch.empty((rows,), dtype=torch.float32, device=x.device)
             dw_ptr, db_ptr = dw.data_ptr(), db.data_ptr()
         else:
             dw = db = None
             dw_ptr = out.data_ptr() + out.element_size() * offset
             db_ptr = dw_ptr + out.element_size() * n_w
-        n_chunks = b * cb.n_out_blocks * -(-t // 64)
+        n_chunks = b * -(-cb.r_out // rows) * -(-t // 64)
         if n_chunks == 0:
             if out is not None:
-                out[offset:offset + n_w + BLOCK_ROWS].zero_()
+                out[offset:offset + n_w + rows].zero_()
                 return None, None
             return dw.zero_(), db.zero_()
-        # CTAs per slice: 2 sub-tiles x the longer band's 64-column tiles. Both
-        # kernels hold 2 CTAs an SM: slices for two waves over the H100's 132
-        # SMs, fixed by the shapes alone, so the summation order is too.
-        tiles = 2 * -(-max(n for _, n in cb.bands) // 64)
+        # CTAs per slice: the pattern's 2·P sub-tiles x the longer band's
+        # 64-column tiles. Both kernels hold 2 CTAs an SM: slices for two
+        # waves over the H100's 132 SMs, fixed by the shapes alone, so the
+        # summation order is too.
+        tiles = cb.n_w * -(-max(n for _, n in cb.bands) // 64)
         n_slices = max(1, min(n_chunks, -(-132 * 4 // tiles)))
-        part = torch.empty((n_slices, n_dt, BLOCK_ROWS, cb.k),
+        part = torch.empty((n_slices, n_dt, rows, cb.k),
                            dtype=torch.float32, device=x.device)
-        part_bias = torch.empty((n_slices, BLOCK_ROWS), dtype=torch.float32,
+        part_bias = torch.empty((n_slices, rows), dtype=torch.float32,
                                 device=x.device)
         dts = list(cb.dts) + [0] * (3 - n_dt)
         bf16 = x.dtype == torch.bfloat16
@@ -832,7 +837,7 @@ def banded_conv_dw(dz, x, cb, out=None, offset=0):
             rc = fn(dz.data_ptr(), x.data_ptr(), part.data_ptr(),
                     part_bias.data_ptr(), dw_ptr, db_ptr, b,
                     r_in, cb.r_out, t, n_dt, *dts, cb.k, cb.col_adv, cb.margin,
-                    *_band_ints(cb), n_slices, _aligned(t, dz, x),
+                    cb.period, *_band_ints(cb), n_slices, _aligned(t, dz, x),
                     torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(rc, "banded_conv_dw")
         return dw, db

@@ -3,11 +3,17 @@
 Counterpart of ``timbre_trap_tpu/ops/packed_conv.py`` (inference form).
 Every conv of the model is re-expressed on the packed layout ``(B, R, T)``
 with ``R = F·C`` (row ``r = f*C + c``): a frequency-axis convolution with
-channel mixing is a block-banded matrix product whose 128-row band block is
-the same for every block, so one ``(128, K)`` weight block per time tap
-drives the whole conv:
+channel mixing is a block-banded matrix product whose band pattern repeats
+every ``P`` 128-row blocks (the period: one block for a conv whose
+outputs of a frequency fit in a block and whose taps repeat block by
+block, more where an output frequency spans several blocks, ``c_out`` >
+128, or a transposed conv's stride spans them), so one ``(128·P, K)``
+weight block per time tap drives the whole conv (a dense map, the
+latent bridge's, is one pattern of all its blocks with ``col_adv`` 0):
+with ``j = J*P + p``,
 
-    y[j*128:(j+1)*128, t] = sum_dt B_dt @ x[j*col_adv - margin : ... + K, t + dt]
+    y[j*128:(j+1)*128, t] = sum_dt B_dt[p*128:(p+1)*128]
+                            @ x[J*col_adv - margin : ... + K, t + dt]
 
 Rows and columns outside the input read as zero (SAME/VALID semantics).
 The block tensors built here are equal to the JAX package's, including the
@@ -71,20 +77,21 @@ class ConvBlocks:
     """A conv expressed as repeating banded blocks on the packed layout.
 
     Attributes:
-      blocks:   (n_dt, 128, K) float32 banded weight block per time tap, or
-                (1, n_out_blocks*128, K) with ``per_block`` (a dense map with
-                its own weight slice per output block).
+      blocks:   (n_dt, 128*P, K) float32 banded weight pattern per time tap
+                (P the period, ``period``; a dense map is one pattern of
+                all its ``n_out_blocks`` blocks, (1, n_out_blocks*128, K)).
       dts:      time-frame shift of each tap (correlation: reads x[t + dt]).
-      bias:     (128,) per-row pattern repeating every 128 rows, or the full
-                (n_out_blocks*128,) vector with ``per_block``.
-      col_adv:  input-row advance per 128 output rows.
-      margin:   zero rows above the input (block j starts reading at input
-                row ``j*col_adv - margin``).
+      bias:     (128*P,) per-row pattern repeating every 128*P rows.
+      col_adv:  input-row advance per 128*P output rows (0 for a dense
+                map).
+      margin:   zero rows above the input (block j = J*P + p starts reading
+                at input row ``J*col_adv - margin``).
       k:        input rows read per output block.
       bands:    ((start, length), (start, length)): the block columns that
-                rows [0, 64) and rows [64, 128) of a block read, each a
-                multiple of 16 (the end may pass ``k``; those columns hold
-                no weight). A ``per_block`` map has one band, all of ``k``.
+                rows [0, 64) and rows [64, 128) of every block of the
+                pattern read, each a multiple of 16 (the end may pass
+                ``k``; those columns hold no weight). A dense map has one
+                band, all of ``k``.
       adjoint:  the transpose of the conv as another repeating banded conv
                 (its dX map), attached by a training spec, else None.
 
@@ -97,7 +104,7 @@ class ConvBlocks:
     _store = None
 
     def __init__(self, blocks, dts, bias, col_adv, margin, f_in, f_out,
-                 c_in, c_out, per_block=False, bands=None):
+                 c_in, c_out, bands=None):
         self.blocks = blocks
         self.dts = tuple(int(d) for d in dts)
         self.bias = bias
@@ -106,7 +113,8 @@ class ConvBlocks:
         self.k = int(blocks.shape[-1])
         self.f_in, self.f_out = int(f_in), int(f_out)
         self.c_in, self.c_out = int(c_in), int(c_out)
-        self.per_block = bool(per_block)
+        # P: the 128-row blocks a band pattern spans.
+        self.period = int(blocks.shape[1]) // BLOCK_ROWS
         if bands is None:
             full = (0, -(-self.k // BAND_ALIGN) * BAND_ALIGN)
             bands = (full, full)
@@ -147,6 +155,16 @@ class ConvBlocks:
         return math.ceil(self.r_out / BLOCK_ROWS)
 
     @property
+    def pattern_rows(self):
+        """Output rows of one band pattern: 128·P."""
+        return BLOCK_ROWS * self.period
+
+    @property
+    def n_w(self):
+        """Weight sub-tiles: the pattern's 2·P."""
+        return 2 * self.period
+
+    @property
     def n_sub(self):
         """Output sub-tiles of 64 rows."""
         return math.ceil(self.r_out / SUB_ROWS)
@@ -158,14 +176,13 @@ class ConvBlocks:
         return -(-max(n for _, n in self.bands) // 32) * 32
 
     def sub_weights(self, g):
-        """The weight sub-tile that output sub-tile ``g`` uses: its own
-        with ``per_block``, else the block pattern's half ``g % 2``."""
-        return g if self.per_block else g % 2
+        """The weight sub-tile that output sub-tile ``g`` uses."""
+        return g % self.n_w
 
     def sub_start(self, g):
         """The input row of band column 0 of output sub-tile ``g`` (may be
         negative: rows outside the input read as zero)."""
-        return ((g // 2) * self.col_adv - self.margin
+        return ((g // self.n_w) * self.col_adv - self.margin
                 + self.bands[g % 2][0])
 
     def band_weights(self, blocks=None):
@@ -173,9 +190,9 @@ class ConvBlocks:
         ``blocks`` (default ``self.blocks``), zero past its band and past
         ``k``; K-major rows, the layout of a tensor-core A operand."""
         blocks = self.blocks if blocks is None else blocks
-        n_w = 2 * self.n_out_blocks if self.per_block else 2
-        out = blocks.new_zeros((n_w, len(self.dts), SUB_ROWS, self.band_width))
-        for g in range(n_w):
+        out = blocks.new_zeros((self.n_w, len(self.dts), SUB_ROWS,
+                                self.band_width))
+        for g in range(self.n_w):
             start, length = self.bands[g % 2]
             n = min(length, self.k - start)
             rows = blocks[:, g * SUB_ROWS:(g + 1) * SUB_ROWS, start:start + n]
@@ -216,11 +233,12 @@ class ConvBlocks:
         return self._cache[key]
 
     def band_mask(self):
-        """(n_dt, 128, k) bool: True at the block entries inside the band
-        of their row's sub-tile."""
+        """(n_dt, 128·P, k) bool: True at the pattern's entries inside the
+        band of their row's sub-tile."""
         cols = torch.arange(self.k, device=self.blocks.device)
         halves = [(cols >= s) & (cols < s + n) for s, n in self.bands]
-        rows = torch.stack(halves).repeat_interleave(SUB_ROWS, dim=0)
+        rows = torch.stack(halves * self.period).repeat_interleave(SUB_ROWS,
+                                                                   dim=0)
         return rows[None].expand(len(self.dts), -1, -1)
 
 
@@ -235,9 +253,9 @@ def tf32_round(x):
 def _build_blocks(kernel_fc, bias, f_in, f_out, c_in, c_out, f_taps, dts):
     """Contract the (n_df, n_dt, c_in, c_out) kernel into banded blocks.
 
-    ``f_taps(f_loc, df)`` maps a block-local output frequency and frequency
-    tap to the input frequency it reads (relative to block 0's window), or
-    None where the tap does not apply.
+    ``f_taps(f_loc, df)`` maps a pattern-local output frequency and
+    frequency tap to the input frequency it reads (relative to pattern 0's
+    window), or None where the tap does not apply.
 
     The blocks are the JAX package's one-hot form (its ``vjp_einsum``
     builder): a static map ``m[df, fl, g] = 1`` where output frequency fl
@@ -248,30 +266,26 @@ def _build_blocks(kernel_fc, bias, f_in, f_out, c_in, c_out, f_taps, dts):
     backward is another such sum where a gather's is an index scatter-add
     (81 ms per recipe train step on the H100, ``PERF.md``).
     """
-    n_f_per_block = BLOCK_ROWS // c_out
-    if BLOCK_ROWS % c_out:
-        raise ValueError(f"channel width {c_out} does not divide {BLOCK_ROWS}")
     n_df = kernel_fc.shape[0]
+    n_f = _pattern_freqs(f_taps, n_df, c_out)
 
-    def window(block):
-        offs = [f_taps(block * n_f_per_block + fl, df)
-                for fl in range(n_f_per_block) for df in range(n_df)]
+    def window(pattern):
+        offs = [f_taps(pattern * n_f + fl, df)
+                for fl in range(n_f) for df in range(n_df)]
         return [o for o in offs if o is not None]
 
     w0, w1 = window(0), window(1)
     lo, hi = min(w0), max(w0)
     margin_rows = -lo * c_in
     col_adv = (min(w1) - lo) * c_in
-    if max(w1) - min(w1) != hi - lo:
-        raise ValueError("band pattern must repeat")
     # Margin rounded up to 8 rows (the JAX package's sublane tile), which
     # adds as many zero leading columns to every block.
     shift = (-margin_rows) % 8
     margin_rows += shift
     n_g = hi - lo + 1
 
-    m = np.zeros((n_df, n_f_per_block, n_g), np.float32)
-    for fl in range(n_f_per_block):
+    m = np.zeros((n_df, n_f, n_g), np.float32)
+    for fl in range(n_f):
         for df in range(n_df):
             off = f_taps(fl, df)
             if off is not None:
@@ -284,26 +298,60 @@ def _build_blocks(kernel_fc, bias, f_in, f_out, c_in, c_out, f_taps, dts):
     core = (m[:, None, :, None, :, None]
             * kern[:, :, None, :, None, :]).sum(dim=0)
     blocks = torch.nn.functional.pad(
-        core.reshape(len(dts), BLOCK_ROWS, n_g * c_in), (shift, 0))
-    bias_pat = bias.repeat(n_f_per_block)
+        core.reshape(len(dts), n_f * c_out, n_g * c_in), (shift, 0))
+    bias_pat = bias.repeat(n_f)
     return ConvBlocks(blocks, dts, bias_pat, col_adv, margin_rows, f_in,
                       f_out, c_in, c_out, bands=bands)
 
 
+def _pattern_freqs(f_taps, n_df, c_out):
+    """Output frequencies of one band pattern: the fewest whose rows fill
+    whole 128-row blocks and whose taps repeat pattern after pattern, each
+    pattern reading the previous one's input frequencies shifted by one
+    fixed offset (a transposed conv of stride s needs a multiple of s)."""
+    if c_out % BLOCK_ROWS and BLOCK_ROWS % c_out:
+        raise ValueError(f"channel width {c_out} neither divides nor is a "
+                         f"multiple of {BLOCK_ROWS}")
+    n_f = max(1, BLOCK_ROWS // c_out)
+    for _ in range(8):
+        # Per tap of patterns 1 and 2: the shift from pattern 0 per
+        # pattern, None where only one of the two reads.
+        shifts = set()
+        for j in (1, 2):
+            for fl in range(n_f):
+                for df in range(n_df):
+                    a, b = f_taps(fl, df), f_taps(j * n_f + fl, df)
+                    if (a is None) != (b is None):
+                        shifts.add(None)
+                    elif a is not None:
+                        shifts.add((b - a) / j)
+        if len(shifts) == 1 and None not in shifts:
+            return n_f
+        n_f *= 2
+    raise ValueError("band pattern must repeat")
+
+
 def _sub_tile_bands(m, c_in, c_out, shift):
-    """The band of each 64-row half of a block from the static tap map
-    ``m[df, fl, g]``: the block columns ``shift + g*c_in + ci`` that any of
-    its output frequencies reads through any tap, rounded out to 16."""
-    bands = []
-    for s in range(BLOCK_ROWS // SUB_ROWS):
+    """The band of the even and of the odd 64-row sub-tiles of a pattern
+    from the static tap map ``m[df, fl, g]``: the block columns ``shift +
+    g*c_in + ci`` that any of their output frequencies reads through any
+    tap, rounded out to 16 (over a pattern of several blocks, the union
+    of its even, and of its odd, sub-tiles' bands)."""
+    spans = [[], []]
+    for s in range(m.shape[1] * c_out // SUB_ROWS):
         f_lo = s * SUB_ROWS // c_out
         f_hi = -(-(s + 1) * SUB_ROWS // c_out)
         g = np.flatnonzero(m[:, f_lo:f_hi].any(axis=(0, 1)))
-        if g.size == 0:
+        if g.size:
+            lo = (shift + int(g[0]) * c_in) // BAND_ALIGN * BAND_ALIGN
+            hi = -(-(shift + (int(g[-1]) + 1) * c_in) // BAND_ALIGN) * BAND_ALIGN
+            spans[s % 2].append((lo, hi))
+    bands = []
+    for half in spans:
+        if not half:
             bands.append((0, BAND_ALIGN))
             continue
-        lo = (shift + int(g[0]) * c_in) // BAND_ALIGN * BAND_ALIGN
-        hi = -(-(shift + (int(g[-1]) + 1) * c_in) // BAND_ALIGN) * BAND_ALIGN
+        lo, hi = min(a for a, _ in half), max(b for _, b in half)
         bands.append((lo, hi - lo))
     return tuple(bands)
 
@@ -364,8 +412,9 @@ def build_tconv_blocks(kernel, bias, f_in, stride=2, output_padding=0):
 
 def build_dense_blocks(w, bias):
     """A dense row map ``y = W @ x + b`` (W: (R_out, R_in)) as a one-tap
-    per-block ConvBlocks: R_in zero-padded up to a multiple of 16, R_out up
-    to whole 128-row blocks (the latent-bridge items)."""
+    ConvBlocks of one pattern, ``col_adv`` 0: R_in zero-padded up to a
+    multiple of 16, R_out up to whole 128-row blocks, all of them the
+    pattern (the latent-bridge items)."""
     w = _f32(w)
     r_out, r_in = int(w.shape[0]), int(w.shape[1])
     k = r_in + (-r_in % 16)
@@ -373,8 +422,7 @@ def build_dense_blocks(w, bias):
     blocks = torch.nn.functional.pad(
         w, (0, k - r_in, 0, nb * BLOCK_ROWS - r_out))[None].contiguous()
     bias_full = torch.nn.functional.pad(_f32(bias), (0, nb * BLOCK_ROWS - r_out))
-    return ConvBlocks(blocks, (0,), bias_full, 0, 0, r_in, r_out, 1, 1,
-                      per_block=True)
+    return ConvBlocks(blocks, (0,), bias_full, 0, 0, r_in, r_out, 1, 1)
 
 
 def packed_conv_reference(x, cb: ConvBlocks, blocks=None):
@@ -382,20 +430,19 @@ def packed_conv_reference(x, cb: ConvBlocks, blocks=None):
     (B, R_out, T) in the dtype of ``x``; ``blocks`` overrides ``cb.blocks``
     (the same shape, e.g. rounded to a storage dtype).
 
-    One einsum per time tap: block j's window ``[j*col_adv, j*col_adv + k)``
-    of the zero-margined input splits into ``nw = ceil(k / col_adv)``
-    chunks of ``col_adv`` rows, chunk o of every window being the (j+o)-th
-    chunk of one chunked view of x.
+    One einsum per time tap: pattern J's window ``[J*col_adv, J*col_adv +
+    k)`` of the zero-margined input splits into ``nw = ceil(k / col_adv)``
+    chunks of ``col_adv`` rows, chunk o of every window being the (J+o)-th
+    chunk of one chunked view of x. A dense map (``col_adv`` 0) is one
+    pattern whose window is one chunk of ``k`` rows.
     """
     b, r_in, t = x.shape
     if r_in != cb.r_in:
         raise ValueError(f"input has {r_in} rows, conv expects {cb.r_in}")
     blocks = (cb.blocks if blocks is None else blocks).to(x.dtype)
-    if cb.per_block:
-        y = torch.einsum("rk,bkt->brt", blocks[0][:, :r_in], x)
-        return (y + cb.bias.to(x.dtype)[None, :, None])[:, :cb.r_out]
-    n_blocks = cb.n_out_blocks
-    A = cb.col_adv
+    rows = cb.pattern_rows
+    n_blocks = -(-cb.r_out // rows)
+    A = cb.col_adv or cb.k
     nw = -(-cb.k // A)
     n_ch = n_blocks - 1 + nw
     top = cb.margin
@@ -404,7 +451,7 @@ def packed_conv_reference(x, cb: ConvBlocks, blocks=None):
     xp = torch.nn.functional.pad(x, (max_dt, max_dt, top, bottom))
     xch = xp.reshape(b, n_ch, A, xp.shape[-1])
     blocks = torch.nn.functional.pad(blocks, (0, nw * A - cb.k))
-    blocks = blocks.reshape(len(cb.dts), BLOCK_ROWS, nw, A)
+    blocks = blocks.reshape(len(cb.dts), rows, nw, A)
 
     acc = None
     for di, dt in enumerate(cb.dts):
@@ -412,7 +459,7 @@ def packed_conv_reference(x, cb: ConvBlocks, blocks=None):
         xw = torch.stack([xs[:, o:o + n_blocks] for o in range(nw)], dim=1)
         term = torch.einsum("rok,bojkt->bjrt", blocks[di], xw)
         acc = term if acc is None else acc + term
-    y = acc.reshape(b, n_blocks * BLOCK_ROWS, t)[:, :cb.r_out]
+    y = acc.reshape(b, n_blocks * rows, t)[:, :cb.r_out]
     bias_full = cb.bias.to(x.dtype).repeat(n_blocks)[:cb.r_out]
     return y + bias_full[None, :, None]
 
@@ -446,6 +493,5 @@ def band_conv_reference(x, cb: ConvBlocks, blocks=None):
         y = term if y is None else y + term
     y = y.reshape(b, n_sub * SUB_ROWS, t)[:, :cb.r_out]
     bias = cb.bias.to(x.dtype)
-    if not cb.per_block:
-        bias = bias.repeat(cb.n_out_blocks)
+    bias = bias.repeat(-(-cb.r_out // bias.numel()))
     return y + bias[:cb.r_out][None, :, None]

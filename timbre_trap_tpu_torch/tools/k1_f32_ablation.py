@@ -166,7 +166,7 @@ def ablate(variants, entry, dtype, turns):
          ).to(dtype)
     picks = {}
     for cb in spec.convs():
-        if not cb.per_block and cb.f_out == cb.f_in:
+        if cb.col_adv and cb.f_out == cb.f_in:
             kind = "1x1" if len(cb.dts) == 1 else f"3x3 d={max(cb.dts)}"
             picks.setdefault(f"{kind} c{cb.c_out}", cb)
     stages = {}

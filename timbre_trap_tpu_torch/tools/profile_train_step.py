@@ -242,7 +242,7 @@ def _profile_chain(model, reps):
 
 
 def _conv_kind(cb):
-    if cb.per_block:
+    if cb.col_adv == 0:
         return f"dense {cb.r_in}->{cb.r_out}"
     if cb.f_out != cb.f_in:
         return "sconv" if cb.f_out < cb.f_in else "tconv"
