@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (timbre_trap_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, each of which exits non-zero on failure:
 
@@ -44,7 +44,16 @@ Phases, each of which exits non-zero on failure:
              chain; the flagship c4 model transcribes the clip, counted:
              60 bf16 K1 launches a forward, all on the TMA epilogue, no
              cuDNN kernel, within 5e-2 of its float32 run, whose K1
-             stages all run the split-TF32 kernel;
+             stages all run the split-TF32 kernel; the gapped 3x3s
+             (128 and 64 channels at dilations 2 and 3, 32 at 3), whose
+             bands the bf16 stage walks range by range, in the same
+             parity checks; the share of bf16 pipeline stages the walk
+             keeps in the c2 and c4 chains; the c4 and c2 bf16 chains
+             timed as CUDA-graph replays in 6 turns, and the c4 and c2
+             transcribes (bf16, float32) and chains hashed; with
+             ``--parent DIR`` (another checkout, e.g. the parent commit
+             unpacked by ``git archive``) its chains in alternating
+             turns and its hashes, which must be equal;
 3. main    — the flagship model (22.05 kHz, 9 x 60 bins, 3-s blocks,
              latent 128, complexity 2, seeded random weights) transcribes a
              ~100-s chord clip (3 pieces of 16 blocks), then peak_mask,
@@ -623,7 +632,7 @@ def phase_band_parity(torch, fwd_spec, train_specs, stages=(),
 WIDE_COMPLEXITY = 4
 
 
-def phase_c4(torch, audio, card):
+def phase_c4(torch, audio, card, parent=None):
     """Model complexity 4 on the card (phase 2c). Its two period-2 stages,
     encoder level 4's strided conv (65 -> 31 frequencies, 128 -> 256
     channels) and decoder level 1's transposed conv (31 -> 65, 256 ->
@@ -635,12 +644,20 @@ def phase_c4(torch, audio, card):
     model transcribes ``audio``, counted: 60 bf16 K1 launches a forward,
     all on the TMA epilogue, and no float32 K1 and no cuDNN kernel;
     activations finite, in [0, 1], within 5e-2 of the float32 transcribe,
-    whose K1 launches all run the split-TF32 kernel. Returns the numbers
-    for the kernels' JSON line and the bf16 transcribe's launches."""
+    whose K1 launches all run the split-TF32 kernel. The first 3x3 of
+    each width and dilation whose band has gaps (128 and 64 channels at
+    dilations 2 and 3, 32 at 3), which the bf16 stage walks range by
+    range, joins the period-2 stages in the parity checks; the share of
+    bf16 pipeline stages the walk keeps (``band_walk_share``) of the c2
+    and c4 chains is printed; ``chain_turns`` times the chains, against a
+    ``parent`` checkout's in alternating turns where one is given, and
+    hashes the transcribes. Returns the numbers for the kernels' JSON line
+    and the bf16 transcribe's launches."""
     from timbre_trap_tpu_torch.interop import hwio_params
     from timbre_trap_tpu_torch.models import TimbreTrap
     from timbre_trap_tpu_torch.models.fused import level_specs
-    from timbre_trap_tpu_torch.ops.fused_level import (banded_conv,
+    from timbre_trap_tpu_torch.ops.fused_level import (band_walk_share,
+                                                       banded_conv,
                                                        fused_level_apply)
     from timbre_trap_tpu_torch.utils.profiling import (kernel_counts,
                                                        kernel_instance,
@@ -656,6 +673,18 @@ def phase_c4(torch, audio, card):
     check([(name, cb.period, cb.adjoint.period) for name, cb in stages]
           == [("c4 sconv", 2, 2), ("c4 tconv", 2, 2)],
           f"c4 period-2 stages {[(n, cb.period) for n, cb in stages]}")
+    # The first 3x3 of each width and dilation whose band has gaps, which
+    # the bf16 stage walks range by range.
+    gapped = {}
+    for spec in train_specs:
+        for cb in spec.convs():
+            if len(cb.ranges[0]) > 1:
+                gapped.setdefault(f"c4 {conv_kind(cb)} c{cb.c_in}", cb)
+    check(sorted(gapped) == ["c4 3x3 d=2 c128", "c4 3x3 d=2 c64",
+                             "c4 3x3 d=3 c128", "c4 3x3 d=3 c32",
+                             "c4 3x3 d=3 c64"],
+          f"c4 stages with gapped bands {sorted(gapped)}")
+    stages += sorted(gapped.items())
     worst16, worst32, k3_err = phase_band_parity(torch, None, [], stages,
                                                  ts=(1024, 1001), batch=4)
 
@@ -663,6 +692,10 @@ def phase_c4(torch, audio, card):
     convs = list(spec.convs())
     periods = sorted(cb.period for cb in convs if cb.col_adv)
     check(periods == [1] * 56 + [2] * 2, f"c4 forward periods {periods}")
+    walk = {"c2": band_walk_share(flagship(TimbreTrap)._spec(True).convs()),
+            "c4": band_walk_share(convs)}
+    print("  bf16 K1 stages walked over the bands' hulls, one frame tile: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in walk.items()))
     gen = torch.Generator(device="cuda").manual_seed(9)
     chain_in = torch.randn(4, spec.r_in, 1024, generator=gen, device="cuda")
     stage_ms = {}
@@ -728,10 +761,143 @@ def phase_c4(torch, audio, card):
           f"{names[K1] / n:.0f} bf16 K1 launches a forward ({counts[K1_TMA]} "
           f"on the TMA epilogue), library kernels none; bf16 vs f32 "
           f"activations max abs diff {diff:.3e}")
+    turns = chain_turns(torch, audio, card, parent)
     return {"launches_per_forward": names[K1] / n, "forwards": n,
             "band_max_rel_err": worst16, "band_max_rel_err_f32": worst32,
             "k3_max_rel_err": k3_err, "stage_ms": stage_ms,
-            "chain_device_ms": chain_ms, "bf16_vs_f32": diff}, launches
+            "chain_device_ms": chain_ms, "bf16_vs_f32": diff,
+            "walk_share": walk, "turns": turns}, launches
+
+
+def load_tree(path):
+    """The port's package in another checkout at ``path`` (the parent
+    commit unpacked by ``git archive``), imported beside this one under a
+    name of its own; its CUDA libraries build into its own ``build/``.
+    Returns the package's name."""
+    import hashlib
+    import importlib.util
+
+    root = os.path.join(os.path.abspath(path), "timbre_trap_tpu_torch")
+    name = "tree_" + hashlib.sha1(root.encode()).hexdigest()[:8]
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(root, "__init__.py"),
+            submodule_search_locations=[root])
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    return name
+
+
+def replay_graph(torch, fn):
+    """A CUDA graph of ``fn()`` (two eager calls on a side stream first,
+    which build its plans and operands) and the output it writes."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph, out
+
+
+def replay_ms(torch, graph, reps):
+    """Milliseconds a replay of ``graph`` by CUDA events over ``reps``
+    replays: a replay launches its kernels without the host between them,
+    so this is the device's time."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def sha(torch, t):
+    """The first 16 hex digits of the sha256 of a tensor's bytes: equal
+    hashes are equal bits, the signs of zeros included."""
+    import hashlib
+
+    data = t.detach().contiguous().cpu().view(-1).view(torch.uint8)
+    return hashlib.sha256(data.numpy().tobytes()).hexdigest()[:16]
+
+
+CHAIN_TURNS = 6
+
+
+def chain_turns(torch, audio, card, parent=None):
+    """This tree's bf16 K1 chains (c4 and c2, the seeded flagship models'
+    inference chains at (4, R_in, 1024), each one CUDA graph) timed by
+    CUDA events in ``CHAIN_TURNS`` turns, and with a ``parent`` checkout
+    its chains in alternating turns (parent, this, this, parent, ...); the
+    c4 and c2 bf16 and float32 transcribes of ``audio`` and the chains'
+    outputs hashed (sha256 of the bytes), and with a parent held equal to
+    its own bit for bit. Returns each tree's median chain ms and the
+    hashes."""
+    import importlib
+
+    trees = {"change": "timbre_trap_tpu_torch"}
+    if parent:
+        trees["parent"] = load_tree(parent)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    out = {}
+    for label, complexity in (("c4", WIDE_COMPLEXITY), ("c2", COMPLEXITY)):
+        runs, x = {}, None
+        for tag, pkg in trees.items():
+            models = importlib.import_module(pkg + ".models")
+            fl = importlib.import_module(pkg + ".ops.fused_level")
+            model = models.TimbreTrap(SR, N_OCT, BPO, SECS,
+                                      latent_size=LATENT,
+                                      model_complexity=complexity, seed=0)
+            hashes = {"bf16": sha(torch, model.transcribe(audio))}
+            model.fused = "f32"
+            hashes["f32"] = sha(torch, model.transcribe(audio))
+            spec = model._spec(True)
+            if x is None:
+                x = torch.randn(4, spec.r_in, 1024, generator=gen,
+                                device="cuda").to(torch.bfloat16)
+            with torch.no_grad():
+                graph, y = replay_graph(torch, lambda: fl.fused_level_apply(
+                    x, spec, torch.bfloat16))
+            hashes["chain"] = sha(torch, y)
+            # The graph reads the model's kept operands: keep them alive.
+            runs[tag] = {"graph": graph, "y": y, "hashes": hashes, "ms": [],
+                         "model": model, "spec": spec}
+        reps = 20 if label == "c4" else 80
+        order = list(trees)
+        for turn in range(CHAIN_TURNS):
+            for tag in (order if turn % 2 == 0 else order[::-1]):
+                runs[tag]["ms"].append(replay_ms(torch, runs[tag]["graph"],
+                                                 reps))
+        row = {tag: {"chain_ms": float(np.median(r["ms"])),
+                     "turns_ms": r["ms"], **r["hashes"]}
+               for tag, r in runs.items()}
+        out[label] = row
+        print(f"  {label} bf16 chain (4, R_in, 1024), CUDA-graph replays, "
+              f"median of {CHAIN_TURNS} turns: " + ", ".join(
+                  f"{tag} {v['chain_ms']:.4f} ms" for tag, v in row.items())
+              + f"; hashes " + "; ".join(
+                  f"{tag} " + " ".join(f"{k} {v[k]}" for k in
+                                       ("bf16", "f32", "chain"))
+                  for tag, v in row.items()) + f"; {card}")
+        if parent:
+            same = torch.equal(runs["change"]["y"], runs["parent"]["y"])
+            for k in ("bf16", "f32", "chain"):
+                check(row["change"][k] == row["parent"][k] or (
+                    k == "chain" and same),
+                      f"{label} {k} output differs from the parent's")
+            if row["change"]["chain"] != row["parent"]["chain"]:
+                print(f"  {label} chain equal to the parent's but for the "
+                      f"sign of zeros")
+        del runs
+    return out
 
 
 class ByteCount:
@@ -3699,7 +3865,7 @@ def phase_last_modules(torch, model, card):
     return numbers, launches
 
 
-def main():
+def main(parent=None):
     try:
         import torch
     except ImportError:
@@ -3772,7 +3938,7 @@ def main():
 
     lap('c4')
     # 2c. model complexity 4: its period-2 stages and a counted transcribe
-    c4, launches_c4 = phase_c4(torch, audio, card)
+    c4, launches_c4 = phase_c4(torch, audio, card, parent)
 
     lap('transcribe')
     # 3. the main path: transcribe + peak_mask, counted; a second call timed
@@ -4109,5 +4275,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:
         rank_main(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
                   sys.argv[5])
+    elif sys.argv[1:2] == ["--parent"]:
+        main(sys.argv[2])
     else:
         main()

@@ -5,8 +5,8 @@ the routing of ``banded_conv``.
 
 There is no card here, so an emulation walks the plan exactly as the
 kernel does: per output tile (one 64-row sub-tile x 128 frames) and tap,
-zero-filled boxes of 136 frames at the tap's box offset, chunk by chunk
-and k16 step by k16 step into float32 sums, the tap's sums shifted by its
+zero-filled boxes of 136 frames at the tap's box offset, range by range of
+the band, chunk by chunk and k16 step by k16 step into float32 sums, the tap's sums shifted by its
 shift into the tile's, then bias, ELU, residual and the rounding to the
 storage dtype. It is held against the plain twin (``banded_conv_reference``)
 stage by stage and as the small geometry's whole chain (the twin chain is
@@ -52,10 +52,11 @@ def _boxes(xp, rows, frames):
     return got * ok
 
 
-def emulate_wgmma(x, cb, act=False, residual=None):
+def emulate_wgmma(x, cb, act=False, residual=None, hull=False):
     """``tt_band_conv_wgmma``'s arithmetic on the CPU, in the kernel's
-    order of sums (tap, chunk, k16 step; the taps' sums added in tap order
-    into a zero tile)."""
+    order of sums (tap, range, chunk, k16 step; the taps' sums added in tap
+    order into a zero tile). ``hull`` walks each band whole, as one range,
+    the way the kernel did before it walked the ranges."""
     b, r_in, t = x.shape
     plan = fl.band_tma_plan(cb, t)
     xp = fl.tma_frames(x, plan.t_pad).to(torch.float32)
@@ -65,21 +66,26 @@ def emulate_wgmma(x, cb, act=False, residual=None):
     starts = torch.arange(plan.tiles)[:, None] * tile
     y = torch.zeros((b, plan.n_sub * pc.SUB_ROWS, plan.tiles * tile))
     for g in range(plan.n_sub):
-        start, length, chunks = plan.bands[g % 2]
+        ranges = plan.bands[g % 2][1]
+        if hull:
+            length = cb.bands[g % 2][1]
+            ranges = ((0, length, -(-length // fl.WGMMA_KC)),)
         row0 = cb.sub_start(g)
         wg = w[cb.sub_weights(g)]
         out = torch.zeros((b, pc.SUB_ROWS, plan.tiles, tile))
         for tap, (off, shift) in enumerate(plan.taps):
             frames = starts + off + torch.arange(span)[None]
             acc = torch.zeros((b, pc.SUB_ROWS, plan.tiles, span))
-            for c in range(chunks):
-                steps = min(fl.WGMMA_KC // 16,
-                            (length - c * fl.WGMMA_KC) // 16)
-                for ks in range(steps):
-                    k0 = c * fl.WGMMA_KC + 16 * ks
-                    box = _boxes(xp, row0 + k0 + torch.arange(16), frames)
-                    acc += torch.einsum("rk,bkjn->brjn",
-                                        wg[tap, :, k0:k0 + 16], box)
+            for start, length, chunks in ranges:
+                for c in range(chunks):
+                    steps = min(fl.WGMMA_KC // 16,
+                                (length - c * fl.WGMMA_KC) // 16)
+                    for ks in range(steps):
+                        k0 = start + c * fl.WGMMA_KC + 16 * ks
+                        box = _boxes(xp, row0 + k0 + torch.arange(16),
+                                     frames)
+                        acc += torch.einsum("rk,bkjn->brjn",
+                                            wg[tap, :, k0:k0 + 16], box)
             out += acc[..., shift:shift + tile]
         y[:, g * pc.SUB_ROWS:(g + 1) * pc.SUB_ROWS] = out.reshape(
             b, pc.SUB_ROWS, -1)
@@ -176,6 +182,41 @@ def test_emulation_matches_jax_packed_conv(kind):
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
+def _gapped_stages():
+    """3x3 convs whose bands have gaps, at complexity 4's widths and a few
+    frequencies: 128 and 64 channels at dilations 2 and 3 (ranges on the
+    64-column chunk grid) and 32 at 3 (ranges at 0, 96 and 192)."""
+    rng = np.random.default_rng(23)
+    out = {}
+    for c, d, f in ((128, 2, 7), (128, 3, 9), (64, 2, 11), (64, 3, 13),
+                    (32, 3, 21)):
+        out[f"3x3-d{d}-c{c}"] = pc.build_conv2d_blocks(
+            _rand(rng, 3, 3, c, c, scale=(9 * c) ** -0.5),
+            _rand(rng, c, scale=0.1), f, d)
+    return out
+
+
+@pytest.mark.parametrize("kind", sorted(_gapped_stages()))
+def test_range_walk_keeps_the_hull_walk_bits(kind):
+    """A gapped band walked range by range, as the kernel walks it, gives
+    the same bits as the whole band walked chunk by chunk, in float32 and
+    in bf16, with and without ELU and residual: every k16 step it skips
+    holds zero weights only, so the sums it leaves out add nothing. Both
+    stay within the card's bar of the twin."""
+    cb = _gapped_stages()[kind]
+    assert all(len(r) == 3 for r in cb.ranges)
+    rng = np.random.default_rng(len(kind))
+    x = _rand(rng, 1, cb.r_in, 40)
+    res = _rand(rng, 1, cb.r_out, 40)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        for act, r in ((False, None), (True, res.to(dtype))):
+            got = emulate_wgmma(x.to(dtype), cb, act, r)
+            assert torch.equal(got, emulate_wgmma(x.to(dtype), cb, act, r,
+                                                  hull=True)), (dtype, act)
+            _close(got, fl.banded_conv_reference(x.to(dtype), cb, act, r),
+                   tol, (kind, dtype, act))
+
+
 def test_emulated_chain_matches_twin_chain(small_net):
     """The small geometry's whole forward, every stage through the
     emulated kernel, against the same chain on the twin, within 1e-4 *
@@ -212,11 +253,15 @@ def test_ragged_t_pads_to_the_unpadded_result():
 
 
 def test_plan_covers_every_tap_and_band(small_net):
-    """Every stage of the flagship and the small forward: each tap's box
-    offset is a whole 8 frames and offset + shift is its dt with 0 <=
-    shift < 8, so a box's frames never pass the tile by more than the edge
-    box; the chunks cover each band; T pads to a multiple of 8."""
-    nets = [small_net, TimbreTrapNet(540, 128, 2)]
+    """Every stage of the flagship and the small forward, and of the
+    complexity-4 one: each tap's box offset is a whole 8 frames and offset
+    + shift is its dt with 0 <= shift < 8, so a box's frames never pass
+    the tile by more than the edge box; each band's ranges, relative to
+    its start, are its ``cb.ranges``, at most three, in order and apart,
+    the first at the band's start and the last ending at its end, and
+    their chunks cover each range; T pads to a multiple of 8."""
+    nets = [small_net, TimbreTrapNet(540, 128, 2),
+            TimbreTrapNet(540, 128, 4)]
     for net in nets:
         for cb in forward_spec(net, True).convs():
             for t in (1024, 1001, 37):
@@ -229,11 +274,19 @@ def test_plan_covers_every_tap_and_band(small_net):
                     assert off % fl.TMA_FRAME_ALIGN == 0
                     assert 0 <= shift < fl.WGMMA_EDGE_T
                     assert off + shift == dt
-                for (start, length, chunks), band in zip(plan.bands,
-                                                         cb.bands):
-                    assert (start, length) == band
-                    assert (chunks - 1) * fl.WGMMA_KC < length
-                    assert length <= chunks * fl.WGMMA_KC
+                for (start, ranges), band, want in zip(
+                        plan.bands, cb.bands, cb.ranges):
+                    assert start == band[0] and 1 <= len(ranges) <= 3
+                    assert [(start + s, n) for s, n, _ in ranges] == list(
+                        want)
+                    assert ranges[0][0] == 0
+                    assert ranges[-1][0] + ranges[-1][1] == band[1]
+                    for (s, n, chunks), nxt in zip(ranges,
+                                                   ranges[1:] + ((None,),)):
+                        assert s % 16 == 0 and n % 16 == 0 and n > 0
+                        assert nxt[0] is None or s + n < nxt[0]
+                        assert (chunks - 1) * fl.WGMMA_KC < n
+                        assert n <= chunks * fl.WGMMA_KC
 
 
 @pytest.mark.parametrize("t,tma", [(1024, 1), (3072, 1), (1001, 0),
@@ -248,7 +301,7 @@ def test_plan_picks_the_epilogue_by_t(small_net, t, tma):
         for cb in forward_spec(net, True).convs():
             assert fl.band_tma_plan(cb, t).tma_epilogue == tma
             t_pad, ints = fl._wgmma_plan(cb, t, cb.band_width)
-            assert len(ints) == 20 and ints[19] == tma
+            assert len(ints) == 34 and ints[33] == tma
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

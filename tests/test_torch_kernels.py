@@ -56,12 +56,16 @@ def _rand(rng, *shape, scale=1.0):
 
 
 def _conv_cases(device="cpu"):
-    """One ConvBlocks of every kind the flagship chain holds, and the two
+    """One ConvBlocks of every kind the flagship chain holds; the two
     period-2 stages of complexity 4 (a 256-channel output frequency spans
     two 128-row blocks, so the band pattern repeats every two): encoder
     level 4's strided conv (65 -> 31 frequencies, 128 -> 256 channels) and
     decoder level 1's transposed conv (31 -> 65, 256 -> 128), each the
-    other's adjoint geometry."""
+    other's adjoint geometry; and complexity 4's 3x3s whose bands have
+    gaps between the taps' column ranges, which the bf16 stage walks
+    range by range: 128 channels (65 frequencies) and 64 (133) at
+    dilations 2 and 3, and 32 (269) at 3, whose ranges start off the
+    64-column chunk grid."""
     rng = np.random.default_rng(11)
     out = {}
     for d in (1, 2, 3):
@@ -85,6 +89,11 @@ def _conv_cases(device="cpu"):
     out["tconv-P2"] = pc.build_tconv_blocks(
         _rand(rng, 4, 1, 256, 128, scale=(4 * 256) ** -0.5),
         _rand(rng, 128, scale=0.1), 31, output_padding=1)
+    for c, d, f in ((128, 2, 65), (128, 3, 65), (64, 2, 133), (64, 3, 133),
+                    (32, 3, 269)):
+        out[f"c4-3x3-d{d}-c{c}"] = pc.build_conv2d_blocks(
+            _rand(rng, 3, 3, c, c, scale=(9 * c) ** -0.5),
+            _rand(rng, c, scale=0.1), f, d)
     for cb in out.values():
         cb.blocks, cb.bias = cb.blocks.to(device), cb.bias.to(device)
     return out
@@ -541,7 +550,8 @@ def test_level_backward_dw_is_bitwise_stable(cuda_device):
 def test_band_kernels_match_plain_at_long_and_ragged_t(cuda_device, dtype, t):
     """The tensor-core kernels (csrc/band_mma.cu) on every conv kind (the
     residual items' 3x3 and 1x1, the per-block dense bridge maps, the
-    period-2 strided and transposed convs of complexity 4), at the
+    period-2 strided and transposed convs and the gapped 3x3s of
+    complexity 4), at the
     recipe's T and at ragged T, against their twins on the same tensors:
     in bf16 within 1e-2 * max|ref| (sum order and output rounding), in
     float32 (split-TF32 products) within 1e-4 * max|ref| of the IEEE twin.
@@ -627,7 +637,8 @@ def test_wgmma_stage_matches_twin(cuda_device, monkeypatch, t):
     route of every CUDA bfloat16 ``banded_conv``) on every conv kind (the
     1984 -> 128 bridge, r_out not a multiple of 64; the period-2 convs of
     complexity 4, whose sub-tile g takes weight sub-tile g % 4 and input
-    rows from (g // 4) * col_adv), the variants' stages
+    rows from (g // 4) * col_adv; complexity 4's 3x3s whose bands the
+    kernel walks range by range), the variants' stages
     and two flagship stages (3x3 at dilation 3 with 32 channels, 1x1 with
     4), with ELU and residual and without either, at the recipe's T and
     the chunks' T (the TMA epilogue, ``band_wgmma_kernel<true>``) and at

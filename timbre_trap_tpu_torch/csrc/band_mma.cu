@@ -13,8 +13,8 @@
 // reads n_df * c_in of a block's K input rows. Each 64-row half of a
 // 128-row block (a sub-tile) therefore carries its band, the first block
 // column it reads and how many, rounded out to 16 (ops/packed_conv.py
-// `_sub_tile_bands`, from the static tap map). Every product here runs over
-// a sub-tile's band only, with mma.sync and float32 accumulators: m16n8k16
+// `_sub_tile_ranges`, from the static tap map: the hull of its ranges).
+// Every product here runs over a sub-tile's band only, with mma.sync and float32 accumulators: m16n8k16
 // on bf16 operands fed by ldmatrix, m16n8k8 on tf32 operands fed by 32-bit
 // shared-memory loads.
 //

@@ -85,12 +85,13 @@
 // frames to a multiple of 4 where T % 4 != 0.
 //
 // The bf16 stage's design. An output tile is one 64-row sub-tile g (its
-// band: start s_g, L columns, ops/packed_conv.py `_sub_tile_bands`) x 128
-// frames t0.. of one item; CTAs are persistent, two an SM, each walking
-// tiles g-fastest. x comes by a 3-D TMA tensor map, dims (T, r_in, B): the
-// hardware zero-fills rows above 0 (the margin) or past r_in and frames
-// outside [0, T), so every box lands whole (a 2-D map over B * r_in rows
-// would read the next item's rows at the margin instead of zeros). Its boxes
+// band: start s_g, L columns, the hull of at most three column ranges,
+// ops/packed_conv.py `_sub_tile_ranges`) x 128 frames t0.. of one item;
+// CTAs are persistent, two an SM, each walking tiles g-fastest. x comes by
+// a 3-D TMA tensor map, dims (T, r_in, B): the hardware zero-fills rows
+// above 0 (the margin) or past r_in and frames outside [0, T), so every box
+// lands whole (a 2-D map over B * r_in rows would read the next item's rows
+// at the margin instead of zeros). Its boxes
 // are 64 band rows x 64 frames, 128-byte swizzled: a wgmma B operand with
 // frames contiguous (MN-major, the transpose bit set). TMA takes a box's
 // innermost (frame) coordinate only in whole 16 bytes, 8 bf16 frames (an odd
@@ -101,12 +102,28 @@
 // the tile's, shifted by r frames across the lanes of a quad (warp shuffles;
 // none for r = 0). The band weights W_g,dt (64 x width, K contiguous) come
 // by a second map, 64 columns a box, 128-byte swizzled: the K-major A
-// operand. One pipeline stage is one (tap, chunk of 64 band rows): 25 KB; a
-// ring of kStages stages with full and empty mbarriers, fed by one producer
-// thread that runs ahead into the next tile, drained by the consumer
-// warpgroup with m64n64k16 wgmmas (and an m64n8k16 for the 8 extra frames
-// where r > 0). The sums run in a fixed order, tap, then chunk, then k16
-// step, from zero, with no atomics: a run is deterministic.
+// operand. One pipeline stage is one (tap, chunk of 64 band rows of one
+// range): 25 KB; a ring of kStages stages with full and empty mbarriers,
+// fed by one producer thread that runs ahead into the next tile, drained by
+// the consumer warpgroup with m64n64k16 wgmmas (and an m64n8k16 for the 8
+// extra frames where r > 0). The sums run in a fixed order, tap, then
+// range, then chunk, then k16 step, from zero, with no atomics: a run is
+// deterministic.
+//
+// The ranges: a dilated 3x3 conv reads input frequencies f - d, f and f +
+// d, and its band spans the 2(d - 1) frequencies between them, whose weights
+// are zero by construction (at 128 channels and d = 3, 896 band columns for
+// 384 weights). So each parity's band comes as up to three column ranges
+// from the blocks' static tap map, each a multiple of 16 columns, and the
+// kernel walks only those: the producer loads chunk c of a range starting at
+// band column k0 from band rows k0 + 64c of x and band columns k0 + 64c of
+// the unchanged band weights, and the consumers take the same stages in the
+// same order, a range's last chunk only its remaining k16 steps. A skipped
+// k16 step's weights are all zero, so the sums keep their bits. A band
+// without gaps is one range (every stage at d = 1 or at 16 channels and
+// below, every strided, transposed and dense map) and keeps its walk. The
+// per-tile bookkeeping is one word the consumers hold (each range's k16
+// steps in 10 bits); the ranges' starts are read by the producer alone.
 //
 // The bf16 epilogue (bias, the ELU's exp, the residual, the rounding and
 // the store) took 43 % of a chain's time when the consumers staged the
@@ -135,8 +152,9 @@
 // small cache.
 //
 // What bounds it: with the zeros skipped a stage needs 2 * n_dt * 64 * L
-// flops per sub-tile and frame against ~2 bytes per row and frame in and
-// out, near the card's bytes-per-flop line, so a forward chain is bound by
+// flops per sub-tile and frame (L the ranges' columns) against ~2 bytes per
+// row and frame in and out, near the card's bytes-per-flop line at widths
+// up to 64 channels, so a forward chain is bound by
 // its bytes. The per-tap boxes read x n_dt times, from L2 after the first,
 // and the weights once per tile. On the card neither bandwidth sets the pace
 // yet: leaving the weight boxes out or changing the ring's depth left the
@@ -339,23 +357,29 @@ struct WgmmaArgs {
   int r_out, t_len, n_dt, n_sub, n_tiles_t, n_tiles;
   int off[3], shift[3];   // per tap: box frame offset (a multiple of 8), shift
   int col_adv, margin, n_w, act, vec;
-  int kb0, kl0, nc0, kb1, kl1, nc1;
+  int kb0, kb1;            // band start of even and of odd sub-tiles
+  int rs0[3], rs1[3];      // their ranges' starts, relative to the band
+  uint32_t rw0, rw1;       // their ranges' k16 steps, 10 bits a range, range 0 lowest
 };
 
+// The k16 steps of one range of a band, 0 past its last range.
+constexpr int kRangeBits = 10;
+constexpr uint32_t kRangeMask = (1u << kRangeBits) - 1u;
+
 // One output tile: sub-tile g (the fastest index) x kTileT frames t0.. of
-// item b, its band, its weight sub-tile g % n_w (the band pattern spans n_w
-// sub-tiles, 2 a 128-row block of the period) and the input row of its
-// band column 0.
+// item b, its band's ranges (rw, as WgmmaArgs' rw0 / rw1), its weight
+// sub-tile g % n_w (the band pattern spans n_w sub-tiles, 2 a 128-row
+// block of the period) and the input row of its band column 0.
 struct Tile {
-  int t0, g, b, kl, nc, wsub, row0;
+  int t0, g, b, wsub, row0;
+  uint32_t rw;
   __device__ __forceinline__ Tile(const WgmmaArgs& a, int tile) {
     g = tile % a.n_sub;
     const int rest = tile / a.n_sub;
     t0 = (rest % a.n_tiles_t) * kTileT;
     b = rest / a.n_tiles_t;
     const int s = g & 1;
-    kl = s ? a.kl1 : a.kl0;
-    nc = s ? a.nc1 : a.nc0;
+    rw = s ? a.rw1 : a.rw0;
     // A pattern of one block (every stage but a period-P conv's and a
     // dense map's of several blocks) takes a shift and a mask: a division
     // here, in the consumers' path between tiles, cost the chain 2 %.
@@ -440,32 +464,43 @@ struct RingOf {
 };
 typedef RingOf<kStages, kStageBytes> Ring;
 
-// Producer: the TMA loads of one tile, tap by tap, chunk by chunk.
+// Producer: the TMA loads of one tile, tap by tap, range by range, chunk
+// by chunk: chunk c of a range starting at band column k0 is band rows k0 +
+// 64c.. of x and band columns k0 + 64c.. of the weights.
 __device__ __forceinline__ void produce_tile(const WgmmaArgs& a, const Tile& tl,
                                              const CUtensorMap* xmap, const CUtensorMap* emap,
                                              const CUtensorMap* wmap, Ring& ring) {
+  const bool odd = (tl.g & 1) != 0;
   for (int tap = 0; tap < a.n_dt; ++tap) {
     const int f0 = tl.t0 + tap_of(a.off, tap);
     const bool edge = tap_of(a.shift, tap) != 0;
-    for (int c = 0; c < tl.nc; ++c) {
-      mbar_wait(smem_u32(&ring.empty[ring.stage]), ring.phase ^ 1u);
-      const uint32_t bar = smem_u32(&ring.full[ring.stage]);
-      const uint32_t sb = ring.at();
-      const int row = tl.row0 + c * kKc;
-      mbar_expect_tx(bar, 2 * kXBox + kWBox + (edge ? kEdgeBox : 0));
-      tma_load_3d(sb, xmap, bar, f0, row, tl.b);
-      tma_load_3d(sb + kXBox, xmap, bar, f0 + kBoxT, row, tl.b);
-      tma_load_3d(sb + kWOff, wmap, bar, c * kKc, 0, tl.wsub * a.n_dt + tap);
-      if (edge) tma_load_3d(sb + kEdgeOff, emap, bar, f0 + 2 * kBoxT, row, tl.b);
-      ring.advance();
+    for (int j = 0; j < 3; ++j) {
+      const int steps = (tl.rw >> (kRangeBits * j)) & kRangeMask;
+      if (steps == 0) break;
+      const int k0 = odd ? tap_of(a.rs1, j) : tap_of(a.rs0, j);
+      for (int k = 0; k < steps; k += kSteps) {
+        mbar_wait(smem_u32(&ring.empty[ring.stage]), ring.phase ^ 1u);
+        const uint32_t bar = smem_u32(&ring.full[ring.stage]);
+        const uint32_t sb = ring.at();
+        const int col = k0 + 16 * k;
+        const int row = tl.row0 + col;
+        mbar_expect_tx(bar, 2 * kXBox + kWBox + (edge ? kEdgeBox : 0));
+        tma_load_3d(sb, xmap, bar, f0, row, tl.b);
+        tma_load_3d(sb + kXBox, xmap, bar, f0 + kBoxT, row, tl.b);
+        tma_load_3d(sb + kWOff, wmap, bar, col, 0, tl.wsub * a.n_dt + tap);
+        if (edge) tma_load_3d(sb + kEdgeOff, emap, bar, f0 + 2 * kBoxT, row, tl.b);
+        ring.advance();
+      }
     }
   }
 }
 
 // Consumers: one tile's sums into o0, o1 (output columns 0-63, 64-127),
-// tap by tap. Thread (warp w, lane l) holds rows 16w + l/4 + 8i (i = 0, 1)
-// and, in group G (8 columns), columns 8G + 2(l%4) + e (e = 0, 1):
-// register 4G + 2i + e of an m64n64 tile, 2i + e of the m64n8 edge.
+// tap by tap, each tap's stages in the producer's order (range, chunk); a
+// range's last chunk takes only the range's remaining k16 steps. Thread
+// (warp w, lane l) holds rows 16w + l/4 + 8i (i = 0, 1) and, in group G (8
+// columns), columns 8G + 2(l%4) + e (e = 0, 1): register 4G + 2i + e of an
+// m64n64 tile, 2i + e of the m64n8 edge.
 __device__ __forceinline__ void consume_tile(const WgmmaArgs& a, const Tile& tl, Ring& ring,
                                              int lane, float (&o0)[32], float (&o1)[32]) {
 #pragma unroll
@@ -486,8 +521,13 @@ __device__ __forceinline__ void consume_tile(const WgmmaArgs& a, const Tile& tl,
     fence_acc(a0);
     fence_acc(a1);
     fence_acc(a2);
-    for (int c = 0; c < tl.nc; ++c) {
-      const int ksteps = min(kSteps, (tl.kl - c * kKc) / 16);
+    // rw: the tap's ranges still to walk, from the current one; left: the
+    // current range's k16 steps not yet taken; n: the tap's stages so far.
+    uint32_t rw = tl.rw;
+    int left = rw & kRangeMask;
+    int n = 0;
+    for (; left > 0; ++n) {
+      const int ksteps = min(kSteps, left);
       mbar_wait(smem_u32(&ring.full[ring.stage]), ring.phase);
       const uint32_t sb = ring.at();
       wgmma_fence();
@@ -512,16 +552,21 @@ __device__ __forceinline__ void consume_tile(const WgmmaArgs& a, const Tile& tl,
       fence_acc(a0);
       fence_acc(a1);
       fence_acc(a2);
-      if (c >= kInFlight && lane == 0)
+      if (n >= kInFlight && lane == 0)
         mbar_arrive(smem_u32(&ring.empty[(ring.stage + kStages - kInFlight) % kStages]));
       ring.advance();
+      left -= kSteps;
+      if (left <= 0) {
+        rw >>= kRangeBits;
+        left = rw & kRangeMask;
+      }
     }
     wgmma_wait<0>();
     fence_acc(a0);
     fence_acc(a1);
     fence_acc(a2);
     if (lane == 0)
-      for (int k = min(tl.nc, kInFlight); k > 0; --k)
+      for (int k = min(n, kInFlight); k > 0; --k)
         mbar_arrive(smem_u32(&ring.empty[(ring.stage + kStages - k) % kStages]));
     add_shifted(o0, o1, a0, a1, a2, r, lane);
   }
@@ -1302,9 +1347,10 @@ int launch_wgmma(int dev, const CUtensorMap& xmap, const CUtensorMap& emap,
 // fixes for a stage and T, in this order: T, t_pad, n_dt, per tap (box
 // offset, shift) x 3 (dt = box offset + shift, the offset a multiple of 8
 // frames, 0 <= shift < 8), col_adv, margin, width, n_w (the band
-// pattern's weight sub-tiles), (start,
-// length, chunks of 64) of the band of even and of odd sub-tiles, then the
-// epilogue: 1 (T % 8 == 0) for the TMA epilogue, 0 for the staged one.
+// pattern's weight sub-tiles), for the band of even and then of odd
+// sub-tiles its start and three (start relative to the band, length,
+// chunks of 64) column ranges (zeros past the last), then the epilogue: 1
+// (T % 8 == 0) for the TMA epilogue, 0 for the staged one.
 // Returns cudaGetLastError() of the launch, or a negative code when the
 // tensor maps cannot be made (-1: no encode entry point; -100 - CUresult).
 extern "C" int tt_band_conv_wgmma(const void* x, const void* w, const void* bias,
@@ -1312,7 +1358,24 @@ extern "C" int tt_band_conv_wgmma(const void* x, const void* w, const void* bias
                                   int act, const int* plan, void* stream) {
   const int t_len = plan[0], t_pad = plan[1], n_dt = plan[2];
   const int width = plan[11], n_w = plan[12];
-  const int tma_epi = plan[19];
+  const int tma_epi = plan[33];
+  // Each sub-tile parity's band: its start, then three (start, length,
+  // chunks) ranges relative to the band, in order (length 0 past the last
+  // one); the consumers count each range's k16 steps in a 10-bit field.
+  int kb[2], rs[2][3];
+  uint32_t rw[2] = {0u, 0u};
+  for (int p = 0; p < 2; ++p) {
+    const int* band = plan + 13 + 10 * p;
+    kb[p] = band[0];
+    for (int j = 0; j < 3; ++j) {
+      const int start = band[1 + 3 * j], length = band[2 + 3 * j];
+      if (start < 0 || start % 16 != 0 || length < (j == 0 ? 16 : 0) || length % 16 != 0 ||
+          length / 16 > static_cast<int>(kRangeMask) || band[3 + 3 * j] != (length + kKc - 1) / kKc)
+        return static_cast<int>(cudaErrorInvalidValue);
+      rs[p][j] = start;
+      rw[p] |= static_cast<uint32_t>(length / 16) << (kRangeBits * j);
+    }
+  }
   int dev = 0;
   const cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1359,12 +1422,14 @@ extern "C" int tt_band_conv_wgmma(const void* x, const void* w, const void* bias
   // The staged epilogue's 16-byte residual loads and stores.
   a.vec = t_len % 8 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(res) % 16 == 0;
-  a.kb0 = plan[13];
-  a.kl0 = plan[14];
-  a.nc0 = plan[15];
-  a.kb1 = plan[16];
-  a.kl1 = plan[17];
-  a.nc1 = plan[18];
+  a.kb0 = kb[0];
+  a.kb1 = kb[1];
+  for (int j = 0; j < 3; ++j) {
+    a.rs0[j] = rs[0][j];
+    a.rs1[j] = rs[1][j];
+  }
+  a.rw0 = rw[0];
+  a.rw1 = rw[1];
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return tma_epi ? launch_wgmma<true>(dev, xmap, emap, wmap, rmap, ymap, a, s)
                  : launch_wgmma<false>(dev, xmap, emap, wmap, rmap, ymap, a, s);

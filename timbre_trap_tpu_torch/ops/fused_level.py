@@ -44,7 +44,7 @@ __all__ = ["HALO", "LevelSpec", "conv2d_level_spec", "encoder_level_spec",
            "band_tma_plan", "BandTmaPlanF32", "band_tma_plan_f32",
            "tma_frames", "packed_level_apply",
            "fused_level_apply",
-           "chain_flops", "band_flops", "banded_conv_dx",
+           "chain_flops", "band_flops", "band_walk_share", "banded_conv_dx",
            "banded_conv_dx_reference",
            "banded_conv_dw", "banded_conv_dw_reference", "elu_backward",
            "elu_backward_reference", "level_backward",
@@ -310,10 +310,15 @@ class BandTmaPlan(NamedTuple):
             one of ``n_sub`` 64-row sub-tiles x one item, and the
             kernel's persistent CTAs walk every output tile.
     n_sub:  64-row output sub-tiles.
-    bands:  (start, length, chunks) of the band of even and of odd
-            sub-tiles: sub-tile g's x boxes start at input row
-            ``cb.sub_start(g)`` (``(g // n_w) * col_adv - margin +
-            start``), chunk c at ``+ WGMMA_KC * c``.
+    bands:  (start, ranges) of the band of even and of odd sub-tiles:
+            sub-tile g's band column 0 is input row ``cb.sub_start(g)``
+            (``(g // n_w) * col_adv - margin + start``); ``ranges`` its
+            column ranges (``cb.ranges``), each (start, length, chunks)
+            relative to the band: for each tap the kernel walks range by
+            range, chunk by chunk, the x box of chunk c of a range at
+            band row ``start + WGMMA_KC * c`` and the weight box at that
+            band column; the last chunk of a range takes ``length``'s
+            k16 steps only. A band without gaps is one range, all of it.
     taps:   (box offset, shift) of each tap, dt = box offset + shift: the
             boxes of tile t0 start at frame ``t0 + box offset`` (a multiple
             of ``TMA_FRAME_ALIGN``) and span ``WGMMA_TILE_T`` frames, plus
@@ -345,7 +350,9 @@ def band_tma_plan(cb, t):
     a = TMA_FRAME_ALIGN
     return BandTmaPlan(
         t_pad=-(-t // a) * a, tiles=-(-t // WGMMA_TILE_T), n_sub=cb.n_sub,
-        bands=tuple((s, n, -(-n // WGMMA_KC)) for s, n in cb.bands),
+        bands=tuple((start, tuple((s - start, n, -(-n // WGMMA_KC))
+                                  for s, n in ranges))
+                    for (start, _), ranges in zip(cb.bands, cb.ranges)),
         taps=tuple((dt // a * a, dt % a) for dt in cb.dts),
         n_w=cb.n_w,
         tma_epilogue=int(t % a == 0))
@@ -370,11 +377,13 @@ def _wgmma_plan(cb, t, width):
         with span("tt.prepare"):
             plan = band_tma_plan(cb, t)
             taps = list(plan.taps) + [(0, 0)] * (3 - len(plan.taps))
-            ints = (t, plan.t_pad, len(plan.taps),
+            ints = [t, plan.t_pad, len(plan.taps),
                     *[v for tap in taps for v in tap], cb.col_adv, cb.margin,
-                    width, plan.n_w,
-                    *[v for band in plan.bands for v in band],
-                    plan.tma_epilogue)
+                    width, plan.n_w]
+            for start, ranges in plan.bands:
+                ranges = list(ranges) + [(0, 0, 0)] * (3 - len(ranges))
+                ints += [start, *[v for r in ranges for v in r]]
+            ints.append(plan.tma_epilogue)
             cb._cache[key] = (plan.t_pad, (ctypes.c_int * len(ints))(*ints))
     return cb._cache[key]
 
@@ -553,6 +562,22 @@ def chain_flops(spec, columns):
     per_col = sum(2 * len(cb.dts) * cb.n_out_blocks * BLOCK_ROWS * cb.k
                   for cb in spec.convs())
     return per_col * columns
+
+
+def band_walk_share(convs):
+    """How far the bf16 stage's walk of the column ranges engages on
+    ``convs`` (e.g. ``spec.convs()``): its pipeline stages at one frame
+    tile, one a sub-tile, tap and ``WGMMA_KC``-column chunk of each range
+    (``band_tma_plan``), over the stages a walk of each whole band would
+    take. 1.0 where no band has a gap."""
+    walked = hull = 0
+    for cb in convs:
+        for g in range(cb.n_sub):
+            taps = len(cb.dts)
+            walked += taps * sum(-(-n // WGMMA_KC)
+                                 for _, n in cb.ranges[g % 2])
+            hull += taps * -(-cb.bands[g % 2][1] // WGMMA_KC)
+    return walked / hull
 
 
 def band_flops(convs, columns):

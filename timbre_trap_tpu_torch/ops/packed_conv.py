@@ -26,7 +26,9 @@ column it reads and how many, rounded out to multiples of 16, taken from
 the builder's static tap map (never from weight values).
 ``band_conv_reference`` computes a conv from the bands alone; the
 tensor-core kernels (the stage, dX and dW, in both dtypes) iterate over
-the band only.
+the band only. A band is the hull of at most three column ranges, the runs
+of input frequencies the sub-tile's taps read (a dilated conv's taps leave
+zero columns between them); the bf16 stage walks the ranges only.
 """
 
 import math
@@ -47,6 +49,9 @@ BLOCK_ROWS = 128
 SUB_ROWS = 64
 # Band granularity in columns (the k16 step of a bf16 tensor-core product).
 BAND_ALIGN = 16
+# Most column ranges a band is cut into (the bf16 stage's kernel arguments
+# hold three a sub-tile parity).
+MAX_RANGES = 3
 
 
 def pack_nhwc(x):
@@ -92,6 +97,10 @@ class ConvBlocks:
                 pattern read, each a multiple of 16 (the end may pass
                 ``k``; those columns hold no weight). A dense map has one
                 band, all of ``k``.
+      ranges:   for each of the two bands, its column ranges ((start,
+                length), ...), at most ``MAX_RANGES``, multiples of 16, in
+                order, none touching the next, their hull the band: the
+                columns between them hold no weight (default: the band).
       adjoint:  the transpose of the conv as another repeating banded conv
                 (its dX map), attached by a training spec, else None.
 
@@ -104,7 +113,7 @@ class ConvBlocks:
     _store = None
 
     def __init__(self, blocks, dts, bias, col_adv, margin, f_in, f_out,
-                 c_in, c_out, bands=None):
+                 c_in, c_out, bands=None, ranges=None):
         self.blocks = blocks
         self.dts = tuple(int(d) for d in dts)
         self.bias = bias
@@ -119,6 +128,13 @@ class ConvBlocks:
             full = (0, -(-self.k // BAND_ALIGN) * BAND_ALIGN)
             bands = (full, full)
         self.bands = tuple((int(s), int(n)) for s, n in bands)
+        if ranges is None:
+            ranges = tuple((band,) for band in self.bands)
+        self.ranges = tuple(tuple((int(s), int(n)) for s, n in half)
+                            for half in ranges)
+        if tuple(_hull(half) for half in self.ranges) != self.bands:
+            raise ValueError(f"ranges {self.ranges} do not span the bands "
+                             f"{self.bands}")
         self.adjoint = None
         self._cache = {}
 
@@ -290,7 +306,7 @@ def _build_blocks(kernel_fc, bias, f_in, f_out, c_in, c_out, f_taps, dts):
             off = f_taps(fl, df)
             if off is not None:
                 m[df, fl, off - lo] = 1.0
-    bands = _sub_tile_bands(m, c_in, c_out, shift)
+    ranges = _sub_tile_ranges(m, c_in, c_out, shift)
     m = torch.as_tensor(m, device=kernel_fc.device)
     # (df, dt, fl, co, g, ci) summed over df -> blocks[dt, fl*c_out + co,
     # shift + g*c_in + ci].
@@ -301,7 +317,9 @@ def _build_blocks(kernel_fc, bias, f_in, f_out, c_in, c_out, f_taps, dts):
         core.reshape(len(dts), n_f * c_out, n_g * c_in), (shift, 0))
     bias_pat = bias.repeat(n_f)
     return ConvBlocks(blocks, dts, bias_pat, col_adv, margin_rows, f_in,
-                      f_out, c_in, c_out, bands=bands)
+                      f_out, c_in, c_out,
+                      bands=tuple(_hull(half) for half in ranges),
+                      ranges=ranges)
 
 
 def _pattern_freqs(f_taps, n_df, c_out):
@@ -331,29 +349,47 @@ def _pattern_freqs(f_taps, n_df, c_out):
     raise ValueError("band pattern must repeat")
 
 
-def _sub_tile_bands(m, c_in, c_out, shift):
-    """The band of the even and of the odd 64-row sub-tiles of a pattern
-    from the static tap map ``m[df, fl, g]``: the block columns ``shift +
-    g*c_in + ci`` that any of their output frequencies reads through any
-    tap, rounded out to 16 (over a pattern of several blocks, the union
-    of its even, and of its odd, sub-tiles' bands)."""
+def _sub_tile_ranges(m, c_in, c_out, shift):
+    """The column ranges of the even and of the odd 64-row sub-tiles of a
+    pattern from the static tap map ``m[df, fl, g]``: each run of window
+    offsets g that any tap of any of a sub-tile's output frequencies reads,
+    as the block columns ``shift + g*c_in + ci``, rounded out to 16; over a
+    pattern of several blocks the union of its even, and of its odd,
+    sub-tiles' ranges. Ranges that touch merge, and beyond ``MAX_RANGES``
+    the two with the narrowest gap between them do too. The hull of a
+    parity's ranges is its band (``_hull``)."""
     spans = [[], []]
     for s in range(m.shape[1] * c_out // SUB_ROWS):
         f_lo = s * SUB_ROWS // c_out
         f_hi = -(-(s + 1) * SUB_ROWS // c_out)
         g = np.flatnonzero(m[:, f_lo:f_hi].any(axis=(0, 1)))
-        if g.size:
-            lo = (shift + int(g[0]) * c_in) // BAND_ALIGN * BAND_ALIGN
-            hi = -(-(shift + (int(g[-1]) + 1) * c_in) // BAND_ALIGN) * BAND_ALIGN
-            spans[s % 2].append((lo, hi))
-    bands = []
-    for half in spans:
-        if not half:
-            bands.append((0, BAND_ALIGN))
+        if not g.size:
             continue
-        lo, hi = min(a for a, _ in half), max(b for _, b in half)
-        bands.append((lo, hi - lo))
-    return tuple(bands)
+        cut = np.flatnonzero(np.diff(g) > 1)
+        for a, b in zip(np.r_[0, cut + 1], np.r_[cut, g.size - 1]):
+            lo = (shift + int(g[a]) * c_in) // BAND_ALIGN * BAND_ALIGN
+            hi = -(-(shift + (int(g[b]) + 1) * c_in) // BAND_ALIGN) * BAND_ALIGN
+            spans[s % 2].append((lo, hi))
+    ranges = []
+    for half in spans:
+        merged = []
+        for lo, hi in sorted(half) or [(0, BAND_ALIGN)]:
+            if merged and lo <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], hi)
+            else:
+                merged.append([lo, hi])
+        while len(merged) > MAX_RANGES:
+            i = min(range(len(merged) - 1),
+                    key=lambda i: merged[i + 1][0] - merged[i][1])
+            merged[i:i + 2] = [[merged[i][0], merged[i + 1][1]]]
+        ranges.append(tuple((lo, hi - lo) for lo, hi in merged))
+    return tuple(ranges)
+
+
+def _hull(ranges):
+    """(start, length) of the columns from the first range's start to the
+    last one's end."""
+    return ranges[0][0], ranges[-1][0] + ranges[-1][1] - ranges[0][0]
 
 
 def _f32(a):
